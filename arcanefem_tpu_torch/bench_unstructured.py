@@ -1,0 +1,276 @@
+"""The unstructured Poisson main path, end to end, on one CUDA card.
+
+    python -m arcanefem_tpu_torch.bench_unstructured --h 5 --refine 2
+
+builds the system of ``bench.py::bench_unstructured`` (the reference's
+north-star problem): −Δu = 1 with P1 tetrahedra on the in-repo sphere_cut
+mesh, reverse Cuthill-McKee then supernode-brick node order, BELL
+assembly, penalty Dirichlet (Cut = 0, sphere = 1), and CG with compensated
+dots preconditioned by a smoothed-aggregation AMG V-cycle (theta 0.03,
+degree-2 Chebyshev smoother) to rtol 1e-8.  It prints one JSON line with
+``bench.py``'s field names.  ``--h 6 --refine 3`` is the 8.9M-DoF
+north-star size, whose host set-up on a cold cache takes tens of minutes.
+
+The mesh and topology are cached as host numpy under
+``arcanefem_tpu.utils.cache.CACHE_DIR``, in the same files ``bench.py``
+uses.  Assembly and solve are timed with CUDA events; the AMG set-up runs
+on the host and is timed with the host clock.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from arcanefem_tpu.mesh.core import Mesh
+from arcanefem_tpu.mesh.unstructured import refine_tetra, sphere_cut_tetra_mesh
+from arcanefem_tpu.sparse.topology import Topology, build_topology
+from arcanefem_tpu.utils.cache import CACHE_DIR
+from arcanefem_tpu.utils.ordering import rcm_order, renumber_mesh
+
+from .ops.lane_assembly import TetraAssembler
+from .solver.amg import amg_from_numpy
+from .solver.amg_setup import amg_setup
+from .solver.iterative import pcg
+from .sparse.bell import BellMatrix
+from .sparse.ordering import supernode_order
+from .utils.timing import time_op
+
+RTOL = 1e-8
+THETA = 0.03
+CHEB_DEG = 2
+
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _save_mesh(path: str, mesh: Mesh) -> None:
+    np.savez(path, coords=mesh.coords, uids=mesh.node_uids,
+             tets=mesh.cells["tetra4"],
+             cut=mesh.face_groups["Cut"]["tria3"],
+             sphere=mesh.face_groups["sphere"]["tria3"])
+
+
+def _load_mesh(path: str) -> Mesh:
+    z = np.load(path)
+    return Mesh(coords=z["coords"], node_uids=z["uids"],
+                cells={"tetra4": z["tets"]}, dim=3,
+                face_groups={"Cut": {"tria3": z["cut"]},
+                             "sphere": {"tria3": z["sphere"]}})
+
+
+def _topology(mesh: Mesh, path: str | None) -> Topology:
+    if path and os.path.exists(path):
+        z = np.load(path)
+        return Topology(
+            n_nodes=int(z["n_nodes"]), width=int(z["width"]),
+            ell_cols=z["ell_cols"], ell_valid=z["ell_valid"],
+            row_ptr=z["row_ptr"], csr_cols=z["csr_cols"],
+            csr_to_ell=z["csr_to_ell"], diag_slot=z["diag_slot"],
+            slot_maps={"tetra4": z["slot_tetra4"]})
+    topo = build_topology(mesh.n_nodes, mesh.cells)
+    if path:
+        np.savez(path, n_nodes=topo.n_nodes, width=topo.width,
+                 ell_cols=topo.ell_cols, ell_valid=topo.ell_valid,
+                 row_ptr=topo.row_ptr, csr_cols=topo.csr_cols,
+                 csr_to_ell=topo.csr_to_ell, diag_slot=topo.diag_slot,
+                 slot_tetra4=topo.slot_maps["tetra4"])
+    return topo
+
+
+def sphere_cut_system(h: float, refine: int, cache: bool = True
+                      ) -> tuple[Mesh, Topology]:
+    """The sphere_cut mesh in supernode order, and its topology.
+
+    Order as ``bench.py``: Delaunay mesh, ``refine`` red refinements, RCM,
+    then supernode bricks.  With ``cache`` each stage is kept as an npz
+    under CACHE_DIR, in ``bench.py``'s file names."""
+    key = f"sphere_cut_v3_h{h:g}_r{refine}"
+    if cache:
+        os.makedirs(CACHE_DIR, exist_ok=True)
+
+    def cached(name: str) -> str | None:
+        return os.path.join(CACHE_DIR, name) if cache else None
+
+    sn_path, rcm_path = cached(f"{key}_snmesh.npz"), cached(f"{key}.npz")
+    if sn_path and os.path.exists(sn_path):
+        mesh = _load_mesh(sn_path)
+    else:
+        if rcm_path and os.path.exists(rcm_path):
+            mesh = _load_mesh(rcm_path)
+        else:
+            mesh = sphere_cut_tetra_mesh(h=h)
+            for _ in range(refine):
+                mesh = refine_tetra(mesh)
+            topo = build_topology(mesh.n_nodes, mesh.cells)
+            mesh = renumber_mesh(
+                mesh, rcm_order(mesh.n_nodes, topo.row_ptr, topo.csr_cols))
+            if rcm_path:
+                _save_mesh(rcm_path, mesh)
+        topo = _topology(mesh, cached(f"topo_{key}.npz"))
+        mesh = renumber_mesh(mesh, supernode_order(topo, mesh.coords))
+        if sn_path:
+            _save_mesh(sn_path, mesh)
+    return mesh, _topology(mesh, cached(f"topo_{key}_sn.npz"))
+
+
+def dirichlet_data(mesh: Mesh, penalty: float):
+    """Host numpy (mask, g, rhs): Dirichlet rows (Cut and sphere faces),
+    their values (sphere = 1), and the load vector of f = 1 with the
+    penalty rows' entries set to penalty·g."""
+    n = mesh.n_nodes
+    cut = np.unique(mesh.face_groups["Cut"]["tria3"])
+    sph = np.unique(mesh.face_groups["sphere"]["tria3"])
+    mask = np.zeros(n, bool)
+    mask[cut] = True
+    mask[sph] = True
+    g = np.zeros(n, np.float64)
+    g[sph] = 1.0
+    tets = mesh.cells["tetra4"]
+    pc = mesh.coords[tets]
+    vv = pc[:, 1:] - pc[:, :1]
+    vols = np.abs(np.einsum("ij,ij->i", np.cross(vv[:, 0], vv[:, 1]),
+                            vv[:, 2])) / 6.0
+    rhs = np.zeros(n, np.float64)
+    np.add.at(rhs, np.asarray(tets).reshape(-1), np.repeat(vols / 4.0, 4))
+    return mask, g, np.where(mask, penalty * g, rhs)
+
+
+def true_residual(A: BellMatrix, b: torch.Tensor, x: torch.Tensor,
+                  interior: torch.Tensor) -> float:
+    """‖(b − A x)_int‖ / ‖b_int‖ in float64 over the non-Dirichlet rows."""
+    A64 = BellMatrix(A.values.double(), A.cols, plain=A.plain)
+    r = b.double() - A64.spmv(x.double())
+    return float(torch.linalg.vector_norm(r[interior])
+                 / torch.linalg.vector_norm(b.double()[interior]))
+
+
+def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
+                     penalty: float, plain: bool = False,
+                     timed: bool = False) -> dict:
+    """Assemble, set up AMG and solve on ``device``.
+
+    Returns the operator ``A``, the solution ``x`` (device tensor),
+    ``iterations``, the monitored ``rel`` residual, the float64
+    ``true_residual``, the AMG ``levels`` and, with
+    ``timed``, ``assembly_s`` and ``solve_s`` (CUDA events) and
+    ``amg_setup_s`` (host).  ``plain=True`` runs every kernel's plain twin
+    instead of the kernel."""
+    n, W = topo.n_nodes, topo.width
+    asm = TetraAssembler(topo, mesh.cells["tetra4"], device=device,
+                         plain=plain)
+    coords = torch.as_tensor(mesh.coords, device=device).to(torch.float32)
+    vals = asm(coords)
+    out = {}
+    if timed:
+        out["assembly_s"] = time_op(asm, coords, reps=3, outer=2)
+    del asm  # its slot map (16 int32 per cell) is dead once values exist
+
+    mask, g, rhs = dirichlet_data(mesh, penalty)
+    # penalty rows on a host copy in the solve's dtype, so the matrix and
+    # the rhs carry the same penalty value; the AMG set-up reads this copy
+    flat = vals.cpu().numpy().reshape(-1).astype(_NP_DTYPE[dtype])
+    del vals
+    flat[np.asarray(topo.diag_slot)[mask]] = penalty
+    A = BellMatrix.from_numpy(flat.reshape(n, W), topo.ell_cols,
+                              topo.diag_slot, device=device, dtype=dtype,
+                              plain=plain)
+    t0 = time.perf_counter()
+    hier = amg_setup(flat, topo, theta=THETA, smoother="chebyshev",
+                     cheb_deg=CHEB_DEG, dtype=_NP_DTYPE[dtype])
+    M = amg_from_numpy(hier, device, dtype, plain=plain)
+    out["amg_setup_s"] = time.perf_counter() - t0
+    out["levels"] = [m.n_nodes for m in M.mats] + [M.coarse_inv.shape[0]]
+
+    b = torch.as_tensor(rhs, device=device).to(dtype)
+    x0 = torch.as_tensor(np.where(mask, g, 0.0), device=device).to(dtype)
+    x, iters, rel = pcg(A, b, M, x0, RTOL, 0.0, 1000, use_precise_dot=True)
+    if timed:
+        out["solve_s"] = time_op(
+            pcg, A, b, M, x0, RTOL, 0.0, 1000, True, reps=1, outer=2)
+    interior = torch.as_tensor(~mask, device=device)
+    out.update(A=A, x=x, iterations=iters, rel=rel,
+               true_residual=true_residual(A, b, x, interior))
+    return out
+
+
+def gpu_name_and_power() -> str:
+    """The card's ``name, power.limit`` as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def bench_unstructured(h: float = 6, refine: int = 3) -> dict:
+    """The main path at mesh size (h, refine) on one CUDA card, in f32
+    with penalty 1e12 as the JAX package runs it on its accelerator."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_unstructured measures a CUDA card; none "
+                           "is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh, topo = sphere_cut_system(h, refine)
+    host_s = time.perf_counter() - t0
+    res = solve_sphere_cut(mesh, topo, device="cuda", dtype=torch.float32,
+                           penalty=1e12, timed=True)
+    if not res["rel"] <= RTOL:
+        raise RuntimeError(f"AMG-PCG did not converge: rel {res['rel']:.3e}")
+    if not res["true_residual"] <= 1e-4:
+        raise RuntimeError(
+            f"true interior residual {res['true_residual']:.3e} > 1e-4")
+    if not bool(torch.isfinite(res["x"]).all()):
+        raise RuntimeError("non-finite solution")
+    n = topo.n_nodes
+    iters = res["iterations"]
+    asm_s, solve_s = res["assembly_s"], res["solve_s"]
+    name, power = (s.strip() for s in gpu_name_and_power().split(",", 1))
+    return {
+        "metric": (f"poisson3d_sphere_cut_{n/1e6:.1f}MDoF_"
+                   f"assembly+amgpcg_to_{RTOL:g}_s"),
+        "value": round(asm_s + solve_s, 4),
+        "assembly_s": round(asm_s, 4),
+        "solve_s": round(solve_s, 4),
+        "ms_per_iter": round(solve_s / max(iters, 1) * 1e3, 2),
+        "assembly_mdofs": round(n / asm_s / 1e6, 1),
+        "amg_setup_s": round(res["amg_setup_s"], 1),
+        "amg_setup_cached": False,
+        "host_setup_s": round(host_s, 1),
+        "iterations": iters,
+        "rel": res["rel"],
+        "true_residual": res["true_residual"],
+        "amg_levels": res["levels"],
+        "n_dofs": int(n),
+        "nnz_stored": int(topo.nnz),
+        "spmv_path": "BellMatrix",
+        "spmv_kernel": "ell_spmv",
+        "amg_compact": False,
+        "asm_mode": "segsum",
+        "asm_compact": False,
+        "amg_smoother": "chebyshev",
+        "amg_cycle": "V",
+        "vcycle_bf16": False,
+        "platform": "cuda",
+        "backend": "torch",
+        "gpu": name,
+        "power_limit": power,
+    }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--h", type=float, default=6.0,
+                    help="Delaunay mesh size (6 with --refine 3: 8.9M DoF)")
+    ap.add_argument("--refine", type=int, default=3,
+                    help="uniform 1->8 refinements of the Delaunay mesh")
+    args = ap.parse_args(argv)
+    print(json.dumps(bench_unstructured(args.h, args.refine)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,93 @@
+"""P1 tetrahedron stiffness assembly into BELL values.
+
+The counterpart of the segment-sum form of
+``arcanefem_tpu/ops/lane_assembly.py::TetraLaneAssembler``.  Every
+intermediate is a length-nc vector over cells (cell axis last), the
+element matrices come from the cofactors of the corner coordinates, and
+the 16 entries of each element matrix are scatter-added into the flat
+(N*W) slot space through the topology's slot map.
+
+The corner-coordinate fetch is the ELL gather kernel at W=1
+(``ell_gather_sum``, K2 on the card), in corner-major order: request
+i*nc + c is corner i of cell c, so corner i's coordinates are one
+contiguous slice.  The element arithmetic runs in float32 whatever the
+caller's dtype, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..sparse.bell import check_cols
+from ..sparse.ell_gather import ell_gather_sum, ell_gather_sum_plain
+
+_PAIRS = [(i, j) for i in range(4) for j in range(4)]
+
+
+class TetraAssembler:
+    """vals = TetraAssembler(topo, conn, device=...)(coords)  # (N, W) f32
+
+    topo: ``arcanefem_tpu.sparse.topology.Topology`` of the mesh;
+    conn: (nc, 4) tetra connectivity.  The corner columns and the
+    transposed slot map are copied to the device once.  ``plain=True``
+    fetches the coordinates with the kernel's plain twin instead.
+    """
+
+    def __init__(self, topo, conn: np.ndarray, *, device: torch.device | str,
+                 plain: bool = False):
+        conn = np.asarray(conn)
+        nc = conn.shape[0]
+        check_cols(conn, topo.n_nodes, "TetraAssembler conn")
+        self.n_cells = nc
+        self.n_nodes = topo.n_nodes
+        self.width = topo.width
+        self._gather = ell_gather_sum_plain if plain else ell_gather_sum
+        # (4nc, 1): row i*nc + c fetches corner i of cell c
+        self.corner_cols = torch.as_tensor(
+            np.ascontiguousarray(conn.astype(np.int32).T).reshape(-1, 1),
+            device=device)
+        # entry q = i*4 + j of cell c sits at q*nc + c (int32: N*W < 2^31
+        # for any mesh one card holds)
+        sm = np.asarray(topo.slot_maps["tetra4"]).reshape(nc, 16)
+        self.slot_map_t = torch.as_tensor(
+            np.ascontiguousarray(sm.T.astype(np.int32)).reshape(-1),
+            device=device)
+
+    def __call__(self, coords: torch.Tensor) -> torch.Tensor:
+        nc = self.n_cells
+        ct = coords.to(torch.float32).T.contiguous()  # (3, N)
+        corners = []
+        for k in range(3):
+            g = self._gather(self.corner_cols, ct[k])  # (4nc,)
+            corners.append([g[i * nc:(i + 1) * nc] for i in range(4)])
+        x, y, z = corners
+        # 6V = (p1-p0) . (p2-p0) x (p3-p0)
+        ax, ay, az = x[1] - x[0], y[1] - y[0], z[1] - z[0]
+        bx, by, bz = x[2] - x[0], y[2] - y[0], z[2] - z[0]
+        cx, cy, cz = x[3] - x[0], y[3] - y[0], z[3] - z[0]
+        v6 = ax * (by * cz - bz * cy) + ay * (bz * cx - bx * cz) + az * (
+            bx * cy - by * cx)
+        inv = 1.0 / v6.abs()
+
+        def comp(u, w):
+            # cofactor rows: the gradient of each barycentric coordinate
+            # times 6V
+            return [
+                u[1] * (w[3] - w[2]) + u[2] * (w[1] - w[3]) + u[3] * (w[2] - w[1]),
+                u[0] * (w[2] - w[3]) + u[2] * (w[3] - w[0]) + u[3] * (w[0] - w[2]),
+                u[0] * (w[3] - w[1]) + u[1] * (w[0] - w[3]) + u[3] * (w[1] - w[0]),
+                u[0] * (w[1] - w[2]) + u[1] * (w[2] - w[0]) + u[2] * (w[0] - w[1]),
+            ]
+
+        dx, dy, dz = comp(y, z), comp(z, x), comp(x, y)
+        # ke_ij = V (dx_i dx_j + dy_i dy_j + dz_i dz_j) / (6V)^2, V = |6V|/6
+        scale = inv / 6.0
+        vals = torch.zeros(self.n_nodes * self.width, dtype=torch.float32,
+                           device=ct.device)
+        # in place: one entry's (nc,) contribution at a time, so no (16, nc)
+        # element-matrix stack is ever held
+        for q, (i, j) in enumerate(_PAIRS):
+            keq = (dx[i] * dx[j] + dy[i] * dy[j] + dz[i] * dz[j]) * scale
+            vals.index_add_(0, self.slot_map_t[q * nc:(q + 1) * nc], keq)
+        return vals.reshape(self.n_nodes, self.width)

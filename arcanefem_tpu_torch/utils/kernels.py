@@ -1,0 +1,103 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` into one shared library
+with a plain C interface, which ``ctypes`` loads.  The library lands in
+``build/afem_kernels/`` at the repository root, under a name that carries a
+hash of the sources and flags, so a changed source is rebuilt and an
+unchanged one is reused.  Nothing is built at import time: the first
+kernel launch calls :func:`library`.  There is no fallback: a missing
+``nvcc`` or a failed build raises :class:`KernelBuildError` with the
+compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "afem_kernels")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+# (name, argtypes) of every C entry point in csrc/; all return an int
+# cudaError_t from cudaGetLastError() after the launch
+_SIGNATURES = {
+    "afem_ell_spmv_f32": [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    "afem_ell_spmv_f64": [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    "afem_ell_gather_sum_f32": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    "afem_ell_gather_sum_f64": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
+}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing, or it failed to build or load the kernel library."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise KernelBuildError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin; the CUDA kernels "
+        "are built from source on first use")
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def library_path() -> str:
+    """Where the library for the current sources is (or will be) built."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libafem_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile csrc/*.cu into the shared library unless it is already
+    built; return its path."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stderr}{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    path = build()
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        raise KernelBuildError(f"cannot load {path}: {e}") from e
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,111 @@
+"""ELL gather-reduce (arcanefem_tpu_torch/sparse/ell_gather.py) against the
+JAX package: its BellMatrix SpMV, and its Pallas window plans evaluated on
+the CPU the way the JAX package's own tests evaluate them
+(arcanefem_tpu/utils/emulate.py).  The CUDA kernels themselves are held to
+their plain twins in tests/test_torch_kernels.py, which needs no jax."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from arcanefem_tpu.sparse.bell import BellMatrix as JaxBell
+from arcanefem_tpu.sparse.pallas_spmv import ChainedGather, PlannedGather
+from arcanefem_tpu.utils.emulate import emulate_gather
+from arcanefem_tpu_torch.bench_unstructured import sphere_cut_system
+from arcanefem_tpu_torch.sparse.bell import BellMatrix
+from arcanefem_tpu_torch.sparse.ell_gather import ell_gather_sum, ell_spmv
+
+
+@pytest.fixture(scope="module")
+def h14():
+    return sphere_cut_system(14.0, 0, cache=False)
+
+
+def test_spmv_matches_jax_bell_f64(h14):
+    """Plain ell_spmv == JAX BellMatrix.spmv in f64 on the sphere_cut h=14
+    topology with random values (rtol 1e-12: only the sum order differs)."""
+    _, topo = h14
+    rng = np.random.RandomState(0)
+    n, W = topo.n_nodes, topo.width
+    vals = np.where(topo.ell_valid, rng.rand(n, W) - 0.5, 0.0)
+    x = rng.rand(n) - 0.5
+    want = np.asarray(JaxBell(
+        values=jnp.asarray(vals.reshape(n, W, 1, 1)), topo=topo, block=1,
+        cols=jnp.asarray(topo.ell_cols)).spmv(jnp.asarray(x)))
+    A = BellMatrix.from_numpy(vals, topo.ell_cols, topo.diag_slot,
+                              device="cpu", dtype=torch.float64)
+    got = A.spmv(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+    np.testing.assert_array_equal(A.diagonal().numpy(),
+                                  vals.reshape(-1)[topo.diag_slot])
+
+
+def _weighted_case(name):
+    """(cols, weights, table) shaped like the JAX package's plan tests;
+    zero weights are padding."""
+    if name == "plain":
+        rng = np.random.RandomState(0)
+        n, W = 2000, 8
+        cols = (np.arange(n)[:, None] * 3 + rng.randint(0, 40, (n, W))) % (3 * n)
+        w = rng.rand(n, W).astype(np.float32)
+        w[rng.rand(n, W) < 0.3] = 0.0
+        return cols, w, rng.rand(3 * n).astype(np.float32)
+    if name == "wide_split":
+        rng = np.random.RandomState(1)
+        n, W = 3000, 37
+        cols = (np.arange(n)[:, None] * 7 + rng.randint(0, 64, (n, W))) % (7 * n)
+        deg = rng.randint(1, W + 1, n)
+        w = rng.rand(n, W).astype(np.float32)
+        w[np.arange(W)[None, :] >= deg[:, None]] = 0.0
+        return cols, w, rng.rand(7 * n).astype(np.float32)
+    rng = np.random.RandomState(2)  # empty_rows
+    n, W = 1500, 4
+    cols = (np.arange(n)[:, None] + rng.randint(0, 16, (n, W))) % n
+    w = rng.rand(n, W).astype(np.float32)
+    w[::7] = 0.0
+    return cols, w, rng.rand(n).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["plain", "wide_split", "empty_rows"])
+def test_spmv_matches_pallas_plan(name):
+    """Plain ell_spmv == the weighted Pallas plan (K1), wide rows split
+    into a chained plan included; the JAX tests' tolerance."""
+    cols, w, table = _weighted_case(name)
+    g = PlannedGather.build(cols, w)
+    if name == "wide_split":
+        assert isinstance(g, ChainedGather)
+    got = ell_spmv(torch.as_tensor(w), torch.as_tensor(cols, dtype=torch.int32),
+                   torch.as_tensor(table)).numpy()
+    np.testing.assert_allclose(got, emulate_gather(g, table),
+                               rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["plain", "wide_split", "empty_rows"])
+def test_gather_sum_matches_unit_pallas_plan(name):
+    """Plain ell_gather_sum == the unit-weight Pallas plan (K2): padding is
+    a negative column in the port, a zero weight in the plan."""
+    cols, w, table = _weighted_case(name)
+    real = w != 0.0
+    g = PlannedGather.build(cols, real.astype(np.float32))
+    assert g is not None
+    ucols = torch.as_tensor(np.where(real, cols, -1), dtype=torch.int32)
+    got = ell_gather_sum(ucols, torch.as_tensor(table)).numpy()
+    np.testing.assert_allclose(got, emulate_gather(g, table),
+                               rtol=2e-5, atol=1e-5)
+
+
+def test_gather_w1_matches_compact_coords_plan(h14):
+    """W=1 unit gather == the assembly coordinate plan, built as
+    lane_assembly.py builds it (corner-major, bool weights, compact)."""
+    mesh, topo = h14
+    conn = mesh.cells["tetra4"]
+    cols = np.asarray(conn, np.int32).T.reshape(-1, 1)
+    g = PlannedGather.build(cols, np.ones((cols.shape[0], 1), np.bool_),
+                            wcap=0, compact=True)
+    table = mesh.coords[:, 0].astype(np.float32)
+    got = ell_gather_sum(torch.as_tensor(cols), torch.as_tensor(table)).numpy()
+    np.testing.assert_allclose(got, emulate_gather(g, table),
+                               rtol=2e-5, atol=1e-5)
+    np.testing.assert_array_equal(got, table[cols[:, 0]])
