@@ -1,12 +1,18 @@
 """arcanefem_tpu_torch: the PyTorch and CUDA port of arcanefem_tpu.
 
 The JAX package ``arcanefem_tpu`` stays the reference.  This package runs
-the same unstructured Poisson main path (sphere_cut P1 tetrahedra, BELL
-assembly, smoothed-aggregation AMG-preconditioned CG) on an NVIDIA Hopper
-card, with hand-written CUDA kernels where the JAX package had Pallas ones
-(``csrc/``).  It imports ``torch`` and never ``jax``; of ``arcanefem_tpu`` it
-uses only the framework-free host modules (mesh generation, topology, node
-ordering, the native library).
+two of its paths on an NVIDIA Hopper card, with hand-written CUDA kernels
+where the JAX package had Pallas ones (``csrc/``):
+
+* the unstructured Poisson main path (sphere_cut P1 tetrahedra, BELL
+  assembly, smoothed-aggregation AMG-preconditioned CG),
+  ``bench_unstructured.py``;
+* the structured Kuhn-box Poisson path (stencil assembly into 15 DIA
+  bands, geometric-multigrid-preconditioned CG), ``bench_structured.py``.
+
+It imports ``torch`` and never ``jax`` nor anything of ``arcanefem_tpu``:
+the host code it needs (mesh generation, topology, node orders, the
+native C++ set-up library) is its own copy.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

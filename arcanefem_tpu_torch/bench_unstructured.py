@@ -12,7 +12,7 @@ degree-2 Chebyshev smoother) to rtol 1e-8.  It prints one JSON line with
 north-star size, whose host set-up on a cold cache takes tens of minutes.
 
 The mesh and topology are cached as host numpy under
-``arcanefem_tpu.utils.cache.CACHE_DIR``, in the same files ``bench.py``
+``utils.cache.CACHE_DIR``, in the same files ``bench.py``
 uses.  Assembly and solve are timed with CUDA events; the AMG set-up runs
 on the host and is timed with the host clock.
 """
@@ -28,18 +28,17 @@ import time
 import numpy as np
 import torch
 
-from arcanefem_tpu.mesh.core import Mesh
-from arcanefem_tpu.mesh.unstructured import refine_tetra, sphere_cut_tetra_mesh
-from arcanefem_tpu.sparse.topology import Topology, build_topology
-from arcanefem_tpu.utils.cache import CACHE_DIR
-from arcanefem_tpu.utils.ordering import rcm_order, renumber_mesh
-
+from .mesh.core import Mesh
+from .mesh.unstructured import refine_tetra, sphere_cut_tetra_mesh
 from .ops.lane_assembly import TetraAssembler
 from .solver.amg import amg_from_numpy
 from .solver.amg_setup import amg_setup
 from .solver.iterative import pcg
 from .sparse.bell import BellMatrix
 from .sparse.ordering import supernode_order
+from .sparse.topology import Topology, build_topology
+from .utils.cache import CACHE_DIR
+from .utils.ordering import rcm_order, renumber_mesh
 from .utils.timing import time_op
 
 RTOL = 1e-8

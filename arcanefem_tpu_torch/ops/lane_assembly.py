@@ -28,7 +28,7 @@ _PAIRS = [(i, j) for i in range(4) for j in range(4)]
 class TetraAssembler:
     """vals = TetraAssembler(topo, conn, device=...)(coords)  # (N, W) f32
 
-    topo: ``arcanefem_tpu.sparse.topology.Topology`` of the mesh;
+    topo: ``sparse.topology.Topology`` of the mesh;
     conn: (nc, 4) tetra connectivity.  The corner columns and the
     transposed slot map are copied to the device once.  ``plain=True``
     fetches the coordinates with the kernel's plain twin instead.

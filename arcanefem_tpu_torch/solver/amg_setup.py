@@ -6,8 +6,8 @@ no jax.  Per level: the native fused strength test and filtered operator,
 greedy Vanek aggregation, the native smoothed prolongator with row
 truncation, and the Galerkin product P^T A P; then the ELL layouts of
 every level operator and transfer and the dense inverse of the coarsest
-operator.  It calls the same ``arcanefem_tpu.utils.native`` functions as
-the JAX setup, so ties break the same way (native/amg_setup.cpp), and the
+operator.  It calls the port's copies of the same native functions as the
+JAX setup (``utils/native.py``), so ties break the same way, and the
 CPU tests hold the result to ``build_amg``'s with exact equality.
 
 The output is a dict of numpy arrays and scalars laid out like the fields
@@ -23,7 +23,7 @@ import warnings
 import numpy as np
 import scipy.sparse as sp
 
-from arcanefem_tpu.utils.native import (
+from ..utils.native import (
     amg_smooth_p_native,
     amg_strength_filter_native,
 )
@@ -227,7 +227,7 @@ def _p_ell(P, dtype):
 def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
               cheb_deg: int, dtype=np.float64) -> dict:
     """Hierarchy of the scalar BELL operator with (N, W) host ``values``
-    on ``topo`` (an ``arcanefem_tpu.sparse.topology.Topology``), Dirichlet
+    on ``topo`` (a ``sparse.topology.Topology``), Dirichlet
     rows already penalised: ``build_amg(A, theta=theta, smoother=smoother,
     cheb_deg=cheb_deg)`` with its other defaults.  ``dtype`` is the type
     the device will hold.  Returns the dict that ``amg_from_numpy`` takes,
@@ -249,7 +249,7 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
             cur_csr.indptr, cur_csr.indices, cur_csr.data, theta_l)
         if nat_sf is None:
             raise RuntimeError(
-                "native AMG strength filter unavailable (native/ library not "
+                "native AMG strength filter unavailable (the port's native/ library not "
                 "built, or a row without a diagonal entry)")
         s_indptr, s_cols, af_data, ddf = nat_sf
         S = sp.csr_matrix((np.ones(len(s_cols)), s_cols, s_indptr),

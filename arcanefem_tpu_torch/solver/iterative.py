@@ -5,8 +5,10 @@ The counterpart of ``pcg``, ``precise_dot`` and ``Precond`` in
 stopping rule (the preconditioned residual r^T M r relative to its initial
 value) and the same return values ``(x, iterations, rel)``.
 
-``A`` is anything with ``.spmv(x)`` (a ``BellMatrix``) and ``M`` anything
-with ``.apply(r)`` (``Precond`` or ``AMGPrecond``).
+``A`` is anything with ``.spmv(x)`` and ``M`` anything with ``.apply(r)``.
+Vectors may have any shape: every dot sums over all elements, so the
+structured path's padded plane vectors (``DiaPlaneMatrixP``, zero pads)
+run through it as they are.
 """
 
 from __future__ import annotations
@@ -67,14 +69,21 @@ def precise_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def default_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a, b)
+    return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
 def pcg(A, b: torch.Tensor, M, x0: torch.Tensor, rtol: float, atol: float,
-        max_iter: int, use_precise_dot: bool = False):
+        max_iter: int, use_precise_dot: bool = False, replace_every: int = 0):
     """Solve A x = b.  Stops when r^T M r <= max(rtol^2 |r0^T M r0|, atol^2)
     or after max_iter iterations.  Returns (x, iterations, rel) with
     rel = sqrt(|r^T M r| / |r0^T M r0|) and x in float64.
+
+    ``replace_every`` > 0 replaces the recurrence's residual by the true
+    one, ``A.residual(b, x)`` evaluated in float64 and rounded to the
+    working dtype, after every that many iterations (residual replacement;
+    the JAX ``pcg`` has none).  It drops the rounding errors the recurrence
+    has collected, of which the first, the working-dtype rounding of
+    r0 = b − A x0, is the largest when x0 carries Dirichlet values.
 
     The iterate x is accumulated in float64 whatever the working dtype.
     CG never reads x back (r, z and p carry the recurrence), so the
@@ -99,12 +108,14 @@ def pcg(A, b: torch.Tensor, M, x0: torch.Tensor, rtol: float, atol: float,
         alpha = rz / dot(p, Ap)
         x = x + alpha.to(torch.float64) * p.to(torch.float64)
         r = r - alpha * Ap
+        k += 1
+        if replace_every and k % replace_every == 0:
+            r = A.residual(b.double(), x).to(b.dtype)
         z = M.apply(r)
         rz_new = dot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
-        k += 1
     tiny = torch.finfo(b.dtype).tiny
     rel = float(torch.sqrt(rz.abs() / torch.clamp(rz0.abs(), min=tiny)))
     return x, k, rel

@@ -82,7 +82,7 @@ def assemble_bell(topo, element_matrices: dict[str, torch.Tensor], *,
                   device: torch.device | str,
                   dtype: torch.dtype | None = None) -> BellMatrix:
     """Sum per-cell (nc, npc, npc) element matrices into the BELL matrix
-    of ``topo`` (an ``arcanefem_tpu.sparse.topology.Topology``): one
+    of ``topo`` (a ``sparse.topology.Topology``): one
     ``index_add_`` per cell bucket over its slot map, the counterpart of
     the JAX package's segment-sum."""
     acc = None

@@ -69,16 +69,6 @@ def _check(name: str, cols: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"{name}: the CUDA kernel takes contiguous operands")
 
 
-def _launch(fn_name: str, ptrs: list[int], n: int, W: int,
-            device: torch.device) -> None:
-    fn = getattr(kernels.library(), fn_name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*ptrs, n, W, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: kernel launch failed with CUDA error {rc}")
-
-
 def ell_spmv(vals: torch.Tensor, cols: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """y[r] = sum_w vals[r, w] * x[cols[r, w]] (K1 on the card)."""
@@ -91,9 +81,9 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor,
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return y
-    _launch(f"afem_ell_spmv_{_SUFFIX[x.dtype]}",
-            [vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr()],
-            n, W, x.device)
+    kernels.launch(f"afem_ell_spmv_{_SUFFIX[x.dtype]}", x.device,
+                   vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+                   n, W)
     ell_spmv.launches += 1
     return y
 
@@ -109,8 +99,8 @@ def ell_gather_sum(cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return y
-    _launch(f"afem_ell_gather_sum_{_SUFFIX[x.dtype]}",
-            [cols.data_ptr(), x.data_ptr(), y.data_ptr()], n, W, x.device)
+    kernels.launch(f"afem_ell_gather_sum_{_SUFFIX[x.dtype]}", x.device,
+                   cols.data_ptr(), x.data_ptr(), y.data_ptr(), n, W)
     ell_gather_sum.launches += 1
     return y
 

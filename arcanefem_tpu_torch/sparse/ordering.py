@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from arcanefem_tpu.utils.ordering import rcm_order
+from ..utils.ordering import rcm_order
 
 BS = 8
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` into one shared library
-with a plain C interface, which ``ctypes`` loads.  The library lands in
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a plain
+C interface, which ``ctypes`` loads.  The library lands in
 ``build/afem_kernels/`` at the repository root, under a name that carries a
 hash of the sources and flags, so a changed source is rebuilt and an
 unchanged one is reused.  Nothing is built at import time: the first
@@ -20,23 +21,34 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "afem_kernels")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
 
-_P = ctypes.c_void_p
+_P, _I, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+_DIA_STENCIL = [_I, _P, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F64, _P]
+_STENCIL_ASSEMBLY = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _I64,
+                     _F64, _F64, _P]
 # (name, argtypes) of every C entry point in csrc/; all return an int
 # cudaError_t from cudaGetLastError() after the launch
 _SIGNATURES = {
-    "afem_ell_spmv_f32": [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
-    "afem_ell_spmv_f64": [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
-    "afem_ell_gather_sum_f32": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
-    "afem_ell_gather_sum_f64": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    "afem_ell_spmv_f32": [_P, _P, _P, _P, _I64, _I, _P],
+    "afem_ell_spmv_f64": [_P, _P, _P, _P, _I64, _I, _P],
+    "afem_ell_gather_sum_f32": [_P, _P, _P, _I64, _I, _P],
+    "afem_ell_gather_sum_f64": [_P, _P, _P, _I64, _I, _P],
+    "afem_dia_stencil_f32_f32": _DIA_STENCIL,
+    "afem_dia_stencil_bf16_f32": _DIA_STENCIL,
+    "afem_dia_stencil_f32_f64": _DIA_STENCIL,
+    "afem_dia_stencil_f64_f64": _DIA_STENCIL,
+    "afem_stencil_assembly_f32": _STENCIL_ASSEMBLY,
+    "afem_stencil_assembly_f64": _STENCIL_ASSEMBLY,
 }
 
 
@@ -70,21 +82,33 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libafem_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> str:
     """Compile csrc/*.cu into the shared library unless it is already
-    built; return its path."""
+    built (one nvcc per source, in parallel, then one link); return its
+    path."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    nvcc, tag = _nvcc(), f"{out}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.basename(src)}.o" for src in _sources()]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+              for src, obj in zip(_sources(), objs)])
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tag}.tmp", *objs]])
+    for obj in objs:
+        os.remove(obj)
+    os.replace(f"{tag}.tmp", out)  # atomic: a concurrent loader never sees half a file
     return out
 
 
@@ -101,3 +125,13 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch(fn_name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn_name(*args, stream)`` on ``device``'s
+    current stream; raise if it reports a CUDA error."""
+    fn = getattr(library(), fn_name)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: kernel launch failed with CUDA error {rc}")

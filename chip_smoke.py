@@ -15,18 +15,46 @@ script then exits non-zero without the final line:
    that run; then each kernel timed against its plain twin at the shapes
    of the path;
 5. the same system at h=8 with the plain twins in place of the kernels,
-   and in float64 on the CPU: iterations and solutions must agree.
+   and in float64 on the CPU: iterations and solutions must agree;
+6. structured kernel parity: the stencil kernel (K5-K8) in every mode and
+   layout, f32 and bf16 bands, and the stencil assembly (K4), stiffness
+   only and fused with the BC, against their plain twins on a 96x80x136
+   box (two 128-thread blocks per z row);
+7. the structured path at 224^3 (11.4M DoF): the MG-PCG bench pass with
+   the launch counts of one solve, a torch.profiler breakdown of one solve
+   (the operator table in build/profile/), the Jacobi-PCG variant (K8a)
+   and the flat-vector MG variant (K8a, K8b), each with its own counts
+   and bench line, then
+   each kernel held against its plain twin and timed at the path's shapes;
+8. the MG path at 64^3 through the kernels, on the plain twins (float32 on
+   the CPU) and in float64 on the CPU: iterations and solutions must agree.
 
 Then one JSON line with the kernels' records and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result.
+
+A record's ``bound_ms`` is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its flops over 67 TFLOP/s
+(the H100 SXM's HBM3 rate and non-tensor f32 rate, at 700 W).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
+
+BOX_N, CHECK_N = 224, 64  # box sizes of phases 7 and 8
+PARITY_BOX = (96, 80, 136)  # phase 6: nz + 3 = 139 pads to two z blocks
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+
+
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) of a kernel call."""
+    tb, tf = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
 def _check(ok: bool, what: str) -> None:
@@ -147,6 +175,15 @@ def main() -> int:
     g, gp = (ell_gather_sum(asm.corner_cols, cx),
              ell_gather_sum_plain(asm.corner_cols, cx))
     _check(torch.equal(g, gp), "coordinate gather parity")
+    crow = torch.as_tensor(topo.row_ptr, device=dev, dtype=torch.int64)
+    csr = torch.sparse_csr_tensor(
+        crow, torch.as_tensor(topo.csr_cols, device=dev, dtype=torch.int64),
+        A.values.reshape(-1)[torch.as_tensor(topo.csr_to_ell, device=dev,
+                                             dtype=torch.int64)],
+        size=(n, n))
+    e_csr = float((csr @ xr - yp).abs().max() / yp.abs().max())
+    print(f"[kernel] CSR library SpMV vs plain: {e_csr:.3e} of max|y|", flush=True)
+    gather_idx = asm.corner_cols[:, 0].long()
     records = [
         {"name": "ell_spmv", "route": "cuda",
          "source": "arcanefem_tpu_torch/csrc/ell_gather.cu",
@@ -156,6 +193,9 @@ def main() -> int:
          "ms": time_op(ell_spmv, A.values, A.cols, xr, reps=50, outer=3) * 1e3,
          "plain_ms": time_op(ell_spmv_plain, A.values, A.cols, xr, reps=50,
                              outer=3) * 1e3,
+         "library_ms": time_op(torch.mv, csr, xr, reps=50, outer=3) * 1e3,
+         **dict(zip(("bound_ms", "bound_by"), _bound(
+             A.values.numel() * 8 + n * 8, 2 * A.values.numel()))),
          "shape": [n, topo.width], "dtype": "float32"},
         {"name": "ell_gather_sum", "route": "cuda",
          "source": "arcanefem_tpu_torch/csrc/ell_gather.cu",
@@ -166,13 +206,17 @@ def main() -> int:
                        outer=3) * 1e3,
          "plain_ms": time_op(ell_gather_sum_plain, asm.corner_cols, cx,
                              reps=50, outer=3) * 1e3,
+         "library_ms": time_op(cx.__getitem__, gather_idx, reps=50,
+                               outer=3) * 1e3,
+         **dict(zip(("bound_ms", "bound_by"), _bound(
+             asm.corner_cols.numel() * 8 + n * 4, asm.corner_cols.numel()))),
          "shape": list(asm.corner_cols.shape), "dtype": "float32"},
     ]
     for r in records:
         print(f"[kernel] {r['name']} {r['shape']}: {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, max_abs_err {r['max_abs_err']:.3e}",
               flush=True)
-    del res, A, asm, xr, y, yp, cx, g, gp, mesh, topo
+    del res, A, asm, xr, y, yp, cx, g, gp, mesh, topo, csr, gather_idx
     torch.cuda.empty_cache()
 
     # 5. the kernel path against the plain path, and against float64 on
@@ -196,6 +240,10 @@ def main() -> int:
         _check(abs(r["iterations"] - runs["kernel"]["iterations"]) <= 1,
                f"h=8 iterations, {name}")
         _check(diff <= 1e-4, f"h=8 solution, {name}")
+    del runs, xk, mesh, topo
+    torch.cuda.empty_cache()
+
+    records += structured_phases(dev, gen)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
@@ -203,6 +251,330 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _structured_parity(dev, gen) -> None:
+    """Phase 6: K4-K8 against their plain twins on the card."""
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.mesh import stencil_assembly as sa
+    from arcanefem_tpu_torch.mesh.structured import StructuredBox
+    from arcanefem_tpu_torch.sparse import dia_stencil as ds
+
+    box = StructuredBox(*PARITY_BOX)
+    nyp, nzp = ds._pads(box)
+    real = torch.zeros((box.nx + 1, nyp, nzp), dtype=torch.bool, device=dev)
+    real[:, 1 : box.ny + 2, 1 : box.nz + 2] = True
+
+    def vec():
+        return torch.where(real, torch.rand(real.shape, generator=gen,
+                                            device=dev) * 2 - 1, 0.0)
+
+    x, b, aux = vec(), vec(), vec()
+    for band_major in (False, True):
+        shape = (15, box.nx + 1, nyp, nzp) if band_major else (box.nx + 1, 15, nyp, nzp)
+        for bdt in (torch.float32, torch.bfloat16):
+            bands = (torch.rand(shape, generator=gen, device=dev) * 2 - 1).to(bdt)
+            kw = dict(band_major=band_major, ny=box.ny, nz=box.nz)
+            scale = (ds.dia_stencil_plain("spmv", bands.abs(), x.abs(), **kw)
+                     + b.abs() + x.abs())
+            for mode, extra in (("spmv", {}),
+                                ("jacobi", dict(b=b, aux=aux, omega=0.8)),
+                                ("residual", dict(b=b, aux=aux))):
+                y = ds.dia_stencil(mode, bands, x, **kw, **extra)
+                torch.cuda.synchronize()
+                e = _rel_err(y, ds.dia_stencil_plain(mode, bands, x, **kw, **extra),
+                             scale)
+                print(f"[parity] dia_stencil {mode} {str(bdt)[6:]} bands "
+                      f"{'band' if band_major else 'x'}-major {box.shape}: {e:.2e} "
+                      f"(rtol 1e-5 of sum |band x| + |b| + |x|)", flush=True)
+                _check(e <= 1e-5, f"dia_stencil {mode} {bdt} {band_major}")
+                _check(bool((y[~real] == 0).all()), f"dia_stencil {mode} pads")
+
+    c3 = torch.as_tensor(box.grid_coords(np.float32, jitter=0.1), device=dev)
+    mask = box.boundary_mask(("xmin", "xmax"))
+    g = np.where(box.boundary_mask(("xmax",)), 1.0, 0.0)
+    mask_p = torch.as_tensor(ds.pad_host_vec(box, mask), device=dev)
+    pg_p = torch.as_tensor(ds.pad_host_vec(box, 1e12 * g * mask), device=dev)
+    A, Ap = sa.assemble_stiffness_kernel(box, c3), sa.assemble_stiffness_plain(box, c3)
+    e, tol = float((A.bands - Ap.bands).abs().max() / Ap.bands.abs().max()), _asm_tol(box)
+    print(f"[parity] stencil_assembly stiffness {box.shape}: {e:.2e} of max|band| "
+          f"(tol {tol:.2e})", flush=True)
+    _check(e <= tol, "stencil assembly, stiffness")
+    (Mk, rk), (Mp, rp) = (f(box, c3, mask_p, pg_p, 1e12, 1.0) for f in
+                          (sa.assemble_system, sa.assemble_system_plain))
+    torch.cuda.synchronize()
+    free = torch.as_tensor(~mask, device=dev)
+    eb = max(float((Mk.unpad_vec(Mk.bands_p[:, d]) - Mp.unpad_vec(Mp.bands_p[:, d]))[free]
+                   .abs().max()) for d in range(15)) / float(Ap.bands.abs().max())
+    er = float((Mk.unpad_vec(rk) - Mp.unpad_vec(rp))[free].abs().max()
+               / Mp.unpad_vec(rp)[free].abs().max())
+    print(f"[parity] stencil_assembly fused with BC {box.shape}: bands {eb:.2e}, "
+          f"rhs {er:.2e} on free rows (tol {tol:.2e}); Dirichlet rows equal: "
+          f"{torch.equal(Mk.bands_p[:, ds.D0][mask_p > 0], Mp.bands_p[:, ds.D0][mask_p > 0])}",
+          flush=True)
+    _check(eb <= tol and er <= tol, "stencil assembly, fused")
+    _check(torch.equal(rk[mask_p > 0], rp[mask_p > 0]), "fused BC rhs rows")
+    _check(bool((rk[~real] == 0).all()) and bool((Mk.bands_p.movedim(1, 0)[:, ~real] == 0).all()),
+           "fused assembly pads")
+
+
+def _asm_tol(box) -> float:
+    """K4's tolerance against its plain twin, relative to the largest band
+    entry: 4·eps32·n for n hexes along the finest axis.  A float32
+    coordinate difference of size h = 1/n carries a relative rounding of
+    eps32·n, and the kernel and its twin take the differences in different
+    orders (1.1e-4 at n = 224)."""
+    return 4 * 1.1920929e-07 * max(box.nx, box.ny, box.nz)
+
+
+def _profile(fn, path: str, wall_s: float, top: int = 12) -> None:
+    """Device time by kernel of one call of fn, from torch.profiler: the
+    sum over kernel events, and its share of ``wall_s`` (one unprofiled
+    call); the operator table goes to ``path``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=60))
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t = by_name.setdefault(e.name, [0.0, 0])
+            t[0] += e.device_time_total
+            t[1] += 1
+    total = max(sum(t for t, _ in by_name.values()), 1e-9)
+    print(f"[profile] kernel time of one solve {total / 1e3:.3f} ms in "
+          f"{sum(n for _, n in by_name.values())} launches; unprofiled wall "
+          f"{wall_s * 1e3:.3f} ms, busy share {total / 1e6 / wall_s:.3f} "
+          f"(table: {path})", flush=True)
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"[profile] {t / 1e3:9.3f} ms {t / total:6.1%} {n:5d}x {name[:100]}",
+              flush=True)
+    groups = {"stencil_assembly": "stencil_assembly_kernel",
+              "dia_stencil spmv": "dia_stencil_kernel<0,",
+              "dia_stencil jacobi": "dia_stencil_kernel<1,",
+              "dia_stencil residual (bf16)": "dia_stencil_kernel<2, __nv_bfloat16",
+              "dia_stencil residual (f64 replacement)": "dia_stencil_kernel<2, float, double",
+              "cat/stack copies": "CatArrayBatchedCopy", "reductions": "reduce_kernel"}
+    sums = {g: [0.0, 0] for g in (*groups, "other (elementwise, copies, fills)")}
+    for name, (t, n) in by_name.items():
+        g = next((g for g, key in groups.items() if key in name),
+                 "other (elementwise, copies, fills)")
+        sums[g][0] += t
+        sums[g][1] += n
+    for g, (t, n) in sums.items():
+        print(f"[profile] group {g}: {t / 1e3:.3f} ms {t / total:.1%} {n}x", flush=True)
+
+
+def structured_phases(dev, gen) -> list[dict]:
+    """Phases 6-8; returns the records of K4-K8."""
+    import torch
+
+    from arcanefem_tpu_torch.bench_structured import (
+        PENALTY, bench_line, box_system, solve_jacobi, solve_mg, solve_mg_flat,
+        true_residual)
+    from arcanefem_tpu_torch.mesh import stencil_assembly as sa
+    from arcanefem_tpu_torch.sparse import dia_stencil as ds
+    from arcanefem_tpu_torch.utils.timing import time_op
+
+    _structured_parity(dev, gen)
+
+    # 7. the structured path at 224^3
+    t0 = time.perf_counter()
+    s = box_system(BOX_N, dev)
+    print(f"[box] host set-up (coordinates, mask planes) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ds.reset_launch_counts()
+    sa.reset_launch_counts()
+    res = solve_mg(s)
+    torch.cuda.synchronize()
+    counts = {**sa.launch_counts(), **ds.launch_counts()}
+    line = bench_line(s, res, "mg")
+    iters = res["iterations"]
+    line["launches"] = counts
+    print(f"[box] {json.dumps(line)}", flush=True)
+    print(f"[box] launches per CG iteration: "
+          + ", ".join(f"{k} {v / iters:.2f}" for k, v in counts.items()), flush=True)
+    _check(res["rel"] <= 1e-8, f"box monitored residual {res['rel']:.3e}")
+    _check(line["true_residual"] <= 1e-4, f"box true residual {line['true_residual']:.3e}")
+    _check(bool(torch.isfinite(res["x"]).all()), "box: non-finite solution")
+    if BOX_N == 224:
+        _check(abs(iters - 13) <= 1, f"box iterations {iters}, JAX 13 (BENCH_r05)")
+    for k in ("stencil_assembly", "dia_spmv_p", "dia_jacobi_p", "dia_residual_p"):
+        _check(counts[k] > 0, f"kernel {k} never ran on the structured path")
+    r0 = solve_mg(s, replace_every=0)
+    print(f"[box] without residual replacement: {r0['iterations']} iterations, "
+          f"rel {r0['rel']:.3e}, true residual {true_residual(s, r0):.3e}", flush=True)
+    del r0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve_mg(s)
+    torch.cuda.synchronize()
+    _profile(lambda: solve_mg(s), os.path.join("build", "profile", "structured.txt"),
+             time.perf_counter() - t0)
+
+    variants = {}
+    for name, solve in (("jacobi", solve_jacobi), ("mg_flat", solve_mg_flat)):
+        ds.reset_launch_counts()
+        sa.reset_launch_counts()
+        r = solve(s)
+        torch.cuda.synchronize()
+        variants[name] = {**sa.launch_counts(), **ds.launch_counts()}
+        vline = bench_line(s, r, name)  # raises on a failed residual check
+        print(f"[box] {json.dumps({**vline, 'launches': variants[name]})}", flush=True)
+        S = r["A"]
+        del r
+    jcounts, fcounts = variants["jacobi"], variants["mg_flat"]
+    _check(jcounts["dia_spmv"] > 0, "K8a never ran on the Jacobi path")
+    _check(fcounts["dia_spmv"] > 0 and fcounts["dia_sweep"] > 0,
+           "K8a or K8b never ran on the flat MG path")
+
+    # each kernel at the path's shapes
+    box, N = s.box, s.box.n_nodes
+    A, M = res["A"], res["M"]
+    A1 = M.mats[0]  # the fine level in bf16
+    mm, invd = M.maskmul_p[0], M.inv_diags_p[0]
+    invd_bm = ds._inv_nonzero(S.bands_p[ds.D0])  # band-major fine level
+    real = A.pad_vec(torch.ones(N, device=dev)) > 0
+
+    def vec():
+        return torch.where(real, torch.rand(real.shape, generator=gen, device=dev), 0.0)
+
+    xr, br = vec(), vec()
+    bands_dia = A.bands_p.movedim(1, 0)[:, :, 1 : box.ny + 2, 1 : box.nz + 2].reshape(15, -1)
+    rows = torch.arange(N, device=dev)
+    offs = torch.tensor(box.offsets, device=dev)
+    cols = rows[None, :] + offs[:, None]
+    keep = (cols >= 0) & (cols < N) & (bands_dia != 0)
+    order = torch.argsort(rows.expand(15, N)[keep], stable=True)
+    csr_rows = rows.expand(15, N)[keep][order]
+    csr = torch.sparse_csr_tensor(
+        torch.searchsorted(csr_rows, torch.arange(N + 1, device=dev)),
+        cols[keep][order], bands_dia[keep][order], size=(N, N))
+    del cols, keep, order, csr_rows, rows
+    xflat = A.unpad_vec(xr)
+    y_csr = csr @ xflat
+    print(f"[kernel] CSR library SpMV of the {box.shape} operator vs K5: max_abs_err "
+          f"{float((y_csr - A.unpad_vec(A.spmv(xr))).abs().max()):.3e}", flush=True)
+    del y_csr
+
+    def stencil(mode, bands, band_major, **extra):
+        """(kernel, plain twin, error check) of one stencil-kernel call on
+        xr.  The check holds it to 1e-5 of the magnitude its sums run over,
+        per node: s = sum |band x| + |b|, and then s for spmv, |x| +
+        omega |aux| s for jacobi, |aux| s for residual."""
+        geo = dict(band_major=band_major, ny=box.ny, nz=box.nz)
+        kw = {**geo, **extra}
+        sums = ds.dia_stencil_plain("spmv", bands.abs(), xr.abs(), **geo)
+        if mode == "jacobi":
+            scale = xr.abs() + extra["omega"] * extra["aux"].abs() * (sums + extra["b"].abs())
+        elif mode == "residual":
+            scale = extra["aux"].abs() * (sums + extra["b"].abs())
+        else:
+            scale = sums
+
+        def check(y, yp):
+            e = _rel_err(y, yp, scale)
+            _check(e <= 1e-5 and bool((y[~real] == 0).all()),
+                   f"dia_stencil {mode} at {box.shape}: {e:.2e} of the sums' "
+                   "magnitude, or a non-zero pad")
+            return e
+        return (lambda x: ds.dia_stencil(mode, bands, x, **kw),
+                lambda x: ds.dia_stencil_plain(mode, bands, x, **kw), check)
+
+    free = torch.as_tensor(~s.mask, device=dev)
+    dir_p = s.mask_p > 0
+
+    def check_assembly(out, want):
+        """Fused K4 at the path's shape: bands and rhs on free rows to
+        _asm_tol of their largest free-row value, Dirichlet rows equal and
+        pads zero."""
+        (Mk, rk), (Mp, rp) = out, want
+        tol = _asm_tol(box)
+        bk = torch.stack([Mk.unpad_vec(Mk.bands_p[:, d])[free] for d in range(15)])
+        bp = torch.stack([Mp.unpad_vec(Mp.bands_p[:, d])[free] for d in range(15)])
+        eb = float((bk - bp).abs().max() / bp.abs().max())
+        fr = Mp.unpad_vec(rp)[free]
+        er = float((Mk.unpad_vec(rk)[free] - fr).abs().max() / fr.abs().max())
+        print(f"[kernel] stencil_assembly at {box.shape}: bands {eb:.2e}, rhs "
+              f"{er:.2e} on free rows (tol {tol:.2e})", flush=True)
+        _check(eb <= tol and er <= tol, f"stencil assembly at {box.shape}")
+        _check(torch.equal(Mk.bands_p[:, ds.D0][dir_p], Mp.bands_p[:, ds.D0][dir_p])
+               and torch.equal(rk[dir_p], rp[dir_p]), "fused BC rows at the path's shape")
+        _check(bool((rk[~real] == 0).all())
+               and bool((Mk.bands_p.movedim(1, 0)[:, ~real] == 0).all()),
+               "fused assembly pads at the path's shape")
+        return max(eb, er)
+
+    n_tets = box.n_cells
+    asm_args = (box, s.coords3d, s.mask_p, s.pg_p, PENALTY, 1.0)
+    cases = [
+        ("stencil_assembly", "stencil_assembly.cu", "mesh/pallas_stencil.py:168",
+         (sa.assemble_system, sa.assemble_system_plain, check_assembly), asm_args,
+         None, _bound(84 * N, 220 * n_tets), counts["stencil_assembly"], "float32"),
+        ("dia_spmv_p", "dia_stencil.cu", "sparse/dia_pallas.py:307",
+         stencil("spmv", A.bands_p, False), (xr,), (torch.mv, (csr, xflat)),
+         _bound(68 * N, 30 * N), counts["dia_spmv_p"], "float32"),
+        ("dia_jacobi_p", "dia_stencil.cu", "sparse/dia_pallas.py:330",
+         stencil("jacobi", A1.bands_p, False, b=br, aux=invd, omega=0.8), (xr,),
+         None, _bound(46 * N, 33 * N), counts["dia_jacobi_p"], "bfloat16 bands"),
+        ("dia_residual_p", "dia_stencil.cu", "sparse/dia_pallas.py:354",
+         stencil("residual", A1.bands_p, False, b=br, aux=mm), (xr,), None,
+         _bound(46 * N, 32 * N), counts["dia_residual_p"], "bfloat16 bands"),
+        ("dia_spmv", "dia_stencil.cu", "sparse/dia_pallas.py:69",
+         stencil("spmv", S.bands_p, True), (xr,), (torch.mv, (csr, xflat)),
+         _bound(68 * N, 30 * N), jcounts["dia_spmv"], "float32"),
+        ("dia_sweep", "dia_stencil.cu", "sparse/dia_pallas.py:109",
+         stencil("jacobi", S.bands_p, True, b=br, aux=invd_bm, omega=0.8), (xr,),
+         None, _bound(76 * N, 33 * N), fcounts["dia_sweep"], "float32"),
+    ]
+    records = []
+    for name, src, rep, (fk, fp, check), args, lib, (bms, bby), launches, dt in cases:
+        yk, yp = fk(*args), fp(*args)
+        torch.cuda.synchronize()
+        rel = check(yk, yp)
+        pairs = ([(yk[0].bands_p, yp[0].bands_p), (yk[1], yp[1])]
+                 if isinstance(yk, tuple) else [(yk, yp)])
+        err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+        del yk, yp, pairs
+        ms = time_op(fk, *args, reps=20, outer=3) * 1e3
+        pms = time_op(fp, *args, reps=3, outer=2) * 1e3
+        lms = time_op(lib[0], *lib[1], reps=20, outer=3) * 1e3 if lib else None
+        records.append({
+            "name": name, "route": "cuda", "source": f"arcanefem_tpu_torch/csrc/{src}",
+            "replaces": f"arcanefem_tpu/{rep}", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": bby, "library_ms": lms, "shape": [box.nx + 1] * 3, "dtype": dt})
+        print(f"[kernel] {name} {box.shape}: {ms:.4f} ms (bound {bms:.4f} ms, {bby}), "
+              f"plain {pms:.3f} ms, library "
+              f"{'n/a' if lms is None else f'{lms:.4f} ms'}, max_abs_err {err:.3e}, "
+              f"held to its tolerance: {rel:.2e}", flush=True)
+    del csr, S, res, A, M, A1, s
+    torch.cuda.empty_cache()
+
+    # 8. kernel path against the plain path and float64 on the CPU at 64^3
+    systems = {"kernel": box_system(CHECK_N, dev),
+               "plain_cpu_f32": box_system(CHECK_N, "cpu"),
+               "cpu_f64": box_system(CHECK_N, "cpu", torch.float64)}
+    out = {k: solve_mg(v) for k, v in systems.items()}
+    xk = out["kernel"]["x"].double().cpu()
+    for name, r in out.items():
+        diff = float((xk - r["x"].double().cpu()).abs().max() / r["x"].double().abs().max().cpu())
+        print(f"[box{CHECK_N}] {name}: {r['iterations']} iterations, rel {r['rel']:.2e}, "
+              f"true residual {true_residual(systems[name], r):.2e}, max diff from "
+              f"the kernel path {diff:.2e}", flush=True)
+        _check(abs(r["iterations"] - out["kernel"]["iterations"]) <= 1,
+               f"{CHECK_N}^3 iterations, {name}")
+        _check(diff <= 1e-4, f"{CHECK_N}^3 solution, {name}")
+    return records
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""The CUDA kernels (arcanefem_tpu_torch/csrc/ell_gather.cu) against their
-plain twins.  This file imports no jax, so on the card's machine, which has
+"""The CUDA kernels (arcanefem_tpu_torch/csrc/*.cu) against their plain
+twins.  This file imports no jax, so on the card's machine, which has
 none, it runs without the tests' conftest:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
@@ -14,6 +14,16 @@ from arcanefem_tpu_torch.bench_unstructured import (
     solve_sphere_cut,
     sphere_cut_system,
 )
+from arcanefem_tpu_torch.bench_structured import (
+    box_system,
+    solve_jacobi,
+    solve_mg,
+    solve_mg_flat,
+    true_residual,
+)
+from arcanefem_tpu_torch.mesh import stencil_assembly as sa
+from arcanefem_tpu_torch.mesh.structured import StructuredBox
+from arcanefem_tpu_torch.sparse import dia_stencil as ds
 from arcanefem_tpu_torch.sparse.bell import BellMatrix
 from arcanefem_tpu_torch.sparse.ell_gather import (
     ell_gather_sum,
@@ -107,3 +117,100 @@ def test_slice_on_cuda_matches_plain_and_cpu(cuda):
         xo = other["x"].cpu()
         assert float((xk - xo).abs().max()) <= 1e-4 * float(xo.abs().max())
     assert k["rel"] <= 1e-8 and k["true_residual"] <= 1e-4
+
+
+def _padded(box, gen, dtype, nan_pads=False):
+    """A random (nx+1, ny', nz') plane vector, zero (or NaN) on the pads."""
+    nyp, nzp = ds._pads(box)
+    x = torch.rand((box.nx + 1, nyp, nzp), generator=gen, dtype=torch.float64) * 2 - 1
+    pad = torch.ones_like(x, dtype=torch.bool)
+    pad[:, 1 : box.ny + 2, 1 : box.nz + 2] = False
+    x[pad] = float("nan") if nan_pads else 0.0
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("band_dtype,dtype,rtol", [
+    (torch.float32, torch.float32, 1e-5), (torch.bfloat16, torch.float32, 1e-5),
+    (torch.float32, torch.float64, 1e-12), (torch.float64, torch.float64, 1e-12)])
+@pytest.mark.parametrize("band_major", [False, True])
+def test_dia_stencil_matches_plain_on_cuda(cuda, band_dtype, dtype, rtol, band_major):
+    """Every mode of the stencil kernel == its plain twin, error against
+    sum |band·x| (+|b|); pads exactly 0; NaN in the vectors' pads ignored."""
+    box = StructuredBox(20, 13, 130)
+    gen = torch.Generator().manual_seed(1)
+    nyp, nzp = ds._pads(box)
+    shape = (15, box.nx + 1, nyp, nzp) if band_major else (box.nx + 1, 15, nyp, nzp)
+    bands = (torch.rand(shape, generator=gen, dtype=torch.float64) * 2 - 1).to(band_dtype)
+    x, b, aux = (_padded(box, gen, dtype) for _ in range(3))
+    bands, x, b, aux = (t.to(cuda) for t in (bands, x, b, aux))
+    kw = dict(band_major=band_major, ny=box.ny, nz=box.nz)
+    ds.reset_launch_counts()
+    for mode, extra in (("spmv", {}), ("jacobi", dict(b=b, aux=aux, omega=0.8)),
+                        ("residual", dict(b=b, aux=aux)), ("residual", dict(b=b))):
+        y = ds.dia_stencil(mode, bands, x, **kw, **extra)
+        torch.cuda.synchronize()
+        want = ds.dia_stencil_plain(mode, bands, x, **kw, **extra)
+        scale = ds.dia_stencil_plain("spmv", bands.abs(), x.abs(), **kw) + b.abs() + x.abs()
+        assert bool(((y - want).abs() <= rtol * scale).all()), mode
+        real = torch.zeros_like(y, dtype=torch.bool)
+        real[:, 1 : box.ny + 2, 1 : box.nz + 2] = True
+        assert bool((y[~real] == 0).all()), mode
+    xn = _padded(box, torch.Generator().manual_seed(1), dtype, nan_pads=True).to(cuda)
+    xn[:, 1 : box.ny + 2, 1 : box.nz + 2] = x[:, 1 : box.ny + 2, 1 : box.nz + 2]
+    assert torch.equal(ds.dia_stencil("spmv", bands, xn, **kw),
+                       ds.dia_stencil("spmv", bands, x, **kw))
+    counts = ds.launch_counts()
+    assert sum(counts.values()) == 6
+    assert counts["dia_spmv" if band_major else "dia_spmv_p"] == 3
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("dims", [(6, 5, 4), (17, 9, 130)])
+def test_stencil_assembly_matches_plain_on_cuda(cuda, dtype, rtol, dims):
+    """Stiffness-only and fused assembly == their plain twins to rtol of the
+    largest band entry; the fused form's pads exactly 0."""
+    box = StructuredBox(*dims)
+    c3 = torch.as_tensor(box.grid_coords(np.float64, jitter=0.1)).to(dtype)
+    mask = box.boundary_mask(("xmin", "xmax"))
+    g = np.where(box.boundary_mask(("xmax",)), 1.0, 0.0)
+    mask_p = torch.as_tensor(ds.pad_host_vec(box, mask, np.float64)).to(dtype)
+    pg_p = torch.as_tensor(ds.pad_host_vec(box, 1e12 * g * mask, np.float64)).to(dtype)
+    sa.reset_launch_counts()
+    A = sa.assemble_stiffness_kernel(box, c3.to(cuda))
+    Ap_ = sa.assemble_stiffness_plain(box, c3)
+    scale = float(Ap_.bands.abs().max())
+    assert float((A.bands.cpu() - Ap_.bands).abs().max()) <= rtol * scale
+    Ak, rk = sa.assemble_system(box, c3.to(cuda), mask_p.to(cuda), pg_p.to(cuda), 1e12, 1.0)
+    Ap, rp = sa.assemble_system_plain(box, c3, mask_p, pg_p, 1e12, 1.0)
+    torch.cuda.synchronize()
+    bk, bp = Ak.bands_p.cpu(), Ap.bands_p
+    assert float((bk - bp).abs().max()) <= rtol * 1e12
+    free = ~torch.as_tensor(mask)
+    for d in range(15):
+        got, want = Ak.unpad_vec(bk[:, d]), Ap.unpad_vec(bp[:, d])
+        assert float((got - want)[free].abs().max()) <= rtol * scale
+    assert float((rk.cpu() - rp).abs().max()) <= rtol * 1e12
+    assert float((Ak.unpad_vec(rk.cpu()) - Ap.unpad_vec(rp))[free].abs().max()) \
+        <= rtol * float(rp.abs().max() / 1e12 + Ap.unpad_vec(rp)[free].abs().max())
+    real = torch.zeros_like(rk, dtype=torch.bool)
+    real[:, 1 : box.ny + 2, 1 : box.nz + 2] = True
+    assert bool((rk[~real] == 0).all())
+    assert bool((Ak.bands_p.movedim(1, 0)[:, ~real] == 0).all())
+    assert sa.launch_counts() == {"stencil_assembly": 2}
+
+
+def test_structured_slice_on_cuda_matches_cpu(cuda):
+    """The 16^3 box in f32 through the kernels == the f64 CPU solve: MG,
+    flat MG and Jacobi iterations within 1, solutions within 1e-4 of
+    max|x|; every stencil kernel count moves."""
+    ds.reset_launch_counts()
+    sa.reset_launch_counts()
+    sk, sc = box_system(16, cuda), box_system(16, "cpu", torch.float64)
+    for solve in (solve_mg, solve_mg_flat, solve_jacobi):
+        k, c = solve(sk), solve(sc)
+        assert abs(k["iterations"] - c["iterations"]) <= 1
+        xk, xc = k["x"].cpu(), c["x"]
+        assert float((xk - xc).abs().max()) <= 1e-4 * float(xc.abs().max())
+        assert k["rel"] <= 1e-8 and true_residual(sk, k) <= 1e-4
+    assert all(v > 0 for v in ds.launch_counts().values())
+    assert sa.launch_counts()["stencil_assembly"] > 0
