@@ -8,7 +8,10 @@ mesh, reverse Cuthill-McKee then supernode-brick node order, BELL
 assembly, penalty Dirichlet (Cut = 0, sphere = 1), and CG with compensated
 dots preconditioned by a smoothed-aggregation AMG V-cycle (theta 0.03,
 degree-2 Chebyshev smoother) to rtol 1e-8.  It prints one JSON line with
-``bench.py``'s field names.  ``--h 6 --refine 3`` is the 8.9M-DoF
+``bench.py``'s field names.  The flags ``--spmv supernode``, ``--sn-block``,
+``--sn-bf16``, ``--vcycle-bf16``, ``--asm-coords``, ``--smoother``,
+``--cheb-deg`` and ``--cycle`` select the routes of ``bench.py``'s knobs
+(see :func:`solve_sphere_cut`).  ``--h 6 --refine 3`` is the 8.9M-DoF
 north-star size, whose host set-up on a cold cache takes tens of minutes.
 
 The mesh and topology are cached as host numpy under
@@ -31,11 +34,12 @@ import torch
 from .mesh.core import Mesh
 from .mesh.unstructured import refine_tetra, sphere_cut_tetra_mesh
 from .ops.lane_assembly import TetraAssembler
-from .solver.amg import amg_from_numpy
+from .solver.amg import amg_from_numpy, with_bf16_vcycle, with_supernode_smoother
 from .solver.amg_setup import amg_setup
 from .solver.iterative import pcg
 from .sparse.bell import BellMatrix
 from .sparse.ordering import supernode_order
+from .sparse.supernode import SupernodeMatrix, SupernodeSpmv
 from .sparse.topology import Topology, build_topology
 from .utils.cache import CACHE_DIR
 from .utils.ordering import rcm_order, renumber_mesh
@@ -149,52 +153,156 @@ def true_residual(A: BellMatrix, b: torch.Tensor, x: torch.Tensor,
                  / torch.linalg.vector_norm(b.double()[interior]))
 
 
+SPMV_PATHS = ("ell", "supernode")
+ASM_COORDS = ("split", "batched")
+
+
+def _check_options(spmv, sn_bf16, asm_coords, smoother, cycle) -> None:
+    if spmv not in SPMV_PATHS:
+        raise ValueError(f"spmv must be one of {SPMV_PATHS}, got {spmv!r}")
+    if sn_bf16 and spmv != "supernode":
+        raise ValueError("sn_bf16 casts the supernode fine level: it needs "
+                         "spmv='supernode'")
+    if asm_coords not in ASM_COORDS:
+        raise ValueError(f"asm_coords must be one of {ASM_COORDS}, got "
+                         f"{asm_coords!r}")
+    if smoother not in ("chebyshev", "jacobi"):
+        raise ValueError(f"unknown smoother {smoother!r}")
+    if cycle not in ("V", "W"):
+        raise ValueError(f"unknown cycle {cycle!r}")
+
+
+def supernode_self_check(sn: SupernodeSpmv, A: BellMatrix) -> float:
+    """max over rows of |sn(x) − A x| / Σ_w |a·x| for a unit-scale random x
+    (RandomState(0)).  A unit-scale x keeps the 1e12 penalty rows from
+    hiding interior rows; the row scale holds each row to its own
+    cancellation."""
+    x = torch.as_tensor(np.random.RandomState(0).rand(A.n_nodes),
+                        device=A.values.device).to(A.values.dtype)
+    want = A.spmv(x).double()
+    scale = BellMatrix(A.values.abs(), A.cols, plain=A.plain).spmv(x).double()
+    err = (sn(x).double() - want).abs() / scale.clamp(
+        min=torch.finfo(torch.float64).tiny)
+    return float(err.max())
+
+
 def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
-                     penalty: float, plain: bool = False,
-                     timed: bool = False) -> dict:
+                     penalty: float, plain: bool = False, timed: bool = False,
+                     spmv: str = "ell", sn_block: bool = False,
+                     sn_bf16: bool = False, vcycle_bf16: bool = False,
+                     asm_coords: str = "split", smoother: str = "chebyshev",
+                     cheb_deg: int | tuple = CHEB_DEG, cycle: str = "V",
+                     system: dict | None = None) -> dict:
     """Assemble, set up AMG and solve on ``device``.
 
-    Returns the operator ``A``, the solution ``x`` (device tensor),
-    ``iterations``, the monitored ``rel`` residual, the float64
-    ``true_residual``, the AMG ``levels`` and, with
+    Returns the operator ``A`` (the BellMatrix), the solution ``x`` (device
+    tensor), ``iterations``, the monitored ``rel`` residual, the float64
+    ``true_residual``, the AMG ``levels``, ``spmv_path`` and, with
     ``timed``, ``assembly_s`` and ``solve_s`` (CUDA events) and
     ``amg_setup_s`` (host).  ``plain=True`` runs every kernel's plain twin
-    instead of the kernel."""
-    n, W = topo.n_nodes, topo.width
-    asm = TetraAssembler(topo, mesh.cells["tetra4"], device=device,
-                         plain=plain)
-    coords = torch.as_tensor(mesh.coords, device=device).to(torch.float32)
-    vals = asm(coords)
-    out = {}
-    if timed:
-        out["assembly_s"] = time_op(asm, coords, reps=3, outer=2)
-    del asm  # its slot map (16 int32 per cell) is dead once values exist
+    instead of the kernel.
 
-    mask, g, rhs = dirichlet_data(mesh, penalty)
-    # penalty rows on a host copy in the solve's dtype, so the matrix and
-    # the rhs carry the same penalty value; the AMG set-up reads this copy
-    flat = vals.cpu().numpy().reshape(-1).astype(_NP_DTYPE[dtype])
-    del vals
-    flat[np.asarray(topo.diag_slot)[mask]] = penalty
-    A = BellMatrix.from_numpy(flat.reshape(n, W), topo.ell_cols,
-                              topo.diag_slot, device=device, dtype=dtype,
-                              plain=plain)
-    t0 = time.perf_counter()
-    hier = amg_setup(flat, topo, theta=THETA, smoother="chebyshev",
-                     cheb_deg=CHEB_DEG, dtype=_NP_DTYPE[dtype])
-    M = amg_from_numpy(hier, device, dtype, plain=plain)
-    out["amg_setup_s"] = time.perf_counter() - t0
+    The options are ``bench.py``'s knobs of the same names: ``spmv`` the
+    CG operator and AMG fine level ("ell", or "supernode" for 8x8
+    supernode blocks, ``BENCH_UNSTR_SPMV``); ``sn_block`` supernode
+    block-Jacobi as the fine smoother (``BENCH_SN_BLOCK``; with the ELL
+    operator too); ``sn_bf16`` bfloat16 blocks on the V-cycle's supernode
+    fine level (``BENCH_SN_BF16``); ``vcycle_bf16`` bfloat16 weights on
+    the V-cycle's larger levels and transfers (``BENCH_UNSTR_BF16``);
+    ``asm_coords`` the assembly's coordinate gather (``AFEM_ASM_COORDS``);
+    ``smoother``, ``cheb_deg`` (an int or per-level tuple) and ``cycle``
+    (``BENCH_AMG_SMOOTHER``, ``BENCH_AMG_CHEB_DEG``, ``BENCH_AMG_CYCLE``).
+    Unlike ``bench.py`` nothing falls back: a failed supernode self-check
+    (:func:`supernode_self_check` above 1e-5) raises.
+
+    ``system``: the ``system`` entry of an earlier result on the same mesh,
+    device, dtype and ``plain``.  Its AMG hierarchy is reused instead of
+    set up again and, unless ``asm_coords`` differs from the one that
+    built it, its operator too (``amg_setup_s`` and ``assembly_s`` are
+    then those of the earlier run), and the supernode blocks of that
+    operator once built (``sn_setup_s`` then times the smoother alone)."""
+    _check_options(spmv, sn_bf16, asm_coords, smoother, cycle)
+    n, W = topo.n_nodes, topo.width
+    out = {}
+    if system is not None and (system["device"], system["dtype"], system["plain"]) \
+            != (torch.device(device), dtype, plain):
+        raise ValueError("system was built for another device, dtype or plain")
+    if system is None or asm_coords != system["asm_coords"]:
+        asm = TetraAssembler(topo, mesh.cells["tetra4"], device=device,
+                             plain=plain,
+                             coords_batched=asm_coords == "batched")
+        coords = torch.as_tensor(mesh.coords, device=device).to(torch.float32)
+        vals = asm(coords)
+        if timed:
+            out["assembly_s"] = time_op(asm, coords, reps=3, outer=2)
+        del asm  # its slot map (16 int32 per cell) is dead once values exist
+
+        mask, g, rhs = dirichlet_data(mesh, penalty)
+        # penalty rows on a host copy in the solve's dtype, so the matrix and
+        # the rhs carry the same penalty value; the AMG set-up reads this copy
+        flat = vals.cpu().numpy().reshape(-1).astype(_NP_DTYPE[dtype])
+        del vals
+        flat[np.asarray(topo.diag_slot)[mask]] = penalty
+        A = BellMatrix.from_numpy(flat.reshape(n, W), topo.ell_cols,
+                                  topo.diag_slot, device=device, dtype=dtype,
+                                  plain=plain)
+        b = torch.as_tensor(rhs, device=device).to(dtype)
+        x0 = torch.as_tensor(np.where(mask, g, 0.0), device=device).to(dtype)
+        interior = torch.as_tensor(~mask, device=device)
+    else:
+        A, b, x0, interior = (system[k] for k in ("A", "b", "x0", "interior"))
+        if "assembly_s" in system:
+            out["assembly_s"] = system["assembly_s"]
+    if system is None:
+        t0 = time.perf_counter()
+        hier = amg_setup(flat, topo, theta=THETA, smoother=smoother,
+                         cheb_deg=cheb_deg, dtype=_NP_DTYPE[dtype])
+        M0 = amg_from_numpy(hier, device, dtype, plain=plain)
+        out["amg_setup_s"] = time.perf_counter() - t0
+        system = {"device": torch.device(device), "dtype": dtype,
+                  "plain": plain, "asm_coords": asm_coords, "A": A, "b": b,
+                  "x0": x0, "interior": interior, "M": M0,
+                  "amg_setup_s": out["amg_setup_s"],
+                  **({"assembly_s": out["assembly_s"]} if timed else {})}
+    else:
+        out["amg_setup_s"] = system["amg_setup_s"]
+    M = system["M"].replace(smoother=smoother, cheb_deg=cheb_deg, cycle=cycle)
     out["levels"] = [m.n_nodes for m in M.mats] + [M.coarse_inv.shape[0]]
 
-    b = torch.as_tensor(rhs, device=device).to(dtype)
-    x0 = torch.as_tensor(np.where(mask, g, 0.0), device=device).to(dtype)
-    x, iters, rel = pcg(A, b, M, x0, RTOL, 0.0, 1000, use_precise_dot=True)
+    Aop = A
+    if spmv == "supernode" or sn_block:
+        t0 = time.perf_counter()
+        # built once per operator: a later run on the same system reuses it
+        sn = system.get("sn") if system["A"] is A else None
+        if sn is None:
+            sn = SupernodeSpmv.build(A, topo)
+            if system["A"] is A:
+                system["sn"] = sn
+        if spmv == "supernode":
+            out["sn_check"] = supernode_self_check(sn, A)
+            if not out["sn_check"] <= 1e-5:
+                raise RuntimeError(
+                    f"supernode SpMV self-check failed: {out['sn_check']:.3e} "
+                    "of the row scale > 1e-5")
+            Aop = SupernodeMatrix(sn, A.diagonal())
+            # the V-cycle's fine level too, optionally in bf16 blocks
+            vsn = sn.as_bf16() if sn_bf16 else sn
+            M = M.replace(mats=(SupernodeMatrix(vsn, A.diagonal()),) + M.mats[1:])
+        if sn_block:
+            M = with_supernode_smoother(M, A, sn)
+        out["sn_setup_s"] = time.perf_counter() - t0
+        out["sn_blocks"] = int(sn.blocks.shape[0])
+        out["sn_bytes"] = sn.nbytes
+    if vcycle_bf16:
+        M = with_bf16_vcycle(M)
+
+    x, iters, rel = pcg(Aop, b, M, x0, RTOL, 0.0, 1000, use_precise_dot=True)
     if timed:
         out["solve_s"] = time_op(
-            pcg, A, b, M, x0, RTOL, 0.0, 1000, True, reps=1, outer=2)
-    interior = torch.as_tensor(~mask, device=device)
+            pcg, Aop, b, M, x0, RTOL, 0.0, 1000, True, reps=1, outer=2)
     out.update(A=A, x=x, iterations=iters, rel=rel,
-               true_residual=true_residual(A, b, x, interior))
+               true_residual=true_residual(A, b, x, interior),
+               spmv_path=type(Aop).__name__, system=system)
     return out
 
 
@@ -206,9 +314,22 @@ def gpu_name_and_power() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def bench_unstructured(h: float = 6, refine: int = 3) -> dict:
+def check_solution(res: dict) -> None:
+    """Raise unless the solve converged to RTOL with a true interior
+    residual <= 1e-4 and a finite solution."""
+    if not res["rel"] <= RTOL:
+        raise RuntimeError(f"AMG-PCG did not converge: rel {res['rel']:.3e}")
+    if not res["true_residual"] <= 1e-4:
+        raise RuntimeError(
+            f"true interior residual {res['true_residual']:.3e} > 1e-4")
+    if not bool(torch.isfinite(res["x"]).all()):
+        raise RuntimeError("non-finite solution")
+
+
+def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
     """The main path at mesh size (h, refine) on one CUDA card, in f32
-    with penalty 1e12 as the JAX package runs it on its accelerator."""
+    with penalty 1e12 as the JAX package runs it on its accelerator;
+    ``options`` are :func:`solve_sphere_cut`'s route options."""
     if not torch.cuda.is_available():
         raise RuntimeError("bench_unstructured measures a CUDA card; none "
                            "is available")
@@ -217,18 +338,17 @@ def bench_unstructured(h: float = 6, refine: int = 3) -> dict:
     mesh, topo = sphere_cut_system(h, refine)
     host_s = time.perf_counter() - t0
     res = solve_sphere_cut(mesh, topo, device="cuda", dtype=torch.float32,
-                           penalty=1e12, timed=True)
-    if not res["rel"] <= RTOL:
-        raise RuntimeError(f"AMG-PCG did not converge: rel {res['rel']:.3e}")
-    if not res["true_residual"] <= 1e-4:
-        raise RuntimeError(
-            f"true interior residual {res['true_residual']:.3e} > 1e-4")
-    if not bool(torch.isfinite(res["x"]).all()):
-        raise RuntimeError("non-finite solution")
+                           penalty=1e12, timed=True, **options)
+    check_solution(res)
     n = topo.n_nodes
     iters = res["iterations"]
     asm_s, solve_s = res["assembly_s"], res["solve_s"]
     name, power = (s.strip() for s in gpu_name_and_power().split(",", 1))
+    opt = {"spmv": "ell", "sn_block": False, "sn_bf16": False,
+           "vcycle_bf16": False, "asm_coords": "split",
+           "smoother": "chebyshev", "cheb_deg": CHEB_DEG, "cycle": "V",
+           **options}
+    supernode = opt["spmv"] == "supernode"
     return {
         "metric": (f"poisson3d_sphere_cut_{n/1e6:.1f}MDoF_"
                    f"assembly+amgpcg_to_{RTOL:g}_s"),
@@ -246,19 +366,32 @@ def bench_unstructured(h: float = 6, refine: int = 3) -> dict:
         "amg_levels": res["levels"],
         "n_dofs": int(n),
         "nnz_stored": int(topo.nnz),
-        "spmv_path": "BellMatrix",
-        "spmv_kernel": "ell_spmv",
+        "spmv_path": res["spmv_path"],
+        "spmv_kernel": ("ell_gather_sum_batched" if supernode else "ell_spmv"),
+        "sn_block": opt["sn_block"],
+        "sn_bf16": opt["sn_bf16"],
+        "sn_blocks": res.get("sn_blocks"),
+        "sn_bytes": res.get("sn_bytes"),
+        "sn_setup_s": (round(res["sn_setup_s"], 1) if "sn_setup_s" in res
+                       else None),
         "amg_compact": False,
         "asm_mode": "segsum",
         "asm_compact": False,
-        "amg_smoother": "chebyshev",
-        "amg_cycle": "V",
-        "vcycle_bf16": False,
+        "asm_coords": opt["asm_coords"],
+        "amg_smoother": opt["smoother"],
+        "amg_cheb_deg": opt["cheb_deg"],
+        "amg_cycle": opt["cycle"],
+        "vcycle_bf16": opt["vcycle_bf16"],
         "platform": "cuda",
         "backend": "torch",
         "gpu": name,
         "power_limit": power,
     }
+
+
+def _cheb_deg(text: str) -> int | tuple:
+    """'2' -> 2, '2,4' -> (2, 4), as bench.py reads BENCH_AMG_CHEB_DEG."""
+    return tuple(int(d) for d in text.split(",")) if "," in text else int(text)
 
 
 def main(argv=None) -> None:
@@ -267,8 +400,31 @@ def main(argv=None) -> None:
                     help="Delaunay mesh size (6 with --refine 3: 8.9M DoF)")
     ap.add_argument("--refine", type=int, default=3,
                     help="uniform 1->8 refinements of the Delaunay mesh")
+    ap.add_argument("--spmv", choices=SPMV_PATHS, default="ell",
+                    help="CG operator and AMG fine level (BENCH_UNSTR_SPMV)")
+    ap.add_argument("--sn-block", action="store_true",
+                    help="supernode block-Jacobi fine smoother (BENCH_SN_BLOCK=1)")
+    ap.add_argument("--sn-bf16", action="store_true",
+                    help="bf16 supernode blocks on the V-cycle's fine level "
+                         "(BENCH_SN_BF16=1)")
+    ap.add_argument("--vcycle-bf16", action="store_true",
+                    help="bf16 V-cycle level and transfer weights "
+                         "(BENCH_UNSTR_BF16=1)")
+    ap.add_argument("--asm-coords", choices=ASM_COORDS, default="split",
+                    help="assembly coordinate gather (AFEM_ASM_COORDS)")
+    ap.add_argument("--smoother", choices=("chebyshev", "jacobi"),
+                    default="chebyshev", help="AMG smoother (BENCH_AMG_SMOOTHER)")
+    ap.add_argument("--cheb-deg", type=_cheb_deg, default=CHEB_DEG,
+                    help="Chebyshev degree, or a comma list per level "
+                         "(BENCH_AMG_CHEB_DEG)")
+    ap.add_argument("--cycle", choices=("V", "W"), default="V",
+                    help="AMG cycle (BENCH_AMG_CYCLE)")
     args = ap.parse_args(argv)
-    print(json.dumps(bench_unstructured(args.h, args.refine)), flush=True)
+    print(json.dumps(bench_unstructured(
+        args.h, args.refine, spmv=args.spmv, sn_block=args.sn_block,
+        sn_bf16=args.sn_bf16, vcycle_bf16=args.vcycle_bf16,
+        asm_coords=args.asm_coords, smoother=args.smoother,
+        cheb_deg=args.cheb_deg, cycle=args.cycle)), flush=True)
 
 
 if __name__ == "__main__":

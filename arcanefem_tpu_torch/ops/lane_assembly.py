@@ -7,11 +7,15 @@ element matrices come from the cofactors of the corner coordinates, and
 the 16 entries of each element matrix are scatter-added into the flat
 (N*W) slot space through the topology's slot map.
 
-The corner-coordinate fetch is the ELL gather kernel at W=1
-(``ell_gather_sum``, K2 on the card), in corner-major order: request
-i*nc + c is corner i of cell c, so corner i's coordinates are one
-contiguous slice.  The element arithmetic runs in float32 whatever the
-caller's dtype, as the JAX package does.
+The corner-coordinate fetch is the ELL gather kernel at W=1, in
+corner-major order: request i*nc + c is corner i of cell c, so corner i's
+coordinates are one contiguous slice.  By default it is three launches of
+``ell_gather_sum`` (K2 on the card), one per axis; with
+``coords_batched=True`` (the JAX package's ``AFEM_ASM_COORDS=batched``) it
+is one launch of ``ell_gather_sum_batched`` (K3a) that reads the (N, 3)
+coordinates in place.  Both fetch the same values, so both give the same
+corners.  The element arithmetic runs in float32 whatever the caller's
+dtype, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -20,7 +24,12 @@ import numpy as np
 import torch
 
 from ..sparse.bell import check_cols
-from ..sparse.ell_gather import ell_gather_sum, ell_gather_sum_plain
+from ..sparse.ell_gather import (
+    ell_gather_sum,
+    ell_gather_sum_batched,
+    ell_gather_sum_batched_plain,
+    ell_gather_sum_plain,
+)
 
 _PAIRS = [(i, j) for i in range(4) for j in range(4)]
 
@@ -30,19 +39,23 @@ class TetraAssembler:
 
     topo: ``sparse.topology.Topology`` of the mesh;
     conn: (nc, 4) tetra connectivity.  The corner columns and the
-    transposed slot map are copied to the device once.  ``plain=True``
-    fetches the coordinates with the kernel's plain twin instead.
+    transposed slot map are copied to the device once.  ``coords_batched``
+    fetches the three axes with one batched gather; ``plain=True`` fetches
+    the coordinates with the kernels' plain twins instead.
     """
 
     def __init__(self, topo, conn: np.ndarray, *, device: torch.device | str,
-                 plain: bool = False):
+                 plain: bool = False, coords_batched: bool = False):
         conn = np.asarray(conn)
         nc = conn.shape[0]
         check_cols(conn, topo.n_nodes, "TetraAssembler conn")
         self.n_cells = nc
         self.n_nodes = topo.n_nodes
         self.width = topo.width
+        self.coords_batched = coords_batched
         self._gather = ell_gather_sum_plain if plain else ell_gather_sum
+        self._gather_b = (ell_gather_sum_batched_plain if plain
+                          else ell_gather_sum_batched)
         # (4nc, 1): row i*nc + c fetches corner i of cell c
         self.corner_cols = torch.as_tensor(
             np.ascontiguousarray(conn.astype(np.int32).T).reshape(-1, 1),
@@ -54,14 +67,22 @@ class TetraAssembler:
             np.ascontiguousarray(sm.T.astype(np.int32)).reshape(-1),
             device=device)
 
+    def gather_corners(self, coords: torch.Tensor):
+        """Axis k of every corner, float32: entry i*nc + c of the k-th row is
+        corner i of cell c.  Three (4nc,) vectors, or one (3, 4nc) tensor
+        when the coordinates are batched."""
+        c32 = coords.to(torch.float32)
+        if self.coords_batched:
+            # (N, 3) read in place as (3, N) tables; the result axis-major
+            return self._gather_b(self.corner_cols, c32.T)
+        ct = c32.T.contiguous()  # (3, N)
+        return [self._gather(self.corner_cols, ct[k]) for k in range(3)]
+
     def __call__(self, coords: torch.Tensor) -> torch.Tensor:
         nc = self.n_cells
-        ct = coords.to(torch.float32).T.contiguous()  # (3, N)
-        corners = []
-        for k in range(3):
-            g = self._gather(self.corner_cols, ct[k])  # (4nc,)
-            corners.append([g[i * nc:(i + 1) * nc] for i in range(4)])
-        x, y, z = corners
+        g = self.gather_corners(coords)
+        x, y, z = ([g[k][i * nc:(i + 1) * nc] for i in range(4)]
+                   for k in range(3))
         # 6V = (p1-p0) . (p2-p0) x (p3-p0)
         ax, ay, az = x[1] - x[0], y[1] - y[0], z[1] - z[0]
         bx, by, bz = x[2] - x[0], y[2] - y[0], z[2] - z[0]
@@ -84,7 +105,7 @@ class TetraAssembler:
         # ke_ij = V (dx_i dx_j + dy_i dy_j + dz_i dz_j) / (6V)^2, V = |6V|/6
         scale = inv / 6.0
         vals = torch.zeros(self.n_nodes * self.width, dtype=torch.float32,
-                           device=ct.device)
+                           device=coords.device)
         # in place: one entry's (nc,) contribution at a time, so no (16, nc)
         # element-matrix stack is ever held
         for q, (i, j) in enumerate(_PAIRS):

@@ -1,7 +1,9 @@
-"""ELL gather-reduce: the one sparse kernel of the unstructured main path.
+"""ELL gather-reduce: the sparse kernel of the unstructured paths.
 
     ell_spmv(vals, cols, x)      y[r] = sum_w vals[r, w] * x[cols[r, w]]
     ell_gather_sum(cols, x)      y[r] = sum_w x[cols[r, w]]  (cols < 0 add 0)
+    ell_spmv_batched(vals, cols, T)      Y[b, r] = sum_w vals[r, w] * T[b, cols[r, w]]
+    ell_gather_sum_batched(cols, T)      Y[b, r] = sum_w T[b, cols[r, w]]
 
 ``vals`` and ``cols`` are (n, W) row-major; ``cols`` is int32.  At W=1
 ``ell_gather_sum`` is the plain gather y[e] = x[cols[e]] (the assembly
@@ -9,19 +11,31 @@ coordinate fetch).  Padding of a BellMatrix row keeps its own row as the
 column with value 0; padding of an AMG transfer row has column 0 and value
 0; padding of a unit-weight gather has a negative column.
 
-Inputs and outputs are float32 or float64; every row sum accumulates in
-float64 (in the kernels and in the twins alike), which keeps the
-cancellation error of Poisson rows out of the float32 CG recurrence.
+The batched forms apply one index array (and weights) to B <= 8 tables
+at once: ``T`` is (B, n_t) and the result (B, n).  Both may have any
+strides, so an (n_t, B) row-major array is passed as its transpose
+``a.T`` and read in place; the result is a new contiguous (B, n) tensor,
+or is written into a given ``out`` of any strides (``torch.empty((n, B)).T``
+for an (n, B) row-major result).  They are the counterparts of
+``PlannedGather.call_batched`` (K3a unit, K3b weighted).
+
+Inputs and outputs are float32 or float64, and ``ell_spmv`` also takes
+bfloat16 ``vals`` beside a float32 ``x`` (the bf16 V-cycle levels); every
+row sum accumulates in float64 (in the kernels and in the twins alike),
+which keeps the cancellation error of Poisson rows out of the float32 CG
+recurrence.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/ell_gather.cu``, which replaces the Pallas window kernels of
 ``arcanefem_tpu/sparse/pallas_spmv.py``) or raises; on a CPU tensor it runs
 the plain PyTorch twin below, which is also the kernel's test oracle.
-Each wrapper counts its kernel launches in ``.launches``.
+``launch_counts()`` counts the kernel launches by wrapper, bf16-weight
+``ell_spmv`` launches apart as ``ell_spmv_bf16``.
 
 The wrappers check device, dtype, shape and contiguity, not the range of
 ``cols``: the constructors that build the column arrays on the host
-(``BellMatrix.from_numpy``, ``amg_from_numpy``) check that once.
+(``BellMatrix.from_numpy``, ``amg_from_numpy``, ``SupernodeSpmv``) check
+that once.
 """
 
 from __future__ import annotations
@@ -31,6 +45,19 @@ import torch
 from ..utils import kernels
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+MAX_TABLES = 8
+
+_LAUNCHES = {"ell_spmv": 0, "ell_spmv_bf16": 0, "ell_gather_sum": 0,
+             "ell_spmv_batched": 0, "ell_gather_sum_batched": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_LAUNCHES)
 
 
 def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor,
@@ -45,13 +72,30 @@ def ell_gather_sum_plain(cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(cols >= 0, g, 0.0).sum(dim=1).to(x.dtype)
 
 
+def ell_spmv_batched_plain(vals: torch.Tensor, cols: torch.Tensor,
+                           tables: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`ell_spmv_batched`, (B, n) contiguous."""
+    return (vals.double() * tables[:, cols].double()).sum(dim=2).to(tables.dtype)
+
+
+def ell_gather_sum_batched_plain(cols: torch.Tensor,
+                                 tables: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`ell_gather_sum_batched`, (B, n) contiguous."""
+    g = tables[:, cols.clamp(min=0)].double()
+    return torch.where(cols >= 0, g, 0.0).sum(dim=2).to(tables.dtype)
+
+
 def _check(name: str, cols: torch.Tensor, x: torch.Tensor,
-           vals: torch.Tensor | None = None) -> None:
+           vals: torch.Tensor | None = None, batched: bool = False) -> None:
     if cols.dim() != 2:
         raise ValueError(f"{name}: cols must be (n, W), got {tuple(cols.shape)}")
     if cols.dtype != torch.int32:
         raise TypeError(f"{name}: cols must be int32, got {cols.dtype}")
-    if x.dim() != 1:
+    if batched:
+        if x.dim() != 2 or not 1 <= x.shape[0] <= MAX_TABLES:
+            raise ValueError(f"{name}: tables must be (B, n) with 1 <= B <= "
+                             f"{MAX_TABLES}, got {tuple(x.shape)}")
+    elif x.dim() != 1:
         raise ValueError(f"{name}: x must be 1-D, got {tuple(x.shape)}")
     if x.dtype not in _SUFFIX:
         raise TypeError(f"{name}: x must be float32 or float64, got {x.dtype}")
@@ -60,60 +104,114 @@ def _check(name: str, cols: torch.Tensor, x: torch.Tensor,
         if vals.shape != cols.shape:
             raise ValueError(f"{name}: vals {tuple(vals.shape)} and cols "
                              f"{tuple(cols.shape)} differ in shape")
-        if vals.dtype != x.dtype:
+        bf16_ok = not batched and (vals.dtype, x.dtype) == (torch.bfloat16,
+                                                          torch.float32)
+        if vals.dtype != x.dtype and not bf16_ok:
             raise TypeError(f"{name}: vals {vals.dtype} and x {x.dtype} differ")
         tensors.append(vals)
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: operands lie on different devices")
-    if x.device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: the CUDA kernel takes contiguous operands")
+    if x.device.type == "cuda":
+        # the tables of a batched call may be strided; nothing else
+        if not all(t.is_contiguous() for t in tensors
+                   if not (batched and t is x)):
+            raise ValueError(f"{name}: the CUDA kernel takes contiguous "
+                             "index, weight and vector operands")
+        if batched and min(x.stride()) < 0:
+            raise ValueError(f"{name}: negative table strides")
+
+
+def _device(name: str, x: torch.Tensor) -> bool:
+    """True for a CPU tensor (run the twin); raise for a device with no kernel."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    return False
 
 
 def ell_spmv(vals: torch.Tensor, cols: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """y[r] = sum_w vals[r, w] * x[cols[r, w]] (K1 on the card)."""
     _check("ell_spmv", cols, x, vals)
-    if x.device.type == "cpu":
+    if _device("ell_spmv", x):
         return ell_spmv_plain(vals, cols, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"ell_spmv: no kernel for device {x.device}")
     n, W = cols.shape
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return y
-    kernels.launch(f"afem_ell_spmv_{_SUFFIX[x.dtype]}", x.device,
-                   vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
-                   n, W)
-    ell_spmv.launches += 1
+    bf16 = vals.dtype == torch.bfloat16
+    kernels.launch(f"afem_ell_spmv_{'bf16_f32' if bf16 else _SUFFIX[x.dtype]}",
+                   x.device, vals.data_ptr(), cols.data_ptr(), x.data_ptr(),
+                   y.data_ptr(), n, W)
+    _LAUNCHES["ell_spmv_bf16" if bf16 else "ell_spmv"] += 1
     return y
 
 
 def ell_gather_sum(cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y[r] = sum_w x[cols[r, w]], negative columns add 0 (K2 on the card)."""
     _check("ell_gather_sum", cols, x)
-    if x.device.type == "cpu":
+    if _device("ell_gather_sum", x):
         return ell_gather_sum_plain(cols, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"ell_gather_sum: no kernel for device {x.device}")
     n, W = cols.shape
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return y
     kernels.launch(f"afem_ell_gather_sum_{_SUFFIX[x.dtype]}", x.device,
                    cols.data_ptr(), x.data_ptr(), y.data_ptr(), n, W)
-    ell_gather_sum.launches += 1
+    _LAUNCHES["ell_gather_sum"] += 1
     return y
 
 
-ell_spmv.launches = 0
-ell_gather_sum.launches = 0
-WRAPPERS = (ell_spmv, ell_gather_sum)
+def _batched_out(name: str, tables: torch.Tensor, n: int,
+                 out: torch.Tensor | None) -> torch.Tensor:
+    """The (B, n) result: ``out`` checked, or a new contiguous tensor."""
+    B = tables.shape[0]
+    if out is None:
+        return torch.empty((B, n), dtype=tables.dtype, device=tables.device)
+    if out.shape != (B, n) or out.dtype != tables.dtype \
+            or out.device != tables.device:
+        raise ValueError(f"{name}: out must be ({B}, {n}) {tables.dtype} on "
+                         f"{tables.device}, got {tuple(out.shape)} {out.dtype}")
+    if min(out.stride()) < 0:
+        raise ValueError(f"{name}: negative output strides")
+    return out
 
 
-def reset_launch_counts() -> None:
-    for w in WRAPPERS:
-        w.launches = 0
+def _launch_batched(name: str, entry: str, ptrs: list, cols: torch.Tensor,
+                    tables: torch.Tensor, y: torch.Tensor) -> None:
+    n, W = cols.shape
+    B = tables.shape[0]
+    kernels.launch(f"{entry}_{_SUFFIX[tables.dtype]}", tables.device, *ptrs,
+                   cols.data_ptr(), tables.data_ptr(), y.data_ptr(), n, W, B,
+                   tables.stride(1), tables.stride(0), y.stride(1), y.stride(0))
+    _LAUNCHES[name] += 1
 
 
-def launch_counts() -> dict[str, int]:
-    return {w.__name__: w.launches for w in WRAPPERS}
+def ell_gather_sum_batched(cols: torch.Tensor, tables: torch.Tensor,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
+    """Y[b, r] = sum_w T[b, cols[r, w]], negative columns add 0, for
+    (B, n_t) tables ``T`` of any strides (K3a on the card)."""
+    _check("ell_gather_sum_batched", cols, tables, batched=True)
+    y = _batched_out("ell_gather_sum_batched", tables, cols.shape[0], out)
+    if _device("ell_gather_sum_batched", tables):
+        return y.copy_(ell_gather_sum_batched_plain(cols, tables))
+    if cols.shape[0]:
+        _launch_batched("ell_gather_sum_batched", "afem_ell_gather_sum_batched",
+                        [], cols, tables, y)
+    return y
+
+
+def ell_spmv_batched(vals: torch.Tensor, cols: torch.Tensor,
+                     tables: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """Y[b, r] = sum_w vals[r, w] * T[b, cols[r, w]] for (B, n_t) tables
+    ``T`` of any strides (K3b on the card)."""
+    _check("ell_spmv_batched", cols, tables, vals, batched=True)
+    y = _batched_out("ell_spmv_batched", tables, cols.shape[0], out)
+    if _device("ell_spmv_batched", tables):
+        return y.copy_(ell_spmv_batched_plain(vals, cols, tables))
+    if cols.shape[0]:
+        _launch_batched("ell_spmv_batched", "afem_ell_spmv_batched",
+                        [vals.data_ptr()], cols, tables, y)
+    return y

@@ -36,13 +36,21 @@ _P, _I, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_dou
 _DIA_STENCIL = [_I, _P, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F64, _P]
 _STENCIL_ASSEMBLY = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _I64,
                      _F64, _F64, _P]
+_ELL_SPMV = [_P, _P, _P, _P, _I64, _I, _P]
+_ELL_GATHER_SUM = [_P, _P, _P, _I64, _I, _P]
+_BATCHED_STRIDES = [_I, _I64, _I64, _I64, _I64, _P]  # B, ts_r, ts_b, ys_r, ys_b, stream
 # (name, argtypes) of every C entry point in csrc/; all return an int
 # cudaError_t from cudaGetLastError() after the launch
 _SIGNATURES = {
-    "afem_ell_spmv_f32": [_P, _P, _P, _P, _I64, _I, _P],
-    "afem_ell_spmv_f64": [_P, _P, _P, _P, _I64, _I, _P],
-    "afem_ell_gather_sum_f32": [_P, _P, _P, _I64, _I, _P],
-    "afem_ell_gather_sum_f64": [_P, _P, _P, _I64, _I, _P],
+    "afem_ell_spmv_f32": _ELL_SPMV,
+    "afem_ell_spmv_f64": _ELL_SPMV,
+    "afem_ell_spmv_bf16_f32": _ELL_SPMV,
+    "afem_ell_gather_sum_f32": _ELL_GATHER_SUM,
+    "afem_ell_gather_sum_f64": _ELL_GATHER_SUM,
+    "afem_ell_spmv_batched_f32": _ELL_SPMV[:-1] + _BATCHED_STRIDES,
+    "afem_ell_spmv_batched_f64": _ELL_SPMV[:-1] + _BATCHED_STRIDES,
+    "afem_ell_gather_sum_batched_f32": _ELL_GATHER_SUM[:-1] + _BATCHED_STRIDES,
+    "afem_ell_gather_sum_batched_f64": _ELL_GATHER_SUM[:-1] + _BATCHED_STRIDES,
     "afem_dia_stencil_f32_f32": _DIA_STENCIL,
     "afem_dia_stencil_bf16_f32": _DIA_STENCIL,
     "afem_dia_stencil_f32_f64": _DIA_STENCIL,

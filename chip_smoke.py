@@ -8,14 +8,25 @@ script then exits non-zero without the final line:
 
 1. device: the card's name and power limit; TF32 off;
 2. build: compile csrc/*.cu with nvcc;
-3. kernel parity: each kernel against its plain twin on random ELL inputs
-   (n = 1M, W in 1, 8, 25, 136, with padding), f32 and f64;
+3. kernel parity: each ELL kernel against its plain twin on random inputs
+   (n = 1M, W in 1, 8, 25, 136, with padding), f32 and f64: K1 and K2,
+   the batched K3b and K3a for B in 1, 3, 8 tables, contiguous and
+   channel-minor (strided) tables and results, and K1 with bf16 weights;
 4. main path at 1.9M DoF (sphere_cut h=5, refine=2): assembly, AMG set-up
    and AMG-PCG to rtol 1e-8 through the kernels, with the launch counts of
    that run; then each kernel timed against its plain twin at the shapes
    of the path;
+9. (run right after 4, on its mesh, operator and AMG hierarchy) the
+   supernode route and the other bench knobs of the sphere: (a) the
+   supernode operator, (b) with the block-Jacobi fine smoother, (c) with
+   bf16 fine-level blocks too, (d) the ELL operator with the block-Jacobi
+   smoother, (e) the bf16 V-cycle, (f) the batched coordinate gather; each
+   solve checked and printed with its launch counts as an ``[sn]`` line,
+   then K3a at its three shapes, K3b at the fine operator's and K1 bf16
+   held against their plain twins and timed;
 5. the same system at h=8 with the plain twins in place of the kernels,
-   and in float64 on the CPU: iterations and solutions must agree;
+   and in float64 on the CPU: iterations and solutions must agree, on the
+   ELL route and (9b) on the supernode route with the block smoother;
 6. structured kernel parity: the stencil kernel (K5-K8) in every mode and
    layout, f32 and bf16 bands, and the stencil assembly (K4), stiffness
    only and fused with the BC, against their plain twins on a 96x80x136
@@ -133,6 +144,16 @@ def main() -> int:
                   f"ell_gather_sum {e2:.2e} (rtol {rtol:g} of sum |v x|)",
                   flush=True)
             _check(e1 <= rtol and e2 <= rtol, f"parity {dtype} W={W}")
+            _batched_parity(vals, cols, ucols, gen, dtype, rtol)
+            if dtype == torch.float32:
+                vb = vals.bfloat16()
+                xf = x.float()
+                e3 = _rel_err(ell_spmv(vb, cols, xf), ell_spmv_plain(vb, cols, xf),
+                              ell_spmv_plain(vb.abs(), cols, xf.abs()))
+                print(f"[parity] bf16 weights W={W}: ell_spmv {e3:.2e} (rtol 1e-5)",
+                      flush=True)
+                _check(e3 <= 1e-5, f"bf16 ell_spmv parity W={W}")
+                del vb, xf
             del cols, vals, pad, ucols, x, y, u
 
     # 4. main path at 1.9M DoF
@@ -162,7 +183,8 @@ def main() -> int:
            f"true interior residual {res['true_residual']:.3e} > 1e-4")
     _check(bool(torch.isfinite(res["x"]).all()), "non-finite solution")
     _check(res["x"].shape == (n,), "solution shape")
-    _check(all(c > 0 for c in counts.values()), f"a kernel never ran: {counts}")
+    _check(counts["ell_spmv"] > 0 and counts["ell_gather_sum"] > 0,
+           f"K1 or K2 never ran: {counts}")
 
     # the kernels at the main path's shapes, against their plain twins
     A = res["A"]
@@ -216,31 +238,42 @@ def main() -> int:
         print(f"[kernel] {r['name']} {r['shape']}: {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, max_abs_err {r['max_abs_err']:.3e}",
               flush=True)
-    del res, A, asm, xr, y, yp, cx, g, gp, mesh, topo, csr, gather_idx
+    del A, asm, xr, y, yp, cx, g, gp, csr, gather_idx
+    torch.cuda.empty_cache()
+
+    records += supernode_phase(dev, gen, mesh, topo, res)
+    del res, mesh, topo
     torch.cuda.empty_cache()
 
     # 5. the kernel path against the plain path, and against float64 on
-    #    the CPU, at h=8
+    #    the CPU, at h=8; 9b. the same for the supernode route with the
+    #    block smoother, on each run's own operator and hierarchy
+    systems: dict = {}
     mesh, topo = sphere_cut_system(8.0, 0)
-    runs = {
-        "kernel": solve_sphere_cut(mesh, topo, device=dev,
-                                   dtype=torch.float32, penalty=1e12),
-        "plain": solve_sphere_cut(mesh, topo, device=dev, dtype=torch.float32,
-                                  penalty=1e12, plain=True),
-        "cpu_f64": solve_sphere_cut(mesh, topo, device="cpu",
-                                    dtype=torch.float64, penalty=1e30),
-    }
-    xk = runs["kernel"]["x"].double().cpu()
-    for name, r in runs.items():
-        diff = float((xk - r["x"].double().cpu()).abs().max()
-                     / r["x"].double().abs().max().cpu())
-        print(f"[h8] {name}: {r['iterations']} iterations, rel {r['rel']:.2e}, "
-              f"true residual {r['true_residual']:.2e}, max diff from the "
-              f"kernel path {diff:.2e}", flush=True)
-        _check(abs(r["iterations"] - runs["kernel"]["iterations"]) <= 1,
-               f"h=8 iterations, {name}")
-        _check(diff <= 1e-4, f"h=8 solution, {name}")
-    del runs, xk, mesh, topo
+    setups = {"kernel": dict(device=dev, dtype=torch.float32, penalty=1e12),
+              "plain": dict(device=dev, dtype=torch.float32, penalty=1e12,
+                            plain=True),
+              "cpu_f64": dict(device="cpu", dtype=torch.float64, penalty=1e30)}
+    for route, opts in (("h8", {}), ("h8sn", dict(spmv="supernode", sn_block=True))):
+        runs = {}
+        for name, kw in setups.items():
+            runs[name] = solve_sphere_cut(mesh, topo, **kw, **opts,
+                                          system=systems.get(name))
+            systems[name] = runs[name]["system"]
+        xk = runs["kernel"]["x"].double().cpu()
+        for name, r in runs.items():
+            diff = float((xk - r["x"].double().cpu()).abs().max()
+                         / r["x"].double().abs().max().cpu())
+            print(f"[{route}] {name}: {r['iterations']} iterations, rel {r['rel']:.2e}, "
+                  f"true residual {r['true_residual']:.2e}, max diff from the "
+                  f"kernel path {diff:.2e} ({r['spmv_path']})", flush=True)
+            _check(abs(r["iterations"] - runs["kernel"]["iterations"]) <= 1,
+                   f"{route} iterations, {name}")
+            _check(diff <= 1e-4, f"{route} solution, {name}")
+            _check(r["rel"] <= 1e-8 and r["true_residual"] <= 1e-4,
+                   f"{route} residuals, {name}")
+        del runs, xk
+    del systems, mesh, topo
     torch.cuda.empty_cache()
 
     records += structured_phases(dev, gen)
@@ -251,6 +284,244 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _batched_parity(vals, cols, ucols, gen, dtype, rtol) -> None:
+    """Phase 3, batched: K3b and K3a on the shared (n, W) index array of a
+    K1/K2 case, for B in 1, 3, 8 tables, contiguous and channel-minor
+    (tables and results strided), each table held against the single-table
+    plain twin."""
+    import torch
+
+    from arcanefem_tpu_torch.sparse.ell_gather import (
+        ell_gather_sum_batched,
+        ell_gather_sum_plain,
+        ell_spmv_batched,
+        ell_spmv_plain,
+    )
+
+    n, W = cols.shape
+    for B in (1, 3, 8):
+        tab = torch.rand((B, n), generator=gen, device=vals.device, dtype=dtype) * 2 - 1
+        want = [(ell_spmv_plain(vals, cols, t), ell_spmv_plain(vals.abs(), cols, t.abs()),
+                 ell_gather_sum_plain(ucols, t), ell_gather_sum_plain(ucols, t.abs()))
+                for t in tab]
+        for minor in (False, True):
+            t = tab.T.contiguous().T if minor else tab
+            outs = [torch.empty((n, B), dtype=dtype, device=vals.device).T
+                    if minor else None for _ in range(2)]
+            y = ell_spmv_batched(vals, cols, t, out=outs[0])
+            u = ell_gather_sum_batched(ucols, t, out=outs[1])
+            torch.cuda.synchronize()
+            e1 = max(_rel_err(y[b], w[0], w[1]) for b, w in enumerate(want))
+            e2 = max(_rel_err(u[b], w[2], w[3]) for b, w in enumerate(want))
+            print(f"[parity] {str(dtype)[6:]} W={W} B={B} "
+                  f"{'channel-minor' if minor else 'contiguous'}: ell_spmv_batched "
+                  f"{e1:.2e}, ell_gather_sum_batched {e2:.2e} (rtol {rtol:g})", flush=True)
+            _check(e1 <= rtol and e2 <= rtol, f"batched parity {dtype} W={W} B={B}")
+            del y, u, t
+        del tab, want
+
+
+SN_CONFIGS = {  # phase 9: bench_unstructured's flags of each configuration
+    "a": dict(spmv="supernode"),
+    "b": dict(spmv="supernode", sn_block=True),
+    "c": dict(spmv="supernode", sn_block=True, sn_bf16=True),
+    "d": dict(sn_block=True),
+    "e": dict(vcycle_bf16=True),
+    "f": dict(asm_coords="batched"),
+}
+
+
+def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
+    """Phase 9: the configurations of SN_CONFIGS on phase 4's operator and
+    AMG hierarchy (``res4``), then K3a, K3b and K1 bf16 at the route's
+    shapes; returns their records."""
+    import torch
+
+    from arcanefem_tpu_torch.bench_unstructured import (
+        solve_sphere_cut,
+        supernode_self_check,
+    )
+    from arcanefem_tpu_torch.ops.lane_assembly import TetraAssembler
+    from arcanefem_tpu_torch.sparse.ell_gather import (
+        ell_gather_sum_batched,
+        ell_gather_sum_batched_plain,
+        ell_spmv,
+        ell_spmv_batched,
+        ell_spmv_batched_plain,
+        ell_spmv_plain,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from arcanefem_tpu_torch.sparse.supernode import block_products
+    from arcanefem_tpu_torch.utils.timing import time_op
+
+    system = res4["system"]
+    runs, counts = {}, {}
+    for key, opts in SN_CONFIGS.items():
+        reset_launch_counts()
+        r = solve_sphere_cut(mesh, topo, device=dev, dtype=torch.float32,
+                             penalty=1e12, timed=True, system=system, **opts)
+        torch.cuda.synchronize()
+        counts[key] = launch_counts()
+        runs[key] = r
+        line = {"config": key, "flags": opts, "spmv_path": r["spmv_path"],
+                "iterations": r["iterations"], "rel": r["rel"],
+                "true_residual": r["true_residual"], "solve_s": r["solve_s"],
+                "ms_per_iter": r["solve_s"] / max(r["iterations"], 1) * 1e3,
+                "assembly_s": r["assembly_s"],
+                **{k: r[k] for k in ("sn_setup_s", "sn_check", "sn_blocks",
+                                     "sn_bytes") if k in r},
+                "launches": {k: v for k, v in counts[key].items() if v}}
+        print(f"[sn] {json.dumps(line)}", flush=True)
+        _check(r["rel"] <= 1e-8, f"[sn] {key}: monitored residual {r['rel']:.3e}")
+        _check(r["true_residual"] <= 1e-4,
+               f"[sn] {key}: true interior residual {r['true_residual']:.3e}")
+        _check(bool(torch.isfinite(r["x"]).all()), f"[sn] {key}: non-finite x")
+        _check(counts[key]["ell_spmv"] > 0, f"[sn] {key}: K1 never ran")
+        if opts.get("spmv") == "supernode":
+            _check(r["spmv_path"] == "SupernodeMatrix", f"[sn] {key}: spmv path")
+            _check(counts[key]["ell_gather_sum_batched"] > 0,
+                   f"[sn] {key}: K3a never ran on the supernode route")
+        del r["x"]
+    _check(counts["e"]["ell_spmv_bf16"] > 0, "[sn] e: bf16 K1 never ran")
+    _check(counts["f"]["ell_gather_sum_batched"] > 0
+           and counts["f"]["ell_gather_sum"] == 0,
+           f"[sn] f: the assembly did not gather through K3a alone: {counts['f']}")
+    print(f"[sn] iterations: ELL (phase 4) {res4['iterations']}, (b) supernode + "
+          f"block-Jacobi {runs['b']['iterations']}, (d) ELL + block-Jacobi "
+          f"{runs['d']['iterations']}", flush=True)
+
+    # (f) gathers the same coordinates as phase 4 and so assembles the same
+    # values; index_add_'s CUDA atomics add in a run-dependent order, so
+    # the values are compared with torch's deterministic index_add
+    conn = mesh.cells["tetra4"]
+    coords = torch.as_tensor(mesh.coords, device=dev).to(torch.float32)
+    asm_s = TetraAssembler(topo, conn, device=dev)
+    asm_b = TetraAssembler(topo, conn, device=dev, coords_batched=True)
+    gs, gb = asm_s.gather_corners(coords), asm_b.gather_corners(coords)
+    same = all(torch.equal(gs[k], gb[k]) for k in range(3))
+    v1, v2 = asm_s(coords), asm_s(coords)
+    rep = float((v2 - v1).abs().max() / v1.abs().max())
+    torch.use_deterministic_algorithms(True)
+    try:
+        vs, vb = asm_s(coords), asm_b(coords)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"[sn] (f) corners equal to the split gather's: {same}; assembled values "
+          f"equal (deterministic index_add): {torch.equal(vs, vb)}; two split "
+          f"assemblies with atomics: equal {torch.equal(v1, v2)}, max diff "
+          f"{rep:.2e} of max|v|", flush=True)
+    _check(same, "(f) batched coordinate gather != split gather")
+    _check(torch.equal(vs, vb), "(f) assembled values != the split path's")
+    del v1, v2, vs, vb, gs, gb, asm_s
+
+    # the kernels at the route's shapes, against their plain twins
+    A = system["A"]
+    sn = system["sn"]
+    n, W = A.values.shape
+    nnzb, n_sup = sn.blocks.shape[0], sn.n_sup
+    e_sn = supernode_self_check(sn, A)
+    print(f"[sn] supernode SpMV vs K1 ell_spmv on a unit-random x: {e_sn:.2e} of "
+          f"each row's sum |a x| (tol 1e-5); {nnzb} blocks, {sn.nbytes / 1e9:.3f} GB, "
+          f"row-reduce width {sn.row_blocks.shape[1]}", flush=True)
+    _check(e_sn <= 1e-5, f"supernode SpMV vs K1: {e_sn:.2e}")
+    x = torch.rand(n, generator=gen, device=dev) * 2 - 1
+    xb = torch.nn.functional.pad(x, (0, n_sup * 8 - n)).view(n_sup, 8)
+    xg = torch.empty((nnzb, 8), device=dev)
+    yp = block_products(sn.blocks, ell_gather_sum_batched(sn.cols, xb.T, out=xg.T).T)
+    yb = torch.empty((n_sup, 8), device=dev)
+    bcol = torch.as_tensor(sn.bcol, device=dev)
+    rsum = torch.sparse_csr_tensor(
+        torch.as_tensor(sn.bptr, device=dev), torch.arange(nnzb, device=dev),
+        torch.ones(nnzb, device=dev), size=(n_sup, nnzb))
+    X8 = torch.rand((n, 8), generator=gen, device=dev) * 2 - 1
+    crow = torch.as_tensor(topo.row_ptr, device=dev, dtype=torch.int64)
+    csr = torch.sparse_csr_tensor(
+        crow, torch.as_tensor(topo.csr_cols, device=dev, dtype=torch.int64),
+        A.values.reshape(-1)[torch.as_tensor(topo.csr_to_ell, device=dev,
+                                             dtype=torch.int64)], size=(n, n))
+    asm_corner = asm_b.corner_cols
+    vbf = A.values.bfloat16()
+    sn_launch = counts["b"]["ell_gather_sum_batched"] // 2  # cols + rows per SpMV
+    cases = [
+        # name, source line, kernel, plain twin, library call, (bytes, flops),
+        # launches, shape
+        ("ell_gather_sum_batched (sn cols)", "sparse/pallas_spmv.py:478",
+         lambda: ell_gather_sum_batched(sn.cols, xb.T, out=xg.T),
+         lambda: ell_gather_sum_batched_plain(sn.cols, xb.T),
+         lambda: xb.index_select(0, bcol), (nnzb * 36 + n_sup * 32, 0),
+         sn_launch, [nnzb, 1, 8]),
+        ("ell_gather_sum_batched (sn rows)", "sparse/pallas_spmv.py:478",
+         lambda: ell_gather_sum_batched(sn.row_blocks, yp.T, out=yb.T),
+         lambda: ell_gather_sum_batched_plain(sn.row_blocks, yp.T),
+         lambda: torch.sparse.mm(rsum, yp),
+         (nnzb * 32 + sn.row_blocks.numel() * 4 + n_sup * 32, nnzb * 8),
+         sn_launch, [n_sup, sn.row_blocks.shape[1], 8]),
+        ("ell_gather_sum_batched (coords)", "sparse/pallas_spmv.py:478",
+         lambda: ell_gather_sum_batched(asm_corner, coords.T),
+         lambda: ell_gather_sum_batched_plain(asm_corner, coords.T),
+         lambda: coords.index_select(0, asm_corner[:, 0].long()),
+         (asm_corner.numel() * 16 + n * 12, 0),
+         counts["f"]["ell_gather_sum_batched"], [asm_corner.shape[0], 1, 3]),
+        ("ell_spmv_batched", "sparse/pallas_spmv.py:513",
+         lambda: ell_spmv_batched(A.values, A.cols, X8.T),
+         lambda: ell_spmv_batched_plain(A.values, A.cols, X8.T),
+         lambda: torch.sparse.mm(csr, X8),
+         (A.values.numel() * 8 + n * 64, 16 * A.values.numel()), 0, [n, W, 8]),
+        ("ell_spmv (bf16 weights)", "sparse/pallas_spmv.py:398",
+         lambda: ell_spmv(vbf, A.cols, x), lambda: ell_spmv_plain(vbf, A.cols, x),
+         None, (A.values.numel() * 6 + n * 8, 2 * A.values.numel()),
+         counts["e"]["ell_spmv_bf16"], [n, W]),
+    ]
+    # sums are held to 1e-5 of each row's sum |v x|, as K1/K2; the W=1
+    # gathers copy values and must equal their twins
+    scales = {
+        "ell_gather_sum_batched (sn rows)": ell_gather_sum_batched_plain(
+            sn.row_blocks, yp.T.abs()),
+        "ell_spmv_batched": ell_spmv_batched_plain(A.values.abs(), A.cols, X8.T.abs()),
+        "ell_spmv (bf16 weights)": ell_spmv_plain(vbf.abs(), A.cols, x.abs()),
+    }
+    records = []
+    for name, rep_, fk, fp, lib, (nbytes, flops), launches, shape in cases:
+        yk, yp_ = fk(), fp()
+        torch.cuda.synchronize()
+        err = float((yk.double() - yp_.double()).abs().max())
+        if name in scales:
+            rel = _rel_err(yk, yp_, scales[name])
+            _check(rel <= 1e-5, f"{name} at the route's shape: {rel:.2e}")
+        else:
+            rel = err
+            _check(torch.equal(yk, yp_), f"{name} at the route's shape: {err:.2e}")
+        del yk, yp_
+        ms = time_op(fk, reps=20, outer=3) * 1e3
+        pms = time_op(fp, reps=3, outer=2) * 1e3
+        lms = time_op(lib, reps=20, outer=3) * 1e3 if lib else None
+        bms, bby = _bound(nbytes, flops)
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "arcanefem_tpu_torch/csrc/ell_gather.cu",
+            "replaces": f"arcanefem_tpu/{rep_}", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": bby, "library_ms": lms, "shape": shape,
+            "dtype": "bfloat16 weights, float32" if "bf16" in name else "float32"})
+        print(f"[kernel] {name} {shape}: {ms:.4f} ms (bound {bms:.4f} ms, {bby}), "
+              f"plain {pms:.3f} ms, library "
+              f"{'n/a' if lms is None else f'{lms:.4f} ms'}, max_abs_err {err:.3e} "
+              f"({rel:.2e} held), launches {launches}", flush=True)
+    # the 8x8 block products are PyTorch ops (an XLA einsum in the JAX
+    # package, no Pallas kernel); torch.bmm of the same, for the record
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ms = [time_op(f, *a, reps=20, outer=3) * 1e3 for f, a in (
+        (block_products, (sn.blocks, xg)),
+        (torch.bmm, (sn.blocks, xg.unsqueeze(-1))),
+        (block_products, (sn.blocks.bfloat16(), xg)))]
+    print(f"[kernel] 8x8 block products {[nnzb, 8, 8]} (PyTorch ops, no TPU kernel): "
+          f"elementwise product and sum {ms[0]:.4f} ms, torch.bmm {ms[1]:.4f} ms, "
+          f"bf16 blocks {ms[2]:.4f} ms; bytes bound "
+          f"{_bound(nnzb * 320, nnzb * 128)[0]:.4f} ms", flush=True)
+    return records
 
 
 def _structured_parity(dev, gen) -> None:

@@ -44,3 +44,22 @@ def test_assemble_bell_matches_jax():
     np.testing.assert_allclose(A.values.numpy(), want, rtol=1e-12,
                                atol=1e-12)
     np.testing.assert_array_equal(A.cols.numpy(), topo.ell_cols)
+
+
+@pytest.mark.parametrize("h", [14.0, 8.0])
+def test_batched_coords_equal_split(h):
+    """coords_batched (one K3a gather over the (N, 3) coordinates, read in
+    place) == the split form (three K2 gathers), bit for bit: the same
+    corners and the same assembled values."""
+    mesh, topo = sphere_cut_system(h, 0, cache=False)
+    conn = mesh.cells["tetra4"]
+    coords = torch.as_tensor(mesh.coords)
+    split = TetraAssembler(topo, conn, device="cpu")
+    batched = TetraAssembler(topo, conn, device="cpu", coords_batched=True)
+    gs, gb = split.gather_corners(coords), batched.gather_corners(coords)
+    assert gb.shape == (3, 4 * conn.shape[0]) and gb.is_contiguous()
+    for k in range(3):
+        assert torch.equal(gs[k], gb[k])
+        assert torch.equal(gb[k].reshape(4, -1).T,
+                           coords[torch.as_tensor(conn), k].float())
+    assert torch.equal(split(coords), batched(coords))

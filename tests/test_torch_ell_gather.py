@@ -15,7 +15,12 @@ from arcanefem_tpu.sparse.pallas_spmv import ChainedGather, PlannedGather
 from arcanefem_tpu.utils.emulate import emulate_gather
 from arcanefem_tpu_torch.bench_unstructured import sphere_cut_system
 from arcanefem_tpu_torch.sparse.bell import BellMatrix
-from arcanefem_tpu_torch.sparse.ell_gather import ell_gather_sum, ell_spmv
+from arcanefem_tpu_torch.sparse.ell_gather import (
+    ell_gather_sum,
+    ell_gather_sum_batched,
+    ell_spmv,
+    ell_spmv_batched,
+)
 
 
 @pytest.fixture(scope="module")
@@ -109,3 +114,48 @@ def test_gather_w1_matches_compact_coords_plan(h14):
     np.testing.assert_allclose(got, emulate_gather(g, table),
                                rtol=2e-5, atol=1e-5)
     np.testing.assert_array_equal(got, table[cols[:, 0]])
+
+
+@pytest.mark.parametrize("layout", ["table_major", "channel_minor"])
+@pytest.mark.parametrize("B", [3, 8])
+@pytest.mark.parametrize("name", ["plain", "wide_split", "empty_rows"])
+def test_batched_match_pallas_plans(name, B, layout):
+    """The batched twins (K3b weighted, K3a unit) == the JAX weighted and
+    unit plans emulated table by table, as PlannedGather.call_batched
+    applies one plan to a (B, n) stack.  ``channel_minor`` passes the
+    tables as the transpose of an (n, B) row-major array and asks for the
+    result in that layout, as the supernode SpMV does; both are read and
+    written through their strides."""
+    cols, w, table = _weighted_case(name)
+    rng = np.random.RandomState(4)
+    tables = np.stack([table] + [rng.rand(table.size).astype(np.float32)
+                                 for _ in range(B - 1)])
+    real = w != 0.0
+    plans = {"weighted": PlannedGather.build(cols, w),
+             "unit": PlannedGather.build(cols, real.astype(np.float32))}
+    if layout == "channel_minor":
+        t = torch.as_tensor(np.ascontiguousarray(tables.T)).T
+        out = {k: torch.empty((cols.shape[0], B)).T for k in plans}
+    else:
+        t, out = torch.as_tensor(tables), {k: None for k in plans}
+    c32 = torch.as_tensor(cols, dtype=torch.int32)
+    got = {
+        "weighted": ell_spmv_batched(torch.as_tensor(w), c32, t, out=out["weighted"]),
+        "unit": ell_gather_sum_batched(
+            torch.as_tensor(np.where(real, cols, -1), dtype=torch.int32), t,
+            out=out["unit"]),
+    }
+    for k, g in plans.items():
+        assert got[k].shape == (B, cols.shape[0])
+        if out[k] is not None:
+            assert got[k] is out[k] and got[k].stride() == (1, B)
+        want = np.stack([emulate_gather(g, tb) for tb in tables])
+        np.testing.assert_allclose(got[k].numpy(), want, rtol=2e-5, atol=1e-5)
+        # each table exactly as the single-table twin reduces it
+        for b in range(B):
+            single = (ell_spmv(torch.as_tensor(w), c32, t[b].contiguous())
+                      if k == "weighted" else
+                      ell_gather_sum(torch.as_tensor(np.where(real, cols, -1),
+                                                     dtype=torch.int32),
+                                     t[b].contiguous()))
+            assert torch.equal(got[k][b], single)

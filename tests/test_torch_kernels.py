@@ -27,12 +27,20 @@ from arcanefem_tpu_torch.sparse import dia_stencil as ds
 from arcanefem_tpu_torch.sparse.bell import BellMatrix
 from arcanefem_tpu_torch.sparse.ell_gather import (
     ell_gather_sum,
+    ell_gather_sum_batched,
+    ell_gather_sum_batched_plain,
     ell_gather_sum_plain,
     ell_spmv,
+    ell_spmv_batched,
+    ell_spmv_batched_plain,
     ell_spmv_plain,
     launch_counts,
     reset_launch_counts,
 )
+from arcanefem_tpu_torch.sparse.supernode import SupernodeSpmv
+
+NO_LAUNCHES = {"ell_spmv": 0, "ell_spmv_bf16": 0, "ell_gather_sum": 0,
+               "ell_spmv_batched": 0, "ell_gather_sum_batched": 0}
 
 
 @pytest.fixture
@@ -58,6 +66,17 @@ def test_wrappers_check_operands():
     with pytest.raises(ValueError):
         BellMatrix.from_numpy(np.zeros((4, 2)), np.full((4, 2), 4),
                               device="cpu", dtype=torch.float64)
+    # bf16 weights go with float32 x only, and not in the batched form
+    with pytest.raises(TypeError):
+        ell_spmv(torch.zeros(4, 2, dtype=torch.bfloat16), cols,
+                 x.double())
+    with pytest.raises(TypeError):
+        ell_spmv_batched(torch.zeros(4, 2, dtype=torch.bfloat16), cols,
+                         torch.zeros(2, 4))
+    with pytest.raises(ValueError):  # B > 8 tables
+        ell_gather_sum_batched(cols, torch.zeros(9, 4))
+    with pytest.raises(ValueError):  # an out of the wrong shape
+        ell_gather_sum_batched(cols, torch.zeros(3, 4), out=torch.zeros(4, 3))
 
 
 def test_cpu_tensors_launch_nothing():
@@ -68,7 +87,12 @@ def test_cpu_tensors_launch_nothing():
     vals = torch.tensor([[1.0, 0.5], [2.0, 0.0]])
     assert ell_spmv(vals, cols.clamp(min=0), x).tolist() == [3.5, 6.0]
     assert ell_gather_sum(cols, x).tolist() == [5.0, 3.0]
-    assert launch_counts() == {"ell_spmv": 0, "ell_gather_sum": 0}
+    assert ell_spmv(vals.bfloat16(), cols.clamp(min=0), x).tolist() == [3.5, 6.0]
+    t = torch.stack([x, 2 * x])
+    assert ell_gather_sum_batched(cols, t).tolist() == [[5.0, 3.0], [10.0, 6.0]]
+    assert ell_spmv_batched(vals, cols.clamp(min=0), t.T.contiguous().T).tolist() \
+        == [[3.5, 6.0], [7.0, 12.0]]
+    assert launch_counts() == NO_LAUNCHES
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
@@ -96,7 +120,89 @@ def test_kernels_match_plain_on_cuda(cuda, dtype, rtol):
                      <= rtol * scale).all())
         assert bool(((u - ell_gather_sum_plain(ucols, x)).abs()
                      <= rtol * uscale).all())
-    assert launch_counts() == {"ell_spmv": 4, "ell_gather_sum": 4}
+    assert launch_counts() == {**NO_LAUNCHES, "ell_spmv": 4, "ell_gather_sum": 4}
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+def test_batched_kernels_match_plain_on_cuda(cuda, dtype, rtol):
+    """K3b and K3a == their plain twins on the card, for B in 1, 3, 8 and
+    W in 1, 8, 25, 136 with padding, tables and results contiguous or
+    channel-minor (strided); error against each row's sum |v·x|."""
+    gen = torch.Generator().manual_seed(2)
+    reset_launch_counts()
+    n = 20_000
+    launches = 0
+    for W in (1, 8, 25, 136):
+        cols = torch.randint(0, n, (n, W), generator=gen, dtype=torch.int32)
+        vals = torch.rand((n, W), generator=gen, dtype=dtype) * 2 - 1
+        pad = torch.rand((n, W), generator=gen) < 0.2
+        vals[pad] = 0
+        ucols = torch.where(pad, -1, cols)
+        cols, vals, ucols = (t.to(cuda) for t in (cols, vals, ucols))
+        for B in (1, 3, 8):
+            tab = torch.rand((B, n), generator=gen, dtype=dtype) * 2 - 1
+            for minor in (False, True):
+                t = tab.to(cuda)
+                if minor:
+                    t = t.T.contiguous().T
+                out = (torch.empty((n, B), dtype=dtype, device=cuda).T
+                       if minor else None)
+                y = ell_spmv_batched(vals, cols, t, out=out)
+                u = ell_gather_sum_batched(ucols, t)
+                torch.cuda.synchronize()
+                launches += 1
+                scale = ell_spmv_batched_plain(vals.abs(), cols, t.abs())
+                uscale = ell_gather_sum_batched_plain(ucols, t.abs())
+                assert bool(((y - ell_spmv_batched_plain(vals, cols, t)).abs()
+                             <= rtol * scale).all()), (W, B, minor)
+                assert bool(((u - ell_gather_sum_batched_plain(ucols, t)).abs()
+                             <= rtol * uscale).all()), (W, B, minor)
+    assert launch_counts() == {**NO_LAUNCHES, "ell_spmv_batched": launches,
+                               "ell_gather_sum_batched": launches}
+
+
+def test_bf16_spmv_matches_plain_on_cuda(cuda):
+    """K1 with bf16 weights and f32 x == its twin (1e-5 of sum |v·x|)."""
+    gen = torch.Generator().manual_seed(3)
+    reset_launch_counts()
+    for W in (1, 25, 136):
+        n = 30_000
+        cols = torch.randint(0, n, (n, W), generator=gen, dtype=torch.int32).to(cuda)
+        vals = (torch.rand((n, W), generator=gen) * 2 - 1).bfloat16().to(cuda)
+        x = (torch.rand(n, generator=gen) * 2 - 1).to(cuda)
+        y = ell_spmv(vals, cols, x)
+        torch.cuda.synchronize()
+        assert y.dtype == torch.float32
+        scale = ell_spmv_plain(vals.abs(), cols, x.abs())
+        assert bool(((y - ell_spmv_plain(vals, cols, x)).abs() <= 1e-5 * scale).all())
+    assert launch_counts() == {**NO_LAUNCHES, "ell_spmv_bf16": 3}
+
+
+def test_supernode_spmv_on_cuda_matches_cpu(cuda):
+    """The supernode SpMV of the h=14 operator through K3a on the card ==
+    its CPU twin (f32 blocks, f64 row reduce: 1e-5 of each row's sum
+    |a·x|), and the f64 operator to 1e-12; bf16 blocks too."""
+    mesh, topo = sphere_cut_system(14.0, 0, cache=False)
+    res = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64,
+                           penalty=1e12)
+    A = res["A"]
+    x = torch.rand(topo.n_nodes, generator=torch.Generator().manual_seed(4),
+                   dtype=torch.float64)
+    scale = BellMatrix(A.values.abs(), A.cols).spmv(x)
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        Ad = BellMatrix(A.values.to(dtype), A.cols, A.diag_slot)
+        cpu = SupernodeSpmv.build(Ad, topo)
+        dev = SupernodeSpmv.build(BellMatrix(Ad.values.to(cuda), Ad.cols.to(cuda),
+                                             Ad.diag_slot.to(cuda)), topo)
+        # bf16 blocks sum their products in f32 whatever x's dtype
+        for a, b, tol in ((cpu, dev, rtol), (cpu.as_bf16(), dev.as_bf16(), 1e-5)):
+            reset_launch_counts()
+            y = b(x.to(dtype).to(cuda)).cpu()
+            assert launch_counts()["ell_gather_sum_batched"] == 2
+            want = a(x.to(dtype))
+            assert bool(((y.double() - want.double()).abs() <= tol * scale).all())
+        assert bool(((y.double() - A.spmv(x)).abs() <= 2e-2 * scale.max()).all())
 
 
 def test_slice_on_cuda_matches_plain_and_cpu(cuda):
@@ -106,7 +212,8 @@ def test_slice_on_cuda_matches_plain_and_cpu(cuda):
     reset_launch_counts()
     k = solve_sphere_cut(mesh, topo, device=cuda, dtype=torch.float32,
                          penalty=1e12)
-    assert all(c > 0 for c in launch_counts().values())
+    counts = launch_counts()
+    assert counts["ell_spmv"] > 0 and counts["ell_gather_sum"] > 0
     p = solve_sphere_cut(mesh, topo, device=cuda, dtype=torch.float32,
                          penalty=1e12, plain=True)
     c = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64,

@@ -58,6 +58,14 @@ mesh, topo = sphere_cut_system(14.0, 0, cache=False)
 res = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64, penalty=1e30)
 tr = res["true_residual"]
 """ + _REPORT
+_SUPERNODE_SCRIPT = _PRELUDE + """
+from arcanefem_tpu_torch.bench_unstructured import solve_sphere_cut, sphere_cut_system
+mesh, topo = sphere_cut_system(14.0, 0, cache=False)
+res = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64, penalty=1e30,
+                       spmv="supernode", sn_block=True)
+assert res["spmv_path"] == "SupernodeMatrix", res["spmv_path"]
+tr = res["true_residual"]
+""" + _REPORT
 _STRUCTURED_SCRIPT = _PRELUDE + """
 from arcanefem_tpu_torch.bench_structured import box_system, solve_mg, true_residual
 s = box_system(16, "cpu", torch.float64)
@@ -82,6 +90,12 @@ def test_slice_runs_without_jax():
     """The h=14 unstructured slice on the CPU in a process where neither jax
     nor arcanefem_tpu can be imported."""
     _run_blocked(_SCRIPT)
+
+
+def test_supernode_route_runs_without_jax():
+    """The h=14 supernode route (supernode operator and fine level,
+    block-Jacobi fine smoother) the same way."""
+    _run_blocked(_SUPERNODE_SCRIPT)
 
 
 def test_structured_slice_runs_without_jax():
