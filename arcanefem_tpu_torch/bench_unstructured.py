@@ -8,10 +8,11 @@ mesh, reverse Cuthill-McKee then supernode-brick node order, BELL
 assembly, penalty Dirichlet (Cut = 0, sphere = 1), and CG with compensated
 dots preconditioned by a smoothed-aggregation AMG V-cycle (theta 0.03,
 degree-2 Chebyshev smoother) to rtol 1e-8.  It prints one JSON line with
-``bench.py``'s field names.  The flags ``--spmv supernode``, ``--sn-block``,
-``--sn-bf16``, ``--vcycle-bf16``, ``--asm-coords``, ``--smoother``,
-``--cheb-deg`` and ``--cycle`` select the routes of ``bench.py``'s knobs
-(see :func:`solve_sphere_cut`).  ``--h 6 --refine 3`` is the 8.9M-DoF
+``bench.py``'s field names.  The flags ``--spmv {ell,supernode,compact,diag}``,
+``--sn-block``, ``--sn-bf16``, ``--vcycle-bf16``, ``--asm-coords``,
+``--asm-compact``, ``--band-pre``, ``--order``, ``--smoother``, ``--cheb-deg``
+and ``--cycle`` select the routes of ``bench.py``'s knobs (see
+:func:`solve_sphere_cut`).  ``--h 6 --refine 3`` is the 8.9M-DoF
 north-star size, whose host set-up on a cold cache takes tens of minutes.
 
 The mesh and topology are cached as host numpy under
@@ -34,10 +35,17 @@ import torch
 from .mesh.core import Mesh
 from .mesh.unstructured import refine_tetra, sphere_cut_tetra_mesh
 from .ops.lane_assembly import TetraAssembler
-from .solver.amg import amg_from_numpy, with_bf16_vcycle, with_supernode_smoother
+from .solver.amg import (
+    amg_from_numpy,
+    with_bf16_vcycle,
+    with_compact_vcycle,
+    with_supernode_smoother,
+)
 from .solver.amg_setup import amg_setup
 from .solver.iterative import pcg
 from .sparse.bell import BellMatrix
+from .sparse.compact import CompactMatrix
+from .sparse.diag_spmv import DiagEllMatrix
 from .sparse.ordering import supernode_order
 from .sparse.supernode import SupernodeMatrix, SupernodeSpmv
 from .sparse.topology import Topology, build_topology
@@ -86,13 +94,19 @@ def _topology(mesh: Mesh, path: str | None) -> Topology:
     return topo
 
 
-def sphere_cut_system(h: float, refine: int, cache: bool = True
-                      ) -> tuple[Mesh, Topology]:
+ORDERS = ("sn", "rcm")
+
+
+def sphere_cut_system(h: float, refine: int, cache: bool = True,
+                      order: str = "sn") -> tuple[Mesh, Topology]:
     """The sphere_cut mesh in supernode order, and its topology.
 
     Order as ``bench.py``: Delaunay mesh, ``refine`` red refinements, RCM,
-    then supernode bricks.  With ``cache`` each stage is kept as an npz
-    under CACHE_DIR, in ``bench.py``'s file names."""
+    then supernode bricks; ``order="rcm"`` stops before the bricks
+    (``BENCH_UNSTR_ORDER=rcm``).  With ``cache`` each stage is kept as an
+    npz under CACHE_DIR, in ``bench.py``'s file names."""
+    if order not in ORDERS:
+        raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
     key = f"sphere_cut_v3_h{h:g}_r{refine}"
     if cache:
         os.makedirs(CACHE_DIR, exist_ok=True)
@@ -101,24 +115,26 @@ def sphere_cut_system(h: float, refine: int, cache: bool = True
         return os.path.join(CACHE_DIR, name) if cache else None
 
     sn_path, rcm_path = cached(f"{key}_snmesh.npz"), cached(f"{key}.npz")
-    if sn_path and os.path.exists(sn_path):
+    if order == "sn" and sn_path and os.path.exists(sn_path):
         mesh = _load_mesh(sn_path)
+        return mesh, _topology(mesh, cached(f"topo_{key}_sn.npz"))
+    if rcm_path and os.path.exists(rcm_path):
+        mesh = _load_mesh(rcm_path)
     else:
-        if rcm_path and os.path.exists(rcm_path):
-            mesh = _load_mesh(rcm_path)
-        else:
-            mesh = sphere_cut_tetra_mesh(h=h)
-            for _ in range(refine):
-                mesh = refine_tetra(mesh)
-            topo = build_topology(mesh.n_nodes, mesh.cells)
-            mesh = renumber_mesh(
-                mesh, rcm_order(mesh.n_nodes, topo.row_ptr, topo.csr_cols))
-            if rcm_path:
-                _save_mesh(rcm_path, mesh)
-        topo = _topology(mesh, cached(f"topo_{key}.npz"))
-        mesh = renumber_mesh(mesh, supernode_order(topo, mesh.coords))
-        if sn_path:
-            _save_mesh(sn_path, mesh)
+        mesh = sphere_cut_tetra_mesh(h=h)
+        for _ in range(refine):
+            mesh = refine_tetra(mesh)
+        topo = build_topology(mesh.n_nodes, mesh.cells)
+        mesh = renumber_mesh(
+            mesh, rcm_order(mesh.n_nodes, topo.row_ptr, topo.csr_cols))
+        if rcm_path:
+            _save_mesh(rcm_path, mesh)
+    topo = _topology(mesh, cached(f"topo_{key}.npz"))
+    if order == "rcm":
+        return mesh, topo
+    mesh = renumber_mesh(mesh, supernode_order(topo, mesh.coords))
+    if sn_path:
+        _save_mesh(sn_path, mesh)
     return mesh, _topology(mesh, cached(f"topo_{key}_sn.npz"))
 
 
@@ -153,16 +169,33 @@ def true_residual(A: BellMatrix, b: torch.Tensor, x: torch.Tensor,
                  / torch.linalg.vector_norm(b.double()[interior]))
 
 
-SPMV_PATHS = ("ell", "supernode")
+SPMV_PATHS = ("ell", "supernode", "compact", "diag")
 ASM_COORDS = ("split", "batched")
 
 
-def _check_options(spmv, sn_bf16, asm_coords, smoother, cycle) -> None:
+def _check_options(spmv, sn_block, sn_bf16, vcycle_bf16, asm_coords,
+                   asm_compact, band_pre, order, smoother, cycle) -> None:
+    """Raise for unknown values and for combinations the JAX bench never
+    runs."""
     if spmv not in SPMV_PATHS:
         raise ValueError(f"spmv must be one of {SPMV_PATHS}, got {spmv!r}")
+    if order not in ORDERS:
+        raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
     if sn_bf16 and spmv != "supernode":
         raise ValueError("sn_bf16 casts the supernode fine level: it needs "
                          "spmv='supernode'")
+    if order == "rcm" and (spmv == "supernode" or sn_block):
+        raise ValueError("the supernode operator and smoother need the "
+                         "supernode order (bench.py forces it)")
+    if spmv in ("compact", "diag") and sn_block:
+        raise ValueError(f"spmv={spmv!r} does not go with the supernode "
+                         "smoother: bench.py never combines them")
+    if band_pre and not (spmv == "compact" or asm_compact):
+        raise ValueError("band_pre bands the compact pre-gathers: it needs "
+                         "spmv='compact' or asm_compact")
+    if spmv == "compact" and vcycle_bf16:
+        raise ValueError("the compact V-cycle and the bf16 V-cycle do not "
+                         "combine")
     if asm_coords not in ASM_COORDS:
         raise ValueError(f"asm_coords must be one of {ASM_COORDS}, got "
                          f"{asm_coords!r}")
@@ -172,16 +205,16 @@ def _check_options(spmv, sn_bf16, asm_coords, smoother, cycle) -> None:
         raise ValueError(f"unknown cycle {cycle!r}")
 
 
-def supernode_self_check(sn: SupernodeSpmv, A: BellMatrix) -> float:
-    """max over rows of |sn(x) − A x| / Σ_w |a·x| for a unit-scale random x
-    (RandomState(0)).  A unit-scale x keeps the 1e12 penalty rows from
-    hiding interior rows; the row scale holds each row to its own
-    cancellation."""
+def operator_self_check(op, A: BellMatrix) -> float:
+    """max over rows of |op(x) − A x| / Σ_w |a·x| for a unit-scale random x
+    (RandomState(0)), ``op`` a callable x -> y.  A unit-scale x keeps the
+    1e12 penalty rows from hiding interior rows; the row scale holds each
+    row to its own cancellation."""
     x = torch.as_tensor(np.random.RandomState(0).rand(A.n_nodes),
                         device=A.values.device).to(A.values.dtype)
     want = A.spmv(x).double()
     scale = BellMatrix(A.values.abs(), A.cols, plain=A.plain).spmv(x).double()
-    err = (sn(x).double() - want).abs() / scale.clamp(
+    err = (op(x).double() - want).abs() / scale.clamp(
         min=torch.finfo(torch.float64).tiny)
     return float(err.max())
 
@@ -190,7 +223,9 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
                      penalty: float, plain: bool = False, timed: bool = False,
                      spmv: str = "ell", sn_block: bool = False,
                      sn_bf16: bool = False, vcycle_bf16: bool = False,
-                     asm_coords: str = "split", smoother: str = "chebyshev",
+                     asm_coords: str = "split", asm_compact: bool = False,
+                     band_pre: bool = False, order: str = "sn",
+                     smoother: str = "chebyshev",
                      cheb_deg: int | tuple = CHEB_DEG, cycle: str = "V",
                      system: dict | None = None) -> dict:
     """Assemble, set up AMG and solve on ``device``.
@@ -203,38 +238,58 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
     instead of the kernel.
 
     The options are ``bench.py``'s knobs of the same names: ``spmv`` the
-    CG operator and AMG fine level ("ell", or "supernode" for 8x8
-    supernode blocks, ``BENCH_UNSTR_SPMV``); ``sn_block`` supernode
+    CG operator and AMG fine level ("ell"; "supernode" for 8x8 supernode
+    blocks, ``BENCH_UNSTR_SPMV``; "compact" for the compact two-stage SpMV
+    on the CG operator and on the V-cycle's levels and transfers of at
+    least 1500 rows, ``AFEM_SPMV=compact``; "diag" for the slot-major SpMV
+    on the CG operator, ``AFEM_SPMV=diag``); ``sn_block`` supernode
     block-Jacobi as the fine smoother (``BENCH_SN_BLOCK``; with the ELL
     operator too); ``sn_bf16`` bfloat16 blocks on the V-cycle's supernode
     fine level (``BENCH_SN_BF16``); ``vcycle_bf16`` bfloat16 weights on
     the V-cycle's larger levels and transfers (``BENCH_UNSTR_BF16``);
     ``asm_coords`` the assembly's coordinate gather (``AFEM_ASM_COORDS``);
-    ``smoother``, ``cheb_deg`` (an int or per-level tuple) and ``cycle``
-    (``BENCH_AMG_SMOOTHER``, ``BENCH_AMG_CHEB_DEG``, ``BENCH_AMG_CYCLE``).
-    Unlike ``bench.py`` nothing falls back: a failed supernode self-check
-    (:func:`supernode_self_check` above 1e-5) raises.
+    ``asm_compact`` that gather through the compact two-stage gather
+    (``AFEM_ASM_COMPACT=1``); ``band_pre`` the banded pre-gather of every
+    compact gather (``AFEM_BAND_PRE=1``); ``order`` the node order ``mesh``
+    and ``topo`` come in ("sn" or "rcm", ``BENCH_UNSTR_ORDER``: only
+    checked against the other options here); ``smoother``, ``cheb_deg``
+    (an int or per-level tuple) and ``cycle`` (``BENCH_AMG_SMOOTHER``,
+    ``BENCH_AMG_CHEB_DEG``, ``BENCH_AMG_CYCLE``).  Unlike ``bench.py``
+    nothing falls back: a failed supernode, compact or diag self-check
+    (:func:`operator_self_check` above 1e-5) raises, and so do
+    ``spmv="diag"`` where the diagonal plan declines and ``band_pre`` where
+    the banded plan declines the CG operator's or the coordinates' pre
+    stream (the V-cycle's levels and transfers band where the plan builds,
+    as in the JAX package; ``vcycle_band`` counts them).
 
     ``system``: the ``system`` entry of an earlier result on the same mesh,
     device, dtype and ``plain``.  Its AMG hierarchy is reused instead of
-    set up again and, unless ``asm_coords`` differs from the one that
-    built it, its operator too (``amg_setup_s`` and ``assembly_s`` are
-    then those of the earlier run), and the supernode blocks of that
-    operator once built (``sn_setup_s`` then times the smoother alone)."""
-    _check_options(spmv, sn_bf16, asm_coords, smoother, cycle)
+    set up again and, unless the coordinate gather differs from the one
+    that built it, its operator too (``amg_setup_s`` and ``assembly_s`` are
+    then those of the earlier run), and the supernode blocks and compact
+    gathers of its column structure once built (``sn_setup_s`` then times
+    the smoother alone, ``compact_setup_s`` the self-check alone)."""
+    _check_options(spmv, sn_block, sn_bf16, vcycle_bf16, asm_coords,
+                   asm_compact, band_pre, order, smoother, cycle)
     n, W = topo.n_nodes, topo.width
     out = {}
     if system is not None and (system["device"], system["dtype"], system["plain"]) \
             != (torch.device(device), dtype, plain):
         raise ValueError("system was built for another device, dtype or plain")
-    if system is None or asm_coords != system["asm_coords"]:
+    asm_key = (asm_coords, asm_compact, band_pre and asm_compact)
+    if system is None or asm_key != system["asm_key"]:
         asm = TetraAssembler(topo, mesh.cells["tetra4"], device=device,
                              plain=plain,
-                             coords_batched=asm_coords == "batched")
+                             coords_batched=asm_coords == "batched",
+                             coords_compact=asm_compact,
+                             band_pre=band_pre and asm_compact)
         coords = torch.as_tensor(mesh.coords, device=device).to(torch.float32)
         vals = asm(coords)
         if timed:
             out["assembly_s"] = time_op(asm, coords, reps=3, outer=2)
+        if band_pre and asm_compact and not asm.compact.band:
+            raise RuntimeError("band_pre: the banded plan declines the "
+                               "coordinate gather's pre stream")
         del asm  # its slot map (16 int32 per cell) is dead once values exist
 
         mask, g, rhs = dirichlet_data(mesh, penalty)
@@ -260,7 +315,7 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
         M0 = amg_from_numpy(hier, device, dtype, plain=plain)
         out["amg_setup_s"] = time.perf_counter() - t0
         system = {"device": torch.device(device), "dtype": dtype,
-                  "plain": plain, "asm_coords": asm_coords, "A": A, "b": b,
+                  "plain": plain, "asm_key": asm_key, "A": A, "b": b,
                   "x0": x0, "interior": interior, "M": M0,
                   "amg_setup_s": out["amg_setup_s"],
                   **({"assembly_s": out["assembly_s"]} if timed else {})}
@@ -268,18 +323,18 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
         out["amg_setup_s"] = system["amg_setup_s"]
     M = system["M"].replace(smoother=smoother, cheb_deg=cheb_deg, cycle=cycle)
     out["levels"] = [m.n_nodes for m in M.mats] + [M.coarse_inv.shape[0]]
+    own = system["A"] is A  # structures built on A are kept for later runs
 
     Aop = A
     if spmv == "supernode" or sn_block:
         t0 = time.perf_counter()
-        # built once per operator: a later run on the same system reuses it
-        sn = system.get("sn") if system["A"] is A else None
+        sn = system.get("sn") if own else None
         if sn is None:
             sn = SupernodeSpmv.build(A, topo)
-            if system["A"] is A:
+            if own:
                 system["sn"] = sn
         if spmv == "supernode":
-            out["sn_check"] = supernode_self_check(sn, A)
+            out["sn_check"] = operator_self_check(sn, A)
             if not out["sn_check"] <= 1e-5:
                 raise RuntimeError(
                     f"supernode SpMV self-check failed: {out['sn_check']:.3e} "
@@ -293,6 +348,43 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
         out["sn_setup_s"] = time.perf_counter() - t0
         out["sn_blocks"] = int(sn.blocks.shape[0])
         out["sn_bytes"] = sn.nbytes
+    elif spmv == "compact":
+        t0 = time.perf_counter()
+        key = ("compact", band_pre)
+        if key not in system:
+            # one host build per column structure, kept with the hierarchy:
+            # the CG operator's compact form is also the V-cycle's fine
+            # level (the same operator as mats[0])
+            cm0 = CompactMatrix.from_bell(system["A"], band_pre=band_pre,
+                                          real=np.asarray(topo.ell_valid))
+            same = torch.equal(M.mats[0].cols, A.cols)
+            system[key] = (cm0.cg, with_compact_vcycle(
+                system["M"], band_pre, l0=cm0 if same else None))
+        cg, Mc = system[key]
+        cm = CompactMatrix(A.values, cg, A.diag_slot)
+        M = Mc.replace(smoother=smoother, cheb_deg=cheb_deg, cycle=cycle)
+        out["compact_check"] = operator_self_check(cm.spmv, A)
+        if not out["compact_check"] <= 1e-5:
+            raise RuntimeError(
+                f"compact SpMV self-check failed: {out['compact_check']:.3e} "
+                "of the row scale > 1e-5")
+        if band_pre and not cm.cg.band:
+            raise RuntimeError("band_pre: the banded plan declines the CG "
+                               "operator's pre stream")
+        Aop = cm
+        ops = [op for op in M.vmats + M.p_apply + M.pt_apply if op is not None]
+        out["vcycle_compact"] = len(ops)
+        out["vcycle_band"] = sum(op.cg.band for op in ops)
+        out["compact_setup_s"] = time.perf_counter() - t0
+    elif spmv == "diag":
+        t0 = time.perf_counter()
+        Aop = DiagEllMatrix(A.values, topo.ell_cols, A.diag_slot, plain=plain)
+        out["diag_setup_s"] = time.perf_counter() - t0
+        out["diag_check"] = operator_self_check(Aop.spmv, A)
+        if not out["diag_check"] <= 1e-5:
+            raise RuntimeError(
+                f"diag SpMV self-check failed: {out['diag_check']:.3e} of the "
+                "row scale > 1e-5")
     if vcycle_bf16:
         M = with_bf16_vcycle(M)
 
@@ -326,6 +418,11 @@ def check_solution(res: dict) -> None:
         raise RuntimeError("non-finite solution")
 
 
+# the kernel that carries the CG operator's SpMV on each route
+SPMV_KERNELS = {"ell": "ell_spmv", "supernode": "ell_gather_sum_batched",
+                "compact": "ell_spmv", "diag": "diag_spmv"}
+
+
 def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
     """The main path at mesh size (h, refine) on one CUDA card, in f32
     with penalty 1e12 as the JAX package runs it on its accelerator;
@@ -335,7 +432,7 @@ def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
                            "is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    mesh, topo = sphere_cut_system(h, refine)
+    mesh, topo = sphere_cut_system(h, refine, order=options.get("order", "sn"))
     host_s = time.perf_counter() - t0
     res = solve_sphere_cut(mesh, topo, device="cuda", dtype=torch.float32,
                            penalty=1e12, timed=True, **options)
@@ -345,10 +442,13 @@ def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
     asm_s, solve_s = res["assembly_s"], res["solve_s"]
     name, power = (s.strip() for s in gpu_name_and_power().split(",", 1))
     opt = {"spmv": "ell", "sn_block": False, "sn_bf16": False,
-           "vcycle_bf16": False, "asm_coords": "split",
-           "smoother": "chebyshev", "cheb_deg": CHEB_DEG, "cycle": "V",
-           **options}
-    supernode = opt["spmv"] == "supernode"
+           "vcycle_bf16": False, "asm_coords": "split", "asm_compact": False,
+           "band_pre": False, "order": "sn", "smoother": "chebyshev",
+           "cheb_deg": CHEB_DEG, "cycle": "V", **options}
+    spmv_kernel = SPMV_KERNELS[opt["spmv"]]
+    if opt["spmv"] == "compact":
+        spmv_kernel = ("band_gather+ell_gather_sum+ell_spmv" if opt["band_pre"]
+                       else "ell_gather_sum+ell_spmv")
     return {
         "metric": (f"poisson3d_sphere_cut_{n/1e6:.1f}MDoF_"
                    f"assembly+amgpcg_to_{RTOL:g}_s"),
@@ -367,16 +467,22 @@ def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
         "n_dofs": int(n),
         "nnz_stored": int(topo.nnz),
         "spmv_path": res["spmv_path"],
-        "spmv_kernel": ("ell_gather_sum_batched" if supernode else "ell_spmv"),
+        "spmv_kernel": spmv_kernel,
+        "order": opt["order"],
         "sn_block": opt["sn_block"],
         "sn_bf16": opt["sn_bf16"],
         "sn_blocks": res.get("sn_blocks"),
         "sn_bytes": res.get("sn_bytes"),
         "sn_setup_s": (round(res["sn_setup_s"], 1) if "sn_setup_s" in res
                        else None),
-        "amg_compact": False,
-        "asm_mode": "segsum",
-        "asm_compact": False,
+        "amg_compact": bool(res.get("vcycle_compact")),
+        "band_pre": opt["band_pre"],
+        "vcycle_compact": res.get("vcycle_compact"),
+        "vcycle_band": res.get("vcycle_band"),
+        "compact_setup_s": (round(res["compact_setup_s"], 1)
+                            if "compact_setup_s" in res else None),
+        "asm_mode": "segsum",  # the port's only reducer: index_add_ scatter
+        "asm_compact": opt["asm_compact"],
         "asm_coords": opt["asm_coords"],
         "amg_smoother": opt["smoother"],
         "amg_cheb_deg": opt["cheb_deg"],
@@ -401,7 +507,8 @@ def main(argv=None) -> None:
     ap.add_argument("--refine", type=int, default=3,
                     help="uniform 1->8 refinements of the Delaunay mesh")
     ap.add_argument("--spmv", choices=SPMV_PATHS, default="ell",
-                    help="CG operator and AMG fine level (BENCH_UNSTR_SPMV)")
+                    help="CG operator and AMG fine level (BENCH_UNSTR_SPMV; "
+                         "compact and diag: AFEM_SPMV)")
     ap.add_argument("--sn-block", action="store_true",
                     help="supernode block-Jacobi fine smoother (BENCH_SN_BLOCK=1)")
     ap.add_argument("--sn-bf16", action="store_true",
@@ -412,6 +519,13 @@ def main(argv=None) -> None:
                          "(BENCH_UNSTR_BF16=1)")
     ap.add_argument("--asm-coords", choices=ASM_COORDS, default="split",
                     help="assembly coordinate gather (AFEM_ASM_COORDS)")
+    ap.add_argument("--asm-compact", action="store_true",
+                    help="compact two-stage coordinate gather (AFEM_ASM_COMPACT=1)")
+    ap.add_argument("--band-pre", action="store_true",
+                    help="banded pre-gather of the compact gathers (AFEM_BAND_PRE=1)")
+    ap.add_argument("--order", choices=ORDERS, default="sn",
+                    help="node order: supernode bricks or plain RCM "
+                         "(BENCH_UNSTR_ORDER)")
     ap.add_argument("--smoother", choices=("chebyshev", "jacobi"),
                     default="chebyshev", help="AMG smoother (BENCH_AMG_SMOOTHER)")
     ap.add_argument("--cheb-deg", type=_cheb_deg, default=CHEB_DEG,
@@ -423,7 +537,8 @@ def main(argv=None) -> None:
     print(json.dumps(bench_unstructured(
         args.h, args.refine, spmv=args.spmv, sn_block=args.sn_block,
         sn_bf16=args.sn_bf16, vcycle_bf16=args.vcycle_bf16,
-        asm_coords=args.asm_coords, smoother=args.smoother,
+        asm_coords=args.asm_coords, asm_compact=args.asm_compact,
+        band_pre=args.band_pre, order=args.order, smoother=args.smoother,
         cheb_deg=args.cheb_deg, cycle=args.cycle)), flush=True)
 
 

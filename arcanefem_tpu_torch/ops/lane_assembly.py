@@ -13,9 +13,14 @@ coordinates are one contiguous slice.  By default it is three launches of
 ``ell_gather_sum`` (K2 on the card), one per axis; with
 ``coords_batched=True`` (the JAX package's ``AFEM_ASM_COORDS=batched``) it
 is one launch of ``ell_gather_sum_batched`` (K3a) that reads the (N, 3)
-coordinates in place.  Both fetch the same values, so both give the same
-corners.  The element arithmetic runs in float32 whatever the caller's
-dtype, as the JAX package does.
+coordinates in place.  With ``coords_compact=True`` (the JAX package's
+``AFEM_ASM_COMPACT=1`` coordinate gather) the requests go through the
+compact two-stage gather of ``sparse/compact.py`` in blocks of 16384: a
+pre-gather of each block's distinct nodes (K2, or with ``band_pre`` the
+banded K9a plus K2 on its wide tiles), then K2 over the block-local
+indices; batched, the same stages are K9b/K3a and K3a.  Every form fetches
+the same values, so all give the same corners.  The element arithmetic
+runs in float32 whatever the caller's dtype, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from ..sparse.bell import check_cols
+from ..sparse.compact import CompactGather
 from ..sparse.ell_gather import (
     ell_gather_sum,
     ell_gather_sum_batched,
@@ -40,12 +46,18 @@ class TetraAssembler:
     topo: ``sparse.topology.Topology`` of the mesh;
     conn: (nc, 4) tetra connectivity.  The corner columns and the
     transposed slot map are copied to the device once.  ``coords_batched``
-    fetches the three axes with one batched gather; ``plain=True`` fetches
-    the coordinates with the kernels' plain twins instead.
+    fetches the three axes with one batched gather; ``coords_compact``
+    through the compact two-stage gather, its pre-gather banded when
+    ``band_pre``; ``plain=True`` fetches the coordinates with the kernels'
+    plain twins instead.
     """
 
     def __init__(self, topo, conn: np.ndarray, *, device: torch.device | str,
-                 plain: bool = False, coords_batched: bool = False):
+                 plain: bool = False, coords_batched: bool = False,
+                 coords_compact: bool = False, band_pre: bool = False):
+        if band_pre and not coords_compact:
+            raise ValueError("band_pre bands the compact pre-gather: it needs "
+                             "coords_compact=True")
         conn = np.asarray(conn)
         nc = conn.shape[0]
         check_cols(conn, topo.n_nodes, "TetraAssembler conn")
@@ -57,9 +69,13 @@ class TetraAssembler:
         self._gather_b = (ell_gather_sum_batched_plain if plain
                           else ell_gather_sum_batched)
         # (4nc, 1): row i*nc + c fetches corner i of cell c
-        self.corner_cols = torch.as_tensor(
-            np.ascontiguousarray(conn.astype(np.int32).T).reshape(-1, 1),
-            device=device)
+        corner = np.ascontiguousarray(conn.astype(np.int32).T).reshape(-1, 1)
+        self.corner_cols = torch.as_tensor(corner, device=device)
+        self.compact = None
+        if coords_compact:
+            self.compact = CompactGather.build(
+                corner, np.ones(corner.shape, bool), band_pre=band_pre,
+                device=device, unit=True, plain=plain)
         # entry q = i*4 + j of cell c sits at q*nc + c (int32: N*W < 2^31
         # for any mesh one card holds)
         sm = np.asarray(topo.slot_maps["tetra4"]).reshape(nc, 16)
@@ -72,6 +88,11 @@ class TetraAssembler:
         corner i of cell c.  Three (4nc,) vectors, or one (3, 4nc) tensor
         when the coordinates are batched."""
         c32 = coords.to(torch.float32)
+        if self.compact is not None:
+            if self.coords_batched:
+                return self.compact.gather_batched(c32.T)
+            ct = c32.T.contiguous()
+            return [self.compact.gather(ct[k]) for k in range(3)]
         if self.coords_batched:
             # (N, 3) read in place as (3, N) tables; the result axis-major
             return self._gather_b(self.corner_cols, c32.T)

@@ -3,8 +3,8 @@
     python -m arcanefem_tpu_torch.route_check --h 8 --refine 1 [--device cpu]
 
 solves the bench system of ``bench_unstructured`` (float32, penalty 1e12)
-on the ELL route and then on each route that ``chip_smoke.py``'s phase 9
-runs, reusing one operator and AMG hierarchy, and prints one JSON line
+on the ELL route and then on each route that ``chip_smoke.py``'s phases 9
+and g-i run, reusing one operator and AMG hierarchy, and prints one JSON line
 per route: iterations, monitored and true residual.  It times nothing:
 iteration counts and residuals do not depend on the device, so
 ``--device cpu`` gives them at sizes the CPU can hold, for A/Bs and
@@ -29,6 +29,9 @@ ROUTES = {
     "d": dict(sn_block=True),
     "e": dict(vcycle_bf16=True),
     "f": dict(asm_coords="batched"),
+    "g": dict(spmv="compact"),
+    "h": dict(spmv="compact", band_pre=True),
+    "i": dict(spmv="compact", band_pre=True, asm_compact=True, asm_coords="batched"),
 }
 
 

@@ -13,7 +13,9 @@ instead, on any device.
 Options of the JAX class carried over: ``l0_binv`` (supernode
 block-Jacobi on the fine level, :func:`with_supernode_smoother`),
 ``vmats`` (V-cycle-only level operators, :func:`with_bf16_vcycle`),
-``sawtooth``, and ``cheb_deg`` as an int or a per-level tuple.  The block
+``p_apply``/``pt_apply`` (transfer operators that replace the ELL arrays
+inside the cycle, :func:`with_compact_vcycle`), ``sawtooth``, and
+``cheb_deg`` as an int or a per-level tuple.  The block
 and rigid-body-mode paths (elasticity) are not ported.
 
 The hierarchy is built on the host by ``solver/amg_setup.py::amg_setup``
@@ -29,6 +31,7 @@ import scipy.sparse as sp
 import torch
 
 from ..sparse.bell import BellMatrix, check_cols
+from ..sparse.compact import CompactMatrix
 from ..sparse.ell_gather import ell_spmv, ell_spmv_plain
 from ..sparse.supernode import block_products
 
@@ -47,15 +50,18 @@ class AMGPrecond:
     coarse_inv: dense inverse of the coarsest operator.  omegas[l] =
     omega / rhos[l] damps the Jacobi smoother; rhos[l] estimates λmax of the
     smoothed operator for Chebyshev.  ``vmats[l]``, when given and not None,
-    replaces mats[l] inside the cycle; ``l0_binv`` (n_sup, bs, bs) replaces
-    the fine level's inverse diagonal by supernode block inverses.
+    replaces mats[l] inside the cycle, and ``p_apply[l]``/``pt_apply[l]``
+    (objects with ``spmv``), when given and not None, replace the ELL
+    arrays of P_l/P_l^T; ``l0_binv`` (n_sup, bs, bs) replaces the fine
+    level's inverse diagonal by supernode block inverses.
     """
 
     def __init__(self, mats, inv_diags, pcols, pvals, ptcols, ptvals,
                  coarse_inv, *, omegas, rhos, smoother: str = "jacobi",
                  cheb_deg: int | tuple = 2, nu: int = 1, cycle: str = "V",
                  sawtooth: bool = False, l0_binv: torch.Tensor | None = None,
-                 vmats: tuple = (), plain: bool = False):
+                 vmats: tuple = (), p_apply: tuple = (), pt_apply: tuple = (),
+                 plain: bool = False):
         if smoother not in ("jacobi", "chebyshev"):
             raise ValueError(f"unknown smoother {smoother!r}")
         if cycle not in ("V", "W"):
@@ -75,6 +81,7 @@ class AMGPrecond:
         self.sawtooth = bool(sawtooth)
         self.l0_binv = l0_binv
         self.vmats = tuple(vmats)
+        self.p_apply, self.pt_apply = tuple(p_apply), tuple(pt_apply)
         self._spmv = ell_spmv_plain if plain else ell_spmv
 
     def replace(self, **changes) -> "AMGPrecond":
@@ -141,9 +148,13 @@ class AMGPrecond:
         return x
 
     def _restrict(self, l: int, r: torch.Tensor) -> torch.Tensor:
+        if l < len(self.pt_apply) and self.pt_apply[l] is not None:
+            return self.pt_apply[l].spmv(r)
         return self._spmv(self.ptvals[l], self.ptcols[l], r)
 
     def _prolong(self, l: int, xc: torch.Tensor) -> torch.Tensor:
+        if l < len(self.p_apply) and self.p_apply[l] is not None:
+            return self.p_apply[l].spmv(xc)
         return self._spmv(self.pvals[l], self.pcols[l], xc)
 
     def _cycle(self, l: int, b: torch.Tensor) -> torch.Tensor:
@@ -284,6 +295,9 @@ def with_bf16_vcycle(M: AMGPrecond) -> AMGPrecond:
                               plain=m.plain)
         return None
 
+    if any(op is not None for op in M.p_apply + M.pt_apply):
+        raise ValueError("with_bf16_vcycle: M has compact transfers; a bf16 "
+                         "V-cycle is not combined with a compact one")
     big = [p.shape[0] >= BF16_MIN_ROWS for p in M.pvals]
     return M.replace(
         vmats=tuple(cast_mat(m) for m in M.mats),
@@ -291,4 +305,41 @@ def with_bf16_vcycle(M: AMGPrecond) -> AMGPrecond:
                     for v, b in zip(M.pvals, big)),
         ptvals=tuple(v.to(torch.bfloat16) if b else v
                      for v, b in zip(M.ptvals, big)),
+    )
+
+
+def with_compact_vcycle(M: AMGPrecond, band_pre: bool,
+                        l0: CompactMatrix | None = None) -> AMGPrecond:
+    """The compact two-stage SpMV (``sparse/compact.py``) for the V-cycle's
+    level operators and transfers, as the JAX ``build_amg`` under
+    ``AFEM_SPMV=compact`` (with ``AFEM_BAND_PRE=1`` when ``band_pre``).
+
+    As there, only the levels and transfers with at least ``BF16_MIN_ROWS``
+    (fine) rows are compacted, the ones the JAX package gives a Pallas plan
+    (amg.py:921 and :958); a level's real entries are its non-zero values.
+    ``l0``, the CG operator's CompactMatrix of the same operator as
+    ``mats[0]``, is reused as the fine level, so its host build runs once.
+    A bf16 V-cycle is not combined with this one: the call raises when M
+    already has ``vmats``."""
+    if any(v is not None for v in M.vmats):
+        raise ValueError("with_compact_vcycle: M already has V-cycle "
+                         "operators (a bf16 V-cycle); the two do not combine")
+
+    def level(l, m):
+        if l == 0 and l0 is not None:
+            return l0
+        if isinstance(m, BellMatrix) and m.n_nodes >= BF16_MIN_ROWS:
+            return CompactMatrix.from_bell(m, band_pre=band_pre)
+        return None
+
+    def transfer(vals, cols):
+        if vals.shape[0] < BF16_MIN_ROWS:
+            return None
+        P = BellMatrix(vals, cols, plain=M._spmv is ell_spmv_plain)
+        return CompactMatrix.from_bell(P, band_pre=band_pre)
+
+    return M.replace(
+        vmats=tuple(level(l, m) for l, m in enumerate(M.mats)),
+        p_apply=tuple(transfer(v, c) for v, c in zip(M.pvals, M.pcols)),
+        pt_apply=tuple(transfer(v, c) for v, c in zip(M.ptvals, M.ptcols)),
     )

@@ -1,0 +1,320 @@
+"""Banded tile gather: the compact SpMV's pre-gather for sorted request
+streams (``AFEM_BAND_PRE=1`` in the JAX package).
+
+The counterpart of ``arcanefem_tpu/sparse/band_gather.py``.  A sorted
+request stream (the concatenated per-block distinct columns of
+``sparse/compact.py``) is cut into tiles of 128 requests.  A tile whose
+requests span at most K table rows of 128 from an 8-aligned base is
+NARROW: it keeps its base row and tile-local indices lrow·128 + lane, and
+the band kernel fetches it.  Every other tile is WIDE and goes through the
+W=1 ELL gather (K2, or K3a when batched) as a plain request list.  The
+output is [narrow tiles; wide tiles] in tile units of 128, and
+``tile_perm[t]`` is the output position of original tile t, which the
+caller bakes into its downstream indices.
+
+    band_gather(bases, lcols, x, K)             K9a: one table
+    band_gather_batched(bases, lcols, T, K)     K9b: B <= 8 tables, any strides
+
+compute ``out[t*128 + l] = x[bases[t]*128 + lcols[t, l]]`` for tile t, with
+0 where lcols lies outside [0, K*128) (the plan's pads, ``UNIT_PAD``) or
+the index lies past the table's end.  On a CUDA tensor they launch the
+hand-written kernel of ``csrc/band_gather.cu`` or raise; on a CPU tensor
+they run the plain twin.  ``launch_counts()`` counts the launches.
+
+``BandedGather.build`` is a numpy copy of the JAX build (the CPU tests
+hold it to the original exactly); its arrays keep the JAX layouts, bases
+(nb, 1, G) and lcols (nb, G, 128).  The JAX wide remainder is a window
+plan; here it is the request list itself, (m, 1) int32 with -1 pads.
+``BandedRowSum`` is the JAX split plans' stage 2 (a band gather followed
+by W2-wide row sums); the port splits no rows, so nothing on its paths
+calls it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils import kernels
+from .ell_gather import (
+    MAX_TABLES,
+    ell_gather_sum,
+    ell_gather_sum_batched,
+    ell_gather_sum_batched_plain,
+    ell_gather_sum_plain,
+)
+
+LANE = 128
+UNIT_PAD = 1 << 28  # pallas_spmv.py::_UNIT_PAD
+DEF_K = 16
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_LAUNCHES = {"band_gather": 0, "band_gather_batched": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def band_gather_batched_plain(bases: torch.Tensor, lcols: torch.Tensor,
+                              tables: torch.Tensor, K: int) -> torch.Tensor:
+    """Plain twin of :func:`band_gather_batched`, (B, n_tiles*128)."""
+    lc = lcols.reshape(-1, LANE).long()
+    src = bases.reshape(-1)[: lc.shape[0]].long()[:, None] * LANE + lc
+    ok = (lc >= 0) & (lc < K * LANE) & (src < tables.shape[1])
+    g = tables[:, torch.where(ok, src, 0).reshape(-1)]
+    return torch.where(ok.reshape(-1), g, 0.0).to(tables.dtype)
+
+
+def band_gather_plain(bases: torch.Tensor, lcols: torch.Tensor,
+                      x: torch.Tensor, K: int) -> torch.Tensor:
+    """Plain twin of :func:`band_gather`."""
+    return band_gather_batched_plain(bases, lcols, x[None], K)[0]
+
+
+def _check(name: str, bases: torch.Tensor, lcols: torch.Tensor,
+           t: torch.Tensor, batched: bool) -> int:
+    """Check the operands; return the tile count."""
+    if lcols.dtype != torch.int32 or bases.dtype != torch.int32:
+        raise TypeError(f"{name}: bases and lcols must be int32")
+    if lcols.shape[-1] != LANE or lcols.numel() // LANE > bases.numel():
+        raise ValueError(f"{name}: lcols must be (..., {LANE}) with one base "
+                         f"per tile, got {tuple(lcols.shape)} and "
+                         f"{bases.numel()} bases")
+    if batched:
+        if t.dim() != 2 or not 1 <= t.shape[0] <= MAX_TABLES:
+            raise ValueError(f"{name}: tables must be (B, n) with 1 <= B <= "
+                             f"{MAX_TABLES}, got {tuple(t.shape)}")
+    elif t.dim() != 1:
+        raise ValueError(f"{name}: x must be 1-D, got {tuple(t.shape)}")
+    if t.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: the table must be float32 or float64")
+    if bases.device != t.device or lcols.device != t.device:
+        raise ValueError(f"{name}: operands lie on different devices")
+    if t.device.type == "cuda":
+        if not (bases.is_contiguous() and lcols.is_contiguous()):
+            raise ValueError(f"{name}: the CUDA kernel takes contiguous bases "
+                             "and lcols")
+        if batched and min(t.stride()) < 0:
+            raise ValueError(f"{name}: negative table strides")
+        if not batched and not t.is_contiguous():
+            raise ValueError(f"{name}: the CUDA kernel takes a contiguous x")
+    elif t.device.type != "cpu":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return lcols.numel() // LANE
+
+
+def _launch(name: str, bases, lcols, t, out, n_tiles: int, K: int) -> None:
+    kernels.launch(f"afem_band_gather_{_SUFFIX[t.dtype]}", t.device,
+                   bases.data_ptr(), lcols.data_ptr(), t.data_ptr(),
+                   out.data_ptr(), n_tiles, K, t.shape[0], t.shape[1],
+                   t.stride(1), t.stride(0), out.stride(1), out.stride(0))
+    _LAUNCHES[name] += 1
+
+
+def band_gather(bases: torch.Tensor, lcols: torch.Tensor, x: torch.Tensor,
+                K: int) -> torch.Tensor:
+    """out[t*128 + l] = x[bases[t]*128 + lcols[t, l]], 0 on pads (K9a on
+    the card)."""
+    n_tiles = _check("band_gather", bases, lcols, x, batched=False)
+    if x.device.type == "cpu":
+        return band_gather_plain(bases, lcols, x, K)
+    out = torch.empty(n_tiles * LANE, dtype=x.dtype, device=x.device)
+    if n_tiles:
+        _launch("band_gather", bases, lcols, x[None], out[None], n_tiles, K)
+    return out
+
+
+def band_gather_batched(bases: torch.Tensor, lcols: torch.Tensor,
+                        tables: torch.Tensor, K: int,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`band_gather` over B <= 8 tables (B, n) of any strides, into a
+    new (B, n_tiles*128) tensor or ``out`` of any strides (K9b on the
+    card)."""
+    n_tiles = _check("band_gather_batched", bases, lcols, tables, batched=True)
+    shape = (tables.shape[0], n_tiles * LANE)
+    if out is None:
+        out = torch.empty(shape, dtype=tables.dtype, device=tables.device)
+    elif out.shape != shape or out.dtype != tables.dtype \
+            or out.device != tables.device or min(out.stride()) < 0:
+        raise ValueError(f"band_gather_batched: out must be {shape} "
+                         f"{tables.dtype} on {tables.device}")
+    if tables.device.type == "cpu":
+        return out.copy_(band_gather_batched_plain(bases, lcols, tables, K))
+    if n_tiles:
+        _launch("band_gather_batched", bases, lcols, tables, out, n_tiles, K)
+    return out
+
+
+class UnitGather:
+    """y[i] = x[cols[i]] over an (m, 1) int32 request list, -1 pads giving
+    0: K2 for one table, K3a for a stack (``plain=True``: their twins on
+    any device)."""
+
+    def __init__(self, cols: torch.Tensor, *, plain: bool = False):
+        self.cols = cols
+        self.plain = plain
+
+    @property
+    def n_rows(self) -> int:
+        return self.cols.shape[0]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return (ell_gather_sum_plain if self.plain else ell_gather_sum)(self.cols, x)
+
+    def call_batched(self, tables: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+        if self.plain:
+            y = ell_gather_sum_batched_plain(self.cols, tables)
+            return y if out is None else out.copy_(y)
+        return ell_gather_sum_batched(self.cols, tables, out=out)
+
+
+class BandedGather:
+    """W=1 unit gather over a sorted-run request stream: narrow tiles on
+    the band kernel, wide tiles on the ELL gather, outputs [narrow; wide]
+    in tile units of 128 (``n_rows`` = n_tiles·128)."""
+
+    def __init__(self, bases: torch.Tensor, lcols: torch.Tensor, K: int, G: int,
+                 wide: UnitGather | None, n_tiles: int, n_narrow: int,
+                 need_rows: int, tile_perm: np.ndarray, *, plain: bool = False):
+        self.bases = bases  # (nb, 1, G) int32
+        self.lcols = lcols  # (nb, G, 128) int32
+        self.K, self.G = K, G
+        self.wide = wide
+        self.n_tiles = n_tiles
+        self.n_narrow = n_narrow
+        self.n_rows = n_tiles * LANE
+        self.need_rows = need_rows  # table rows the narrow bands reach
+        self.tile_perm = tile_perm  # (n_tiles,) int64, host
+        self.plain = plain
+
+    @staticmethod
+    def build(requests: np.ndarray, *, device: torch.device | str,
+              K: int = DEF_K, G: int = 8, min_narrow_frac: float = 0.25,
+              valid: np.ndarray | None = None, plain: bool = False):
+        """requests: (m,) concatenated sorted runs; ``valid`` (m,) bool
+        marks requests that must contribute (the others give an exact 0);
+        invalid requests are forward-filled so that they never widen a
+        band.  Returns (gather, tile_perm), or (None, None) when fewer than
+        ``min_narrow_frac`` of the tiles are narrow (banding is then
+        pointless) or there is nothing to fetch."""
+        if K % 8:
+            raise ValueError("K must be a multiple of 8")
+        m = len(requests)
+        if m == 0:
+            return None, None
+        requests = np.asarray(requests, np.int64)
+        if valid is not None:
+            valid = np.asarray(valid, bool)
+            if not valid.any():
+                return None, None
+            idx = np.where(valid, np.arange(m), -1)
+            np.maximum.accumulate(idx, out=idx)
+            if idx[0] < 0:
+                idx[idx < 0] = np.flatnonzero(valid)[0]
+            requests = requests[idx]
+        T = -(-m // LANE)
+        req = np.empty(T * LANE, np.int64)
+        req[:m] = requests
+        req[m:] = requests[-1]
+        pad_mask = np.zeros(T * LANE, bool)
+        pad_mask[m:] = True
+        if valid is not None:
+            pad_mask[:m] |= ~valid
+        tiles = req.reshape(T, LANE)
+        rows_t = tiles >> 7
+        base8 = (rows_t.min(axis=1) // 8) * 8
+        span = rows_t.max(axis=1) - base8 + 1
+        narrow = span <= K
+        n_nar = int(narrow.sum())
+        if n_nar < min_narrow_frac * T:
+            return None, None
+        nar_ids = np.flatnonzero(narrow)
+        wid_ids = np.flatnonzero(~narrow)
+        tile_perm = np.empty(T, np.int64)
+        tile_perm[nar_ids] = np.arange(n_nar)
+        tile_perm[wid_ids] = n_nar + np.arange(T - n_nar)
+
+        nb = -(-n_nar // G)
+        bases = np.zeros((nb, 1, G), np.int32)
+        lcols = np.full((nb * G, LANE), UNIT_PAD, np.int32)
+        nt = tiles[nar_ids]
+        nb8 = base8[nar_ids]
+        lrow = (nt >> 7) - nb8[:, None]
+        lv = (lrow * LANE + (nt & (LANE - 1))).astype(np.int32)
+        lv[pad_mask.reshape(T, LANE)[nar_ids]] = UNIT_PAD
+        lcols[:n_nar] = lv
+        bases.reshape(nb * G)[:n_nar] = nb8.astype(np.int32)
+        need_rows = int((nb8.max() if n_nar else 0) + K)
+
+        wide = None
+        if len(wid_ids):
+            wreq = tiles[wid_ids].reshape(-1)
+            wpad = pad_mask.reshape(T, LANE)[wid_ids].reshape(-1)
+            wide = UnitGather(torch.tensor(
+                np.where(wpad, -1, wreq).astype(np.int32)[:, None], device=device),
+                plain=plain)
+        g = BandedGather(
+            torch.tensor(bases, device=device),
+            torch.tensor(lcols.reshape(nb, G, LANE), device=device),
+            K, G, wide, T, n_nar, need_rows, tile_perm, plain=plain)
+        return g, tile_perm
+
+    def _narrow(self):
+        """The narrow tiles' bases and lcols, (n_narrow,) and (n_narrow, 128)."""
+        return (self.bases.reshape(-1)[: self.n_narrow],
+                self.lcols.reshape(-1, LANE)[: self.n_narrow])
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        bases, lcols = self._narrow()
+        fn = band_gather_plain if self.plain else band_gather
+        nar = fn(bases, lcols, x, self.K)
+        if self.wide is None:
+            return nar
+        return torch.cat([nar, self.wide(x)])
+
+    def call_batched(self, tables: torch.Tensor) -> torch.Tensor:
+        """(B, n) tables of any strides -> (B, n_rows)."""
+        bases, lcols = self._narrow()
+        out = torch.empty((tables.shape[0], self.n_rows), dtype=tables.dtype,
+                          device=tables.device)
+        nn = self.n_narrow * LANE
+        if self.plain:
+            out[:, :nn] = band_gather_batched_plain(bases, lcols, tables, self.K)
+        else:
+            band_gather_batched(bases, lcols, tables, self.K, out=out[:, :nn])
+        if self.wide is not None:
+            self.wide.call_batched(tables, out=out[:, nn:])
+        return out
+
+
+class BandedRowSum:
+    """A band gather followed by W2-wide row sums: the JAX split plans'
+    stage 2 (``_split_stage2`` under ``AFEM_BAND_PRE=1``), which sums each
+    row's W2 consecutive subrow ids.  The stream must be all narrow and W2
+    must divide 128, so no row straddles a tile.  The sums run in float64
+    and round to the table's dtype."""
+
+    def __init__(self, band: BandedGather, W2: int, n_rows: int):
+        if band.wide is not None:
+            raise ValueError("BandedRowSum: the stream must be all narrow")
+        if LANE % W2:
+            raise ValueError("BandedRowSum: W2 must divide 128")
+        self.band = band
+        self.W2 = W2
+        self.n_rows = n_rows
+
+    def __call__(self, table: torch.Tensor) -> torch.Tensor:
+        y = self.band(table).double().reshape(-1, self.W2).sum(dim=1)
+        return y[: self.n_rows].to(table.dtype)
+
+    def call_batched(self, tables: torch.Tensor) -> torch.Tensor:
+        y = self.band.call_batched(tables).double()
+        y = y.reshape(tables.shape[0], -1, self.W2).sum(dim=2)
+        return y[:, : self.n_rows].to(tables.dtype)

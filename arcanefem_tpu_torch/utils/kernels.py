@@ -39,6 +39,10 @@ _STENCIL_ASSEMBLY = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _I64,
 _ELL_SPMV = [_P, _P, _P, _P, _I64, _I, _P]
 _ELL_GATHER_SUM = [_P, _P, _P, _I64, _I, _P]
 _BATCHED_STRIDES = [_I, _I64, _I64, _I64, _I64, _P]  # B, ts_r, ts_b, ys_r, ys_b, stream
+# bases, lcols, t, out, n_tiles, K, B, n_t, ts_r, ts_b, os_r, os_b, stream
+_BAND_GATHER = [_P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _I64, _I64, _I64, _P]
+# lo, c0, scnt, lcols, vals, x, y, n, W, qn, stream
+_DIAG_SPMV = [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P]
 # (name, argtypes) of every C entry point in csrc/; all return an int
 # cudaError_t from cudaGetLastError() after the launch
 _SIGNATURES = {
@@ -57,6 +61,12 @@ _SIGNATURES = {
     "afem_dia_stencil_f64_f64": _DIA_STENCIL,
     "afem_stencil_assembly_f32": _STENCIL_ASSEMBLY,
     "afem_stencil_assembly_f64": _STENCIL_ASSEMBLY,
+    "afem_band_gather_f32": _BAND_GATHER,
+    "afem_band_gather_f64": _BAND_GATHER,
+    "afem_diag_spmv_f32": _DIAG_SPMV,
+    "afem_diag_spmv_f64": _DIAG_SPMV,
+    # win, idx, out, nb, K, G, mode, stream
+    "afem_window_take_f32": [_P, _P, _P, _I64, _I, _I, _I, _P],
 }
 
 

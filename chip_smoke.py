@@ -24,6 +24,19 @@ script then exits non-zero without the final line:
    solve checked and printed with its launch counts as an ``[sn]`` line,
    then K3a at its three shapes, K3b at the fine operator's and K1 bf16
    held against their plain twins and timed;
+g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
+   compact`` (pre-gather K2), (h) with ``--band-pre`` (K9a on the CG
+   operator, the levels and the transfers), (i) with ``--asm-compact
+   --asm-coords batched`` too (K9b); each solve checked against the ELL
+   run's iterations and printed with its launch counts as a ``[compact]``
+   line; the compact corners held equal to the split gather's; K9a and
+   K9b held to their twins and timed at the route's shapes; and
+   ``--spmv diag`` must raise on this system, where plan_diag declines;
+j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
+   then ``--spmv diag`` (K10) on the same system, ``[diag]`` lines; K10
+   held to its twin and timed there and on the 80^3 RCM box, beside K1 and
+   CSR ``torch.mv`` on the same operator; the gather probes P1-P3
+   (``tools/probe_gather.py``) at (K, G) = (160, 64) and (1024, 64);
 5. the same system at h=8 with the plain twins in place of the kernels,
    and in float64 on the CPU: iterations and solutions must agree, on the
    ELL route and (9b) on the supernode route with the block smoother;
@@ -46,7 +59,11 @@ repository, it exits non-zero and prints no result.
 
 A record's ``bound_ms`` is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over 67 TFLOP/s
-(the H100 SXM's HBM3 rate and non-tensor f32 rate, at 700 W).
+(the H100 SXM's HBM3 rate and non-tensor f32 rate, at 700 W).  ``ms`` is
+the CUDA-event time of back-to-back calls; the slice-4 records add
+``device_ms``, the profiler's kernel time per call, because for a kernel
+of a few microseconds the former measures the host's rate of issuing
+launches.
 """
 
 from __future__ import annotations
@@ -242,7 +259,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     records += supernode_phase(dev, gen, mesh, topo, res)
+    res["system"].pop("sn", None)  # 1.35 GB of blocks no later phase reads
+    records += compact_phase(dev, gen, mesh, topo, res)
     del res, mesh, topo
+    torch.cuda.empty_cache()
+    records += diag_phase(dev, gen)
+    records += probe_phase(dev)
     torch.cuda.empty_cache()
 
     # 5. the kernel path against the plain path, and against float64 on
@@ -340,8 +362,8 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     import torch
 
     from arcanefem_tpu_torch.bench_unstructured import (
+        operator_self_check,
         solve_sphere_cut,
-        supernode_self_check,
     )
     from arcanefem_tpu_torch.ops.lane_assembly import TetraAssembler
     from arcanefem_tpu_torch.sparse.ell_gather import (
@@ -422,7 +444,7 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     sn = system["sn"]
     n, W = A.values.shape
     nnzb, n_sup = sn.blocks.shape[0], sn.n_sup
-    e_sn = supernode_self_check(sn, A)
+    e_sn = operator_self_check(sn, A)
     print(f"[sn] supernode SpMV vs K1 ell_spmv on a unit-random x: {e_sn:.2e} of "
           f"each row's sum |a x| (tol 1e-5); {nnzb} blocks, {sn.nbytes / 1e9:.3f} GB, "
           f"row-reduce width {sn.row_blocks.shape[1]}", flush=True)
@@ -524,6 +546,341 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     return records
 
 
+def _reset_all() -> None:
+    from arcanefem_tpu_torch.sparse import band_gather, diag_spmv, ell_gather
+
+    for m in (ell_gather, band_gather, diag_spmv):
+        m.reset_launch_counts()
+
+
+def _counts_all() -> dict:
+    from arcanefem_tpu_torch.sparse import band_gather, diag_spmv, ell_gather
+
+    return {**ell_gather.launch_counts(), **band_gather.launch_counts(),
+            **diag_spmv.launch_counts()}
+
+
+def _route_run(tag, mesh, topo, dev, system, ell_iters, **opts):
+    """One timed solve of a route with its launch counts, checked (rel <=
+    1e-8, true residual <= 1e-4, finite x, iterations within 1 of the ELL
+    run on the same system) and printed as a ``[tag]`` line."""
+    import torch
+
+    from arcanefem_tpu_torch.bench_unstructured import solve_sphere_cut
+
+    _reset_all()
+    r = solve_sphere_cut(mesh, topo, device=dev, dtype=torch.float32,
+                         penalty=1e12, timed=True, system=system, **opts)
+    torch.cuda.synchronize()
+    counts = _counts_all()
+    line = {"flags": opts, "spmv_path": r["spmv_path"], "iterations": r["iterations"],
+            "ell_iterations": ell_iters, "rel": r["rel"],
+            "true_residual": r["true_residual"], "solve_s": r["solve_s"],
+            "ms_per_iter": r["solve_s"] / max(r["iterations"], 1) * 1e3,
+            "assembly_s": r["assembly_s"],
+            **{k: r[k] for k in ("compact_setup_s", "compact_check", "vcycle_compact",
+                                 "vcycle_band", "diag_setup_s", "diag_check") if k in r},
+            "launches": {k: v for k, v in counts.items() if v}}
+    print(f"[{tag}] {json.dumps(line)}", flush=True)
+    _check(r["rel"] <= 1e-8, f"[{tag}] {opts}: monitored residual {r['rel']:.3e}")
+    _check(r["true_residual"] <= 1e-4,
+           f"[{tag}] {opts}: true interior residual {r['true_residual']:.3e}")
+    _check(bool(torch.isfinite(r["x"]).all()), f"[{tag}] {opts}: non-finite x")
+    _check(abs(r["iterations"] - ell_iters) <= 1,
+           f"[{tag}] {opts}: {r['iterations']} iterations, ELL {ell_iters}")
+    return r, counts
+
+
+COMPACT_CONFIGS = {  # phases g-i: bench_unstructured's flags
+    "g": dict(spmv="compact"),
+    "h": dict(spmv="compact", band_pre=True),
+    "i": dict(spmv="compact", band_pre=True, asm_compact=True, asm_coords="batched"),
+}
+
+
+def _device_ms(fn, calls: int = 20) -> float:
+    """Device time per call of fn from torch.profiler: the sum of its CUDA
+    kernel events over ``calls`` calls.  Beside the CUDA-event time of
+    back-to-back calls, which for a kernel of a few microseconds measures
+    the host's rate of issuing them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    return total / calls / 1e3
+
+
+def _kernel_record(name, src, rep_, fk, fp, lib, nbytes_flops, launches, shape,
+                   check, dtype="float32"):
+    """Hold fk() to fp() with ``check`` (returns the held error, raises on
+    failure), then time kernel, twin and library call (CUDA events, best of
+    3×20; the twin 2×3); one ``kernels`` record."""
+    import torch
+
+    from arcanefem_tpu_torch.utils.timing import time_op
+
+    yk, yp = fk(), fp()
+    torch.cuda.synchronize()
+    err = float((yk.double() - yp.double()).abs().max())
+    held = check(yk, yp)
+    del yk, yp
+    ms = time_op(fk, reps=20, outer=3) * 1e3
+    pms = time_op(fp, reps=3, outer=2) * 1e3
+    lms = time_op(lib, reps=20, outer=3) * 1e3 if lib else None
+    dms = _device_ms(fk)
+    bms, bby = _bound(*nbytes_flops)
+    print(f"[kernel] {name} {shape}: {ms:.4f} ms, device {dms:.4f} ms (bound "
+          f"{bms:.4f} ms, {bby}), plain {pms:.3f} ms, library "
+          f"{'n/a' if lms is None else f'{lms:.4f} ms'}, max_abs_err {err:.3e} "
+          f"({held:.2e} held), launches {launches}", flush=True)
+    return {"name": name, "route": "cuda", "source": f"arcanefem_tpu_torch/csrc/{src}",
+            "replaces": f"arcanefem_tpu/{rep_}", "launches": launches,
+            "max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": bby, "library_ms": lms, "shape": shape,
+            "dtype": dtype}
+
+
+def _equal(yk, yp) -> float:
+    """A gather's check: equal to its plain twin."""
+    import torch
+
+    _check(torch.equal(yk, yp), "a gather differs from its plain twin")
+    return 0.0
+
+
+def compact_phase(dev, gen, mesh, topo, res4) -> list[dict]:
+    """Phases g-i on phase 4's mesh, operator and AMG hierarchy, the
+    compact corners against the split gather's, K9a and K9b at the route's
+    shapes, and the diag route's refusal on this system."""
+    import torch
+
+    from arcanefem_tpu_torch.bench_unstructured import solve_sphere_cut
+    from arcanefem_tpu_torch.ops.lane_assembly import TetraAssembler
+    from arcanefem_tpu_torch.sparse import band_gather as bg
+
+    system = res4["system"]
+    counts = {}
+    for key, opts in COMPACT_CONFIGS.items():
+        r, counts[key] = _route_run("compact", mesh, topo, dev, system,
+                                    res4["iterations"], **opts)
+        _check(r["spmv_path"] == "CompactMatrix", f"[compact] {key}: spmv path")
+        _check(counts[key]["ell_spmv"] > 0 and counts[key]["ell_gather_sum"] > 0,
+               f"[compact] {key}: K1 or K2 never ran")
+        del r
+    # device time by kernel of one (h) solve (its self-check included)
+    def solve_h():
+        return solve_sphere_cut(mesh, topo, device=dev, dtype=torch.float32,
+                                penalty=1e12, system=system, **COMPACT_CONFIGS["h"])
+
+    solve_h()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve_h()
+    torch.cuda.synchronize()
+    _profile(solve_h, os.path.join("build", "profile", "compact_h.txt"),
+             time.perf_counter() - t0, groups=SPHERE_GROUPS)
+    _check(counts["g"]["band_gather"] == 0, "[compact] g: K9a ran without --band-pre")
+    _check(counts["h"]["band_gather"] > 0, "[compact] h: K9a never ran")
+    _check(counts["i"]["band_gather_batched"] > 0, "[compact] i: K9b never ran")
+
+    # the compact corners equal the split gather's; K9a on the CG operator's
+    # pre-gather, K9b on the compact coordinates'
+    conn = mesh.cells["tetra4"]
+    coords = torch.as_tensor(mesh.coords, device=dev).to(torch.float32)
+    t0 = time.perf_counter()
+    asm_c = TetraAssembler(topo, conn, device=dev, coords_batched=True,
+                           coords_compact=True, band_pre=True)
+    host_s = time.perf_counter() - t0
+    gs = TetraAssembler(topo, conn, device=dev).gather_corners(coords)
+    gc = asm_c.gather_corners(coords)
+    same = all(torch.equal(gs[k], gc[k]) for k in range(3))
+    cb = asm_c.compact.pre
+    print(f"[compact] (i) corners equal to the split gather's: {same}; coordinate "
+          f"pre-gather {cb.n_narrow} of {cb.n_tiles} tiles narrow, "
+          f"{asm_c.compact.remap.shape[0]} requests, host build {host_s:.1f} s", flush=True)
+    _check(same, "(i) compact coordinate gather != split gather")
+    del gs, gc
+
+    cg = system[("compact", True)][0]
+    band = cg.pre
+    n = topo.n_nodes
+    print(f"[compact] CG pre-gather: {band.n_narrow} of {band.n_tiles} tiles narrow, "
+          f"{band.n_rows} outputs", flush=True)
+    x = torch.rand(n, generator=gen, device=dev) * 2 - 1
+    bases, lcols = band._narrow()
+    gidx = torch.where((lcols >= 0) & (lcols < band.K * 128),
+                       bases.long()[:, None] * 128 + lcols.long(), 0).reshape(-1)
+    cbases, clcols = cb._narrow()
+    cgidx = torch.where((clcols >= 0) & (clcols < cb.K * 128),
+                        cbases.long()[:, None] * 128 + clcols.long(), 0).reshape(-1)
+    nreq, creq = lcols.numel(), clcols.numel()
+    records = [
+        _kernel_record(
+            "band_gather", "band_gather.cu", "sparse/band_gather.py:52",
+            lambda: bg.band_gather(bases, lcols, x, band.K),
+            lambda: bg.band_gather_plain(bases, lcols, x, band.K),
+            lambda: x[gidx], (nreq * 8 + n * 4, 0), counts["h"]["band_gather"],
+            [band.n_narrow, 128], _equal),
+        _kernel_record(
+            "band_gather_batched (coords)", "band_gather.cu", "sparse/band_gather.py:109",
+            lambda: bg.band_gather_batched(cbases, clcols, coords.T, cb.K),
+            lambda: bg.band_gather_batched_plain(cbases, clcols, coords.T, cb.K),
+            lambda: coords.index_select(0, cgidx), (creq * 16 + n * 12, 0),
+            counts["i"]["band_gather_batched"], [cb.n_narrow, 128, 3], _equal),
+    ]
+    del asm_c, x, gidx, cgidx
+
+    # no fallback: the diag SpMV raises on this (supernode-ordered) system
+    try:
+        solve_sphere_cut(mesh, topo, device=dev, dtype=torch.float32, penalty=1e12,
+                         system=system, spmv="diag")
+    except ValueError as e:
+        print(f"[compact] --spmv diag on the 1.9M system raises: {e}", flush=True)
+    else:
+        _check(False, "--spmv diag ran on the 1.9M system, where plan_diag declines")
+    return records
+
+
+def _rcm_box(n: int, dev, gen):
+    """The 80^3-style RCM box of the JAX tools/bench_spmv.py: W padded to 8,
+    random f32 values on the valid slots."""
+    import torch
+
+    from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh
+    from arcanefem_tpu_torch.sparse.topology import build_topology
+    from arcanefem_tpu_torch.utils.ordering import rcm_order, renumber_mesh
+
+    mesh = box_tetra_mesh(n, n, n)
+    t = build_topology(mesh.n_nodes, mesh.cells, pad_width_to=8)
+    mesh = renumber_mesh(mesh, rcm_order(mesh.n_nodes, t.row_ptr, t.csr_cols))
+    topo = build_topology(mesh.n_nodes, mesh.cells, pad_width_to=8)
+    valid = torch.as_tensor(topo.ell_valid, device=dev)
+    vals = torch.rand(valid.shape, generator=gen, device=dev) * valid
+    return topo, vals
+
+
+def diag_phase(dev, gen) -> list[dict]:
+    """Phase j: the RCM sphere at 244k, ELL then diag on the same system;
+    K10 there and on the 80^3 RCM box beside K1 and CSR torch.mv."""
+    import torch
+
+    from arcanefem_tpu_torch.bench_unstructured import solve_sphere_cut, sphere_cut_system
+    from arcanefem_tpu_torch.sparse.diag_spmv import DiagEllMatrix, diag_spmv_plain
+    from arcanefem_tpu_torch.sparse.ell_gather import ell_spmv, ell_spmv_plain
+    from arcanefem_tpu_torch.utils.timing import time_op
+
+    t0 = time.perf_counter()
+    mesh, topo = sphere_cut_system(5.0, 1, order="rcm")
+    print(f"[diag] host set-up of the RCM sphere h=5 r=1 ({topo.n_nodes} nodes, "
+          f"W={topo.width}) {time.perf_counter() - t0:.1f} s", flush=True)
+    _reset_all()
+    ell = solve_sphere_cut(mesh, topo, device=dev, dtype=torch.float32, penalty=1e12,
+                           timed=True, order="rcm")
+    torch.cuda.synchronize()
+    line = {"flags": {"order": "rcm"}, "iterations": ell["iterations"], "rel": ell["rel"],
+            "true_residual": ell["true_residual"], "solve_s": ell["solve_s"],
+            "ms_per_iter": ell["solve_s"] / ell["iterations"] * 1e3,
+            "launches": {k: v for k, v in _counts_all().items() if v}}
+    print(f"[diag] {json.dumps(line)}", flush=True)
+    _check(ell["rel"] <= 1e-8 and ell["true_residual"] <= 1e-4, "[diag] ELL route residuals")
+    r, counts = _route_run("diag", mesh, topo, dev, ell["system"], ell["iterations"],
+                           order="rcm", spmv="diag")
+    _check(r["spmv_path"] == "DiagEllMatrix" and counts["diag_spmv"] > 0,
+           "[diag] K10 never ran on the diag route")
+    A = ell["A"]
+    t0 = time.perf_counter()
+    btopo, bvals = _rcm_box(80, dev, gen)
+    print(f"[diag] host set-up of the 80^3 RCM box {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    bcols = torch.as_tensor(btopo.ell_cols.astype("int32"), device=dev)
+    records = []
+    for label, vals, cols, tp in (("sphere h=5 r=1 rcm", A.values, A.cols, topo),
+                                  ("box 80^3 rcm", bvals, bcols, btopo)):
+        n, W = vals.shape
+        t0 = time.perf_counter()
+        D = DiagEllMatrix(vals, tp.ell_cols)
+        p = D.plan
+        print(f"[diag] {label}: {n} x {W}, plan {time.perf_counter() - t0:.1f} s, "
+              f"mean probes {float(p.scnt.mean()):.1f}, S {p.n_probes}, window "
+              f"{p.window}", flush=True)
+        x = torch.rand(n, generator=gen, device=dev) * 2 - 1
+        scale = ell_spmv_plain(vals.abs(), cols, x.abs()).double()
+
+        def held(yk, yp, scale=scale):
+            e = _rel_err(yk, yp, scale)
+            _check(e <= 1e-5, f"diag_spmv at {label}: {e:.2e}")
+            return e
+
+        crow = torch.as_tensor(tp.row_ptr, device=dev, dtype=torch.int64)
+        csr = torch.sparse_csr_tensor(
+            crow, torch.as_tensor(tp.csr_cols, device=dev, dtype=torch.int64),
+            vals.reshape(-1)[torch.as_tensor(tp.csr_to_ell, device=dev,
+                                             dtype=torch.int64)], size=(n, n))
+        rec = _kernel_record(
+            f"diag_spmv ({label})", "diag_spmv.cu", "sparse/pallas_spmv_diag.py:158",
+            lambda: D.spmv(x),
+            lambda: diag_spmv_plain(D.lo, D.c0, D.scnt, D.lcols, D.vals_tiled, x, W),
+            lambda: torch.mv(csr, x), (n * W * 8 + n * 8, 2 * n * W),
+            counts["diag_spmv"] if label.startswith("sphere") else 0, [n, W], held)
+        rec["k1_ms"] = time_op(ell_spmv, vals, cols, x, reps=20, outer=3) * 1e3
+        e1 = _rel_err(D.spmv(x), ell_spmv(vals, cols, x), scale)
+        print(f"[diag] {label}: K10 {rec['ms']:.4f} ms, K1 on the same operator "
+              f"{rec['k1_ms']:.4f} ms, CSR torch.mv {rec['library_ms']:.4f} ms; K10 vs "
+              f"K1 {e1:.2e} of each row's sum |a x|", flush=True)
+        _check(e1 <= 1e-5, f"K10 vs K1 at {label}")
+        records.append(rec)
+        del D, x, scale, csr
+    del ell, r, A, mesh, topo, btopo, bvals, bcols
+    return records
+
+
+def probe_phase(dev) -> list[dict]:
+    """The gather probes P1-P3: the probe tool's entry point at (K, G) =
+    (160, 64) (P1 and P2 checked against numpy, P3 timed at K = 160 and
+    1024) with its launch count, then each probe at K = 160 and 1024 held
+    to its twin and timed (tools/probe_gather.py::measure)."""
+    from arcanefem_tpu_torch.tools import probe_gather as pg
+
+    pg.reset_launch_counts()
+    pg.main(["160", "64"])
+    launches = pg.launch_counts()["window_take"]
+    print(f"[probe] the probe tool launched window_take {launches} times", flush=True)
+    _check(launches > 0, "the probe tool never launched window_take")
+    ok = [f(K, 64, dev) for K in (160, 1024) for f in (pg.probe_A, pg.probe_B)]
+    _check(all(ok), f"gather probes against numpy: {ok}")
+    records = []
+    for K in (160, 1024):
+        for name, line, mode, nb in (("P1 column take", 19, "column", 1),
+                                     ("P2 flat take", 42, "flat", 1),
+                                     ("P3 column take over 256 windows", 66, "column", 256)):
+            m = pg.measure(mode, K, 64, nb, device=dev)
+            _check(m["equal"], f"{name} K={K}: differs from its plain twin")
+            win, idx = pg._inputs(nb, K, 64, mode, dev)
+            m["device_ms"] = _device_ms(lambda: pg.window_take(win, idx, mode))
+            print(f"[probe] {name} K={K} G=64 nb={nb}: {m['ms']:.4f} ms, device "
+                  f"{m['device_ms']:.4f} ms, "
+                  f"{m['gelem_s']:.2f} Gelem/s, plain {m['plain_ms']:.4f} ms, library "
+                  f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms", flush=True)
+            records.append({
+                "name": f"window_take ({name}, K={K})", "route": "cuda",
+                "source": "arcanefem_tpu_torch/csrc/window_gather.cu",
+                "replaces": f"arcanefem_tpu/tools/probe_gather.py:{line}",
+                "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "device_ms": m["device_ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": "bytes",
+                "library_ms": m["library_ms"], "gelem_s": m["gelem_s"],
+                "shape": [nb, K, 64], "dtype": "float32"})
+    return records
+
+
 def _structured_parity(dev, gen) -> None:
     """Phase 6: K4-K8 against their plain twins on the card."""
     import numpy as np
@@ -600,10 +957,27 @@ def _asm_tol(box) -> float:
     return 4 * 1.1920929e-07 * max(box.nx, box.ny, box.nz)
 
 
-def _profile(fn, path: str, wall_s: float, top: int = 12) -> None:
+STRUCTURED_GROUPS = {
+    "stencil_assembly": "stencil_assembly_kernel",
+    "dia_stencil spmv": "dia_stencil_kernel<0,",
+    "dia_stencil jacobi": "dia_stencil_kernel<1,",
+    "dia_stencil residual (bf16)": "dia_stencil_kernel<2, __nv_bfloat16",
+    "dia_stencil residual (f64 replacement)": "dia_stencil_kernel<2, float, double",
+    "cat/stack copies": "CatArrayBatchedCopy", "reductions": "reduce_kernel"}
+SPHERE_GROUPS = {
+    "K1 ell_spmv": "ell_rows_kernel<float, float, 16, true>",
+    "K1 ell_spmv, other widths": ", true>",
+    "K2 ell_gather_sum": ", false>", "K9a band_gather": "band_gather_kernel",
+    "K10 diag_spmv": "diag_spmv_kernel", "cat/stack copies": "CatArrayBatchedCopy",
+    "reductions": "reduce_kernel"}
+
+
+def _profile(fn, path: str, wall_s: float, top: int = 12,
+             groups: dict = STRUCTURED_GROUPS) -> None:
     """Device time by kernel of one call of fn, from torch.profiler: the
     sum over kernel events, and its share of ``wall_s`` (one unprofiled
-    call); the operator table goes to ``path``."""
+    call); the operator table goes to ``path``.  ``groups`` sums kernels by
+    the first name fragment they contain."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -629,12 +1003,6 @@ def _profile(fn, path: str, wall_s: float, top: int = 12) -> None:
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"[profile] {t / 1e3:9.3f} ms {t / total:6.1%} {n:5d}x {name[:100]}",
               flush=True)
-    groups = {"stencil_assembly": "stencil_assembly_kernel",
-              "dia_stencil spmv": "dia_stencil_kernel<0,",
-              "dia_stencil jacobi": "dia_stencil_kernel<1,",
-              "dia_stencil residual (bf16)": "dia_stencil_kernel<2, __nv_bfloat16",
-              "dia_stencil residual (f64 replacement)": "dia_stencil_kernel<2, float, double",
-              "cat/stack copies": "CatArrayBatchedCopy", "reductions": "reduce_kernel"}
     sums = {g: [0.0, 0] for g in (*groups, "other (elementwise, copies, fills)")}
     for name, (t, n) in by_name.items():
         g = next((g for g, key in groups.items() if key in name),

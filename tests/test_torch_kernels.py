@@ -37,7 +37,12 @@ from arcanefem_tpu_torch.sparse.ell_gather import (
     launch_counts,
     reset_launch_counts,
 )
+from arcanefem_tpu_torch.sparse import band_gather as band
+from arcanefem_tpu_torch.sparse import diag_spmv as dsp
+from arcanefem_tpu_torch.sparse.band_gather import BandedGather
+from arcanefem_tpu_torch.sparse.diag_spmv import DiagEllMatrix
 from arcanefem_tpu_torch.sparse.supernode import SupernodeSpmv
+from arcanefem_tpu_torch.tools import probe_gather as pg
 
 NO_LAUNCHES = {"ell_spmv": 0, "ell_spmv_bf16": 0, "ell_gather_sum": 0,
                "ell_spmv_batched": 0, "ell_gather_sum_batched": 0}
@@ -321,3 +326,107 @@ def test_structured_slice_on_cuda_matches_cpu(cuda):
         assert k["rel"] <= 1e-8 and true_residual(sk, k) <= 1e-4
     assert all(v > 0 for v in ds.launch_counts().values())
     assert sa.launch_counts()["stencil_assembly"] > 0
+
+
+def _band_stream():
+    """Sorted runs with mixed strides: narrow and wide tiles."""
+    rng = np.random.RandomState(5)
+    runs, base = [], 0
+    for stride, ln in ((3, 20000), (200, 4000), (5, 15000), (90, 5000)):
+        r = base + np.cumsum(rng.randint(1, stride + 1, ln))
+        runs.append(r)
+        base = int(r[-1] // 3)
+    return np.concatenate(runs).astype(np.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_band_gather_matches_plain_on_cuda(cuda, dtype):
+    """K9a and K9b (B 1, 3, 8; contiguous and channel-minor tables) equal
+    their plain twins exactly, and the band pre-gather with its wide tiles
+    equals its CPU twin."""
+    req = _band_stream()
+    g, _ = BandedGather.build(req, device=cuda)
+    gc, _ = BandedGather.build(req, device="cpu")
+    assert 0 < g.n_narrow < g.n_tiles
+    gen = torch.Generator().manual_seed(6)
+    bases, lcols = g._narrow()
+    band.reset_launch_counts()
+    n_t = int(req.max()) + 3
+    for B in (1, 3, 8):
+        tab = torch.rand((B, n_t), generator=gen, dtype=dtype)
+        for minor in (False, True):
+            t = tab.to(cuda)
+            if minor:
+                t = t.T.contiguous().T
+            y = band.band_gather_batched(bases, lcols, t, g.K)
+            assert torch.equal(y, band.band_gather_batched_plain(bases, lcols, t, g.K))
+            assert torch.equal(g.call_batched(t).cpu(), gc.call_batched(tab))
+        y1 = band.band_gather(bases, lcols, tab[0].to(cuda), g.K)
+        assert torch.equal(y1, band.band_gather_plain(bases, lcols, tab[0].to(cuda), g.K))
+        assert torch.equal(g(tab[0].to(cuda)).cpu(), gc(tab[0]))
+    assert band.launch_counts() == {"band_gather": 6, "band_gather_batched": 12}
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_diag_spmv_matches_plain_on_cuda(cuda, dtype, rtol):
+    """K10 == its plain twin on an RCM box (two row blocks, a padded last
+    one), error against each row's sum |a·x|."""
+    from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh
+    from arcanefem_tpu_torch.sparse.topology import build_topology
+    from arcanefem_tpu_torch.utils.ordering import rcm_order, renumber_mesh
+
+    mesh = box_tetra_mesh(22, 20, 18)
+    t = build_topology(mesh.n_nodes, mesh.cells, pad_width_to=8)
+    mesh = renumber_mesh(mesh, rcm_order(mesh.n_nodes, t.row_ptr, t.csr_cols))
+    topo = build_topology(mesh.n_nodes, mesh.cells, pad_width_to=8)
+    gen = torch.Generator().manual_seed(7)
+    vals = (torch.rand((topo.n_nodes, topo.width), generator=gen, dtype=dtype) * 2 - 1) \
+        * torch.as_tensor(topo.ell_valid)
+    x = torch.rand(topo.n_nodes, generator=gen, dtype=dtype) * 2 - 1
+    A = DiagEllMatrix(vals.to(cuda), topo.ell_cols)
+    dsp.reset_launch_counts()
+    y = A.spmv(x.to(cuda))
+    torch.cuda.synchronize()
+    assert dsp.launch_counts() == {"diag_spmv": 1}
+    cols = torch.as_tensor(topo.ell_cols.astype(np.int32))
+    scale = ell_spmv_plain(vals.abs(), cols, x.abs()).double()
+    want = DiagEllMatrix(vals, topo.ell_cols).spmv(x)
+    assert bool(((y.cpu().double() - want.double()).abs() <= rtol * scale).all())
+
+
+@pytest.mark.parametrize("K,G,nb", [(160, 64, 1), (1024, 64, 3), (16, 8, 256)])
+def test_window_take_matches_plain_on_cuda(cuda, K, G, nb):
+    """P1-P3: both modes of the window take equal their plain twins."""
+    pg.reset_launch_counts()
+    for mode in ("column", "flat"):
+        win, idx = pg._inputs(nb, K, G, mode, cuda)
+        assert torch.equal(pg.window_take(win, idx, mode),
+                           pg.window_take_plain(win, idx, mode))
+    assert pg.probe_A(K, G, cuda) and pg.probe_B(K, G, cuda)
+    assert pg.launch_counts() == {"window_take": 4}
+
+
+def test_slice4_routes_on_cuda_match_cpu(cuda):
+    """The h=14 compact route (band pre-gathers, compact batched coordinate
+    gather) and the RCM diag route in f32 through the kernels: the same
+    iterations as the f64 CPU solve (±1), solutions within 1e-4 of max|x|,
+    and K9a, K9b and K10 launched."""
+    for order, opts in (("sn", dict(spmv="compact", band_pre=True, asm_compact=True,
+                                     asm_coords="batched")),
+                        ("rcm", dict(spmv="diag"))):
+        mesh, topo = sphere_cut_system(14.0, 0, cache=False, order=order)
+        band.reset_launch_counts()
+        dsp.reset_launch_counts()
+        k = solve_sphere_cut(mesh, topo, device=cuda, dtype=torch.float32,
+                             penalty=1e12, order=order, **opts)
+        counts = {**band.launch_counts(), **dsp.launch_counts()}
+        c = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64,
+                             penalty=1e30, order=order, **opts)
+        assert abs(k["iterations"] - c["iterations"]) <= 1
+        xk, xc = k["x"].cpu(), c["x"]
+        assert float((xk - xc).abs().max()) <= 1e-4 * float(xc.abs().max())
+        assert k["rel"] <= 1e-8 and k["true_residual"] <= 1e-4
+        if order == "sn":
+            assert counts["band_gather"] > 0 and counts["band_gather_batched"] > 0
+        else:
+            assert counts["diag_spmv"] > 0

@@ -66,6 +66,23 @@ res = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64, penalty=1e
 assert res["spmv_path"] == "SupernodeMatrix", res["spmv_path"]
 tr = res["true_residual"]
 """ + _REPORT
+_COMPACT_SCRIPT = _PRELUDE + """
+from arcanefem_tpu_torch.bench_unstructured import solve_sphere_cut, sphere_cut_system
+mesh, topo = sphere_cut_system(14.0, 0, cache=False)
+res = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64, penalty=1e30,
+                       spmv="compact", band_pre=True, asm_compact=True,
+                       asm_coords="batched")
+assert res["spmv_path"] == "CompactMatrix", res["spmv_path"]
+tr = res["true_residual"]
+""" + _REPORT
+_DIAG_SCRIPT = _PRELUDE + """
+from arcanefem_tpu_torch.bench_unstructured import solve_sphere_cut, sphere_cut_system
+mesh, topo = sphere_cut_system(14.0, 0, cache=False, order="rcm")
+res = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64, penalty=1e30,
+                       order="rcm", spmv="diag")
+assert res["spmv_path"] == "DiagEllMatrix", res["spmv_path"]
+tr = res["true_residual"]
+""" + _REPORT
 _STRUCTURED_SCRIPT = _PRELUDE + """
 from arcanefem_tpu_torch.bench_structured import box_system, solve_mg, true_residual
 s = box_system(16, "cpu", torch.float64)
@@ -96,6 +113,17 @@ def test_supernode_route_runs_without_jax():
     """The h=14 supernode route (supernode operator and fine level,
     block-Jacobi fine smoother) the same way."""
     _run_blocked(_SUPERNODE_SCRIPT)
+
+
+def test_compact_band_route_runs_without_jax():
+    """The h=14 compact route with banded pre-gathers and the compact
+    batched coordinate gather the same way."""
+    _run_blocked(_COMPACT_SCRIPT)
+
+
+def test_diag_route_runs_without_jax():
+    """The h=14 RCM-ordered diag route the same way."""
+    _run_blocked(_DIAG_SCRIPT)
 
 
 def test_structured_slice_runs_without_jax():

@@ -203,7 +203,7 @@ def test_route_raises_instead_of_falling_back(monkeypatch):
     kw = dict(device="cpu", dtype=torch.float64, penalty=1e30)
     res = bu.solve_sphere_cut(mesh, topo, spmv="supernode", **kw)
     assert res["spmv_path"] == "SupernodeMatrix" and res["sn_check"] <= 1e-12
-    monkeypatch.setattr(bu, "supernode_self_check", lambda sn, A: 1.0)
+    monkeypatch.setattr(bu, "operator_self_check", lambda op, A: 1.0)
     with pytest.raises(RuntimeError, match="self-check"):
         bu.solve_sphere_cut(mesh, topo, spmv="supernode", system=res["system"], **kw)
     with pytest.raises(ValueError):
@@ -229,10 +229,16 @@ def test_bench_flags_map_to_route_options(monkeypatch):
     monkeypatch.setattr(bu, "bench_unstructured", fake)
     bu.main(["--h", "5", "--refine", "2", "--spmv", "supernode", "--sn-block",
              "--sn-bf16", "--vcycle-bf16", "--asm-coords", "batched",
+             "--asm-compact", "--band-pre", "--order", "rcm",
              "--smoother", "jacobi", "--cheb-deg", "2,4", "--cycle", "W"])
     assert seen == dict(h=5.0, refine=2, spmv="supernode", sn_block=True,
                         sn_bf16=True, vcycle_bf16=True, asm_coords="batched",
+                        asm_compact=True, band_pre=True, order="rcm",
                         smoother="jacobi", cheb_deg=(2, 4), cycle="W")
+    seen.clear()
+    bu.main(["--spmv", "diag"])
+    assert seen["spmv"] == "diag" and seen["order"] == "sn"
+    assert not seen["band_pre"] and not seen["asm_compact"]
     monkeypatch.undo()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
