@@ -43,7 +43,7 @@ from .solver.amg import (
 )
 from .solver.amg_setup import amg_setup
 from .solver.iterative import pcg
-from .sparse.bell import BellMatrix
+from .sparse.bell import BellMatrix, fine_layout
 from .sparse.compact import CompactMatrix
 from .sparse.diag_spmv import DiagEllMatrix
 from .sparse.ordering import supernode_order
@@ -163,8 +163,7 @@ def dirichlet_data(mesh: Mesh, penalty: float):
 def true_residual(A: BellMatrix, b: torch.Tensor, x: torch.Tensor,
                   interior: torch.Tensor) -> float:
     """‖(b − A x)_int‖ / ‖b_int‖ in float64 over the non-Dirichlet rows."""
-    A64 = BellMatrix(A.values.double(), A.cols, plain=A.plain)
-    r = b.double() - A64.spmv(x.double())
+    r = b.double() - A.with_values(A.values.double()).spmv(x.double())
     return float(torch.linalg.vector_norm(r[interior])
                  / torch.linalg.vector_norm(b.double()[interior]))
 
@@ -213,7 +212,7 @@ def operator_self_check(op, A: BellMatrix) -> float:
     x = torch.as_tensor(np.random.RandomState(0).rand(A.n_nodes),
                         device=A.values.device).to(A.values.dtype)
     want = A.spmv(x).double()
-    scale = BellMatrix(A.values.abs(), A.cols, plain=A.plain).spmv(x).double()
+    scale = A.with_values(A.values.abs()).spmv(x).double()
     err = (op(x).double() - want).abs() / scale.clamp(
         min=torch.finfo(torch.float64).tiny)
     return float(err.max())
@@ -232,7 +231,8 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
 
     Returns the operator ``A`` (the BellMatrix), the solution ``x`` (device
     tensor), ``iterations``, the monitored ``rel`` residual, the float64
-    ``true_residual``, the AMG ``levels``, ``spmv_path`` and, with
+    ``true_residual``, the AMG ``levels``, ``spmv_path``, ``sell`` (the
+    SELL layout of each operator K1 runs on, ``SellLayout.describe``) and, with
     ``timed``, ``assembly_s`` and ``solve_s`` (CUDA events) and
     ``amg_setup_s`` (host).  ``plain=True`` runs every kernel's plain twin
     instead of the kernel.
@@ -271,18 +271,20 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
     the smoother alone, ``compact_setup_s`` the self-check alone)."""
     _check_options(spmv, sn_block, sn_bf16, vcycle_bf16, asm_coords,
                    asm_compact, band_pre, order, smoother, cycle)
-    n, W = topo.n_nodes, topo.width
     out = {}
     if system is not None and (system["device"], system["dtype"], system["plain"]) \
             != (torch.device(device), dtype, plain):
         raise ValueError("system was built for another device, dtype or plain")
     asm_key = (asm_coords, asm_compact, band_pre and asm_compact)
     if system is None or asm_key != system["asm_key"]:
+        # one SELL layout per column structure: the assembly writes into it
+        layout = (fine_layout(topo, device) if system is None
+                  else system["A"].layout)
         asm = TetraAssembler(topo, mesh.cells["tetra4"], device=device,
                              plain=plain,
                              coords_batched=asm_coords == "batched",
                              coords_compact=asm_compact,
-                             band_pre=band_pre and asm_compact)
+                             band_pre=band_pre and asm_compact, layout=layout)
         coords = torch.as_tensor(mesh.coords, device=device).to(torch.float32)
         vals = asm(coords)
         if timed:
@@ -293,14 +295,14 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
         del asm  # its slot map (16 int32 per cell) is dead once values exist
 
         mask, g, rhs = dirichlet_data(mesh, penalty)
-        # penalty rows on a host copy in the solve's dtype, so the matrix and
-        # the rhs carry the same penalty value; the AMG set-up reads this copy
-        flat = vals.cpu().numpy().reshape(-1).astype(_NP_DTYPE[dtype])
+        # penalty rows after the cast to the solve's dtype, so the matrix and
+        # the rhs carry the same penalty value
+        diag = torch.as_tensor(
+            layout.ell_to_sell[np.asarray(topo.diag_slot, np.int64)], device=device)
+        vals = vals.to(dtype)
+        vals[diag[torch.as_tensor(mask, device=device)]] = penalty
+        A = BellMatrix(vals, layout, diag, plain=plain)
         del vals
-        flat[np.asarray(topo.diag_slot)[mask]] = penalty
-        A = BellMatrix.from_numpy(flat.reshape(n, W), topo.ell_cols,
-                                  topo.diag_slot, device=device, dtype=dtype,
-                                  plain=plain)
         b = torch.as_tensor(rhs, device=device).to(dtype)
         x0 = torch.as_tensor(np.where(mask, g, 0.0), device=device).to(dtype)
         interior = torch.as_tensor(~mask, device=device)
@@ -309,6 +311,7 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
         if "assembly_s" in system:
             out["assembly_s"] = system["assembly_s"]
     if system is None:
+        flat = A.ell_values().cpu().numpy()  # the AMG set-up's host copy
         t0 = time.perf_counter()
         hier = amg_setup(flat, topo, theta=THETA, smoother=smoother,
                          cheb_deg=cheb_deg, dtype=_NP_DTYPE[dtype])
@@ -357,28 +360,29 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
             # level (the same operator as mats[0])
             cm0 = CompactMatrix.from_bell(system["A"], band_pre=band_pre,
                                           real=np.asarray(topo.ell_valid))
-            same = torch.equal(M.mats[0].cols, A.cols)
-            system[key] = (cm0.cg, with_compact_vcycle(
+            same = np.array_equal(M.mats[0].layout.ell_cols, A.layout.ell_cols)
+            system[key] = (cm0, with_compact_vcycle(
                 system["M"], band_pre, l0=cm0 if same else None))
-        cg, Mc = system[key]
-        cm = CompactMatrix(A.values, cg, A.diag_slot)
+        cm0, Mc = system[key]
+        cm = cm0.with_values(A.values)
         M = Mc.replace(smoother=smoother, cheb_deg=cheb_deg, cycle=cycle)
         out["compact_check"] = operator_self_check(cm.spmv, A)
         if not out["compact_check"] <= 1e-5:
             raise RuntimeError(
                 f"compact SpMV self-check failed: {out['compact_check']:.3e} "
                 "of the row scale > 1e-5")
-        if band_pre and not cm.cg.band:
+        if band_pre and not cm.band:
             raise RuntimeError("band_pre: the banded plan declines the CG "
                                "operator's pre stream")
         Aop = cm
         ops = [op for op in M.vmats + M.p_apply + M.pt_apply if op is not None]
         out["vcycle_compact"] = len(ops)
-        out["vcycle_band"] = sum(op.cg.band for op in ops)
+        out["vcycle_band"] = sum(op.band for op in ops)
         out["compact_setup_s"] = time.perf_counter() - t0
     elif spmv == "diag":
         t0 = time.perf_counter()
-        Aop = DiagEllMatrix(A.values, topo.ell_cols, A.diag_slot, plain=plain)
+        Aop = DiagEllMatrix(A.ell_values(), topo.ell_cols, torch.as_tensor(
+            np.asarray(topo.diag_slot, np.int64), device=device), plain=plain)
         out["diag_setup_s"] = time.perf_counter() - t0
         out["diag_check"] = operator_self_check(Aop.spmv, A)
         if not out["diag_check"] <= 1e-5:
@@ -394,8 +398,26 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
             pcg, Aop, b, M, x0, RTOL, 0.0, 1000, True, reps=1, outer=2)
     out.update(A=A, x=x, iterations=iters, rel=rel,
                true_residual=true_residual(A, b, x, interior),
-               spmv_path=type(Aop).__name__, system=system)
+               spmv_path=type(Aop).__name__, system=system,
+               sell=sell_layouts(Aop, M))
     return out
+
+
+def sell_layouts(Aop, M) -> list[dict]:
+    """``describe()`` of the SELL layout of the CG operator and of each
+    level and transfer of M that K1 runs on, each with its ``op`` name."""
+    def layout(op):
+        op = getattr(op, "op", op)  # a CompactMatrix's SELL operator
+        return getattr(op, "layout", None)
+
+    named = [("A", Aop)] + [(f"L{l}", M._mat(l)) for l in range(len(M.mats))]
+    for l in range(len(M.P)):
+        named += [(f"P{l}", M.p_apply[l] if l < len(M.p_apply)
+                   and M.p_apply[l] is not None else M.P[l]),
+                  (f"Pt{l}", M.pt_apply[l] if l < len(M.pt_apply)
+                   and M.pt_apply[l] is not None else M.Pt[l])]
+    return [{"op": name, **layout(op).describe()} for name, op in named
+            if layout(op) is not None]
 
 
 def gpu_name_and_power() -> str:
@@ -419,8 +441,8 @@ def check_solution(res: dict) -> None:
 
 
 # the kernel that carries the CG operator's SpMV on each route
-SPMV_KERNELS = {"ell": "ell_spmv", "supernode": "ell_gather_sum_batched",
-                "compact": "ell_spmv", "diag": "diag_spmv"}
+SPMV_KERNELS = {"ell": "sell_spmv", "supernode": "ell_gather_sum_batched",
+                "compact": "sell_spmv", "diag": "diag_spmv"}
 
 
 def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
@@ -447,8 +469,8 @@ def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
            "cheb_deg": CHEB_DEG, "cycle": "V", **options}
     spmv_kernel = SPMV_KERNELS[opt["spmv"]]
     if opt["spmv"] == "compact":
-        spmv_kernel = ("band_gather+ell_gather_sum+ell_spmv" if opt["band_pre"]
-                       else "ell_gather_sum+ell_spmv")
+        spmv_kernel = ("band_gather+ell_gather_sum+sell_spmv" if opt["band_pre"]
+                       else "ell_gather_sum+sell_spmv")
     return {
         "metric": (f"poisson3d_sphere_cut_{n/1e6:.1f}MDoF_"
                    f"assembly+amgpcg_to_{RTOL:g}_s"),
@@ -466,6 +488,8 @@ def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
         "amg_levels": res["levels"],
         "n_dofs": int(n),
         "nnz_stored": int(topo.nnz),
+        "sell_sigma": res["A"].layout.sigma,
+        "sell_slots_per_nnz": res["A"].layout.describe()["slots_per_nnz"],
         "spmv_path": res["spmv_path"],
         "spmv_kernel": spmv_kernel,
         "order": opt["order"],

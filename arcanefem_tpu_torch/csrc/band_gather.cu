@@ -21,13 +21,20 @@
 // an exact 0; so does an index past the table's end, which the TPU reads
 // from the zero padding of its table.
 //
-// What bounds it.  Bytes: a 4-byte index and one 4- or 8-byte output per
-// request and table, the table read once (its bands overlap and stay in
-// L2).  No arithmetic.
+// What bounds it.  Bytes: a 4-byte index per request, one 4- or 8-byte
+// output per request and table, the table read once (its bands overlap and
+// stay in L2); at B = 3 over the (N, 3) f32 coordinates, 16 bytes per
+// request and 12 per node.  No arithmetic.
 //
-// Design: one thread per (tile, lane), 256 threads per block (two tiles),
-// blockIdx.y the table.  Neighbouring threads read neighbouring lcols and
-// write neighbouring outputs; the tile's base is one broadcast load.
+// Design: one thread per request (tile, lane), 256 threads per block (two
+// tiles), serving all B tables.  The first form put the table on the
+// grid's y axis, so each of the B passes re-read the requests' lcols and
+// tile bases and fetched every coordinate sector again at a 12-byte
+// stride: 3.8x the bound.  Now a thread reads lcols[i] and its tile base
+// once, loads the B values of its node together (12 contiguous bytes for
+// the (N, 3) coordinates, whose table stride is 1) into registers, and
+// then writes them, each table's outputs coalesced across the warp.  B is
+// a template parameter, so both loops unroll without a per-table test.
 // Tables and outputs come with a row stride and a table stride, so the
 // (N, 3) coordinates are read in place as three strided tables.
 //
@@ -43,7 +50,7 @@ constexpr int kThreads = 256;
 constexpr int kLane = 128;
 constexpr int kMaxTables = 8;
 
-template <typename V>
+template <typename V, int B>
 __global__ void __launch_bounds__(kThreads)
 band_gather_kernel(const int32_t* __restrict__ bases,
                    const int32_t* __restrict__ lcols,
@@ -52,14 +59,21 @@ band_gather_kernel(const int32_t* __restrict__ bases,
                    int64_t ts_b, int64_t os_r, int64_t os_b) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n_tiles * kLane) return;
-  const int b = blockIdx.y;
   const int32_t lc = lcols[i];
-  V v = V(0);
+  V v[B];
+#pragma unroll
+  for (int b = 0; b < B; ++b) v[b] = V(0);
   if (lc >= 0 && lc < K * kLane) {
     const int64_t src = static_cast<int64_t>(bases[i / kLane]) * kLane + lc;
-    if (src < n_t) v = t[b * ts_b + src * ts_r];
+    if (src < n_t) {
+      const V* tp = t + src * ts_r;
+#pragma unroll
+      for (int b = 0; b < B; ++b) v[b] = tp[b * ts_b];
+    }
   }
-  out[b * os_b + i * os_r] = v;
+  V* op = out + i * os_r;
+#pragma unroll
+  for (int b = 0; b < B; ++b) op[b * os_b] = v[b];
 }
 
 template <typename V>
@@ -71,9 +85,22 @@ int launch(const int32_t* bases, const int32_t* lcols, const V* t, V* out,
   }
   const int64_t blocks = (n_tiles * kLane + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned int>(blocks), static_cast<unsigned int>(B));
-  band_gather_kernel<V><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      bases, lcols, t, out, n_tiles, K, n_t, ts_r, ts_b, os_r, os_b);
+  const unsigned int grid = static_cast<unsigned int>(blocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define AFEM_BAND(BB)                                                    \
+  band_gather_kernel<V, BB><<<grid, kThreads, 0, s>>>(                  \
+      bases, lcols, t, out, n_tiles, K, n_t, ts_r, ts_b, os_r, os_b)
+  switch (B) {
+    case 1: AFEM_BAND(1); break;
+    case 2: AFEM_BAND(2); break;
+    case 3: AFEM_BAND(3); break;
+    case 4: AFEM_BAND(4); break;
+    case 5: AFEM_BAND(5); break;
+    case 6: AFEM_BAND(6); break;
+    case 7: AFEM_BAND(7); break;
+    default: AFEM_BAND(8); break;
+  }
+#undef AFEM_BAND
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,55 +1,46 @@
 // ELL gather-reduce kernels for Hopper (sm_90a), bound through a plain C
 // interface and loaded with ctypes (arcanefem_tpu_torch/utils/kernels.py).
 //
-//   afem_ell_spmv_{f32,f64,bf16_f32}: y[r] = sum_w vals[r,w] * x[cols[r,w]]
 //   afem_ell_gather_sum_{f32,f64}:    y[r] = sum_w x[cols[r,w]]  (cols < 0 add 0)
 //   afem_ell_spmv_batched_{f32,f64}:  Y[b,r] = sum_w vals[r,w] * T[b, cols[r,w]]
 //   afem_ell_gather_sum_batched_{f32,f64}:
 //                                     Y[b,r] = sum_w T[b, cols[r,w]] (cols < 0 add 0)
 //
-// What they replace.  ell_spmv is the weighted window kernel
-// arcanefem_tpu/sparse/pallas_spmv.py::_products (pallas_call at :412, body
-// _make_kernel(unit=False)) together with its row sum
-// PlannedGather._row_sums; ell_gather_sum is the unit-weight form
-// _products_unit (pallas_call at :453).  The batched forms replace
-// _products_b_unit (K3a, pallas_call at :488) and _products_b (K3b, :528):
-// B <= 8 tables that share one index array (and weights), the TPU's (nb, B)
-// grid over one window plan (PlannedGather.call_batched).  The TPU kernels
-// DMA windows of x into VMEM and resolve each column with a lane-select
-// sweep, because the TPU has no fast general gather.  On Hopper a gather is
-// an ordinary load through L1/L2, so none of that planning is needed: one
-// kernel reads the (n, W) row-major arrays the callers already hold.
+// What they replace.  ell_gather_sum is the unit-weight window kernel
+// arcanefem_tpu/sparse/pallas_spmv.py::_products_unit (K2, pallas_call at
+// :453).  The batched forms replace _products_b_unit (K3a, pallas_call at
+// :488) and _products_b (K3b, :528): B <= 8 tables that share one index
+// array (and weights), the TPU's (nb, B) grid over one window plan
+// (PlannedGather.call_batched).  The TPU kernels DMA windows of x into VMEM
+// and resolve each column with a lane-select sweep, because the TPU has no
+// fast general gather.  On Hopper a gather is an ordinary load through
+// L1/L2, so none of that planning is needed: one kernel reads the (n, W)
+// row-major arrays the callers already hold.  The weighted single-table
+// form, K1 (_products), is the sliced kernel of csrc/sell_spmv.cu.
 //
-// What bounds them.  Bytes.  Each stored slot costs a 4- or 8-byte value
-// plus a 4-byte column, and one gathered x value per table that mostly hits
-// L2 under the supernode node order; the arithmetic is one FMA per slot and
-// table.  At 1.9M DoF the fine level holds 47.3M slots: about 0.38 GB per
-// f32 SpMV, 0.11 ms at the H100's 3.35 TB/s.
+// What bounds them.  Bytes.  Each stored slot costs a 4-byte column (and a
+// 4- or 8-byte weight in K3b), plus one gathered value per table that
+// mostly hits L2 under the supernode node order; the arithmetic is one add
+// or FMA per slot and table.
 //
 // Design: a group of T threads (a power of two <= 32, chosen from W) owns
 // one row, so neighbouring threads read neighbouring slots of the same row
 // and a warp's loads of vals/cols are contiguous; the T partial sums meet
-// in registers through warp shuffles.  Wide rows (the restriction P^T reaches
-// W > 100) are one pass of the same loop, with no subrow split.  The batched
-// form keeps B partial sums per thread and reads a slot's column once for
-// all B tables; at W = 1 it runs one thread per (row, table) instead, tables
-// fastest, so a warp reads the 8 channels of a supernode as one 32-byte
-// sector.  Tables and outputs come with a row stride and a table stride, so
-// an (n, B) row-major array (the supernode x and products, the (N, 3)
-// coordinates) is read and written in place.
+// in registers through warp shuffles.  The batched form keeps B partial
+// sums per thread and reads a slot's column once for all B tables; at W = 1
+// it runs one thread per (row, table) instead, tables fastest, so a warp
+// reads the 8 channels of a supernode as one 32-byte sector.  Tables and
+// outputs come with a row stride and a table stride, so an (n, B) row-major
+// array (the supernode x and products, the (N, 3) coordinates) is read and
+// written in place.
 //
 // Inputs and outputs keep their type (f32 on the main path, f64 for the
 // parity phase; the Pallas kernels were f32-only), but every row sum
-// accumulates in f64 registers.  That is free on this card (the kernels are
-// byte-bound) and it matters: a Poisson row cancels to a small fraction of
-// sum |a_ij x_j|, and f32 accumulation in the CG SpMV left the f32 solve's
-// true residual about 100x above what f64 accumulation gives.  The bf16
-// weight form (bf16 vals, f32 x and y) serves the bf16 V-cycle levels.
+// accumulates in f64 registers, as in K1: free on this byte-bound card.
 //
 // The kernels allocate nothing, launch on the caller's stream and never
 // synchronise; each C entry point returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,9 +51,6 @@ constexpr int kMaxTables = 8;
 
 __device__ __forceinline__ double f64(float v) { return static_cast<double>(v); }
 __device__ __forceinline__ double f64(double v) { return v; }
-__device__ __forceinline__ double f64(__nv_bfloat16 v) {
-  return static_cast<double>(__bfloat162float(v));
-}
 
 template <int T>
 __device__ __forceinline__ double group_sum(double v) {
@@ -75,11 +63,10 @@ __device__ __forceinline__ double group_sum(double v) {
 
 // T threads per row; T divides 32, so a group never straddles a warp and
 // every thread of a warp reaches the shuffles (rows past n add zeros).
-template <typename Wt, typename V, int T, bool kWeighted>
+template <typename V, int T>
 __global__ void __launch_bounds__(kThreads)
-ell_rows_kernel(const Wt* __restrict__ vals, const int32_t* __restrict__ cols,
-                const V* __restrict__ x, V* __restrict__ y, int64_t n,
-                int W) {
+ell_gather_kernel(const int32_t* __restrict__ cols, const V* __restrict__ x,
+                  V* __restrict__ y, int64_t n, int W) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t row = tid / T;
   const int lane = static_cast<int>(tid % T);
@@ -88,18 +75,14 @@ ell_rows_kernel(const Wt* __restrict__ vals, const int32_t* __restrict__ cols,
     const int64_t base = row * static_cast<int64_t>(W);
     for (int w = lane; w < W; w += T) {
       const int32_t c = cols[base + w];
-      if (kWeighted) {
-        acc += f64(vals[base + w]) * f64(x[c]);
-      } else if (c >= 0) {
-        acc += f64(x[c]);
-      }
+      if (c >= 0) acc += f64(x[c]);
     }
   }
   if (T > 1) acc = group_sum<T>(acc);
   if (row < n && lane == 0) y[row] = static_cast<V>(acc);
 }
 
-// Batched, W > 1: as ell_rows_kernel with B <= kMaxTables sums per thread.
+// Batched, W > 1: as ell_gather_kernel with B <= kMaxTables sums per thread.
 // Table b of column c is t[b * ts_b + c * ts_r], output b of row r is
 // y[b * ys_b + r * ys_r].  B is the same for every thread, so the
 // shuffles under `b < B` are reached by the whole warp.
@@ -180,34 +163,25 @@ inline bool grid_for(int64_t threads, dim3* grid) {
   return true;
 }
 
-template <typename Wt, typename V, bool kWeighted>
-int launch(const Wt* vals, const int32_t* cols, const V* x, V* y, int64_t n,
-           int W, void* stream) {
+template <typename V>
+int launch(const int32_t* cols, const V* x, V* y, int64_t n, int W,
+           void* stream) {
   if (n <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int T = group_width(W);
   dim3 grid;
   if (!grid_for(n * T, &grid)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define AFEM_GATHER(TT) \
+  ell_gather_kernel<V, TT><<<grid, kThreads, 0, s>>>(cols, x, y, n, W)
   switch (T) {
-    case 1:
-      ell_rows_kernel<Wt, V, 1, kWeighted><<<grid, kThreads, 0, s>>>(vals, cols, x, y, n, W);
-      break;
-    case 2:
-      ell_rows_kernel<Wt, V, 2, kWeighted><<<grid, kThreads, 0, s>>>(vals, cols, x, y, n, W);
-      break;
-    case 4:
-      ell_rows_kernel<Wt, V, 4, kWeighted><<<grid, kThreads, 0, s>>>(vals, cols, x, y, n, W);
-      break;
-    case 8:
-      ell_rows_kernel<Wt, V, 8, kWeighted><<<grid, kThreads, 0, s>>>(vals, cols, x, y, n, W);
-      break;
-    case 16:
-      ell_rows_kernel<Wt, V, 16, kWeighted><<<grid, kThreads, 0, s>>>(vals, cols, x, y, n, W);
-      break;
-    default:
-      ell_rows_kernel<Wt, V, 32, kWeighted><<<grid, kThreads, 0, s>>>(vals, cols, x, y, n, W);
-      break;
+    case 1: AFEM_GATHER(1); break;
+    case 2: AFEM_GATHER(2); break;
+    case 4: AFEM_GATHER(4); break;
+    case 8: AFEM_GATHER(8); break;
+    case 16: AFEM_GATHER(16); break;
+    default: AFEM_GATHER(32); break;
   }
+#undef AFEM_GATHER
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -246,31 +220,14 @@ int launch_batched(const V* vals, const int32_t* cols, const V* t, V* y,
 
 extern "C" {
 
-int afem_ell_spmv_f32(const float* vals, const int32_t* cols, const float* x,
-                      float* y, int64_t n, int W, void* stream) {
-  return launch<float, float, true>(vals, cols, x, y, n, W, stream);
-}
-
-int afem_ell_spmv_f64(const double* vals, const int32_t* cols,
-                      const double* x, double* y, int64_t n, int W,
-                      void* stream) {
-  return launch<double, double, true>(vals, cols, x, y, n, W, stream);
-}
-
-int afem_ell_spmv_bf16_f32(const __nv_bfloat16* vals, const int32_t* cols,
-                           const float* x, float* y, int64_t n, int W,
-                           void* stream) {
-  return launch<__nv_bfloat16, float, true>(vals, cols, x, y, n, W, stream);
-}
-
 int afem_ell_gather_sum_f32(const int32_t* cols, const float* x, float* y,
                             int64_t n, int W, void* stream) {
-  return launch<float, float, false>(nullptr, cols, x, y, n, W, stream);
+  return launch<float>(cols, x, y, n, W, stream);
 }
 
 int afem_ell_gather_sum_f64(const int32_t* cols, const double* x, double* y,
                             int64_t n, int W, void* stream) {
-  return launch<double, double, false>(nullptr, cols, x, y, n, W, stream);
+  return launch<double>(cols, x, y, n, W, stream);
 }
 
 int afem_ell_spmv_batched_f32(const float* vals, const int32_t* cols,

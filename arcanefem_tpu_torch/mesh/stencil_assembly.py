@@ -37,7 +37,8 @@ from ..utils import kernels
 from .structured import StructuredBox
 
 _LAUNCHES = {"stencil_assembly": 0}
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_ENTRY = {torch.float32: "afem_stencil_assembly_f32",
+          torch.float64: "afem_stencil_assembly_f64"}
 
 
 def reset_launch_counts() -> None:
@@ -48,32 +49,37 @@ def launch_counts() -> dict[str, int]:
     return dict(_LAUNCHES)
 
 
-def _check(box: StructuredBox, coords3d: torch.Tensor, planes=()) -> None:
-    if tuple(coords3d.shape) != box.shape + (3,):
+def _check(box: StructuredBox, coords3d: torch.Tensor, planes=()) -> bool:
+    """Raise on an operand the kernel does not take; True for CUDA
+    coordinates.  One attribute read per test."""
+    if coords3d.shape != box.shape + (3,):
         raise ValueError(f"coords3d {tuple(coords3d.shape)}, expected "
                          f"{box.shape + (3,)}")
-    if coords3d.dtype not in _SUFFIX:
+    if coords3d.dtype not in _ENTRY:
         raise TypeError(f"coords3d must be float32 or float64, got {coords3d.dtype}")
     if offsets3d(box) != KUHN_OFFS3:
         raise ValueError("the box's stencil is not the 15-offset Kuhn stencil")
     want = (box.nx + 1,) + _pads(box)
+    dev, cuda = coords3d.get_device(), coords3d.is_cuda
     for p in planes:
-        if tuple(p.shape) != want or p.dtype != coords3d.dtype:
+        if p.shape != want or p.dtype != coords3d.dtype:
             raise ValueError(f"a BC plane is {tuple(p.shape)} {p.dtype}, "
                              f"expected {want} {coords3d.dtype}")
-    tensors = [coords3d, *planes]
-    if any(t.device != coords3d.device for t in tensors):
-        raise ValueError("stencil assembly: operands lie on different devices")
-    if coords3d.device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+        if p.get_device() != dev:
+            raise ValueError("stencil assembly: operands lie on different devices")
+        if cuda and not p.is_contiguous():
+            raise ValueError("stencil assembly: the CUDA kernel takes contiguous operands")
+    if cuda and not coords3d.is_contiguous():
         raise ValueError("stencil assembly: the CUDA kernel takes contiguous operands")
-    if coords3d.device.type not in ("cpu", "cuda"):
+    if not cuda and coords3d.device.type != "cpu":
         raise ValueError(f"stencil assembly: no kernel for device {coords3d.device}")
+    return cuda
 
 
 def _launch(box, coords3d, bands, rhs, mask_p, pg_p, nyo, nzo, off,
             s_plane, s_band, penalty, f) -> None:
     kernels.launch(
-        f"afem_stencil_assembly_{_SUFFIX[coords3d.dtype]}", coords3d.device,
+        _ENTRY[coords3d.dtype], coords3d.device,
         coords3d.data_ptr(), None if mask_p is None else mask_p.data_ptr(),
         None if pg_p is None else pg_p.data_ptr(), bands.data_ptr(),
         None if rhs is None else rhs.data_ptr(), box.nx, box.ny, box.nz,
@@ -89,12 +95,10 @@ def assemble_stiffness_plain(box: StructuredBox, coords3d: torch.Tensor) -> DiaM
 def assemble_stiffness_kernel(box: StructuredBox, coords3d: torch.Tensor) -> DiaMatrix:
     """The stiffness as a (15, n_nodes) DiaMatrix; the kernel writes the
     bands in that layout directly."""
-    _check(box, coords3d)
-    if coords3d.device.type == "cpu":
+    if not _check(box, coords3d):
         return assemble_stiffness_plain(box, coords3d)
     nx1, ny1, nz1 = box.shape
-    bands = torch.empty((len(KUHN_OFFS3), nx1, ny1, nz1), dtype=coords3d.dtype,
-                        device=coords3d.device)
+    bands = coords3d.new_empty((len(KUHN_OFFS3), nx1, ny1, nz1))
     _launch(box, coords3d, bands, None, None, None, ny1, nz1, 0,
             ny1 * nz1, box.n_nodes, 0.0, 0.0)
     return DiaMatrix(bands.reshape(len(KUHN_OFFS3), -1), box.offsets)
@@ -129,15 +133,12 @@ def assemble_system(box: StructuredBox, coords3d: torch.Tensor,
     if (mask_p is None) != (pg_p is None):
         raise ValueError("assemble_system takes both mask_p and pg_p, or neither")
     planes = () if mask_p is None else (mask_p, pg_p)
-    _check(box, coords3d, planes)
-    if coords3d.device.type == "cpu":
+    if not _check(box, coords3d, planes):
         return assemble_system_plain(box, coords3d, mask_p, pg_p, penalty, f)
     nyp, nzp = _pads(box)
     plane = nyp * nzp
-    bands = torch.empty((box.nx + 1, len(KUHN_OFFS3), nyp, nzp),
-                        dtype=coords3d.dtype, device=coords3d.device)
-    rhs = torch.empty((box.nx + 1, nyp, nzp), dtype=coords3d.dtype,
-                      device=coords3d.device)
+    bands = coords3d.new_empty((box.nx + 1, len(KUHN_OFFS3), nyp, nzp))
+    rhs = coords3d.new_empty((box.nx + 1, nyp, nzp))
     _launch(box, coords3d, bands, rhs, mask_p, pg_p, nyp, nzp, 1,
             len(KUHN_OFFS3) * plane, plane, penalty, f)
     return DiaPlaneMatrixP(bands, box.nx, box.ny, box.nz), rhs

@@ -4,8 +4,10 @@ The counterpart of the segment-sum form of
 ``arcanefem_tpu/ops/lane_assembly.py::TetraLaneAssembler``.  Every
 intermediate is a length-nc vector over cells (cell axis last), the
 element matrices come from the cofactors of the corner coordinates, and
-the 16 entries of each element matrix are scatter-added into the flat
-(N*W) slot space through the topology's slot map.
+the 16 entries of each element matrix are scatter-added straight into the
+SELL storage of ``sparse/sell.py`` (the JAX package's flat (N*W) slot
+space there), through the topology's slot map remapped once on the host
+into SELL slots.
 
 The corner-coordinate fetch is the ELL gather kernel at W=1, in
 corner-major order: request i*nc + c is corner i of cell c, so corner i's
@@ -28,8 +30,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..sparse.bell import check_cols
+from ..sparse.bell import check_cols, fine_layout
 from ..sparse.compact import CompactGather
+from ..sparse.sell import SellLayout
 from ..sparse.ell_gather import (
     ell_gather_sum,
     ell_gather_sum_batched,
@@ -41,11 +44,13 @@ _PAIRS = [(i, j) for i in range(4) for j in range(4)]
 
 
 class TetraAssembler:
-    """vals = TetraAssembler(topo, conn, device=...)(coords)  # (N, W) f32
+    """vals = TetraAssembler(topo, conn, device=...)(coords)  # (n_slots,) f32
 
     topo: ``sparse.topology.Topology`` of the mesh;
-    conn: (nc, 4) tetra connectivity.  The corner columns and the
-    transposed slot map are copied to the device once.  ``coords_batched``
+    conn: (nc, 4) tetra connectivity; ``layout``: the SELL layout the
+    values are assembled into (default ``fine_layout(topo)``; the values
+    then go to ``BellMatrix(vals, asm.layout, ...)``).  The corner columns
+    and the transposed slot map are copied to the device once.  ``coords_batched``
     fetches the three axes with one batched gather; ``coords_compact``
     through the compact two-stage gather, its pre-gather banded when
     ``band_pre``; ``plain=True`` fetches the coordinates with the kernels'
@@ -54,7 +59,8 @@ class TetraAssembler:
 
     def __init__(self, topo, conn: np.ndarray, *, device: torch.device | str,
                  plain: bool = False, coords_batched: bool = False,
-                 coords_compact: bool = False, band_pre: bool = False):
+                 coords_compact: bool = False, band_pre: bool = False,
+                 layout: SellLayout | None = None):
         if band_pre and not coords_compact:
             raise ValueError("band_pre bands the compact pre-gather: it needs "
                              "coords_compact=True")
@@ -62,8 +68,7 @@ class TetraAssembler:
         nc = conn.shape[0]
         check_cols(conn, topo.n_nodes, "TetraAssembler conn")
         self.n_cells = nc
-        self.n_nodes = topo.n_nodes
-        self.width = topo.width
+        self.layout = fine_layout(topo, device) if layout is None else layout
         self.coords_batched = coords_batched
         self._gather = ell_gather_sum_plain if plain else ell_gather_sum
         self._gather_b = (ell_gather_sum_batched_plain if plain
@@ -75,10 +80,14 @@ class TetraAssembler:
         if coords_compact:
             self.compact = CompactGather.build(
                 corner, np.ones(corner.shape, bool), band_pre=band_pre,
-                device=device, unit=True, plain=plain)
-        # entry q = i*4 + j of cell c sits at q*nc + c (int32: N*W < 2^31
-        # for any mesh one card holds)
-        sm = np.asarray(topo.slot_maps["tetra4"]).reshape(nc, 16)
+                device=device, plain=plain)
+        # entry q = i*4 + j of cell c sits at q*nc + c, as its SELL slot
+        # (int32: the slots of any mesh one card holds are < 2^31)
+        sm = self.layout.ell_to_sell[
+            np.asarray(topo.slot_maps["tetra4"], np.int64).reshape(nc, 16)]
+        if int(sm.min(initial=0)) < 0:
+            raise ValueError("TetraAssembler: an element entry falls on a slot "
+                             "the layout drops")
         self.slot_map_t = torch.as_tensor(
             np.ascontiguousarray(sm.T.astype(np.int32)).reshape(-1),
             device=device)
@@ -125,11 +134,11 @@ class TetraAssembler:
         dx, dy, dz = comp(y, z), comp(z, x), comp(x, y)
         # ke_ij = V (dx_i dx_j + dy_i dy_j + dz_i dz_j) / (6V)^2, V = |6V|/6
         scale = inv / 6.0
-        vals = torch.zeros(self.n_nodes * self.width, dtype=torch.float32,
+        vals = torch.zeros(self.layout.n_slots, dtype=torch.float32,
                            device=coords.device)
         # in place: one entry's (nc,) contribution at a time, so no (16, nc)
         # element-matrix stack is ever held
         for q, (i, j) in enumerate(_PAIRS):
             keq = (dx[i] * dx[j] + dy[i] * dy[j] + dz[i] * dz[j]) * scale
             vals.index_add_(0, self.slot_map_t[q * nc:(q + 1) * nc], keq)
-        return vals.reshape(self.n_nodes, self.width)
+        return vals

@@ -3,17 +3,17 @@
 The counterpart of ``arcanefem_tpu/solver/amg.py::AMGPrecond`` for scalar
 systems.  One ``apply`` is a V-cycle (or W-cycle, or the sawtooth cycle
 that skips the fine pre-smooth): damped-Jacobi or Chebyshev smoothing on
-each level, restriction by P^T and prolongation by P held as row-ELL
-arrays, and a dense inverse on the coarsest level.  Every level SpMV and
-both transfers are the ELL gather-reduce kernel (``ell_spmv``, K1 on the
-card) at every level size; the coarse solve is ``torch.matmul``.  With
-``plain=True`` the same cycle runs on the plain twin of the kernel
-instead, on any device.
+each level, restriction by P^T and prolongation by P, and a dense inverse
+on the coarsest level.  Every level operator and both transfers are
+BellMatrix operators in SELL storage, so each level SpMV and each transfer
+is K1 (``sell_spmv``) at every level size; the coarse solve is
+``torch.matmul``.  With ``plain=True`` the same cycle runs on the plain
+twin of the kernel instead, on any device.
 
 Options of the JAX class carried over: ``l0_binv`` (supernode
 block-Jacobi on the fine level, :func:`with_supernode_smoother`),
 ``vmats`` (V-cycle-only level operators, :func:`with_bf16_vcycle`),
-``p_apply``/``pt_apply`` (transfer operators that replace the ELL arrays
+``p_apply``/``pt_apply`` (transfer operators that replace P and P^T
 inside the cycle, :func:`with_compact_vcycle`), ``sawtooth``, and
 ``cheb_deg`` as an int or a per-level tuple.  The block
 and rigid-body-mode paths (elasticity) are not ported.
@@ -30,9 +30,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..sparse.bell import BellMatrix, check_cols
+from ..sparse.bell import BellMatrix
 from ..sparse.compact import CompactMatrix
-from ..sparse.ell_gather import ell_spmv, ell_spmv_plain
 from ..sparse.supernode import block_products
 
 # levels and transfers the bf16 V-cycle casts: those with at least this
@@ -45,31 +44,29 @@ class AMGPrecond:
     """AMG cycle over levels l = 0 (finest) .. L-1, then the coarse solve.
 
     mats[l]: BellMatrix of level l (anything with ``spmv``); inv_diags[l]:
-    (N_l,) inverse diagonal; pcols/pvals[l]: (N_l, Wp) row-ELL of P_l (fine
-    from coarse); ptcols/ptvals[l]: (N_{l+1}, Wt) row-ELL of P_l^T;
+    (N_l,) inverse diagonal; P[l]: the (N_l, N_{l+1}) BellMatrix of P_l
+    (fine from coarse); Pt[l]: the (N_{l+1}, N_l) BellMatrix of P_l^T;
     coarse_inv: dense inverse of the coarsest operator.  omegas[l] =
     omega / rhos[l] damps the Jacobi smoother; rhos[l] estimates λmax of the
     smoothed operator for Chebyshev.  ``vmats[l]``, when given and not None,
     replaces mats[l] inside the cycle, and ``p_apply[l]``/``pt_apply[l]``
-    (objects with ``spmv``), when given and not None, replace the ELL
-    arrays of P_l/P_l^T; ``l0_binv`` (n_sup, bs, bs) replaces the fine
+    (objects with ``spmv``), when given and not None, replace P[l] and
+    Pt[l]; ``l0_binv`` (n_sup, bs, bs) replaces the fine
     level's inverse diagonal by supernode block inverses.
     """
 
-    def __init__(self, mats, inv_diags, pcols, pvals, ptcols, ptvals,
-                 coarse_inv, *, omegas, rhos, smoother: str = "jacobi",
-                 cheb_deg: int | tuple = 2, nu: int = 1, cycle: str = "V",
-                 sawtooth: bool = False, l0_binv: torch.Tensor | None = None,
-                 vmats: tuple = (), p_apply: tuple = (), pt_apply: tuple = (),
-                 plain: bool = False):
+    def __init__(self, mats, inv_diags, P, Pt, coarse_inv, *, omegas, rhos,
+                 smoother: str = "jacobi", cheb_deg: int | tuple = 2,
+                 nu: int = 1, cycle: str = "V", sawtooth: bool = False,
+                 l0_binv: torch.Tensor | None = None, vmats: tuple = (),
+                 p_apply: tuple = (), pt_apply: tuple = ()):
         if smoother not in ("jacobi", "chebyshev"):
             raise ValueError(f"unknown smoother {smoother!r}")
         if cycle not in ("V", "W"):
             raise ValueError(f"unknown cycle {cycle!r}")
         self.mats = tuple(mats)
         self.inv_diags = tuple(inv_diags)
-        self.pcols, self.pvals = tuple(pcols), tuple(pvals)
-        self.ptcols, self.ptvals = tuple(ptcols), tuple(ptvals)
+        self.P, self.Pt = tuple(P), tuple(Pt)
         self.coarse_inv = coarse_inv
         self.omegas = tuple(float(o) for o in omegas)
         self.rhos = tuple(float(r) for r in rhos)
@@ -82,7 +79,6 @@ class AMGPrecond:
         self.l0_binv = l0_binv
         self.vmats = tuple(vmats)
         self.p_apply, self.pt_apply = tuple(p_apply), tuple(pt_apply)
-        self._spmv = ell_spmv_plain if plain else ell_spmv
 
     def replace(self, **changes) -> "AMGPrecond":
         """A copy with the given attributes changed; the level tensors are
@@ -150,12 +146,12 @@ class AMGPrecond:
     def _restrict(self, l: int, r: torch.Tensor) -> torch.Tensor:
         if l < len(self.pt_apply) and self.pt_apply[l] is not None:
             return self.pt_apply[l].spmv(r)
-        return self._spmv(self.ptvals[l], self.ptcols[l], r)
+        return self.Pt[l].spmv(r)
 
     def _prolong(self, l: int, xc: torch.Tensor) -> torch.Tensor:
         if l < len(self.p_apply) and self.p_apply[l] is not None:
             return self.p_apply[l].spmv(xc)
-        return self._spmv(self.pvals[l], self.pcols[l], xc)
+        return self.P[l].spmv(xc)
 
     def _cycle(self, l: int, b: torch.Tensor) -> torch.Tensor:
         if l == len(self.mats):
@@ -194,36 +190,34 @@ def amg_from_numpy(d: dict, device: torch.device | str,
     ``ptvals``, ``coarse_inv``, the scalars ``omegas``, ``rhos``,
     ``smoother``, ``cheb_deg`` (an int or a per-level tuple), ``nu`` and
     ``cycle``, and optionally ``sawtooth`` and ``l0_binv`` ((n_sup, bs, bs)
-    or None).  Column ranges are checked here, once.  ``plain=True`` builds
-    the kernel-free twin."""
+    or None).  Every level and transfer becomes a BellMatrix (SELL storage
+    of its non-zero values, column ranges checked once, here).
+    ``plain=True`` builds the kernel-free twin."""
     def t(a):
         return torch.tensor(np.asarray(a), device=device, dtype=dtype)
 
-    def c(a):
-        return torch.tensor(np.asarray(a, np.int32), device=device)
+    def bell(v, cl, n_cols):
+        return BellMatrix.from_numpy(v, cl, device=device, dtype=dtype,
+                                     n_cols=n_cols, plain=plain)
 
-    mats = [BellMatrix.from_numpy(v, cl, device=device, dtype=dtype,
-                                  plain=plain)
-            for v, cl in d["mats"]]
-    sizes = [m.n_nodes for m in mats] + [np.asarray(d["coarse_inv"]).shape[0]]
-    for l in range(len(mats)):
-        check_cols(np.asarray(d["pcols"][l]), sizes[l + 1], f"pcols[{l}]")
-        check_cols(np.asarray(d["ptcols"][l]), sizes[l], f"ptcols[{l}]")
+    sizes = [np.shape(v)[0] for v, _ in d["mats"]] + [
+        np.asarray(d["coarse_inv"]).shape[0]]
+    mats = [bell(v, cl, n) for (v, cl), n in zip(d["mats"], sizes)]
+    P = [bell(v, cl, sizes[l + 1])
+         for l, (v, cl) in enumerate(zip(d["pvals"], d["pcols"]))]
+    Pt = [bell(v, cl, sizes[l])
+          for l, (v, cl) in enumerate(zip(d["ptvals"], d["ptcols"]))]
     binv = d.get("l0_binv")
     if binv is not None and (np.ndim(binv) != 3 or mats and
                              np.shape(binv)[0] * np.shape(binv)[1] < sizes[0]):
         raise ValueError(f"l0_binv of shape {np.shape(binv)} does not cover "
                          f"the {sizes[0]} fine rows")
     return AMGPrecond(
-        mats,
-        [t(v) for v in d["inv_diags"]],
-        [c(v) for v in d["pcols"]], [t(v) for v in d["pvals"]],
-        [c(v) for v in d["ptcols"]], [t(v) for v in d["ptvals"]],
-        t(d["coarse_inv"]),
+        mats, [t(v) for v in d["inv_diags"]], P, Pt, t(d["coarse_inv"]),
         omegas=d["omegas"], rhos=d["rhos"], smoother=d["smoother"],
         cheb_deg=d["cheb_deg"], nu=d["nu"], cycle=d["cycle"],
         sawtooth=d.get("sawtooth", False),
-        l0_binv=None if binv is None else t(binv), plain=plain,
+        l0_binv=None if binv is None else t(binv),
     )
 
 
@@ -251,8 +245,8 @@ def with_supernode_smoother(M: AMGPrecond, A, sn,
 
     # rho(B^-1 A) by power iteration on the host, A as scipy CSR; padding
     # slots hold zeros on their own row, which add nothing
-    vals = A.values.double().cpu().numpy()
-    cols = A.cols.cpu().numpy().astype(np.int64)
+    vals = A.ell_values().double().cpu().numpy()
+    cols = A.layout.ell_cols.astype(np.int64)
     rows = np.repeat(np.arange(n), vals.shape[1])
     Asp = sp.csr_matrix((vals.reshape(-1), (rows, cols.reshape(-1))),
                         shape=(n, n))
@@ -286,25 +280,21 @@ def with_bf16_vcycle(M: AMGPrecond) -> AMGPrecond:
     least ``BF16_MIN_ROWS`` (fine) rows are cast, the ones the JAX package
     gave a Pallas plan, and only BellMatrix levels (a supernode fine level
     keeps its own blocks).  ``mats`` stays as it is (the V-cycle reads the
-    cast copies from ``vmats``); the transfers' weights are replaced, since
-    nothing but the cycle reads them.  The kernels promote the bf16
-    weights and sum in float64."""
-    def cast_mat(m):
-        if isinstance(m, BellMatrix) and m.n_nodes >= BF16_MIN_ROWS:
-            return BellMatrix(m.values.to(torch.bfloat16), m.cols, m.diag_slot,
-                              plain=m.plain)
-        return None
+    cast copies from ``vmats``); the transfers are replaced by their casts,
+    since nothing but the cycle reads them.  Each cast keeps its operator's
+    SELL layout; K1 promotes the bf16 weights and sums in float64."""
+    def cast(m):
+        return m.with_values(m.values.to(torch.bfloat16))
 
     if any(op is not None for op in M.p_apply + M.pt_apply):
         raise ValueError("with_bf16_vcycle: M has compact transfers; a bf16 "
                          "V-cycle is not combined with a compact one")
-    big = [p.shape[0] >= BF16_MIN_ROWS for p in M.pvals]
+    big = [p.n_nodes >= BF16_MIN_ROWS for p in M.P]
     return M.replace(
-        vmats=tuple(cast_mat(m) for m in M.mats),
-        pvals=tuple(v.to(torch.bfloat16) if b else v
-                    for v, b in zip(M.pvals, big)),
-        ptvals=tuple(v.to(torch.bfloat16) if b else v
-                     for v, b in zip(M.ptvals, big)),
+        vmats=tuple(cast(m) if isinstance(m, BellMatrix)
+                    and m.n_nodes >= BF16_MIN_ROWS else None for m in M.mats),
+        P=tuple(cast(p) if b else p for p, b in zip(M.P, big)),
+        Pt=tuple(cast(p) if b else p for p, b in zip(M.Pt, big)),
     )
 
 
@@ -332,14 +322,13 @@ def with_compact_vcycle(M: AMGPrecond, band_pre: bool,
             return CompactMatrix.from_bell(m, band_pre=band_pre)
         return None
 
-    def transfer(vals, cols):
-        if vals.shape[0] < BF16_MIN_ROWS:
+    def transfer(P):
+        if P.n_nodes < BF16_MIN_ROWS:
             return None
-        P = BellMatrix(vals, cols, plain=M._spmv is ell_spmv_plain)
         return CompactMatrix.from_bell(P, band_pre=band_pre)
 
     return M.replace(
         vmats=tuple(level(l, m) for l, m in enumerate(M.mats)),
-        p_apply=tuple(transfer(v, c) for v, c in zip(M.pvals, M.pcols)),
-        pt_apply=tuple(transfer(v, c) for v, c in zip(M.ptvals, M.ptcols)),
+        p_apply=tuple(transfer(P) for P in M.P),
+        pt_apply=tuple(transfer(P) for P in M.Pt),
     )

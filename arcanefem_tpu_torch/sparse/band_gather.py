@@ -48,7 +48,7 @@ LANE = 128
 UNIT_PAD = 1 << 28  # pallas_spmv.py::_UNIT_PAD
 DEF_K = 16
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_ENTRY = {torch.float32: "afem_band_gather_f32", torch.float64: "afem_band_gather_f64"}
 _LAUNCHES = {"band_gather": 0, "band_gather_batched": 0}
 
 
@@ -79,24 +79,27 @@ def band_gather_plain(bases: torch.Tensor, lcols: torch.Tensor,
 
 def _check(name: str, bases: torch.Tensor, lcols: torch.Tensor,
            t: torch.Tensor, batched: bool) -> int:
-    """Check the operands; return the tile count."""
+    """Check the operands (one attribute read each, to keep a call's host
+    cost near a PyTorch op's); return the tile count."""
     if lcols.dtype != torch.int32 or bases.dtype != torch.int32:
         raise TypeError(f"{name}: bases and lcols must be int32")
-    if lcols.shape[-1] != LANE or lcols.numel() // LANE > bases.numel():
+    n_tiles = lcols.numel() // LANE
+    if lcols.size(-1) != LANE or n_tiles > bases.numel():
         raise ValueError(f"{name}: lcols must be (..., {LANE}) with one base "
                          f"per tile, got {tuple(lcols.shape)} and "
                          f"{bases.numel()} bases")
     if batched:
-        if t.dim() != 2 or not 1 <= t.shape[0] <= MAX_TABLES:
+        if t.dim() != 2 or not 1 <= t.size(0) <= MAX_TABLES:
             raise ValueError(f"{name}: tables must be (B, n) with 1 <= B <= "
                              f"{MAX_TABLES}, got {tuple(t.shape)}")
     elif t.dim() != 1:
         raise ValueError(f"{name}: x must be 1-D, got {tuple(t.shape)}")
-    if t.dtype not in _SUFFIX:
+    if t.dtype not in _ENTRY:
         raise TypeError(f"{name}: the table must be float32 or float64")
-    if bases.device != t.device or lcols.device != t.device:
+    dev = t.get_device()
+    if bases.get_device() != dev or lcols.get_device() != dev:
         raise ValueError(f"{name}: operands lie on different devices")
-    if t.device.type == "cuda":
+    if t.is_cuda:
         if not (bases.is_contiguous() and lcols.is_contiguous()):
             raise ValueError(f"{name}: the CUDA kernel takes contiguous bases "
                              "and lcols")
@@ -106,14 +109,14 @@ def _check(name: str, bases: torch.Tensor, lcols: torch.Tensor,
             raise ValueError(f"{name}: the CUDA kernel takes a contiguous x")
     elif t.device.type != "cpu":
         raise ValueError(f"{name}: no kernel for device {t.device}")
-    return lcols.numel() // LANE
+    return n_tiles
 
 
-def _launch(name: str, bases, lcols, t, out, n_tiles: int, K: int) -> None:
-    kernels.launch(f"afem_band_gather_{_SUFFIX[t.dtype]}", t.device,
-                   bases.data_ptr(), lcols.data_ptr(), t.data_ptr(),
-                   out.data_ptr(), n_tiles, K, t.shape[0], t.shape[1],
-                   t.stride(1), t.stride(0), out.stride(1), out.stride(0))
+def _launch(name: str, bases, lcols, t, out, n_tiles: int, K: int, B: int,
+            n_t: int, ts_r: int, ts_b: int, os_r: int, os_b: int) -> None:
+    kernels.launch(_ENTRY[t.dtype], t.device, bases.data_ptr(), lcols.data_ptr(),
+                   t.data_ptr(), out.data_ptr(), n_tiles, K, B, n_t, ts_r, ts_b,
+                   os_r, os_b)
     _LAUNCHES[name] += 1
 
 
@@ -122,11 +125,12 @@ def band_gather(bases: torch.Tensor, lcols: torch.Tensor, x: torch.Tensor,
     """out[t*128 + l] = x[bases[t]*128 + lcols[t, l]], 0 on pads (K9a on
     the card)."""
     n_tiles = _check("band_gather", bases, lcols, x, batched=False)
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return band_gather_plain(bases, lcols, x, K)
-    out = torch.empty(n_tiles * LANE, dtype=x.dtype, device=x.device)
+    out = x.new_empty(n_tiles * LANE)
     if n_tiles:
-        _launch("band_gather", bases, lcols, x[None], out[None], n_tiles, K)
+        _launch("band_gather", bases, lcols, x, out, n_tiles, K, 1, x.size(0),
+                1, 0, 1, 0)
     return out
 
 
@@ -137,17 +141,19 @@ def band_gather_batched(bases: torch.Tensor, lcols: torch.Tensor,
     new (B, n_tiles*128) tensor or ``out`` of any strides (K9b on the
     card)."""
     n_tiles = _check("band_gather_batched", bases, lcols, tables, batched=True)
-    shape = (tables.shape[0], n_tiles * LANE)
+    shape = (tables.size(0), n_tiles * LANE)
     if out is None:
-        out = torch.empty(shape, dtype=tables.dtype, device=tables.device)
+        out = tables.new_empty(shape)
     elif out.shape != shape or out.dtype != tables.dtype \
             or out.device != tables.device or min(out.stride()) < 0:
         raise ValueError(f"band_gather_batched: out must be {shape} "
                          f"{tables.dtype} on {tables.device}")
-    if tables.device.type == "cpu":
+    if not tables.is_cuda:
         return out.copy_(band_gather_batched_plain(bases, lcols, tables, K))
     if n_tiles:
-        _launch("band_gather_batched", bases, lcols, tables, out, n_tiles, K)
+        (ts_b, ts_r), (os_b, os_r) = tables.stride(), out.stride()
+        _launch("band_gather_batched", bases, lcols, tables, out, n_tiles, K,
+                shape[0], tables.size(1), ts_r, ts_b, os_r, os_b)
     return out
 
 

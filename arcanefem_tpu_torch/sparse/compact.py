@@ -6,13 +6,13 @@ The counterpart of ``arcanefem_tpu/sparse/pallas_spmv.py::_compact_columns``
 (its numpy path, :910-951) and ``CompactBellSpmv`` (:1271-1349).  The rows
 are cut into blocks of R; ``uniq`` is the concatenation of each block's
 sorted distinct real columns, and ``remap`` (n, W) holds each entry's index
-into xc = x[uniq], so that
-
-    y = ell_spmv(vals, remap, xc)     (K1 on the card)
-
-is the same linear map as ``ell_spmv(vals, cols, x)``: every entry
-multiplies the same x value, routed through xc.  Entries that are not
-real (zero weight) point at their block's first compact slot.  The
+into xc = x[uniq], so that y = A x is the same products over xc: every
+entry multiplies the same x value, routed through xc.  Entries that are
+not real (zero weight) point at their block's first compact slot.  A
+:class:`CompactMatrix` keeps its BellMatrix's SELL values and layout, and
+carries the remap into that layout (``SellLayout.with_cols``: the same
+slices, permutation and values), so its second stage is K1 on the SELL
+remap and equals the BellMatrix's own product bit for bit.  The
 pre-gather xc = pre(x) is K2 over ``uniq`` or, with ``band_pre``
 (``AFEM_BAND_PRE=1``), the banded tile gather (``sparse/band_gather.py``:
 K9a on the narrow tiles, K2 on the wide ones), whose narrow/wide tile
@@ -36,13 +36,12 @@ import numpy as np
 import torch
 
 from .band_gather import LANE, BandedGather, UnitGather
+from .bell import BellMatrix
 from .ell_gather import (
     ell_gather_sum,
     ell_gather_sum_batched,
     ell_gather_sum_batched_plain,
     ell_gather_sum_plain,
-    ell_spmv,
-    ell_spmv_plain,
 )
 
 
@@ -102,9 +101,10 @@ def compact_columns(cols: np.ndarray, real: np.ndarray, R: int,
 
 
 class CompactGather:
-    """The two stages over one column structure: ``pre`` (x -> xc) and the
-    (n, W) int32 ``remap`` into xc, on one device.  ``plain=True`` runs
-    every stage's plain twin, on any device."""
+    """The unit (assembly coordinate) form of the two stages over one
+    column structure: ``pre`` (x -> xc) and the (n, W) int32 ``remap``
+    into xc, -1 on entries that are not real, on one device.
+    ``plain=True`` runs every stage's plain twin, on any device."""
 
     def __init__(self, pre, remap: torch.Tensor, *, plain: bool = False):
         self.pre = pre
@@ -114,17 +114,13 @@ class CompactGather:
     @classmethod
     def build(cls, cols: np.ndarray, real: np.ndarray, *, band_pre: bool,
               device: torch.device | str, R: int | None = None,
-              unit: bool = False, plain: bool = False) -> "CompactGather":
+              plain: bool = False) -> "CompactGather":
         """From host ``cols`` and ``real`` (n, W); R defaults to
-        :func:`adaptive_block_rows` of the width.  ``unit=True`` builds
-        for the unit forms: entries that are not real get remap -1 and
-        add 0 (the weighted form points them at a real slot instead, where
-        their zero weight cancels them)."""
+        :func:`adaptive_block_rows` of the width."""
         R = R or adaptive_block_rows(np.shape(cols)[1])
         pre, remap = compact_columns(cols, real, R, band_pre, device=device,
                                      plain=plain)
-        if unit:
-            remap = np.where(real, remap, -1)
+        remap = np.where(real, remap, -1)
         return cls(pre, torch.tensor(remap.astype(np.int32), device=device),
                    plain=plain)
 
@@ -132,13 +128,9 @@ class CompactGather:
     def band(self) -> bool:
         return isinstance(self.pre, BandedGather)
 
-    def spmv(self, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """y[r] = sum_w vals[r, w] * x[cols[r, w]]."""
-        return (ell_spmv_plain if self.plain else ell_spmv)(vals, self.remap, self.pre(x))
-
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """y[r] = sum_w x[cols[r, w]] over the real entries (at W=1 the
-        plain gather y[r] = x[cols[r, 0]]); built with ``unit=True``."""
+        plain gather y[r] = x[cols[r, 0]])."""
         return (ell_gather_sum_plain if self.plain else ell_gather_sum)(
             self.remap, self.pre(x))
 
@@ -150,39 +142,45 @@ class CompactGather:
 
 
 class CompactMatrix:
-    """y = A @ x through a :class:`CompactGather`: the BellMatrix interface
-    the solver uses (``spmv``, ``diagonal``, ``n_nodes``), for the CG
-    operator, the V-cycle's levels and its transfers."""
+    """y = A @ x through the compact two stages: ``pre`` (x -> xc), then K1
+    on ``op``, A's SELL values over the remap.  The BellMatrix interface the
+    solver uses (``spmv``, ``diagonal``, ``n_nodes``), for the CG operator,
+    the V-cycle's levels and its transfers."""
 
-    def __init__(self, values: torch.Tensor, cg: CompactGather,
-                 diag_slot: torch.Tensor | None = None):
-        if values.shape != cg.remap.shape:
-            raise ValueError(f"values {tuple(values.shape)} and remap "
-                             f"{tuple(cg.remap.shape)} differ in shape")
-        self.values = values
-        self.cg = cg
-        self.diag_slot = diag_slot
+    def __init__(self, pre, op: BellMatrix):
+        self.pre = pre
+        self.op = op
 
     @classmethod
-    def from_bell(cls, A, *, band_pre: bool,
+    def from_bell(cls, A: BellMatrix, *, band_pre: bool,
                   real: np.ndarray | None = None) -> "CompactMatrix":
         """The compact form of a BellMatrix ``A`` on its own device; the
         real entries are ``real`` (the topology's ``ell_valid``) or, by
         default, A's non-zero values (the JAX rule for level operators)."""
+        lay = A.layout
         if real is None:
-            real = A.values.cpu().numpy() != 0
-        cg = CompactGather.build(A.cols.cpu().numpy(), real, band_pre=band_pre,
-                                 device=A.values.device, plain=A.plain)
-        return cls(A.values, cg, A.diag_slot)
+            real = A.ell_values().cpu().numpy() != 0
+        pre, remap = compact_columns(
+            lay.ell_cols, real, adaptive_block_rows(lay.width), band_pre,
+            device=A.values.device, plain=A.plain)
+        op = BellMatrix(A.values, lay.with_cols(remap, pre.n_rows), A.diag_slot,
+                        plain=A.plain)
+        return cls(pre, op)
+
+    def with_values(self, values: torch.Tensor) -> "CompactMatrix":
+        """The same two stages over other SELL values of A's layout."""
+        return CompactMatrix(self.pre, self.op.with_values(values))
+
+    @property
+    def band(self) -> bool:
+        return isinstance(self.pre, BandedGather)
 
     @property
     def n_nodes(self) -> int:
-        return self.values.shape[0]
+        return self.op.n_nodes
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        return self.cg.spmv(self.values, x)
+        return self.op.spmv(self.pre(x))
 
     def diagonal(self) -> torch.Tensor:
-        if self.diag_slot is None:
-            raise ValueError("CompactMatrix built without diag_slot")
-        return self.values.reshape(-1)[self.diag_slot]
+        return self.op.diagonal()

@@ -30,6 +30,8 @@ kernel computes it, and it counts as ``residual_replace_f64``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -42,6 +44,7 @@ SUBLANE, LANE = 8, 128  # the plane rounding (TPU tiles, CUDA blocks)
 KUHN_OFFS3 = tuple((dx, dy, dz)
                    for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)
                    if min(dx, dy, dz) >= 0 or max(dx, dy, dz) <= 0)
+N_BANDS = len(KUHN_OFFS3)
 D0 = KUHN_OFFS3.index((0, 0, 0))  # the diagonal band
 MODES = {"spmv": 0, "jacobi": 1, "residual": 2}
 
@@ -49,11 +52,12 @@ MODES = {"spmv": 0, "jacobi": 1, "residual": 2}
 # the solver's float64 residual replacement has a count of its own
 _LAUNCHES = {"dia_spmv_p": 0, "dia_jacobi_p": 0, "dia_residual_p": 0,
              "dia_spmv": 0, "dia_sweep": 0, "residual_replace_f64": 0}
-_SUFFIX = {  # (bands, vectors) -> C entry point suffix
-    (torch.float32, torch.float32): "f32_f32",
-    (torch.bfloat16, torch.float32): "bf16_f32",
-    (torch.float32, torch.float64): "f32_f64",
-    (torch.float64, torch.float64): "f64_f64",
+_PLANE_COUNT = {m: f"dia_{m}_p" for m in ("spmv", "jacobi", "residual")}
+_ENTRY = {  # (bands, vectors) -> C entry point
+    (torch.float32, torch.float32): "afem_dia_stencil_f32_f32",
+    (torch.bfloat16, torch.float32): "afem_dia_stencil_bf16_f32",
+    (torch.float32, torch.float64): "afem_dia_stencil_f32_f64",
+    (torch.float64, torch.float64): "afem_dia_stencil_f64_f64",
 }
 
 
@@ -68,12 +72,17 @@ def launch_counts() -> dict[str, int]:
 
 def offsets3d(box) -> tuple:
     """Linear offsets of ``box`` -> (dx, dy, dz) grid deltas."""
+    return _offsets3d(box.offsets, box.sx, box.sy)
+
+
+@functools.cache
+def _offsets3d(offsets: tuple, sx: int, sy: int) -> tuple:
     out = []
-    for off in box.offsets:
+    for off in offsets:
         found = None
         for dx in (-1, 0, 1):
             for dy in (-1, 0, 1):
-                dz = off - dx * box.sx - dy * box.sy
+                dz = off - dx * sx - dy * sy
                 if -1 <= dz <= 1:
                     found = (dx, dy, dz)
         if found is None:
@@ -108,29 +117,38 @@ def unpad_vec(xp: torch.Tensor, shape) -> torch.Tensor:
     return xp[:, 1 : ny1 + 1, 1 : nz1 + 1].reshape(-1)
 
 
-def _check(mode, bands, x, band_major, ny, nz, b, aux) -> None:
+def _check(mode, bands, x, band_major, ny, nz, b, aux) -> bool:
+    """Raise on an operand the kernel does not take; True for a CUDA x.
+    One attribute read per test, to keep a call's host cost near a PyTorch
+    op's."""
     if mode not in MODES:
         raise ValueError(f"dia_stencil: unknown mode {mode!r}")
-    if bands.dim() != 4 or x.dim() != 3:
+    xs = x.shape
+    if bands.dim() != 4 or len(xs) != 3:
         raise ValueError(f"dia_stencil: bands must be 4-D and x 3-D, got "
-                         f"{tuple(bands.shape)} and {tuple(x.shape)}")
-    nx1, nyp, nzp = x.shape
-    want = (len(KUHN_OFFS3), nx1, nyp, nzp) if band_major else (nx1, len(KUHN_OFFS3), nyp, nzp)
-    if tuple(bands.shape) != want:
+                         f"{tuple(bands.shape)} and {tuple(xs)}")
+    nx1, nyp, nzp = xs
+    want = (N_BANDS, nx1, nyp, nzp) if band_major else (nx1, N_BANDS, nyp, nzp)
+    if bands.shape != want:
         raise ValueError(f"dia_stencil: bands {tuple(bands.shape)}, expected {want}")
     if nyp < ny + 3 or nzp < nz + 3:
         raise ValueError(f"dia_stencil: planes ({nyp}, {nzp}) hold no zero "
                          f"border around ({ny + 1}, {nz + 1}) nodes")
     if (mode == "jacobi" and (b is None or aux is None)) or (mode == "residual" and b is None):
         raise ValueError(f"dia_stencil: mode {mode!r} is missing b or aux")
+    dev, cuda = x.get_device(), x.is_cuda
     for t in (b, aux):
-        if t is not None and (t.shape != x.shape or t.dtype != x.dtype):
+        if t is not None and (t.shape != xs or t.dtype != x.dtype):
             raise ValueError("dia_stencil: b and aux must match x in shape and dtype")
-    tensors = [t for t in (bands, x, b, aux) if t is not None]
-    if any(t.device != x.device for t in tensors):
+        if t is not None and (t.get_device() != dev or cuda and not t.is_contiguous()):
+            raise ValueError("dia_stencil: b and aux must be contiguous, on x's device")
+    if bands.get_device() != dev:
         raise ValueError("dia_stencil: operands lie on different devices")
-    if x.device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+    if cuda and not (bands.is_contiguous() and x.is_contiguous()):
         raise ValueError("dia_stencil: the CUDA kernel takes contiguous operands")
+    if not cuda and x.device.type != "cpu":
+        raise ValueError(f"dia_stencil: no kernel for device {x.device}")
+    return cuda
 
 
 def dia_stencil_plain(mode: str, bands: torch.Tensor, x: torch.Tensor, *,
@@ -169,20 +187,18 @@ def dia_stencil(mode: str, bands: torch.Tensor, x: torch.Tensor, *,
                 omega: float = 0.0) -> torch.Tensor:
     """The stencil operator on padded planes (K5-K8 on the card); see the
     module docstring for the modes, layouts and types."""
-    _check(mode, bands, x, band_major, ny, nz, b, aux)
-    if x.device.type == "cpu":
+    if not _check(mode, bands, x, band_major, ny, nz, b, aux):
         return dia_stencil_plain(mode, bands, x, band_major=band_major, ny=ny,
                                  nz=nz, b=b, aux=aux, omega=omega)
-    if x.device.type != "cuda":
-        raise ValueError(f"dia_stencil: no kernel for device {x.device}")
-    key = (bands.dtype, x.dtype)
-    if key not in _SUFFIX:
-        raise TypeError(f"dia_stencil: no kernel for (bands, vectors) types {key}")
+    entry = _ENTRY.get((bands.dtype, x.dtype))
+    if entry is None:
+        raise TypeError(f"dia_stencil: no kernel for (bands, vectors) types "
+                        f"{(bands.dtype, x.dtype)}")
     nx1, nyp, nzp = x.shape
     plane = nyp * nzp
-    s_plane, s_band = (plane, nx1 * plane) if band_major else (len(KUHN_OFFS3) * plane, plane)
-    y = torch.empty_like(x)
-    kernels.launch(f"afem_dia_stencil_{_SUFFIX[key]}", x.device, MODES[mode],
+    s_plane, s_band = (plane, nx1 * plane) if band_major else (N_BANDS * plane, plane)
+    y = x.new_empty((nx1, nyp, nzp))
+    kernels.launch(entry, x.device, MODES[mode],
                    bands.data_ptr(), s_plane, s_band, x.data_ptr(),
                    None if b is None else b.data_ptr(),
                    None if aux is None else aux.data_ptr(), y.data_ptr(),
@@ -192,7 +208,7 @@ def dia_stencil(mode: str, bands: torch.Tensor, x: torch.Tensor, *,
     elif band_major:
         _LAUNCHES["dia_spmv" if mode == "spmv" else "dia_sweep"] += 1
     else:
-        _LAUNCHES[f"dia_{mode}_p"] += 1
+        _LAUNCHES[_PLANE_COUNT[mode]] += 1
     return y
 
 

@@ -39,7 +39,7 @@ LANE = 128
 SUB = 8
 TILE_ROWS = SUB * LANE  # 1024 rows per (8, 128) tile
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_ENTRY = {torch.float32: "afem_diag_spmv_f32", torch.float64: "afem_diag_spmv_f64"}
 _LAUNCHES = {"diag_spmv": 0}
 
 
@@ -147,30 +147,37 @@ def diag_spmv(lo: torch.Tensor, c0: torch.Tensor, scnt: torch.Tensor,
     """y = A @ x over a ``plan_diag`` plan (lo (nb,), c0 and scnt (nb, G),
     lcols and vals_tiled (nb, G, 8, 128), G = W·qn) and x (n,): K10 on the
     card.  The rows past n (the last block's padding) are not computed."""
+    # one attribute read per test, to keep a call's host cost near a
+    # PyTorch op's
     nb, G = c0.shape
-    if G % W or lcols.shape != (nb, G, SUB, LANE) or vals_tiled.shape != lcols.shape \
+    ls = lcols.shape
+    if G % W or ls != (nb, G, SUB, LANE) or vals_tiled.shape != ls \
             or lo.shape != (nb,) or scnt.shape != c0.shape:
         raise ValueError("diag_spmv: plan arrays of mismatched shapes")
-    if x.dim() != 1 or not 0 < x.shape[0] <= nb * (G // W) * TILE_ROWS:
+    n = x.size(0) if x.dim() == 1 else 0
+    if not 0 < n <= nb * (G // W) * TILE_ROWS:
         raise ValueError(f"diag_spmv: x must be 1-D with at most the plan's "
                          f"{nb * (G // W) * TILE_ROWS} rows, got {tuple(x.shape)}")
-    if any(t.dtype != torch.int32 for t in (lo, c0, scnt, lcols)):
+    i32 = torch.int32
+    if lo.dtype != i32 or c0.dtype != i32 or scnt.dtype != i32 or lcols.dtype != i32:
         raise TypeError("diag_spmv: lo, c0, scnt and lcols must be int32")
-    if x.dtype not in _SUFFIX or vals_tiled.dtype != x.dtype:
+    if x.dtype not in _ENTRY or vals_tiled.dtype != x.dtype:
         raise TypeError(f"diag_spmv: vals {vals_tiled.dtype} and x {x.dtype} "
                         "must be one of float32, float64")
-    tensors = (lo, c0, scnt, lcols, vals_tiled, x)
-    if any(t.device != x.device for t in tensors):
+    dev = x.get_device()
+    if lo.get_device() != dev or c0.get_device() != dev or scnt.get_device() != dev \
+            or lcols.get_device() != dev or vals_tiled.get_device() != dev:
         raise ValueError("diag_spmv: operands lie on different devices")
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"diag_spmv: no kernel for device {x.device}")
         return diag_spmv_plain(lo, c0, scnt, lcols, vals_tiled, x, W)
-    if x.device.type != "cuda":
-        raise ValueError(f"diag_spmv: no kernel for device {x.device}")
-    if not all(t.is_contiguous() for t in tensors):
+    if not (lo.is_contiguous() and c0.is_contiguous() and scnt.is_contiguous()
+            and lcols.is_contiguous() and vals_tiled.is_contiguous()
+            and x.is_contiguous()):
         raise ValueError("diag_spmv: the CUDA kernel takes contiguous operands")
-    n = x.shape[0]
-    y = torch.empty(n, dtype=x.dtype, device=x.device)
-    kernels.launch(f"afem_diag_spmv_{_SUFFIX[x.dtype]}", x.device, lo.data_ptr(),
+    y = x.new_empty(n)
+    kernels.launch(_ENTRY[x.dtype], x.device, lo.data_ptr(),
                    c0.data_ptr(), scnt.data_ptr(), lcols.data_ptr(),
                    vals_tiled.data_ptr(), x.data_ptr(), y.data_ptr(), n, W, G // W)
     _LAUNCHES["diag_spmv"] += 1

@@ -1,6 +1,5 @@
-"""ELL gather-reduce: the sparse kernel of the unstructured paths.
+"""ELL gather-reduce: the gathers of the unstructured paths.
 
-    ell_spmv(vals, cols, x)      y[r] = sum_w vals[r, w] * x[cols[r, w]]
     ell_gather_sum(cols, x)      y[r] = sum_w x[cols[r, w]]  (cols < 0 add 0)
     ell_spmv_batched(vals, cols, T)      Y[b, r] = sum_w vals[r, w] * T[b, cols[r, w]]
     ell_gather_sum_batched(cols, T)      Y[b, r] = sum_w T[b, cols[r, w]]
@@ -19,22 +18,23 @@ or is written into a given ``out`` of any strides (``torch.empty((n, B)).T``
 for an (n, B) row-major result).  They are the counterparts of
 ``PlannedGather.call_batched`` (K3a unit, K3b weighted).
 
-Inputs and outputs are float32 or float64, and ``ell_spmv`` also takes
-bfloat16 ``vals`` beside a float32 ``x`` (the bf16 V-cycle levels); every
-row sum accumulates in float64 (in the kernels and in the twins alike),
-which keeps the cancellation error of Poisson rows out of the float32 CG
-recurrence.
+Inputs and outputs are float32 or float64; every row sum accumulates in
+float64 (in the kernels and in the twins alike), which keeps the
+cancellation error of Poisson rows out of the float32 CG recurrence.
+
+The weighted single-table product, K1, runs on the sliced layout of
+``sparse/sell.py``; ``ell_spmv_plain`` below stays as the definition of
+y = A x over an (n, W) pair that the tests hold both layouts to.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/ell_gather.cu``, which replaces the Pallas window kernels of
 ``arcanefem_tpu/sparse/pallas_spmv.py``) or raises; on a CPU tensor it runs
 the plain PyTorch twin below, which is also the kernel's test oracle.
-``launch_counts()`` counts the kernel launches by wrapper, bf16-weight
-``ell_spmv`` launches apart as ``ell_spmv_bf16``.
+``launch_counts()`` counts the kernel launches by wrapper.
 
 The wrappers check device, dtype, shape and contiguity, not the range of
 ``cols``: the constructors that build the column arrays on the host
-(``BellMatrix.from_numpy``, ``amg_from_numpy``, ``SupernodeSpmv``) check
+(``SellLayout.build``, ``TetraAssembler``, ``SupernodeSpmv``) check
 that once.
 """
 
@@ -44,11 +44,14 @@ import torch
 
 from ..utils import kernels
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_FLOATS = (torch.float32, torch.float64)
 MAX_TABLES = 8
+_ENTRY = {(name, dt): f"afem_{name}_{'f32' if dt == torch.float32 else 'f64'}"
+          for name in ("ell_gather_sum", "ell_gather_sum_batched",
+                       "ell_spmv_batched") for dt in _FLOATS}
 
-_LAUNCHES = {"ell_spmv": 0, "ell_spmv_bf16": 0, "ell_gather_sum": 0,
-             "ell_spmv_batched": 0, "ell_gather_sum_batched": 0}
+_LAUNCHES = {"ell_gather_sum": 0, "ell_spmv_batched": 0,
+             "ell_gather_sum_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -62,7 +65,8 @@ def launch_counts() -> dict[str, int]:
 
 def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor,
                    x: torch.Tensor) -> torch.Tensor:
-    """Plain twin of :func:`ell_spmv`."""
+    """y[r] = sum_w vals[r, w] * x[cols[r, w]] over an (n, W) pair, summed
+    in float64: the definition K1 (``sparse/sell.py``) is held to."""
     return (vals.double() * x[cols].double()).sum(dim=1).to(x.dtype)
 
 
@@ -86,7 +90,11 @@ def ell_gather_sum_batched_plain(cols: torch.Tensor,
 
 
 def _check(name: str, cols: torch.Tensor, x: torch.Tensor,
-           vals: torch.Tensor | None = None, batched: bool = False) -> None:
+           vals: torch.Tensor | None = None, batched: bool = False) -> bool:
+    """Raise on an operand the kernel does not take; True for a CUDA x
+    (launch the kernel), False for a CPU one (run the twin).  Each test is
+    one attribute read, so that a call's host cost stays near a PyTorch
+    op's."""
     if cols.dim() != 2:
         raise ValueError(f"{name}: cols must be (n, W), got {tuple(cols.shape)}")
     if cols.dtype != torch.int32:
@@ -97,67 +105,41 @@ def _check(name: str, cols: torch.Tensor, x: torch.Tensor,
                              f"{MAX_TABLES}, got {tuple(x.shape)}")
     elif x.dim() != 1:
         raise ValueError(f"{name}: x must be 1-D, got {tuple(x.shape)}")
-    if x.dtype not in _SUFFIX:
+    if x.dtype not in _FLOATS:
         raise TypeError(f"{name}: x must be float32 or float64, got {x.dtype}")
-    tensors = [cols, x]
+    dev = x.get_device()
     if vals is not None:
         if vals.shape != cols.shape:
             raise ValueError(f"{name}: vals {tuple(vals.shape)} and cols "
                              f"{tuple(cols.shape)} differ in shape")
-        bf16_ok = not batched and (vals.dtype, x.dtype) == (torch.bfloat16,
-                                                          torch.float32)
-        if vals.dtype != x.dtype and not bf16_ok:
+        if vals.dtype != x.dtype:
             raise TypeError(f"{name}: vals {vals.dtype} and x {x.dtype} differ")
-        tensors.append(vals)
-    if any(t.device != x.device for t in tensors):
+        if vals.get_device() != dev or not (dev < 0 or vals.is_contiguous()):
+            raise ValueError(f"{name}: vals must be contiguous, on x's device")
+    if cols.get_device() != dev:
         raise ValueError(f"{name}: operands lie on different devices")
-    if x.device.type == "cuda":
-        # the tables of a batched call may be strided; nothing else
-        if not all(t.is_contiguous() for t in tensors
-                   if not (batched and t is x)):
-            raise ValueError(f"{name}: the CUDA kernel takes contiguous "
-                             "index, weight and vector operands")
-        if batched and min(x.stride()) < 0:
-            raise ValueError(f"{name}: negative table strides")
-
-
-def _device(name: str, x: torch.Tensor) -> bool:
-    """True for a CPU tensor (run the twin); raise for a device with no kernel."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.device}")
-    return False
-
-
-def ell_spmv(vals: torch.Tensor, cols: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
-    """y[r] = sum_w vals[r, w] * x[cols[r, w]] (K1 on the card)."""
-    _check("ell_spmv", cols, x, vals)
-    if _device("ell_spmv", x):
-        return ell_spmv_plain(vals, cols, x)
-    n, W = cols.shape
-    y = torch.empty(n, dtype=x.dtype, device=x.device)
-    if n == 0:
-        return y
-    bf16 = vals.dtype == torch.bfloat16
-    kernels.launch(f"afem_ell_spmv_{'bf16_f32' if bf16 else _SUFFIX[x.dtype]}",
-                   x.device, vals.data_ptr(), cols.data_ptr(), x.data_ptr(),
-                   y.data_ptr(), n, W)
-    _LAUNCHES["ell_spmv_bf16" if bf16 else "ell_spmv"] += 1
-    return y
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"{name}: no kernel for device {x.device}")
+        return False
+    # the tables of a batched call may be strided; nothing else
+    if not cols.is_contiguous() or not (batched or x.is_contiguous()):
+        raise ValueError(f"{name}: the CUDA kernel takes contiguous "
+                         "index, weight and vector operands")
+    if batched and min(x.stride()) < 0:
+        raise ValueError(f"{name}: negative table strides")
+    return True
 
 
 def ell_gather_sum(cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y[r] = sum_w x[cols[r, w]], negative columns add 0 (K2 on the card)."""
-    _check("ell_gather_sum", cols, x)
-    if _device("ell_gather_sum", x):
+    if not _check("ell_gather_sum", cols, x):
         return ell_gather_sum_plain(cols, x)
     n, W = cols.shape
-    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    y = x.new_empty(n)
     if n == 0:
         return y
-    kernels.launch(f"afem_ell_gather_sum_{_SUFFIX[x.dtype]}", x.device,
+    kernels.launch(_ENTRY["ell_gather_sum", x.dtype], x.device,
                    cols.data_ptr(), x.data_ptr(), y.data_ptr(), n, W)
     _LAUNCHES["ell_gather_sum"] += 1
     return y
@@ -168,7 +150,7 @@ def _batched_out(name: str, tables: torch.Tensor, n: int,
     """The (B, n) result: ``out`` checked, or a new contiguous tensor."""
     B = tables.shape[0]
     if out is None:
-        return torch.empty((B, n), dtype=tables.dtype, device=tables.device)
+        return tables.new_empty((B, n))
     if out.shape != (B, n) or out.dtype != tables.dtype \
             or out.device != tables.device:
         raise ValueError(f"{name}: out must be ({B}, {n}) {tables.dtype} on "
@@ -178,13 +160,13 @@ def _batched_out(name: str, tables: torch.Tensor, n: int,
     return out
 
 
-def _launch_batched(name: str, entry: str, ptrs: list, cols: torch.Tensor,
+def _launch_batched(name: str, ptrs: list, cols: torch.Tensor,
                     tables: torch.Tensor, y: torch.Tensor) -> None:
     n, W = cols.shape
-    B = tables.shape[0]
-    kernels.launch(f"{entry}_{_SUFFIX[tables.dtype]}", tables.device, *ptrs,
-                   cols.data_ptr(), tables.data_ptr(), y.data_ptr(), n, W, B,
-                   tables.stride(1), tables.stride(0), y.stride(1), y.stride(0))
+    (ts_b, ts_r), (ys_b, ys_r) = tables.stride(), y.stride()
+    kernels.launch(_ENTRY[name, tables.dtype], tables.device, *ptrs,
+                   cols.data_ptr(), tables.data_ptr(), y.data_ptr(), n, W,
+                   tables.size(0), ts_r, ts_b, ys_r, ys_b)
     _LAUNCHES[name] += 1
 
 
@@ -192,13 +174,12 @@ def ell_gather_sum_batched(cols: torch.Tensor, tables: torch.Tensor,
                            out: torch.Tensor | None = None) -> torch.Tensor:
     """Y[b, r] = sum_w T[b, cols[r, w]], negative columns add 0, for
     (B, n_t) tables ``T`` of any strides (K3a on the card)."""
-    _check("ell_gather_sum_batched", cols, tables, batched=True)
+    cuda = _check("ell_gather_sum_batched", cols, tables, batched=True)
     y = _batched_out("ell_gather_sum_batched", tables, cols.shape[0], out)
-    if _device("ell_gather_sum_batched", tables):
+    if not cuda:
         return y.copy_(ell_gather_sum_batched_plain(cols, tables))
     if cols.shape[0]:
-        _launch_batched("ell_gather_sum_batched", "afem_ell_gather_sum_batched",
-                        [], cols, tables, y)
+        _launch_batched("ell_gather_sum_batched", [], cols, tables, y)
     return y
 
 
@@ -207,11 +188,10 @@ def ell_spmv_batched(vals: torch.Tensor, cols: torch.Tensor,
                      out: torch.Tensor | None = None) -> torch.Tensor:
     """Y[b, r] = sum_w vals[r, w] * T[b, cols[r, w]] for (B, n_t) tables
     ``T`` of any strides (K3b on the card)."""
-    _check("ell_spmv_batched", cols, tables, vals, batched=True)
+    cuda = _check("ell_spmv_batched", cols, tables, vals, batched=True)
     y = _batched_out("ell_spmv_batched", tables, cols.shape[0], out)
-    if _device("ell_spmv_batched", tables):
+    if not cuda:
         return y.copy_(ell_spmv_batched_plain(vals, cols, tables))
     if cols.shape[0]:
-        _launch_batched("ell_spmv_batched", "afem_ell_spmv_batched",
-                        [vals.data_ptr()], cols, tables, y)
+        _launch_batched("ell_spmv_batched", [vals.data_ptr()], cols, tables, y)
     return y

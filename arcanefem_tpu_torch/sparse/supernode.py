@@ -140,7 +140,7 @@ class SupernodeSpmv:
         """From a scalar BellMatrix ``A`` whose node order is a supernode
         order, on A's device and in its dtype."""
         blocks, bcol, bptr, brow = build_blocks(
-            A.values.cpu().numpy(), topo, bs)
+            A.ell_values().cpu().numpy(), topo, bs)
         return cls.from_numpy(blocks, bcol, bptr, brow, topo.n_nodes,
                               device=A.values.device, dtype=A.values.dtype,
                               plain=A.plain)

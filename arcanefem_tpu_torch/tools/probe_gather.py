@@ -63,26 +63,26 @@ def window_take(win: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor
     """The column or flat take of each window (P1-P3 on the card)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
-    if win.dim() != 3 or win.shape[2] != LANE or idx.dim() != 3 \
-            or idx.shape[0] != win.shape[0] or idx.shape[2] != LANE:
+    ws, xs = win.shape, idx.shape
+    if len(ws) != 3 or ws[2] != LANE or len(xs) != 3 or xs[0] != ws[0] \
+            or xs[2] != LANE:
         raise ValueError(f"window_take: win (nb, K, {LANE}) and idx (nb, G, "
-                         f"{LANE}), got {tuple(win.shape)} and {tuple(idx.shape)}")
+                         f"{LANE}), got {tuple(ws)} and {tuple(xs)}")
     if win.dtype != torch.float32 or idx.dtype != torch.int32:
         raise TypeError("window_take: win must be float32 and idx int32")
-    if win.device != idx.device:
+    if win.get_device() != idx.get_device():
         raise ValueError("window_take: operands lie on different devices")
-    if win.device.type == "cpu":
+    if not win.is_cuda:
+        if win.device.type != "cpu":
+            raise ValueError(f"window_take: no kernel for device {win.device}")
         return window_take_plain(win, idx, mode)
-    if win.device.type != "cuda":
-        raise ValueError(f"window_take: no kernel for device {win.device}")
     if not (win.is_contiguous() and idx.is_contiguous()):
         raise ValueError("window_take: the CUDA kernel takes contiguous operands")
-    nb, K, _ = win.shape
-    out = torch.empty(idx.shape, dtype=win.dtype, device=win.device)
-    if nb and idx.shape[1]:
+    nb, K, _ = ws
+    out = win.new_empty(xs)
+    if nb and xs[1]:
         kernels.launch("afem_window_take_f32", win.device, win.data_ptr(),
-                       idx.data_ptr(), out.data_ptr(), nb, K, idx.shape[1],
-                       MODES[mode])
+                       idx.data_ptr(), out.data_ptr(), nb, K, xs[1], MODES[mode])
         _LAUNCHES["window_take"] += 1
     return out
 

@@ -9,6 +9,14 @@ unchanged one is reused.  Nothing is built at import time: the first
 kernel launch calls :func:`library`.  There is no fallback: a missing
 ``nvcc`` or a failed build raises :class:`KernelBuildError` with the
 compiler's output.
+
+:func:`launch` is the one way the wrappers call a kernel, and it is kept
+short, because many of the kernels run for a few microseconds and the
+host's cost per launch sets the pace of the solver's coarse levels: each C
+function is resolved once into a dict, the device is switched only when
+the tensor's device is not the current one, and the current stream's raw
+handle is read at each call (so a ``torch.cuda.stream`` context or a CUDA
+graph capture is honoured) without building a ``Stream`` object.
 """
 
 from __future__ import annotations
@@ -36,9 +44,11 @@ _P, _I, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_dou
 _DIA_STENCIL = [_I, _P, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F64, _P]
 _STENCIL_ASSEMBLY = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _I64,
                      _F64, _F64, _P]
-_ELL_SPMV = [_P, _P, _P, _P, _I64, _I, _P]
+_ELL_SPMV_BATCHED = [_P, _P, _P, _P, _I64, _I]  # vals, cols, t, y, n, W
 _ELL_GATHER_SUM = [_P, _P, _P, _I64, _I, _P]
 _BATCHED_STRIDES = [_I, _I64, _I64, _I64, _I64, _P]  # B, ts_r, ts_b, ys_r, ys_b, stream
+# vals, cols, slice_ptr, perm, x, y, n_rows, n_slices, stream
+_SELL_SPMV = [_P, _P, _P, _P, _P, _P, _I64, _I64, _P]
 # bases, lcols, t, out, n_tiles, K, B, n_t, ts_r, ts_b, os_r, os_b, stream
 _BAND_GATHER = [_P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _I64, _I64, _I64, _P]
 # lo, c0, scnt, lcols, vals, x, y, n, W, qn, stream
@@ -46,13 +56,13 @@ _DIAG_SPMV = [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P]
 # (name, argtypes) of every C entry point in csrc/; all return an int
 # cudaError_t from cudaGetLastError() after the launch
 _SIGNATURES = {
-    "afem_ell_spmv_f32": _ELL_SPMV,
-    "afem_ell_spmv_f64": _ELL_SPMV,
-    "afem_ell_spmv_bf16_f32": _ELL_SPMV,
+    "afem_sell_spmv_f32": _SELL_SPMV,
+    "afem_sell_spmv_f64": _SELL_SPMV,
+    "afem_sell_spmv_bf16_f32": _SELL_SPMV,
     "afem_ell_gather_sum_f32": _ELL_GATHER_SUM,
     "afem_ell_gather_sum_f64": _ELL_GATHER_SUM,
-    "afem_ell_spmv_batched_f32": _ELL_SPMV[:-1] + _BATCHED_STRIDES,
-    "afem_ell_spmv_batched_f64": _ELL_SPMV[:-1] + _BATCHED_STRIDES,
+    "afem_ell_spmv_batched_f32": _ELL_SPMV_BATCHED + _BATCHED_STRIDES,
+    "afem_ell_spmv_batched_f64": _ELL_SPMV_BATCHED + _BATCHED_STRIDES,
     "afem_ell_gather_sum_batched_f32": _ELL_GATHER_SUM[:-1] + _BATCHED_STRIDES,
     "afem_ell_gather_sum_batched_f64": _ELL_GATHER_SUM[:-1] + _BATCHED_STRIDES,
     "afem_dia_stencil_f32_f32": _DIA_STENCIL,
@@ -130,9 +140,19 @@ def build() -> str:
     return out
 
 
+_ENTRIES: dict = {}  # C entry point name -> its ctypes function
+# the current device's index and f(device index) -> the current stream's
+# raw handle, read without building a torch.cuda.Stream; bound when the
+# library loads (a torch build without the private bindings gets the
+# public calls)
+_current_device = _current_stream = None
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call; its entry points
+    are resolved once, into ``_ENTRIES``."""
+    global _current_device, _current_stream
     path = build()
     try:
         lib = ctypes.CDLL(path)
@@ -142,14 +162,26 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
+    _current_device = (getattr(torch._C, "_cuda_getDevice", None)
+                       or torch.cuda.current_device)
+    _current_stream = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
+                       or (lambda idx: torch.cuda.current_stream(idx).cuda_stream))
     return lib
 
 
 def launch(fn_name: str, device: torch.device, *args) -> None:
     """Call the C entry point ``fn_name(*args, stream)`` on ``device``'s
     current stream; raise if it reports a CUDA error."""
-    fn = getattr(library(), fn_name)
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    fn = _ENTRIES.get(fn_name)
+    if fn is None:
+        library()
+        fn = _ENTRIES[fn_name]
+    idx = device.index
+    if idx == _current_device():
+        rc = fn(*args, _current_stream(idx))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, _current_stream(_current_device()))
     if rc != 0:
         raise RuntimeError(f"{fn_name}: kernel launch failed with CUDA error {rc}")

@@ -9,13 +9,17 @@ script then exits non-zero without the final line:
 1. device: the card's name and power limit; TF32 off;
 2. build: compile csrc/*.cu with nvcc;
 3. kernel parity: each ELL kernel against its plain twin on random inputs
-   (n = 1M, W in 1, 8, 25, 136, with padding), f32 and f64: K1 and K2,
-   the batched K3b and K3a for B in 1, 3, 8 tables, contiguous and
+   (n = 1M, W in 1, 8, 25, 136, with padding), f32 and f64: K1 (in its
+   SELL-32-σ layout, also held to the (n, W) definition) and K2, the
+   batched K3b and K3a for B in 1, 3, 8 tables, contiguous and
    channel-minor (strided) tables and results, and K1 with bf16 weights;
+   then the host cost of one launch of every wrapper beside a PyTorch op
+   of the same size (``[launch]`` lines, tools/launch_cost.py);
 4. main path at 1.9M DoF (sphere_cut h=5, refine=2): assembly, AMG set-up
    and AMG-PCG to rtol 1e-8 through the kernels, with the launch counts of
-   that run; then each kernel timed against its plain twin at the shapes
-   of the path;
+   that run and the SELL layout of every operator K1 ran on (``[sell]``
+   lines); then each kernel timed against its plain twin at the shapes
+   of the path, K1 at both σ, and a torch.profiler breakdown of one solve;
 9. (run right after 4, on its mesh, operator and AMG hierarchy) the
    supernode route and the other bench knobs of the sphere: (a) the
    supernode operator, (b) with the block-Jacobi fine smoother, (c) with
@@ -59,11 +63,12 @@ repository, it exits non-zero and prints no result.
 
 A record's ``bound_ms`` is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over 67 TFLOP/s
-(the H100 SXM's HBM3 rate and non-tensor f32 rate, at 700 W).  ``ms`` is
-the CUDA-event time of back-to-back calls; the slice-4 records add
-``device_ms``, the profiler's kernel time per call, because for a kernel
-of a few microseconds the former measures the host's rate of issuing
-launches.
+(the H100 SXM's HBM3 rate and non-tensor f32 rate, at 700 W); K1's counts
+the nonzeros (8 bytes each, 12 per row), and ``slot_bound_ms`` the SELL
+slots it stores.  ``ms`` is the CUDA-event time of back-to-back calls;
+most records add ``device_ms``, the profiler's kernel time per call,
+because for a kernel of a few microseconds the former measures the host's
+rate of issuing launches.
 """
 
 from __future__ import annotations
@@ -115,11 +120,10 @@ def main() -> int:
     from arcanefem_tpu_torch.sparse.ell_gather import (
         ell_gather_sum,
         ell_gather_sum_plain,
-        ell_spmv,
         ell_spmv_plain,
-        launch_counts,
-        reset_launch_counts,
     )
+    from arcanefem_tpu_torch.sparse.sell import SellLayout, sell_spmv, sell_spmv_plain
+    from arcanefem_tpu_torch.tools.launch_cost import measure_all
     from arcanefem_tpu_torch.utils import kernels
     from arcanefem_tpu_torch.utils.timing import time_op
 
@@ -138,7 +142,9 @@ def main() -> int:
     print(f"[build] {kernels.library_path()} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # 3. kernel parity on random ELL inputs
+    # 3. kernel parity on random ELL inputs; K1 on the SELL layout of the
+    #    real slots (built on the host), held to its SELL twin and to the
+    #    (n, W) definition
     gen = torch.Generator(device=dev).manual_seed(0)
     for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         for W in (1, 8, 25, 136):
@@ -148,30 +154,39 @@ def main() -> int:
             vals = torch.rand((n, W), generator=gen, device=dev,
                               dtype=dtype) * 2 - 1
             pad = torch.rand((n, W), generator=gen, device=dev) < 0.2
+            pad[:: 97] = True  # empty rows
             vals[pad] = 0
             ucols = torch.where(pad, -1, cols)
             x = torch.rand(n, generator=gen, device=dev, dtype=dtype) * 2 - 1
-            y, u = ell_spmv(vals, cols, x), ell_gather_sum(ucols, x)
+            lay = SellLayout.build(cols.cpu().numpy(), (~pad).cpu().numpy(),
+                                   device=dev)
+            sv = lay.from_ell(vals)
+            y, u = sell_spmv(sv, lay, x), ell_gather_sum(ucols, x)
             torch.cuda.synchronize()
-            e1 = _rel_err(y, ell_spmv_plain(vals, cols, x),
-                          ell_spmv_plain(vals.abs(), cols, x.abs()))
+            scale = ell_spmv_plain(vals.abs(), cols, x.abs())
+            e1 = max(_rel_err(y, sell_spmv_plain(sv, lay, x), scale),
+                     _rel_err(y, ell_spmv_plain(vals, cols, x), scale))
             e2 = _rel_err(u, ell_gather_sum_plain(ucols, x),
                           ell_gather_sum_plain(ucols, x.abs()))
-            print(f"[parity] {str(dtype)[6:]} W={W}: ell_spmv {e1:.2e}, "
-                  f"ell_gather_sum {e2:.2e} (rtol {rtol:g} of sum |v x|)",
+            print(f"[parity] {str(dtype)[6:]} W={W}: sell_spmv {e1:.2e} (sigma "
+                  f"{lay.sigma}, {lay.n_slots / max(lay.nnz, 1):.3f} slots per "
+                  f"nonzero), ell_gather_sum {e2:.2e} (rtol {rtol:g} of sum |v x|)",
                   flush=True)
             _check(e1 <= rtol and e2 <= rtol, f"parity {dtype} W={W}")
             _batched_parity(vals, cols, ucols, gen, dtype, rtol)
             if dtype == torch.float32:
-                vb = vals.bfloat16()
-                xf = x.float()
-                e3 = _rel_err(ell_spmv(vb, cols, xf), ell_spmv_plain(vb, cols, xf),
-                              ell_spmv_plain(vb.abs(), cols, xf.abs()))
-                print(f"[parity] bf16 weights W={W}: ell_spmv {e3:.2e} (rtol 1e-5)",
+                vb, xf = sv.bfloat16(), x.float()
+                e3 = _rel_err(sell_spmv(vb, lay, xf), sell_spmv_plain(vb, lay, xf),
+                              sell_spmv_plain(vb.abs(), lay, xf.abs()))
+                print(f"[parity] bf16 weights W={W}: sell_spmv {e3:.2e} (rtol 1e-5)",
                       flush=True)
-                _check(e3 <= 1e-5, f"bf16 ell_spmv parity W={W}")
+                _check(e3 <= 1e-5, f"bf16 sell_spmv parity W={W}")
                 del vb, xf
-            del cols, vals, pad, ucols, x, y, u
+            del cols, vals, pad, ucols, x, y, u, sv, scale, lay
+
+    # the host cost of one launch of each wrapper, where the card is idle
+    for rec in measure_all(2000):
+        print(f"[launch] {json.dumps(rec)}", flush=True)
 
     # 4. main path at 1.9M DoF
     t0 = time.perf_counter()
@@ -179,11 +194,11 @@ def main() -> int:
     host_s = time.perf_counter() - t0
     print(f"[main] host set-up (mesh, orders, topology) {host_s:.1f} s",
           flush=True)
-    reset_launch_counts()
+    _reset_all()
     res = solve_sphere_cut(mesh, topo, device=dev, dtype=torch.float32,
                            penalty=1e12, timed=True)
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts = _counts_all()
     n, iters = topo.n_nodes, res["iterations"]
     main_line = {
         "n_dofs": n, "nnz_stored": topo.nnz, "width": topo.width,
@@ -195,21 +210,34 @@ def main() -> int:
         "amg_levels": res["levels"], "launches": counts,
     }
     print(f"[main] {json.dumps(main_line)}", flush=True)
+    for rec in res["sell"]:
+        print(f"[sell] {json.dumps(rec)}", flush=True)
     _check(res["rel"] <= 1e-8, f"monitored residual {res['rel']:.3e} > 1e-8")
     _check(res["true_residual"] <= 1e-4,
            f"true interior residual {res['true_residual']:.3e} > 1e-4")
     _check(bool(torch.isfinite(res["x"]).all()), "non-finite solution")
     _check(res["x"].shape == (n,), "solution shape")
-    _check(counts["ell_spmv"] > 0 and counts["ell_gather_sum"] > 0,
+    _check(counts["sell_spmv"] > 0 and counts["ell_gather_sum"] > 0,
            f"K1 or K2 never ran: {counts}")
 
-    # the kernels at the main path's shapes, against their plain twins
+    # the kernels at the main path's shapes, against their plain twins; K1
+    # also against the (N, W) definition and at the other sigma
     A = res["A"]
+    lay = A.layout
     xr = torch.rand(n, generator=gen, device=dev) * 2 - 1
-    y, yp = ell_spmv(A.values, A.cols, xr), ell_spmv_plain(A.values, A.cols, xr)
-    e1 = _rel_err(y, yp, ell_spmv_plain(A.values.abs(), A.cols, xr.abs()))
-    _check(e1 <= 1e-5, f"fine-level ell_spmv parity {e1:.2e}")
-    asm = TetraAssembler(topo, mesh.cells["tetra4"], device=dev)
+    ell_vals = A.ell_values()
+    ell_cols = torch.as_tensor(topo.ell_cols.astype("int32"), device=dev)
+    y, yp = sell_spmv(A.values, lay, xr), sell_spmv_plain(A.values, lay, xr)
+    scale = ell_spmv_plain(ell_vals.abs(), ell_cols, xr.abs())
+    e1 = max(_rel_err(y, yp, scale),
+             _rel_err(y, ell_spmv_plain(ell_vals, ell_cols, xr), scale))
+    _check(e1 <= 1e-5, f"fine-level sell_spmv parity {e1:.2e}")
+    alt = SellLayout.build(topo.ell_cols, topo.ell_valid, device=dev,
+                           sigma=1 if lay.sigma > 1 else 1024)
+    alt_vals = alt.from_ell(ell_vals)
+    e_alt = _rel_err(sell_spmv(alt_vals, alt, xr), yp, scale)
+    _check(e_alt <= 1e-5, f"fine-level sell_spmv at sigma {alt.sigma}: {e_alt:.2e}")
+    asm = TetraAssembler(topo, mesh.cells["tetra4"], device=dev, layout=lay)
     cx = torch.as_tensor(mesh.coords[:, 0], device=dev).to(torch.float32)
     g, gp = (ell_gather_sum(asm.corner_cols, cx),
              ell_gather_sum_plain(asm.corner_cols, cx))
@@ -217,24 +245,39 @@ def main() -> int:
     crow = torch.as_tensor(topo.row_ptr, device=dev, dtype=torch.int64)
     csr = torch.sparse_csr_tensor(
         crow, torch.as_tensor(topo.csr_cols, device=dev, dtype=torch.int64),
-        A.values.reshape(-1)[torch.as_tensor(topo.csr_to_ell, device=dev,
+        ell_vals.reshape(-1)[torch.as_tensor(topo.csr_to_ell, device=dev,
                                              dtype=torch.int64)],
         size=(n, n))
     e_csr = float((csr @ xr - yp).abs().max() / yp.abs().max())
     print(f"[kernel] CSR library SpMV vs plain: {e_csr:.3e} of max|y|", flush=True)
     gather_idx = asm.corner_cols[:, 0].long()
+
+    def slot_bound(layout, value_bytes):
+        """Bytes of the SELL slots K1 reads, x and y, the permutation."""
+        perm = 0 if layout.perm is None else 4 * n
+        return _bound(layout.n_slots * (value_bytes + 4) + n * 8 + perm,
+                      2 * layout.n_slots)[0]
+
+    k1_ms = time_op(sell_spmv, A.values, lay, xr, reps=50, outer=3) * 1e3
+    alt_ms = time_op(sell_spmv, alt_vals, alt, xr, reps=50, outer=3) * 1e3
     records = [
-        {"name": "ell_spmv", "route": "cuda",
-         "source": "arcanefem_tpu_torch/csrc/ell_gather.cu",
+        {"name": "sell_spmv", "route": "cuda",
+         "source": "arcanefem_tpu_torch/csrc/sell_spmv.cu",
          "replaces": "arcanefem_tpu/sparse/pallas_spmv.py:398",
-         "launches": counts["ell_spmv"],
+         "launches": counts["sell_spmv"],
          "max_abs_err": float((y - yp).abs().max()),
-         "ms": time_op(ell_spmv, A.values, A.cols, xr, reps=50, outer=3) * 1e3,
-         "plain_ms": time_op(ell_spmv_plain, A.values, A.cols, xr, reps=50,
-                             outer=3) * 1e3,
+         "ms": k1_ms,
+         "device_ms": _device_ms(lambda: sell_spmv(A.values, lay, xr)),
+         "plain_ms": time_op(sell_spmv_plain, A.values, lay, xr, reps=5,
+                             outer=2) * 1e3,
          "library_ms": time_op(torch.mv, csr, xr, reps=50, outer=3) * 1e3,
          **dict(zip(("bound_ms", "bound_by"), _bound(
-             A.values.numel() * 8 + n * 8, 2 * A.values.numel()))),
+             topo.nnz * 8 + n * 12, 2 * topo.nnz))),
+         "slot_bound_ms": slot_bound(lay, 4),
+         "sigma": lay.sigma, "slots": lay.n_slots, "nnz": topo.nnz,
+         "alt_sigma": alt.sigma, "alt_ms": alt_ms,
+         "alt_device_ms": _device_ms(lambda: sell_spmv(alt_vals, alt, xr)),
+         "alt_slots": alt.n_slots, "alt_slot_bound_ms": slot_bound(alt, 4),
          "shape": [n, topo.width], "dtype": "float32"},
         {"name": "ell_gather_sum", "route": "cuda",
          "source": "arcanefem_tpu_torch/csrc/ell_gather.cu",
@@ -253,9 +296,32 @@ def main() -> int:
     ]
     for r in records:
         print(f"[kernel] {r['name']} {r['shape']}: {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, max_abs_err {r['max_abs_err']:.3e}",
-              flush=True)
-    del A, asm, xr, y, yp, cx, g, gp, csr, gather_idx
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms, max_abs_err {r['max_abs_err']:.3e}", flush=True)
+    k1 = records[0]
+    print(f"[kernel] sell_spmv sigma {k1['sigma']}: {k1['slots']} slots "
+          f"({k1['slots'] / k1['nnz']:.4f} per nonzero), {k1['ms']:.4f} ms, device "
+          f"{k1['device_ms']:.4f} ms, slot bound {k1['slot_bound_ms']:.4f} ms; sigma "
+          f"{k1['alt_sigma']}: {k1['alt_slots']} slots, {k1['alt_ms']:.4f} ms, device "
+          f"{k1['alt_device_ms']:.4f} ms, slot bound {k1['alt_slot_bound_ms']:.4f} ms; "
+          f"nonzero bound {k1['bound_ms']:.4f} ms, CSR torch.mv "
+          f"{k1['library_ms']:.4f} ms", flush=True)
+    del A, asm, xr, y, yp, cx, g, gp, csr, gather_idx, ell_vals, ell_cols, alt, \
+        alt_vals, scale
+
+    # device time by kernel of one main-path solve (its true-residual check
+    # included), on phase 4's operator and hierarchy
+    def solve_ell():
+        return solve_sphere_cut(mesh, topo, device=dev, dtype=torch.float32,
+                                penalty=1e12, system=res["system"])
+
+    solve_ell()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve_ell()
+    torch.cuda.synchronize()
+    _profile(solve_ell, os.path.join("build", "profile", "ell.txt"),
+             time.perf_counter() - t0, groups=SPHERE_GROUPS)
     torch.cuda.empty_cache()
 
     records += supernode_phase(dev, gen, mesh, topo, res)
@@ -369,24 +435,21 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     from arcanefem_tpu_torch.sparse.ell_gather import (
         ell_gather_sum_batched,
         ell_gather_sum_batched_plain,
-        ell_spmv,
         ell_spmv_batched,
         ell_spmv_batched_plain,
-        ell_spmv_plain,
-        launch_counts,
-        reset_launch_counts,
     )
+    from arcanefem_tpu_torch.sparse.sell import sell_spmv, sell_spmv_plain
     from arcanefem_tpu_torch.sparse.supernode import block_products
     from arcanefem_tpu_torch.utils.timing import time_op
 
     system = res4["system"]
     runs, counts = {}, {}
     for key, opts in SN_CONFIGS.items():
-        reset_launch_counts()
+        _reset_all()
         r = solve_sphere_cut(mesh, topo, device=dev, dtype=torch.float32,
                              penalty=1e12, timed=True, system=system, **opts)
         torch.cuda.synchronize()
-        counts[key] = launch_counts()
+        counts[key] = _counts_all()
         runs[key] = r
         line = {"config": key, "flags": opts, "spmv_path": r["spmv_path"],
                 "iterations": r["iterations"], "rel": r["rel"],
@@ -401,13 +464,13 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
         _check(r["true_residual"] <= 1e-4,
                f"[sn] {key}: true interior residual {r['true_residual']:.3e}")
         _check(bool(torch.isfinite(r["x"]).all()), f"[sn] {key}: non-finite x")
-        _check(counts[key]["ell_spmv"] > 0, f"[sn] {key}: K1 never ran")
+        _check(counts[key]["sell_spmv"] > 0, f"[sn] {key}: K1 never ran")
         if opts.get("spmv") == "supernode":
             _check(r["spmv_path"] == "SupernodeMatrix", f"[sn] {key}: spmv path")
             _check(counts[key]["ell_gather_sum_batched"] > 0,
                    f"[sn] {key}: K3a never ran on the supernode route")
         del r["x"]
-    _check(counts["e"]["ell_spmv_bf16"] > 0, "[sn] e: bf16 K1 never ran")
+    _check(counts["e"]["sell_spmv_bf16"] > 0, "[sn] e: bf16 K1 never ran")
     _check(counts["f"]["ell_gather_sum_batched"] > 0
            and counts["f"]["ell_gather_sum"] == 0,
            f"[sn] f: the assembly did not gather through K3a alone: {counts['f']}")
@@ -420,8 +483,9 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     # the values are compared with torch's deterministic index_add
     conn = mesh.cells["tetra4"]
     coords = torch.as_tensor(mesh.coords, device=dev).to(torch.float32)
-    asm_s = TetraAssembler(topo, conn, device=dev)
-    asm_b = TetraAssembler(topo, conn, device=dev, coords_batched=True)
+    lay = system["A"].layout
+    asm_s = TetraAssembler(topo, conn, device=dev, layout=lay)
+    asm_b = TetraAssembler(topo, conn, device=dev, coords_batched=True, layout=lay)
     gs, gb = asm_s.gather_corners(coords), asm_b.gather_corners(coords)
     same = all(torch.equal(gs[k], gb[k]) for k in range(3))
     v1, v2 = asm_s(coords), asm_s(coords)
@@ -442,10 +506,13 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     # the kernels at the route's shapes, against their plain twins
     A = system["A"]
     sn = system["sn"]
-    n, W = A.values.shape
+    n, W = A.n_nodes, A.width
+    nnz, lay = topo.nnz, A.layout
+    ell_vals = A.ell_values()
+    ell_cols = torch.as_tensor(topo.ell_cols.astype("int32"), device=dev)
     nnzb, n_sup = sn.blocks.shape[0], sn.n_sup
     e_sn = operator_self_check(sn, A)
-    print(f"[sn] supernode SpMV vs K1 ell_spmv on a unit-random x: {e_sn:.2e} of "
+    print(f"[sn] supernode SpMV vs K1 sell_spmv on a unit-random x: {e_sn:.2e} of "
           f"each row's sum |a x| (tol 1e-5); {nnzb} blocks, {sn.nbytes / 1e9:.3f} GB, "
           f"row-reduce width {sn.row_blocks.shape[1]}", flush=True)
     _check(e_sn <= 1e-5, f"supernode SpMV vs K1: {e_sn:.2e}")
@@ -462,10 +529,11 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     crow = torch.as_tensor(topo.row_ptr, device=dev, dtype=torch.int64)
     csr = torch.sparse_csr_tensor(
         crow, torch.as_tensor(topo.csr_cols, device=dev, dtype=torch.int64),
-        A.values.reshape(-1)[torch.as_tensor(topo.csr_to_ell, device=dev,
+        ell_vals.reshape(-1)[torch.as_tensor(topo.csr_to_ell, device=dev,
                                              dtype=torch.int64)], size=(n, n))
     asm_corner = asm_b.corner_cols
     vbf = A.values.bfloat16()
+    perm_bytes = 0 if lay.perm is None else 4 * n
     sn_launch = counts["b"]["ell_gather_sum_batched"] // 2  # cols + rows per SpMV
     cases = [
         # name, source line, kernel, plain twin, library call, (bytes, flops),
@@ -488,22 +556,21 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
          (asm_corner.numel() * 16 + n * 12, 0),
          counts["f"]["ell_gather_sum_batched"], [asm_corner.shape[0], 1, 3]),
         ("ell_spmv_batched", "sparse/pallas_spmv.py:513",
-         lambda: ell_spmv_batched(A.values, A.cols, X8.T),
-         lambda: ell_spmv_batched_plain(A.values, A.cols, X8.T),
+         lambda: ell_spmv_batched(ell_vals, ell_cols, X8.T),
+         lambda: ell_spmv_batched_plain(ell_vals, ell_cols, X8.T),
          lambda: torch.sparse.mm(csr, X8),
-         (A.values.numel() * 8 + n * 64, 16 * A.values.numel()), 0, [n, W, 8]),
-        ("ell_spmv (bf16 weights)", "sparse/pallas_spmv.py:398",
-         lambda: ell_spmv(vbf, A.cols, x), lambda: ell_spmv_plain(vbf, A.cols, x),
-         None, (A.values.numel() * 6 + n * 8, 2 * A.values.numel()),
-         counts["e"]["ell_spmv_bf16"], [n, W]),
+         (ell_vals.numel() * 8 + n * 64, 16 * ell_vals.numel()), 0, [n, W, 8]),
+        ("sell_spmv (bf16 weights)", "sparse/pallas_spmv.py:398",
+         lambda: sell_spmv(vbf, lay, x), lambda: sell_spmv_plain(vbf, lay, x),
+         None, (nnz * 6 + n * 12, 2 * nnz), counts["e"]["sell_spmv_bf16"], [n, W]),
     ]
     # sums are held to 1e-5 of each row's sum |v x|, as K1/K2; the W=1
     # gathers copy values and must equal their twins
     scales = {
         "ell_gather_sum_batched (sn rows)": ell_gather_sum_batched_plain(
             sn.row_blocks, yp.T.abs()),
-        "ell_spmv_batched": ell_spmv_batched_plain(A.values.abs(), A.cols, X8.T.abs()),
-        "ell_spmv (bf16 weights)": ell_spmv_plain(vbf.abs(), A.cols, x.abs()),
+        "ell_spmv_batched": ell_spmv_batched_plain(ell_vals.abs(), ell_cols, X8.T.abs()),
+        "sell_spmv (bf16 weights)": sell_spmv_plain(vbf.abs(), lay, x.abs()),
     }
     records = []
     for name, rep_, fk, fp, lib, (nbytes, flops), launches, shape in cases:
@@ -518,18 +585,23 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
             _check(torch.equal(yk, yp_), f"{name} at the route's shape: {err:.2e}")
         del yk, yp_
         ms = time_op(fk, reps=20, outer=3) * 1e3
+        dms = _device_ms(fk)
         pms = time_op(fp, reps=3, outer=2) * 1e3
         lms = time_op(lib, reps=20, outer=3) * 1e3 if lib else None
         bms, bby = _bound(nbytes, flops)
+        sell = name.startswith("sell_spmv")
         records.append({
             "name": name, "route": "cuda",
-            "source": "arcanefem_tpu_torch/csrc/ell_gather.cu",
+            "source": "arcanefem_tpu_torch/csrc/"
+                      + ("sell_spmv.cu" if sell else "ell_gather.cu"),
             "replaces": f"arcanefem_tpu/{rep_}", "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-            "bound_by": bby, "library_ms": lms, "shape": shape,
-            "dtype": "bfloat16 weights, float32" if "bf16" in name else "float32"})
-        print(f"[kernel] {name} {shape}: {ms:.4f} ms (bound {bms:.4f} ms, {bby}), "
-              f"plain {pms:.3f} ms, library "
+            "max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": bby, "library_ms": lms, "shape": shape,
+            "dtype": "bfloat16 weights, float32" if "bf16" in name else "float32",
+            **({"slot_bound_ms": _bound(lay.n_slots * 6 + n * 8 + perm_bytes, 0)[0],
+                "sigma": lay.sigma} if sell else {})})
+        print(f"[kernel] {name} {shape}: {ms:.4f} ms, device {dms:.4f} ms (bound "
+              f"{bms:.4f} ms, {bby}), plain {pms:.3f} ms, library "
               f"{'n/a' if lms is None else f'{lms:.4f} ms'}, max_abs_err {err:.3e} "
               f"({rel:.2e} held), launches {launches}", flush=True)
     # the 8x8 block products are PyTorch ops (an XLA einsum in the JAX
@@ -547,17 +619,17 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
 
 
 def _reset_all() -> None:
-    from arcanefem_tpu_torch.sparse import band_gather, diag_spmv, ell_gather
+    from arcanefem_tpu_torch.sparse import band_gather, diag_spmv, ell_gather, sell
 
-    for m in (ell_gather, band_gather, diag_spmv):
+    for m in (ell_gather, sell, band_gather, diag_spmv):
         m.reset_launch_counts()
 
 
 def _counts_all() -> dict:
-    from arcanefem_tpu_torch.sparse import band_gather, diag_spmv, ell_gather
+    from arcanefem_tpu_torch.sparse import band_gather, diag_spmv, ell_gather, sell
 
-    return {**ell_gather.launch_counts(), **band_gather.launch_counts(),
-            **diag_spmv.launch_counts()}
+    return {**ell_gather.launch_counts(), **sell.launch_counts(),
+            **band_gather.launch_counts(), **diag_spmv.launch_counts()}
 
 
 def _route_run(tag, mesh, topo, dev, system, ell_iters, **opts):
@@ -672,7 +744,7 @@ def compact_phase(dev, gen, mesh, topo, res4) -> list[dict]:
         r, counts[key] = _route_run("compact", mesh, topo, dev, system,
                                     res4["iterations"], **opts)
         _check(r["spmv_path"] == "CompactMatrix", f"[compact] {key}: spmv path")
-        _check(counts[key]["ell_spmv"] > 0 and counts[key]["ell_gather_sum"] > 0,
+        _check(counts[key]["sell_spmv"] > 0 and counts[key]["ell_gather_sum"] > 0,
                f"[compact] {key}: K1 or K2 never ran")
         del r
     # device time by kernel of one (h) solve (its self-check included)
@@ -696,10 +768,11 @@ def compact_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     conn = mesh.cells["tetra4"]
     coords = torch.as_tensor(mesh.coords, device=dev).to(torch.float32)
     t0 = time.perf_counter()
-    asm_c = TetraAssembler(topo, conn, device=dev, coords_batched=True,
+    lay = system["A"].layout
+    asm_c = TetraAssembler(topo, conn, device=dev, layout=lay, coords_batched=True,
                            coords_compact=True, band_pre=True)
     host_s = time.perf_counter() - t0
-    gs = TetraAssembler(topo, conn, device=dev).gather_corners(coords)
+    gs = TetraAssembler(topo, conn, device=dev, layout=lay).gather_corners(coords)
     gc = asm_c.gather_corners(coords)
     same = all(torch.equal(gs[k], gc[k]) for k in range(3))
     cb = asm_c.compact.pre
@@ -773,8 +846,10 @@ def diag_phase(dev, gen) -> list[dict]:
     import torch
 
     from arcanefem_tpu_torch.bench_unstructured import solve_sphere_cut, sphere_cut_system
+    from arcanefem_tpu_torch.sparse.bell import BellMatrix
     from arcanefem_tpu_torch.sparse.diag_spmv import DiagEllMatrix, diag_spmv_plain
-    from arcanefem_tpu_torch.sparse.ell_gather import ell_spmv, ell_spmv_plain
+    from arcanefem_tpu_torch.sparse.ell_gather import ell_spmv_plain
+    from arcanefem_tpu_torch.sparse.sell import SellLayout
     from arcanefem_tpu_torch.utils.timing import time_op
 
     t0 = time.perf_counter()
@@ -800,10 +875,12 @@ def diag_phase(dev, gen) -> list[dict]:
     btopo, bvals = _rcm_box(80, dev, gen)
     print(f"[diag] host set-up of the 80^3 RCM box {time.perf_counter() - t0:.1f} s",
           flush=True)
-    bcols = torch.as_tensor(btopo.ell_cols.astype("int32"), device=dev)
+    blay = SellLayout.build(btopo.ell_cols, btopo.ell_valid, device=dev)
     records = []
-    for label, vals, cols, tp in (("sphere h=5 r=1 rcm", A.values, A.cols, topo),
-                                  ("box 80^3 rcm", bvals, bcols, btopo)):
+    for label, K1, tp in (("sphere h=5 r=1 rcm", A, topo),
+                          ("box 80^3 rcm", BellMatrix(blay.from_ell(bvals), blay), btopo)):
+        vals = K1.ell_values()
+        cols = torch.as_tensor(tp.ell_cols.astype("int32"), device=dev)
         n, W = vals.shape
         t0 = time.perf_counter()
         D = DiagEllMatrix(vals, tp.ell_cols)
@@ -830,15 +907,15 @@ def diag_phase(dev, gen) -> list[dict]:
             lambda: diag_spmv_plain(D.lo, D.c0, D.scnt, D.lcols, D.vals_tiled, x, W),
             lambda: torch.mv(csr, x), (n * W * 8 + n * 8, 2 * n * W),
             counts["diag_spmv"] if label.startswith("sphere") else 0, [n, W], held)
-        rec["k1_ms"] = time_op(ell_spmv, vals, cols, x, reps=20, outer=3) * 1e3
-        e1 = _rel_err(D.spmv(x), ell_spmv(vals, cols, x), scale)
+        rec["k1_ms"] = time_op(K1.spmv, x, reps=20, outer=3) * 1e3
+        e1 = _rel_err(D.spmv(x), K1.spmv(x), scale)
         print(f"[diag] {label}: K10 {rec['ms']:.4f} ms, K1 on the same operator "
               f"{rec['k1_ms']:.4f} ms, CSR torch.mv {rec['library_ms']:.4f} ms; K10 vs "
               f"K1 {e1:.2e} of each row's sum |a x|", flush=True)
         _check(e1 <= 1e-5, f"K10 vs K1 at {label}")
         records.append(rec)
-        del D, x, scale, csr
-    del ell, r, A, mesh, topo, btopo, bvals, bcols
+        del D, x, scale, csr, K1, vals, cols
+    del ell, r, A, mesh, topo, btopo, bvals, blay
     return records
 
 
@@ -965,9 +1042,9 @@ STRUCTURED_GROUPS = {
     "dia_stencil residual (f64 replacement)": "dia_stencil_kernel<2, float, double",
     "cat/stack copies": "CatArrayBatchedCopy", "reductions": "reduce_kernel"}
 SPHERE_GROUPS = {
-    "K1 ell_spmv": "ell_rows_kernel<float, float, 16, true>",
-    "K1 ell_spmv, other widths": ", true>",
-    "K2 ell_gather_sum": ", false>", "K9a band_gather": "band_gather_kernel",
+    "K1 sell_spmv": "sell_spmv_kernel<float, float>",
+    "K1 sell_spmv, bf16 weights": "sell_spmv_kernel<__nv_bfloat16",
+    "K2 ell_gather_sum": "ell_gather_kernel", "K9a band_gather": "band_gather_kernel",
     "K10 diag_spmv": "diag_spmv_kernel", "cat/stack copies": "CatArrayBatchedCopy",
     "reductions": "reduce_kernel"}
 

@@ -177,7 +177,7 @@ def test_bf16_vcycle_matches_rounded_jax(hierarchies, smoother):
     P = amg_from_numpy(_as_numpy(M), "cpu", torch.float32)
     Pb = with_bf16_vcycle(P)
     assert Pb.vmats[0].values.dtype == torch.bfloat16 and Pb.vmats[1] is None
-    assert Pb.pvals[0].dtype == Pb.ptvals[0].dtype == torch.bfloat16
+    assert Pb.P[0].values.dtype == Pb.Pt[0].values.dtype == torch.bfloat16
     assert P.mats[0].values.dtype == Pb.mats[0].values.dtype == torch.float32
     want = np.asarray(_rounded_bf16(M).apply(jnp.asarray(r)))
     got = Pb.apply(torch.as_tensor(r)).numpy()

@@ -23,9 +23,11 @@ def test_tetra_assembly_matches_jax_segsum(h):
     coords = mesh.coords.astype(np.float32)
     want = np.asarray(TetraLaneAssembler(topo, conn, reduce="segsum")(
         jnp.asarray(coords)))
-    got = TetraAssembler(topo, conn, device="cpu")(torch.as_tensor(coords))
+    asm = TetraAssembler(topo, conn, device="cpu")
+    got = asm(torch.as_tensor(coords))
     assert got.dtype == torch.float32 and want.dtype == np.float32
-    got = got.numpy()
+    assert got.shape == (asm.layout.n_slots,)  # straight into SELL storage
+    got = asm.layout.to_ell(got).numpy()
     assert got.shape == want.shape == (topo.n_nodes, topo.width)
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     # padding slots stay exactly zero
@@ -41,9 +43,9 @@ def test_assemble_bell_matches_jax():
         topo, {"tetra4": jnp.asarray(ke)}, block=1).values).reshape(
             topo.n_nodes, topo.width)
     A = assemble_bell(topo, {"tetra4": torch.as_tensor(ke)}, device="cpu")
-    np.testing.assert_allclose(A.values.numpy(), want, rtol=1e-12,
+    np.testing.assert_allclose(A.ell_values().numpy(), want, rtol=1e-12,
                                atol=1e-12)
-    np.testing.assert_array_equal(A.cols.numpy(), topo.ell_cols)
+    np.testing.assert_array_equal(A.layout.ell_cols, topo.ell_cols)
 
 
 @pytest.mark.parametrize("h", [14.0, 8.0])

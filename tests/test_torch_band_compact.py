@@ -31,8 +31,9 @@ from arcanefem_tpu_torch.sparse.band_gather import (
     band_gather,
     band_gather_batched,
 )
+from arcanefem_tpu_torch.sparse.bell import BellMatrix
 from arcanefem_tpu_torch.sparse.compact import (
-    CompactGather,
+    CompactMatrix,
     adaptive_block_rows,
     compact_columns,
 )
@@ -173,21 +174,24 @@ def test_compact_columns_remap_matches_jax(name, band_pre, monkeypatch):
 @pytest.mark.parametrize("band_pre", [False, True])
 @pytest.mark.parametrize("name", sorted(ELLS))
 def test_compact_gather_matches_jax_chain(name, band_pre, monkeypatch):
-    """CompactGather.spmv == the JAX compact chain's emulation to 2e-5 in
-    f32, and == (w·x[cols]).sum to 1e-12 in f64.  wcap=0: the JAX chain
-    without its wide-row split, which the port does not have."""
+    """CompactMatrix.spmv (the compact two stages, K1 on the SELL remap) ==
+    the JAX compact chain's emulation to 2e-5 in f32, and ==
+    (w·x[cols]).sum to 1e-12 in f64.  wcap=0: the JAX chain without its
+    wide-row split, which the port does not have."""
     cols, w, n_t = ELLS[name]()
     monkeypatch.setenv("AFEM_BAND_PRE", "1" if band_pre else "0")
     g = PlannedGather.build(np.asarray(cols), w, compact=True, wcap=0)
     assert isinstance(g, ChainedGather)
     assert isinstance(g.stage1, JaxBand) == band_pre
-    cg = CompactGather.build(cols, w != 0, band_pre=band_pre, device="cpu")
-    assert cg.band == band_pre
+    A = BellMatrix.from_numpy(w, cols, n_cols=n_t, device="cpu",
+                              dtype=torch.float32)
+    cm = CompactMatrix.from_bell(A, band_pre=band_pre)
+    assert cm.band == band_pre
     table = np.random.RandomState(9).rand(n_t).astype(np.float32)
-    got = cg.spmv(torch.as_tensor(w), torch.as_tensor(table)).numpy()
+    got = cm.spmv(torch.as_tensor(table)).numpy()
     np.testing.assert_allclose(got, emulate_gather(g, table), rtol=2e-5, atol=1e-5)
     t64 = torch.as_tensor(table.astype(np.float64))
-    got64 = cg.spmv(torch.as_tensor(w.astype(np.float64)), t64).numpy()
+    got64 = cm.with_values(A.values.double()).spmv(t64).numpy()
     exact = (w.astype(np.float64) * table.astype(np.float64)[cols]).sum(axis=1)
     np.testing.assert_allclose(got64, exact, rtol=1e-12, atol=1e-12)
 

@@ -86,11 +86,11 @@ def test_compact_vcycle_equals_ell_cycle():
     system = res["system"]
     cg, Mc = system[("compact", True)]
     M = system["M"]
-    assert Mc.vmats[0].cg is cg
+    assert Mc.vmats[0] is cg
     big = [m.n_nodes >= BF16_MIN_ROWS for m in M.mats]
     assert [v is not None for v in Mc.vmats] == big
     assert [p is not None for p in Mc.p_apply] == [
-        p.shape[0] >= BF16_MIN_ROWS for p in M.pvals]
+        p.n_nodes >= BF16_MIN_ROWS for p in M.P]
     assert all(isinstance(v, CompactMatrix) for v in Mc.vmats if v is not None)
     r = torch.as_tensor(np.random.RandomState(0).rand(topo.n_nodes))
     assert torch.equal(Mc.apply(r), M.apply(r))

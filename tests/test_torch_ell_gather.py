@@ -18,8 +18,8 @@ from arcanefem_tpu_torch.sparse.bell import BellMatrix
 from arcanefem_tpu_torch.sparse.ell_gather import (
     ell_gather_sum,
     ell_gather_sum_batched,
-    ell_spmv,
     ell_spmv_batched,
+    ell_spmv_plain,
 )
 
 
@@ -29,8 +29,9 @@ def h14():
 
 
 def test_spmv_matches_jax_bell_f64(h14):
-    """Plain ell_spmv == JAX BellMatrix.spmv in f64 on the sphere_cut h=14
-    topology with random values (rtol 1e-12: only the sum order differs)."""
+    """The SELL BellMatrix's plain K1 == JAX BellMatrix.spmv in f64 on the
+    sphere_cut h=14 topology with random values (rtol 1e-12: only the sum
+    order differs)."""
     _, topo = h14
     rng = np.random.RandomState(0)
     n, W = topo.n_nodes, topo.width
@@ -75,16 +76,21 @@ def _weighted_case(name):
 
 @pytest.mark.parametrize("name", ["plain", "wide_split", "empty_rows"])
 def test_spmv_matches_pallas_plan(name):
-    """Plain ell_spmv == the weighted Pallas plan (K1), wide rows split
-    into a chained plan included; the JAX tests' tolerance."""
+    """K1 in its SELL layout (plain) and the (n, W) definition
+    ell_spmv_plain == the weighted Pallas plan (K1), wide rows split into a
+    chained plan included; the JAX tests' tolerance."""
     cols, w, table = _weighted_case(name)
     g = PlannedGather.build(cols, w)
     if name == "wide_split":
         assert isinstance(g, ChainedGather)
-    got = ell_spmv(torch.as_tensor(w), torch.as_tensor(cols, dtype=torch.int32),
-                   torch.as_tensor(table)).numpy()
-    np.testing.assert_allclose(got, emulate_gather(g, table),
-                               rtol=2e-5, atol=1e-5)
+    want = emulate_gather(g, table)
+    A = BellMatrix.from_numpy(w, cols, n_cols=table.size, device="cpu",
+                              dtype=torch.float32)
+    for got in (A.spmv(torch.as_tensor(table)),
+                ell_spmv_plain(torch.as_tensor(w),
+                               torch.as_tensor(cols, dtype=torch.int32),
+                               torch.as_tensor(table))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["plain", "wide_split", "empty_rows"])
@@ -153,7 +159,7 @@ def test_batched_match_pallas_plans(name, B, layout):
         np.testing.assert_allclose(got[k].numpy(), want, rtol=2e-5, atol=1e-5)
         # each table exactly as the single-table twin reduces it
         for b in range(B):
-            single = (ell_spmv(torch.as_tensor(w), c32, t[b].contiguous())
+            single = (ell_spmv_plain(torch.as_tensor(w), c32, t[b].contiguous())
                       if k == "weighted" else
                       ell_gather_sum(torch.as_tensor(np.where(real, cols, -1),
                                                      dtype=torch.int32),

@@ -24,19 +24,20 @@ from arcanefem_tpu_torch.bench_structured import (
 from arcanefem_tpu_torch.mesh import stencil_assembly as sa
 from arcanefem_tpu_torch.mesh.structured import StructuredBox
 from arcanefem_tpu_torch.sparse import dia_stencil as ds
+from arcanefem_tpu_torch.sparse import sell
 from arcanefem_tpu_torch.sparse.bell import BellMatrix
 from arcanefem_tpu_torch.sparse.ell_gather import (
     ell_gather_sum,
     ell_gather_sum_batched,
     ell_gather_sum_batched_plain,
     ell_gather_sum_plain,
-    ell_spmv,
     ell_spmv_batched,
     ell_spmv_batched_plain,
     ell_spmv_plain,
     launch_counts,
     reset_launch_counts,
 )
+from arcanefem_tpu_torch.sparse.sell import SellLayout, sell_spmv, sell_spmv_plain
 from arcanefem_tpu_torch.sparse import band_gather as band
 from arcanefem_tpu_torch.sparse import diag_spmv as dsp
 from arcanefem_tpu_torch.sparse.band_gather import BandedGather
@@ -44,8 +45,31 @@ from arcanefem_tpu_torch.sparse.diag_spmv import DiagEllMatrix
 from arcanefem_tpu_torch.sparse.supernode import SupernodeSpmv
 from arcanefem_tpu_torch.tools import probe_gather as pg
 
-NO_LAUNCHES = {"ell_spmv": 0, "ell_spmv_bf16": 0, "ell_gather_sum": 0,
-               "ell_spmv_batched": 0, "ell_gather_sum_batched": 0}
+NO_LAUNCHES = {"ell_gather_sum": 0, "ell_spmv_batched": 0,
+               "ell_gather_sum_batched": 0}
+NO_SELL = {"sell_spmv": 0, "sell_spmv_bf16": 0}
+
+
+def _reset():
+    reset_launch_counts()
+    sell.reset_launch_counts()
+
+
+def _counts():
+    return {**launch_counts(), **sell.launch_counts()}
+
+
+def _sell_case(gen, n, W, dtype, device, sigma=None):
+    """Random (n, W) columns, ~20% of the slots padding, values in dtype
+    and the SELL layout of the real slots on ``device``: (layout, SELL
+    values, (n, W) values on device, (n, W) int32 columns on device)."""
+    cols = torch.randint(0, n, (n, W), generator=gen, dtype=torch.int32)
+    pad = torch.rand((n, W), generator=gen) < 0.2
+    vals = ((torch.rand((n, W), generator=gen, dtype=torch.float64) * 2 - 1)
+            .masked_fill(pad, 0.0))
+    lay = SellLayout.build(cols.numpy(), (~pad).numpy(), device=device, sigma=sigma)
+    v = vals.to(dtype)
+    return lay, lay.from_ell(v).to(device), v.to(device), cols.to(device)
 
 
 @pytest.fixture
@@ -58,12 +82,17 @@ def cuda():
 def test_wrappers_check_operands():
     cols = torch.zeros((4, 2), dtype=torch.int32)
     x = torch.zeros(4)
+    lay = SellLayout.build(cols.numpy(), np.ones((4, 2), bool), device="cpu")
     with pytest.raises(TypeError):
-        ell_spmv(torch.zeros(4, 2), cols.long(), x)
+        ell_gather_sum(cols.long(), x)
     with pytest.raises(ValueError):
-        ell_spmv(torch.zeros(4, 3), cols, x)
+        sell_spmv(torch.zeros(lay.n_slots + 1), lay, x)
+    with pytest.raises(ValueError):
+        sell_spmv(torch.zeros(lay.n_slots), lay, torch.zeros(5))
     with pytest.raises(TypeError):
-        ell_spmv(torch.zeros(4, 2, dtype=torch.float64), cols, x)
+        sell_spmv(torch.zeros(lay.n_slots, dtype=torch.float64), lay, x)
+    with pytest.raises(ValueError):
+        sell_spmv(torch.zeros(lay.n_slots).to("meta"), lay, x.to("meta"))
     with pytest.raises(ValueError):
         ell_gather_sum(cols, torch.zeros(4, 1))
     with pytest.raises(ValueError):
@@ -73,8 +102,8 @@ def test_wrappers_check_operands():
                               device="cpu", dtype=torch.float64)
     # bf16 weights go with float32 x only, and not in the batched form
     with pytest.raises(TypeError):
-        ell_spmv(torch.zeros(4, 2, dtype=torch.bfloat16), cols,
-                 x.double())
+        sell_spmv(torch.zeros(lay.n_slots, dtype=torch.bfloat16), lay,
+                  x.double())
     with pytest.raises(TypeError):
         ell_spmv_batched(torch.zeros(4, 2, dtype=torch.bfloat16), cols,
                          torch.zeros(2, 4))
@@ -86,46 +115,48 @@ def test_wrappers_check_operands():
 
 def test_cpu_tensors_launch_nothing():
     """On CPU tensors the wrappers run the plain twin and count nothing."""
-    reset_launch_counts()
+    _reset()
     cols = torch.tensor([[0, 1], [1, -1]], dtype=torch.int32)
     x = torch.tensor([2.0, 3.0])
     vals = torch.tensor([[1.0, 0.5], [2.0, 0.0]])
-    assert ell_spmv(vals, cols.clamp(min=0), x).tolist() == [3.5, 6.0]
+    A = BellMatrix.from_numpy(vals.numpy(), cols.clamp(min=0).numpy(),
+                              device="cpu", dtype=torch.float32)
+    assert A.spmv(x).tolist() == [3.5, 6.0]
     assert ell_gather_sum(cols, x).tolist() == [5.0, 3.0]
-    assert ell_spmv(vals.bfloat16(), cols.clamp(min=0), x).tolist() == [3.5, 6.0]
+    assert A.with_values(A.values.bfloat16()).spmv(x).tolist() == [3.5, 6.0]
     t = torch.stack([x, 2 * x])
     assert ell_gather_sum_batched(cols, t).tolist() == [[5.0, 3.0], [10.0, 6.0]]
     assert ell_spmv_batched(vals, cols.clamp(min=0), t.T.contiguous().T).tolist() \
         == [[3.5, 6.0], [7.0, 12.0]]
-    assert launch_counts() == NO_LAUNCHES
+    assert _counts() == {**NO_LAUNCHES, **NO_SELL}
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
                                         (torch.float64, 1e-12)])
 def test_kernels_match_plain_on_cuda(cuda, dtype, rtol):
-    """Each kernel == its plain twin on the card, with padding and wide
-    rows; the error is measured against sum |v·x| of each row."""
+    """K1 (SELL, σ chosen and σ = 1024) and K2 == their plain twins and the
+    (n, W) definition on the card, with padding, empty rows and wide rows;
+    the error is measured against sum |v·x| of each row."""
     gen = torch.Generator().manual_seed(0)
-    reset_launch_counts()
+    _reset()
     for W in (1, 8, 25, 136):
-        n = 50_000
-        cols = torch.randint(0, n, (n, W), generator=gen, dtype=torch.int32)
-        vals = torch.rand((n, W), generator=gen, dtype=dtype) * 2 - 1
-        pad = torch.rand((n, W), generator=gen) < 0.2
-        vals[pad] = 0
-        ucols = torch.where(pad, -1, cols)
-        x = torch.rand(n, generator=gen, dtype=dtype) * 2 - 1
-        cols, vals, ucols, x = (t.to(cuda) for t in (cols, vals, ucols, x))
-        y, u = ell_spmv(vals, cols, x), ell_gather_sum(ucols, x)
-        torch.cuda.synchronize()
-        assert y.dtype == u.dtype == dtype
-        scale = ell_spmv_plain(vals.abs(), cols, x.abs())
+        n = 50_001  # not a multiple of 32
+        for sigma in (None, sell.SIGMA):
+            lay, sv, vals, cols = _sell_case(gen, n, W, dtype, cuda, sigma)
+            x = (torch.rand(n, generator=gen, dtype=dtype) * 2 - 1).to(cuda)
+            y = sell_spmv(sv, lay, x)
+            torch.cuda.synchronize()
+            assert y.dtype == dtype
+            scale = ell_spmv_plain(vals.abs(), cols, x.abs())
+            for want in (sell_spmv_plain(sv, lay, x), ell_spmv_plain(vals, cols, x)):
+                assert bool(((y - want).abs() <= rtol * scale).all()), (W, sigma)
+        ucols = torch.where(vals == 0, -1, cols)
+        u = ell_gather_sum(ucols, x)
         uscale = ell_gather_sum_plain(ucols, x.abs())
-        assert bool(((y - ell_spmv_plain(vals, cols, x)).abs()
-                     <= rtol * scale).all())
         assert bool(((u - ell_gather_sum_plain(ucols, x)).abs()
                      <= rtol * uscale).all())
-    assert launch_counts() == {**NO_LAUNCHES, "ell_spmv": 4, "ell_gather_sum": 4}
+    assert _counts() == {**NO_LAUNCHES, **NO_SELL, "sell_spmv": 8,
+                         "ell_gather_sum": 4}
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
@@ -135,7 +166,7 @@ def test_batched_kernels_match_plain_on_cuda(cuda, dtype, rtol):
     W in 1, 8, 25, 136 with padding, tables and results contiguous or
     channel-minor (strided); error against each row's sum |v·x|."""
     gen = torch.Generator().manual_seed(2)
-    reset_launch_counts()
+    _reset()
     n = 20_000
     launches = 0
     for W in (1, 8, 25, 136):
@@ -163,25 +194,25 @@ def test_batched_kernels_match_plain_on_cuda(cuda, dtype, rtol):
                              <= rtol * scale).all()), (W, B, minor)
                 assert bool(((u - ell_gather_sum_batched_plain(ucols, t)).abs()
                              <= rtol * uscale).all()), (W, B, minor)
-    assert launch_counts() == {**NO_LAUNCHES, "ell_spmv_batched": launches,
-                               "ell_gather_sum_batched": launches}
+    assert _counts() == {**NO_LAUNCHES, **NO_SELL, "ell_spmv_batched": launches,
+                         "ell_gather_sum_batched": launches}
 
 
 def test_bf16_spmv_matches_plain_on_cuda(cuda):
     """K1 with bf16 weights and f32 x == its twin (1e-5 of sum |v·x|)."""
     gen = torch.Generator().manual_seed(3)
-    reset_launch_counts()
+    _reset()
     for W in (1, 25, 136):
         n = 30_000
-        cols = torch.randint(0, n, (n, W), generator=gen, dtype=torch.int32).to(cuda)
-        vals = (torch.rand((n, W), generator=gen) * 2 - 1).bfloat16().to(cuda)
+        lay, sv, vals, cols = _sell_case(gen, n, W, torch.bfloat16, cuda)
         x = (torch.rand(n, generator=gen) * 2 - 1).to(cuda)
-        y = ell_spmv(vals, cols, x)
+        y = sell_spmv(sv, lay, x)
         torch.cuda.synchronize()
         assert y.dtype == torch.float32
         scale = ell_spmv_plain(vals.abs(), cols, x.abs())
+        assert bool(((y - sell_spmv_plain(sv, lay, x)).abs() <= 1e-5 * scale).all())
         assert bool(((y - ell_spmv_plain(vals, cols, x)).abs() <= 1e-5 * scale).all())
-    assert launch_counts() == {**NO_LAUNCHES, "ell_spmv_bf16": 3}
+    assert _counts() == {**NO_LAUNCHES, **NO_SELL, "sell_spmv_bf16": 3}
 
 
 def test_supernode_spmv_on_cuda_matches_cpu(cuda):
@@ -194,12 +225,13 @@ def test_supernode_spmv_on_cuda_matches_cpu(cuda):
     A = res["A"]
     x = torch.rand(topo.n_nodes, generator=torch.Generator().manual_seed(4),
                    dtype=torch.float64)
-    scale = BellMatrix(A.values.abs(), A.cols).spmv(x)
+    scale = A.with_values(A.values.abs()).spmv(x)
     for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        Ad = BellMatrix(A.values.to(dtype), A.cols, A.diag_slot)
+        Ad = A.with_values(A.values.to(dtype))
         cpu = SupernodeSpmv.build(Ad, topo)
-        dev = SupernodeSpmv.build(BellMatrix(Ad.values.to(cuda), Ad.cols.to(cuda),
-                                             Ad.diag_slot.to(cuda)), topo)
+        dev = SupernodeSpmv.build(BellMatrix.from_numpy(
+            Ad.ell_values().numpy(), topo.ell_cols, topo.diag_slot, device=cuda,
+            dtype=dtype), topo)
         # bf16 blocks sum their products in f32 whatever x's dtype
         for a, b, tol in ((cpu, dev, rtol), (cpu.as_bf16(), dev.as_bf16(), 1e-5)):
             reset_launch_counts()
@@ -214,11 +246,11 @@ def test_slice_on_cuda_matches_plain_and_cpu(cuda):
     """The h=14 slice in f32 through the kernels == the same slice on the
     plain twins, and == the f64 CPU solve to 1e-4 of max|x|."""
     mesh, topo = sphere_cut_system(14.0, 0, cache=False)
-    reset_launch_counts()
+    _reset()
     k = solve_sphere_cut(mesh, topo, device=cuda, dtype=torch.float32,
                          penalty=1e12)
-    counts = launch_counts()
-    assert counts["ell_spmv"] > 0 and counts["ell_gather_sum"] > 0
+    counts = _counts()
+    assert counts["sell_spmv"] > 0 and counts["ell_gather_sum"] > 0
     p = solve_sphere_cut(mesh, topo, device=cuda, dtype=torch.float32,
                          penalty=1e12, plain=True)
     c = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64,
@@ -358,13 +390,18 @@ def test_band_gather_matches_plain_on_cuda(cuda, dtype):
             t = tab.to(cuda)
             if minor:
                 t = t.T.contiguous().T
+            want = band.band_gather_batched_plain(bases, lcols, t, g.K)
             y = band.band_gather_batched(bases, lcols, t, g.K)
-            assert torch.equal(y, band.band_gather_batched_plain(bases, lcols, t, g.K))
+            assert torch.equal(y, want)
+            # into a channel-minor (n, B) result, as the coordinates are kept
+            out = torch.empty((want.shape[1], B), dtype=dtype, device=cuda).T
+            assert torch.equal(band.band_gather_batched(bases, lcols, t, g.K, out=out),
+                               want)
             assert torch.equal(g.call_batched(t).cpu(), gc.call_batched(tab))
         y1 = band.band_gather(bases, lcols, tab[0].to(cuda), g.K)
         assert torch.equal(y1, band.band_gather_plain(bases, lcols, tab[0].to(cuda), g.K))
         assert torch.equal(g(tab[0].to(cuda)).cpu(), gc(tab[0]))
-    assert band.launch_counts() == {"band_gather": 6, "band_gather_batched": 12}
+    assert band.launch_counts() == {"band_gather": 6, "band_gather_batched": 18}
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
@@ -430,3 +467,36 @@ def test_slice4_routes_on_cuda_match_cpu(cuda):
             assert counts["band_gather"] > 0 and counts["band_gather_batched"] > 0
         else:
             assert counts["diag_spmv"] > 0
+
+
+def test_every_k1_operator_launches_sell_on_cuda(cuda):
+    """Every operator K1 runs on in the h=14 solve (the CG operator, each
+    level, P and P^T, the bf16 copies, the compact route's CG operator and
+    compact levels and transfers) launches the SELL kernel once per SpMV,
+    each equal to its plain twin (1e-5 of each row's sum |a·x|)."""
+    from arcanefem_tpu_torch.solver.amg import with_bf16_vcycle
+
+    mesh, topo = sphere_cut_system(14.0, 0, cache=False)
+    res = solve_sphere_cut(mesh, topo, device=cuda, dtype=torch.float32, penalty=1e12)
+    cm = solve_sphere_cut(mesh, topo, device=cuda, dtype=torch.float32, penalty=1e12,
+                          spmv="compact", system=res["system"])
+    M = res["system"]["M"]
+    Mb = with_bf16_vcycle(M)
+    Mc = res["system"][("compact", False)][1]
+    ops = [res["A"], *M.mats, *M.P, *M.Pt, *(v for v in Mb.vmats if v is not None),
+           *Mb.P, *Mb.Pt, *(o for o in Mc.vmats + Mc.p_apply + Mc.pt_apply
+                            if o is not None)]
+    gen = torch.Generator().manual_seed(8)
+    for op in ops:
+        A = getattr(op, "op", op)  # a CompactMatrix's SELL operator
+        x = (torch.rand(A.layout.n_cols, generator=gen) * 2 - 1).to(cuda)
+        _reset()
+        y = A.spmv(x)
+        torch.cuda.synchronize()
+        bf16 = A.values.dtype == torch.bfloat16
+        assert _counts() == {**NO_LAUNCHES, **NO_SELL,
+                             "sell_spmv_bf16" if bf16 else "sell_spmv": 1}
+        scale = sell_spmv_plain(A.values.abs(), A.layout, x.abs())
+        want = sell_spmv_plain(A.values, A.layout, x)
+        assert bool(((y - want).abs() <= 1e-5 * scale).all())
+    assert cm["iterations"] == res["iterations"]
