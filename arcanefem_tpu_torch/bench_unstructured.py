@@ -292,7 +292,7 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
         if band_pre and asm_compact and not asm.compact.band:
             raise RuntimeError("band_pre: the banded plan declines the "
                                "coordinate gather's pre stream")
-        del asm  # its slot map (16 int32 per cell) is dead once values exist
+        del asm  # its contributor lists (16 int32 per cell) are dead now
 
         mask, g, rhs = dirichlet_data(mesh, penalty)
         # penalty rows after the cast to the solve's dtype, so the matrix and
@@ -505,7 +505,7 @@ def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
         "vcycle_band": res.get("vcycle_band"),
         "compact_setup_s": (round(res["compact_setup_s"], 1)
                             if "compact_setup_s" in res else None),
-        "asm_mode": "segsum",  # the port's only reducer: index_add_ scatter
+        "asm_mode": "window",  # the JAX name of the slot-sorted reducer
         "asm_compact": opt["asm_compact"],
         "asm_coords": opt["asm_coords"],
         "amg_smoother": opt["smoother"],

@@ -1,28 +1,35 @@
 """P1 tetrahedron stiffness assembly into BELL values.
 
-The counterpart of the segment-sum form of
-``arcanefem_tpu/ops/lane_assembly.py::TetraLaneAssembler``.  Every
-intermediate is a length-nc vector over cells (cell axis last), the
-element matrices come from the cofactors of the corner coordinates, and
-the 16 entries of each element matrix are scatter-added straight into the
-SELL storage of ``sparse/sell.py`` (the JAX package's flat (N*W) slot
-space there), through the topology's slot map remapped once on the host
-into SELL slots.
+The counterpart of ``arcanefem_tpu/ops/lane_assembly.py::TetraLaneAssembler``
+with the JAX TPU default reducer (``AFEM_UNSTR_ASM=window``,
+``sparse/pallas_assembly.py::SortedEntryAssembler``): two kernels of
+``csrc/tet_assembly.cu``.
 
-The corner-coordinate fetch is the ELL gather kernel at W=1, in
-corner-major order: request i*nc + c is corner i of cell c, so corner i's
-coordinates are one contiguous slice.  By default it is three launches of
-``ell_gather_sum`` (K2 on the card), one per axis; with
-``coords_batched=True`` (the JAX package's ``AFEM_ASM_COORDS=batched``) it
-is one launch of ``ell_gather_sum_batched`` (K3a) that reads the (N, 3)
-coordinates in place.  With ``coords_compact=True`` (the JAX package's
-``AFEM_ASM_COMPACT=1`` coordinate gather) the requests go through the
-compact two-stage gather of ``sparse/compact.py`` in blocks of 16384: a
-pre-gather of each block's distinct nodes (K2, or with ``band_pre`` the
-banded K9a plus K2 on its wide tiles), then K2 over the block-local
-indices; batched, the same stages are K9b/K3a and K3a.  Every form fetches
-the same values, so all give the same corners.  The element arithmetic
-runs in float32 whatever the caller's dtype, as the JAX package does.
+1. ``tet_element``: one pass over the cells computes each element matrix
+   from the cofactors of its corner coordinates and writes its 10
+   upper-triangle entries (``TRI10`` order) to a cell-major (nc, 10)
+   float32 table.  By default it gathers the corners itself from the
+   (N, 3) coordinates through the corner-major connectivity
+   ``corner_cols`` (request i*nc + c is corner i of cell c).  Its second
+   input mode reads corners that a route's own gather fetched, (3, 4nc)
+   in the same order: with ``coords_batched=True`` (the JAX package's
+   ``AFEM_ASM_COORDS=batched``) one launch of ``ell_gather_sum_batched``
+   (K3a) reading the (N, 3) coordinates in place; with
+   ``coords_compact=True`` (``AFEM_ASM_COMPACT=1``) the compact two-stage
+   gather of ``sparse/compact.py`` in blocks of 16384, its pre-gather K2
+   (or with ``band_pre`` the banded K9a plus K2 on its wide tiles), then
+   K2 over the block-local indices; batched, K9b/K3a and K3a.  Every form
+   fetches the same values, so every route computes the same table.
+2. ``slot_reduce`` (``sparse/slot_reduce.py``): each SELL slot sums its
+   contributors ``c*10 + Q2P16[q]`` in ascending (cell, q) order, in
+   float64, rounded once.  The lists are built once, on the assembler's
+   device.
+
+So the assembled values are the same bit for bit from run to run and
+across the routes.  The element arithmetic runs in float32 whatever the
+caller's dtype, as the JAX package does.  On a CUDA tensor each wrapper
+launches its kernel or raises; on a CPU tensor it runs the plain twin
+below (``plain=True`` takes the twins on any device).
 """
 
 from __future__ import annotations
@@ -33,14 +40,122 @@ import torch
 from ..sparse.bell import check_cols, fine_layout
 from ..sparse.compact import CompactGather
 from ..sparse.sell import SellLayout
-from ..sparse.ell_gather import (
-    ell_gather_sum,
-    ell_gather_sum_batched,
-    ell_gather_sum_batched_plain,
-    ell_gather_sum_plain,
-)
+from ..sparse.ell_gather import ell_gather_sum_batched, ell_gather_sum_batched_plain
+from ..sparse.slot_reduce import group_by_slot, slot_reduce, slot_reduce_plain
+from ..utils import kernels
 
-_PAIRS = [(i, j) for i in range(4) for j in range(4)]
+# upper-triangle (i <= j) local pair -> table column 0..9, row-major;
+# Q2P16 maps each ordered pair q = i*4 + j onto it (ke is symmetric)
+TRI10 = {(i, j): k for k, (i, j) in
+         enumerate((i, j) for i in range(4) for j in range(i, 4))}
+Q2P16 = np.array([TRI10[min(i, j), max(i, j)] for i in range(4) for j in range(4)],
+                 np.int64)
+
+_LAUNCHES = {"tet_element": 0}
+
+
+def reset_launch_counts() -> None:
+    _LAUNCHES["tet_element"] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def tet_corners_plain(coords: torch.Tensor, corner_cols: torch.Tensor) -> torch.Tensor:
+    """The (3, 4nc) corners :func:`tet_element` gathers: entry i*nc + c of
+    row k is axis k of corner i of cell c."""
+    return coords.T[:, corner_cols.reshape(-1).long()]
+
+
+def tet_element_plain(corners) -> torch.Tensor:
+    """Plain twin of :func:`tet_element` and :func:`tet_element_gathered`:
+    the (nc, 10) float32 upper-triangle entries of each cell from its
+    (3, 4nc) corners (a tensor or three (4nc,) vectors)."""
+    nc = corners[0].shape[0] // 4
+    x, y, z = ([g[i * nc:(i + 1) * nc] for i in range(4)] for g in corners)
+    # 6V = (p1-p0) . (p2-p0) x (p3-p0)
+    ax, ay, az = x[1] - x[0], y[1] - y[0], z[1] - z[0]
+    bx, by, bz = x[2] - x[0], y[2] - y[0], z[2] - z[0]
+    cx, cy, cz = x[3] - x[0], y[3] - y[0], z[3] - z[0]
+    v6 = ax * (by * cz - bz * cy) + ay * (bz * cx - bx * cz) + az * (
+        bx * cy - by * cx)
+    inv = 1.0 / v6.abs()
+
+    def comp(u, w):
+        # cofactor rows: the gradient of each barycentric coordinate
+        # times 6V
+        return [
+            u[1] * (w[3] - w[2]) + u[2] * (w[1] - w[3]) + u[3] * (w[2] - w[1]),
+            u[0] * (w[2] - w[3]) + u[2] * (w[3] - w[0]) + u[3] * (w[0] - w[2]),
+            u[0] * (w[3] - w[1]) + u[1] * (w[0] - w[3]) + u[3] * (w[1] - w[0]),
+            u[0] * (w[1] - w[2]) + u[1] * (w[2] - w[0]) + u[2] * (w[0] - w[1]),
+        ]
+
+    dx, dy, dz = comp(y, z), comp(z, x), comp(x, y)
+    # ke_ij = V (dx_i dx_j + dy_i dy_j + dz_i dz_j) / (6V)^2, V = |6V|/6
+    scale = inv / 6.0
+    return torch.stack([(dx[i] * dx[j] + dy[i] * dy[j] + dz[i] * dz[j]) * scale
+                        for i in range(4) for j in range(i, 4)], dim=1)
+
+
+def _check_f32(name: str, t: torch.Tensor, dev: int) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 operands only, got {t.dtype}")
+    if t.get_device() != dev:
+        raise ValueError(f"{name}: operands lie on different devices")
+    if t.is_cuda and not t.is_contiguous():
+        raise ValueError(f"{name}: the CUDA kernel takes contiguous operands")
+
+
+def _launch(device: torch.device, cols_ptr, rows, stride: int, nc: int) -> torch.Tensor:
+    ke = torch.empty((nc, 10), dtype=torch.float32, device=device)
+    if nc:
+        kernels.launch("afem_tet_element_f32", device, cols_ptr, *rows, stride,
+                       ke.data_ptr(), nc)
+        _LAUNCHES["tet_element"] += 1
+    return ke
+
+
+def tet_element(coords: torch.Tensor, corner_cols: torch.Tensor) -> torch.Tensor:
+    """The (nc, 10) float32 element table from the (N, 3) float32
+    coordinates and the (4nc,) or (4nc, 1) int32 corner-major connectivity
+    (the corner gather fused into the element kernel on the card)."""
+    if coords.dim() != 2 or coords.shape[1] != 3:
+        raise ValueError(f"tet_element: coords must be (N, 3), got {tuple(coords.shape)}")
+    if corner_cols.dtype != torch.int32 or corner_cols.numel() % 4:
+        raise ValueError("tet_element: corner_cols must be int32, 4 per cell")
+    dev = coords.get_device()
+    _check_f32("tet_element", coords, dev)
+    if corner_cols.get_device() != dev:
+        raise ValueError("tet_element: operands lie on different devices")
+    if not coords.is_cuda:
+        if coords.device.type != "cpu":
+            raise ValueError(f"tet_element: no kernel for device {coords.device}")
+        return tet_element_plain(tet_corners_plain(coords, corner_cols))
+    if not corner_cols.is_contiguous():
+        raise ValueError("tet_element: the CUDA kernel takes contiguous operands")
+    p = coords.data_ptr()
+    return _launch(coords.device, corner_cols.data_ptr(),
+                   (p, p + 4, p + 8), 3, corner_cols.numel() // 4)
+
+
+def tet_element_gathered(corners) -> torch.Tensor:
+    """:func:`tet_element` on corners a gather already fetched: a (3, 4nc)
+    float32 tensor or three (4nc,) vectors, each row contiguous."""
+    rows = tuple(corners)
+    if len(rows) != 3 or any(r.dim() != 1 or r.shape != rows[0].shape for r in rows) \
+            or rows[0].shape[0] % 4:
+        raise ValueError("tet_element_gathered: corners must be three (4nc,) rows")
+    dev = rows[0].get_device()
+    for r in rows:
+        _check_f32("tet_element_gathered", r, dev)
+    if not rows[0].is_cuda:
+        if rows[0].device.type != "cpu":
+            raise ValueError(f"tet_element_gathered: no kernel for device {rows[0].device}")
+        return tet_element_plain(rows)
+    return _launch(rows[0].device, None,
+                   tuple(r.data_ptr() for r in rows), 1, rows[0].shape[0] // 4)
 
 
 class TetraAssembler:
@@ -50,11 +165,12 @@ class TetraAssembler:
     conn: (nc, 4) tetra connectivity; ``layout``: the SELL layout the
     values are assembled into (default ``fine_layout(topo)``; the values
     then go to ``BellMatrix(vals, asm.layout, ...)``).  The corner columns
-    and the transposed slot map are copied to the device once.  ``coords_batched``
-    fetches the three axes with one batched gather; ``coords_compact``
-    through the compact two-stage gather, its pre-gather banded when
-    ``band_pre``; ``plain=True`` fetches the coordinates with the kernels'
-    plain twins instead.
+    go to the device once, and each slot's contributor list is built
+    there once (``ptr``, ``ids``: int32, 4 bytes per slot and 16 per
+    cell).  ``coords_batched`` fetches the corners with one batched
+    gather first; ``coords_compact`` through the compact two-stage gather,
+    its pre-gather banded when ``band_pre``; ``plain=True`` runs every
+    kernel's plain twin instead.
     """
 
     def __init__(self, topo, conn: np.ndarray, *, device: torch.device | str,
@@ -70,7 +186,7 @@ class TetraAssembler:
         self.n_cells = nc
         self.layout = fine_layout(topo, device) if layout is None else layout
         self.coords_batched = coords_batched
-        self._gather = ell_gather_sum_plain if plain else ell_gather_sum
+        self.plain = plain
         self._gather_b = (ell_gather_sum_batched_plain if plain
                           else ell_gather_sum_batched)
         # (4nc, 1): row i*nc + c fetches corner i of cell c
@@ -81,21 +197,22 @@ class TetraAssembler:
             self.compact = CompactGather.build(
                 corner, np.ones(corner.shape, bool), band_pre=band_pre,
                 device=device, plain=plain)
-        # entry q = i*4 + j of cell c sits at q*nc + c, as its SELL slot
-        # (int32: the slots of any mesh one card holds are < 2^31)
-        sm = self.layout.ell_to_sell[
-            np.asarray(topo.slot_maps["tetra4"], np.int64).reshape(nc, 16)]
-        if int(sm.min(initial=0)) < 0:
-            raise ValueError("TetraAssembler: an element entry falls on a slot "
-                             "the layout drops")
-        self.slot_map_t = torch.as_tensor(
-            np.ascontiguousarray(sm.T.astype(np.int32)).reshape(-1),
-            device=device)
+        # the SELL slot of entry q = i*4 + j of cell c, cell-major (int32:
+        # the slots of any mesh one card holds are < 2^31), grouped by slot
+        e2s = torch.as_tensor(self.layout.ell_to_sell, device=device)
+        sm = torch.as_tensor(np.asarray(topo.slot_maps["tetra4"]).reshape(-1),
+                             device=device)
+        self.ptr, self.ids = group_by_slot(
+            e2s[sm.long()].to(torch.int32), self.layout.n_slots,
+            per_cell=torch.as_tensor(Q2P16))
 
     def gather_corners(self, coords: torch.Tensor):
         """Axis k of every corner, float32: entry i*nc + c of the k-th row is
-        corner i of cell c.  Three (4nc,) vectors, or one (3, 4nc) tensor
-        when the coordinates are batched."""
+        corner i of cell c.  One (3, 4nc) tensor, or three (4nc,) vectors
+        from the compact split gather.  The default (split) route has no
+        gather of its own, since its element kernel fetches the corners:
+        there a CUDA tensor raises unless ``plain``, and a CPU tensor gets
+        the plain gather."""
         c32 = coords.to(torch.float32)
         if self.compact is not None:
             if self.coords_batched:
@@ -105,40 +222,19 @@ class TetraAssembler:
         if self.coords_batched:
             # (N, 3) read in place as (3, N) tables; the result axis-major
             return self._gather_b(self.corner_cols, c32.T)
-        ct = c32.T.contiguous()  # (3, N)
-        return [self._gather(self.corner_cols, ct[k]) for k in range(3)]
+        if c32.is_cuda and not self.plain:
+            raise ValueError("TetraAssembler.gather_corners: the split route has no "
+                             "corner gather on the card; tet_element fetches them")
+        return tet_corners_plain(c32, self.corner_cols)
+
+    def element_table(self, coords: torch.Tensor) -> torch.Tensor:
+        """The (nc, 10) float32 element table of ``coords``."""
+        if self.plain:
+            return tet_element_plain(self.gather_corners(coords))
+        if self.compact is None and not self.coords_batched:
+            return tet_element(coords.to(torch.float32).contiguous(), self.corner_cols)
+        return tet_element_gathered(self.gather_corners(coords))
 
     def __call__(self, coords: torch.Tensor) -> torch.Tensor:
-        nc = self.n_cells
-        g = self.gather_corners(coords)
-        x, y, z = ([g[k][i * nc:(i + 1) * nc] for i in range(4)]
-                   for k in range(3))
-        # 6V = (p1-p0) . (p2-p0) x (p3-p0)
-        ax, ay, az = x[1] - x[0], y[1] - y[0], z[1] - z[0]
-        bx, by, bz = x[2] - x[0], y[2] - y[0], z[2] - z[0]
-        cx, cy, cz = x[3] - x[0], y[3] - y[0], z[3] - z[0]
-        v6 = ax * (by * cz - bz * cy) + ay * (bz * cx - bx * cz) + az * (
-            bx * cy - by * cx)
-        inv = 1.0 / v6.abs()
-
-        def comp(u, w):
-            # cofactor rows: the gradient of each barycentric coordinate
-            # times 6V
-            return [
-                u[1] * (w[3] - w[2]) + u[2] * (w[1] - w[3]) + u[3] * (w[2] - w[1]),
-                u[0] * (w[2] - w[3]) + u[2] * (w[3] - w[0]) + u[3] * (w[0] - w[2]),
-                u[0] * (w[3] - w[1]) + u[1] * (w[0] - w[3]) + u[3] * (w[1] - w[0]),
-                u[0] * (w[1] - w[2]) + u[1] * (w[2] - w[0]) + u[2] * (w[0] - w[1]),
-            ]
-
-        dx, dy, dz = comp(y, z), comp(z, x), comp(x, y)
-        # ke_ij = V (dx_i dx_j + dy_i dy_j + dz_i dz_j) / (6V)^2, V = |6V|/6
-        scale = inv / 6.0
-        vals = torch.zeros(self.layout.n_slots, dtype=torch.float32,
-                           device=coords.device)
-        # in place: one entry's (nc,) contribution at a time, so no (16, nc)
-        # element-matrix stack is ever held
-        for q, (i, j) in enumerate(_PAIRS):
-            keq = (dx[i] * dx[j] + dy[i] * dy[j] + dz[i] * dz[j]) * scale
-            vals.index_add_(0, self.slot_map_t[q * nc:(q + 1) * nc], keq)
-        return vals
+        reduce = slot_reduce_plain if self.plain else slot_reduce
+        return reduce(self.ptr, self.ids, self.element_table(coords).view(-1))

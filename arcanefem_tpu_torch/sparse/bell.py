@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .sell import SellLayout, sell_spmv, sell_spmv_plain
+from .slot_reduce import group_by_slot, slot_reduce
 
 
 def check_cols(cols: np.ndarray, n_cols: int, what: str) -> None:
@@ -101,20 +102,18 @@ def assemble_bell(topo, element_matrices: dict[str, torch.Tensor], *,
                   device: torch.device | str,
                   dtype: torch.dtype | None = None) -> BellMatrix:
     """Sum per-cell (nc, npc, npc) element matrices into the BELL matrix
-    of ``topo`` (a ``sparse.topology.Topology``): one ``index_add_`` per
-    cell bucket over its slot map, remapped once on the host into the SELL
-    slots of :func:`fine_layout`, the counterpart of the JAX package's
-    segment-sum."""
+    of ``topo`` (a ``sparse.topology.Topology``), the counterpart of the
+    JAX package's segment-sum: the buckets' slot maps, remapped on the host
+    into the SELL slots of :func:`fine_layout`, are grouped by slot, and
+    each slot sums its entries ``base + c·npc² + i·npc + j`` of the
+    concatenated matrices in entry order (``slot_reduce``; no atomics)."""
     layout = fine_layout(topo, device)
     e2s = layout.ell_to_sell
-    acc = None
-    for name, ke in element_matrices.items():
-        slots = torch.as_tensor(
-            e2s[np.asarray(topo.slot_maps[name], np.int64).reshape(-1)],
-            device=device)
-        if acc is None:
-            acc = torch.zeros(layout.n_slots, dtype=ke.dtype, device=device)
-        acc.index_add_(0, slots, ke.reshape(-1))
+    slots = np.concatenate([e2s[np.asarray(topo.slot_maps[name], np.int64).reshape(-1)]
+                            for name in element_matrices])
+    ptr, ids = group_by_slot(torch.as_tensor(slots, device=device), layout.n_slots)
+    table = torch.cat([ke.reshape(-1) for ke in element_matrices.values()])
+    acc = slot_reduce(ptr, ids, table.to(device).contiguous())
     if dtype is not None:
         acc = acc.to(dtype)
     diag = torch.as_tensor(e2s[np.asarray(topo.diag_slot, np.int64)], device=device)

@@ -1,0 +1,117 @@
+"""Deterministic assembly reduction: each slot sums its sorted contributors.
+
+    ptr, ids = group_by_slot(slots, n_slots)       # once, when an assembler is made
+    out = slot_reduce(ptr, ids, table)             # out[s] = sum_{k in [ptr[s], ptr[s+1])}
+                                                   #          table[ids[k]]
+
+The counterpart of ``arcanefem_tpu/sparse/pallas_assembly.py::
+SortedEntryAssembler``: the element entries are sorted by the slot they
+sum into once, so assembly becomes a gather-sum over each slot's
+contributors, with no scatter.  ``slots[e]`` is the slot of entry ``e``;
+a stable sort keeps each slot's contributors in ascending entry order,
+which for cell-major entries is ascending (cell, local entry), the order
+of the JAX ``group_by_slot``.  ``ids`` are the entries' rows in the table
+the caller sums: the entries themselves, or with ``per_cell`` a packing
+of each cell's P entries into fewer table rows (the tetrahedron's
+symmetric ``c*10 + Q2P16[q]``).  Both lists are int32 and built on the
+slots' device (a sort, a ``bincount`` and a ``cumsum``: unique, hence the
+same in every run).
+
+On a CUDA tensor :func:`slot_reduce` launches the hand-written kernel of
+``csrc/tet_assembly.cu`` or raises; on a CPU tensor it runs the plain twin
+below, which sums in the kernel's order and type (float64, in stored
+order, rounded once to the table's type), so the two agree bit for bit on
+the same table.  ``launch_counts()`` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils import kernels
+
+_ENTRY = {torch.float32: "afem_slot_reduce_f32", torch.float64: "afem_slot_reduce_f64"}
+_LAUNCHES = {"slot_reduce": 0}
+
+
+def reset_launch_counts() -> None:
+    _LAUNCHES["slot_reduce"] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def group_by_slot(slots: torch.Tensor, n_slots: int,
+                  per_cell: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ptr, ids), int32 on ``slots``' device: the contributors of slot s
+    are ``ids[ptr[s]:ptr[s+1]]``, in ascending entry order.  ``slots`` is
+    the (E,) slot of every entry, each in [0, n_slots); ``per_cell``, a
+    (P,) integer map, packs entry e into table row
+    ``(e // P) * T + per_cell[e % P]`` with T = max(per_cell) + 1."""
+    E = slots.numel()
+    if E >= 2**31 or n_slots >= 2**31:
+        raise ValueError(f"group_by_slot: {E} entries into {n_slots} slots "
+                         "overflow int32")
+    slots = slots.reshape(-1)
+    if E and (int(slots.min()) < 0 or int(slots.max()) >= n_slots):
+        raise ValueError(f"group_by_slot: an entry falls outside the layout's "
+                         f"slots [0, {n_slots})")
+    sorted_slots, order = torch.sort(slots, stable=True)
+    counts = torch.bincount(sorted_slots, minlength=n_slots)
+    ptr = torch.zeros(n_slots + 1, dtype=torch.int64, device=slots.device)
+    torch.cumsum(counts, 0, out=ptr[1:])
+    del sorted_slots, counts
+    if per_cell is not None:
+        pc = per_cell.to(device=slots.device, dtype=torch.int64)
+        P, T = pc.numel(), int(pc.max()) + 1
+        order = torch.div(order, P, rounding_mode="floor").mul_(T).add_(pc[order % P])
+    return ptr.to(torch.int32), order.to(torch.int32)
+
+
+def slot_reduce_plain(ptr: torch.Tensor, ids: torch.Tensor,
+                      table: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`slot_reduce`: one masked gather-add in float64
+    per contributor position k, so each slot adds its contributors in
+    stored order, as the kernel does."""
+    n = ptr.numel() - 1
+    p = ptr.long()
+    start, count = p[:-1], p[1:] - p[:-1]
+    acc = torch.zeros(n, dtype=torch.float64, device=table.device)
+    for k in range(int(count.max()) if n else 0):
+        live = count > k
+        g = table[ids[torch.where(live, start + k, 0)].long()].double()
+        acc += torch.where(live, g, 0.0)
+    return acc.to(table.dtype)
+
+
+def slot_reduce(ptr: torch.Tensor, ids: torch.Tensor,
+                table: torch.Tensor) -> torch.Tensor:
+    """out[s] = sum_{k in [ptr[s], ptr[s+1])} table[ids[k]], summed in
+    float64 in stored order, a new (len(ptr) - 1,) tensor of the table's
+    type (float32 or float64)."""
+    entry = _ENTRY.get(table.dtype)
+    if entry is None:
+        raise TypeError(f"slot_reduce: table must be float32 or float64, got {table.dtype}")
+    if ptr.dtype != torch.int32 or ids.dtype != torch.int32:
+        raise TypeError(f"slot_reduce: ptr and ids must be int32, got {ptr.dtype} "
+                        f"and {ids.dtype}")
+    if ptr.dim() != 1 or ids.dim() != 1 or table.dim() != 1 or ptr.numel() < 1:
+        raise ValueError("slot_reduce: ptr, ids and table must be 1-D, ptr non-empty")
+    dev = table.get_device()
+    if ptr.get_device() != dev or ids.get_device() != dev:
+        raise ValueError("slot_reduce: operands lie on different devices")
+    if not table.is_cuda:
+        if table.device.type != "cpu":
+            raise ValueError(f"slot_reduce: no kernel for device {table.device}")
+        return slot_reduce_plain(ptr, ids, table)
+    if not (ptr.is_contiguous() and ids.is_contiguous() and table.is_contiguous()):
+        raise ValueError("slot_reduce: the CUDA kernel takes contiguous operands")
+    n = ptr.numel() - 1
+    out = table.new_empty(n)
+    if n:
+        kernels.launch(entry, table.device, ptr.data_ptr(), ids.data_ptr(),
+                       table.data_ptr(), out.data_ptr(), n)
+        _LAUNCHES["slot_reduce"] += 1
+    return out

@@ -2,16 +2,17 @@
 
     python arcanefem_tpu_torch/tools/launch_cost.py [--tree DIR] [--calls N]
 
-Each wrapper (K1-K10, P1) is called N times back to back (default 2000,
-after a warm-up) at a size where the card is idle: 32 rows of width 8 for
-the ELL, SELL and diag kernels, one 128-request tile for the band gather,
-one window (nb = 1) for the window take, a 4^3 box for the stencil
-kernels.  The host clock is read after the last call and before one final
-``torch.cuda.synchronize()``, so the figure is the host's cost of issuing
-a call; ``host_us`` is the best of 5 such blocks, since the host's clock
-moves with its other load.  Beside it, ``torch_us`` is the same for one
-PyTorch op over as many elements (``torch.gather``).  One JSON line per
-wrapper.
+Each wrapper (K1-K10, P1 and the assembly's two kernels) is called N
+times back to back (default 2000, after a warm-up) at a size where the
+card is idle: 32 rows of width 8 for the ELL, SELL and diag kernels, one
+128-request tile for the band gather, one window (nb = 1) for the window
+take, a 4^3 box for the stencil kernels, 8 tetrahedra over 32 nodes and
+128 entries into 32 slots for the assembly.  The host clock is read after
+the last call and before one final ``torch.cuda.synchronize()``, so the
+figure is the host's cost of issuing a call; ``host_us`` is the best of 5
+such blocks, since the host's clock moves with its other load.  Beside
+it, ``torch_us`` is the same for one PyTorch op over as many elements
+(``torch.gather``).  One JSON line per wrapper.
 
 ``--tree DIR`` imports the package from another checkout (``git archive``
 of an earlier commit, unpacked into DIR), so two trees' launch paths go
@@ -76,6 +77,18 @@ def _cases(dev):
     bases = torch.zeros(1, dtype=torch.int32, device=dev)
     lcols = torch.as_tensor(rng.randint(0, n, (1, 128)).astype(np.int32), device=dev)
     D = DiagEllMatrix(vals, cols_np)
+    cases = []
+    try:  # trees from before the assembly kernels have neither
+        from arcanefem_tpu_torch.ops.lane_assembly import tet_element
+        from arcanefem_tpu_torch.sparse.slot_reduce import group_by_slot, slot_reduce
+    except ImportError:
+        pass
+    else:
+        corner = torch.as_tensor(rng.randint(0, n, 32).astype(np.int32), device=dev)
+        ptr, ids = group_by_slot(torch.as_tensor(rng.randint(0, n, 128), device=dev), n)
+        ke = torch.rand(128, device=dev)
+        cases = [("tet_element", lambda: tet_element(t3.T, corner), 80),
+                 ("slot_reduce", lambda: slot_reduce(ptr, ids, ke), n)]
     box = StructuredBox(4, 4, 4)
     nyp, nzp = ds._pads(box)
     bands = torch.rand((box.nx + 1, 15, nyp, nzp), device=dev)
@@ -96,6 +109,7 @@ def _cases(dev):
          384),
         ("K10 diag_spmv", lambda: D.spmv(x), n),
         ("P1 window_take", lambda: pg.window_take(win, widx, "column"), widx.numel()),
+        *cases,
     ]
 
 

@@ -53,6 +53,7 @@ _SELL_SPMV = [_P, _P, _P, _P, _P, _P, _I64, _I64, _P]
 _BAND_GATHER = [_P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _I64, _I64, _I64, _P]
 # lo, c0, scnt, lcols, vals, x, y, n, W, qn, stream
 _DIAG_SPMV = [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P]
+_SLOT_REDUCE = [_P, _P, _P, _P, _I64, _P]  # ptr, ids, table, out, n_slots, stream
 # (name, argtypes) of every C entry point in csrc/; all return an int
 # cudaError_t from cudaGetLastError() after the launch
 _SIGNATURES = {
@@ -77,6 +78,10 @@ _SIGNATURES = {
     "afem_diag_spmv_f64": _DIAG_SPMV,
     # win, idx, out, nb, K, G, mode, stream
     "afem_window_take_f32": [_P, _P, _P, _I64, _I, _I, _I, _P],
+    # cols, cx, cy, cz, stride, ke, nc, stream
+    "afem_tet_element_f32": [_P, _P, _P, _P, _I64, _P, _I64, _P],
+    "afem_slot_reduce_f32": _SLOT_REDUCE,
+    "afem_slot_reduce_f64": _SLOT_REDUCE,
 }
 
 

@@ -15,26 +15,32 @@ script then exits non-zero without the final line:
    channel-minor (strided) tables and results, and K1 with bf16 weights;
    then the host cost of one launch of every wrapper beside a PyTorch op
    of the same size (``[launch]`` lines, tools/launch_cost.py);
-4. main path at 1.9M DoF (sphere_cut h=5, refine=2): assembly, AMG set-up
-   and AMG-PCG to rtol 1e-8 through the kernels, with the launch counts of
-   that run and the SELL layout of every operator K1 ran on (``[sell]``
-   lines); then each kernel timed against its plain twin at the shapes
-   of the path, K1 at both σ, and a torch.profiler breakdown of one solve;
+4. main path at 1.9M DoF (sphere_cut h=5, refine=2): assembly (the
+   element kernel tet_element and the slot-sorted reduction slot_reduce;
+   K2 must not run), AMG set-up and AMG-PCG to rtol 1e-8 through the
+   kernels, with the launch counts of that run and the SELL layout of
+   every operator K1 ran on (``[sell]`` lines); then each kernel timed
+   against its plain twin at the shapes of the path (tet_element in both
+   input modes, slot_reduce beside one index_add_ of all its entries), K1
+   at both σ, and a torch.profiler breakdown of one solve;
 9. (run right after 4, on its mesh, operator and AMG hierarchy) the
    supernode route and the other bench knobs of the sphere: (a) the
    supernode operator, (b) with the block-Jacobi fine smoother, (c) with
    bf16 fine-level blocks too, (d) the ELL operator with the block-Jacobi
    smoother, (e) the bf16 V-cycle, (f) the batched coordinate gather; each
-   solve checked and printed with its launch counts as an ``[sn]`` line,
-   then K3a at its three shapes, K3b at the fine operator's and K1 bf16
-   held against their plain twins and timed;
+   solve checked and printed with its launch counts as an ``[sn]`` line;
+   two assemblies on each of the four assembly routes (``ASM_ROUTES``),
+   all eight equal bit for bit (``[asm]``); then K3a at its three shapes,
+   K3b at the fine operator's and K1 bf16 held against their plain twins
+   and timed;
 g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    compact`` (pre-gather K2), (h) with ``--band-pre`` (K9a on the CG
    operator, the levels and the transfers), (i) with ``--asm-compact
    --asm-coords batched`` too (K9b); each solve checked against the ELL
    run's iterations and printed with its launch counts as a ``[compact]``
-   line; the compact corners held equal to the split gather's; K9a and
-   K9b held to their twins and timed at the route's shapes; and
+   line; the compact corners held equal to the split gather's; K2 at (g)'s
+   CG pre-gather, K9a and K9b held to their twins and timed at their
+   routes' shapes; and
    ``--spmv diag`` must raise on this system, where plan_diag declines;
 j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
    then ``--spmv diag`` (K10) on the same system, ``[diag]`` lines; K10
@@ -217,8 +223,11 @@ def main() -> int:
            f"true interior residual {res['true_residual']:.3e} > 1e-4")
     _check(bool(torch.isfinite(res["x"]).all()), "non-finite solution")
     _check(res["x"].shape == (n,), "solution shape")
-    _check(counts["sell_spmv"] > 0 and counts["ell_gather_sum"] > 0,
-           f"K1 or K2 never ran: {counts}")
+    _check(counts["sell_spmv"] > 0 and counts["tet_element"] > 0
+           and counts["slot_reduce"] > 0,
+           f"K1 or an assembly kernel never ran: {counts}")
+    _check(counts["ell_gather_sum"] == 0,
+           f"the default assembly route launched K2: {counts}")
 
     # the kernels at the main path's shapes, against their plain twins; K1
     # also against the (N, W) definition and at the other sigma
@@ -238,10 +247,6 @@ def main() -> int:
     e_alt = _rel_err(sell_spmv(alt_vals, alt, xr), yp, scale)
     _check(e_alt <= 1e-5, f"fine-level sell_spmv at sigma {alt.sigma}: {e_alt:.2e}")
     asm = TetraAssembler(topo, mesh.cells["tetra4"], device=dev, layout=lay)
-    cx = torch.as_tensor(mesh.coords[:, 0], device=dev).to(torch.float32)
-    g, gp = (ell_gather_sum(asm.corner_cols, cx),
-             ell_gather_sum_plain(asm.corner_cols, cx))
-    _check(torch.equal(g, gp), "coordinate gather parity")
     crow = torch.as_tensor(topo.row_ptr, device=dev, dtype=torch.int64)
     csr = torch.sparse_csr_tensor(
         crow, torch.as_tensor(topo.csr_cols, device=dev, dtype=torch.int64),
@@ -250,7 +255,6 @@ def main() -> int:
         size=(n, n))
     e_csr = float((csr @ xr - yp).abs().max() / yp.abs().max())
     print(f"[kernel] CSR library SpMV vs plain: {e_csr:.3e} of max|y|", flush=True)
-    gather_idx = asm.corner_cols[:, 0].long()
 
     def slot_bound(layout, value_bytes):
         """Bytes of the SELL slots K1 reads, x and y, the permutation."""
@@ -260,8 +264,7 @@ def main() -> int:
 
     k1_ms = time_op(sell_spmv, A.values, lay, xr, reps=50, outer=3) * 1e3
     alt_ms = time_op(sell_spmv, alt_vals, alt, xr, reps=50, outer=3) * 1e3
-    records = [
-        {"name": "sell_spmv", "route": "cuda",
+    k1 = {"name": "sell_spmv", "route": "cuda",
          "source": "arcanefem_tpu_torch/csrc/sell_spmv.cu",
          "replaces": "arcanefem_tpu/sparse/pallas_spmv.py:398",
          "launches": counts["sell_spmv"],
@@ -278,27 +281,11 @@ def main() -> int:
          "alt_sigma": alt.sigma, "alt_ms": alt_ms,
          "alt_device_ms": _device_ms(lambda: sell_spmv(alt_vals, alt, xr)),
          "alt_slots": alt.n_slots, "alt_slot_bound_ms": slot_bound(alt, 4),
-         "shape": [n, topo.width], "dtype": "float32"},
-        {"name": "ell_gather_sum", "route": "cuda",
-         "source": "arcanefem_tpu_torch/csrc/ell_gather.cu",
-         "replaces": "arcanefem_tpu/sparse/pallas_spmv.py:444",
-         "launches": counts["ell_gather_sum"],
-         "max_abs_err": float((g - gp).abs().max()),
-         "ms": time_op(ell_gather_sum, asm.corner_cols, cx, reps=50,
-                       outer=3) * 1e3,
-         "plain_ms": time_op(ell_gather_sum_plain, asm.corner_cols, cx,
-                             reps=50, outer=3) * 1e3,
-         "library_ms": time_op(cx.__getitem__, gather_idx, reps=50,
-                               outer=3) * 1e3,
-         **dict(zip(("bound_ms", "bound_by"), _bound(
-             asm.corner_cols.numel() * 8 + n * 4, asm.corner_cols.numel()))),
-         "shape": list(asm.corner_cols.shape), "dtype": "float32"},
-    ]
-    for r in records:
-        print(f"[kernel] {r['name']} {r['shape']}: {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms, max_abs_err {r['max_abs_err']:.3e}", flush=True)
-    k1 = records[0]
+         "shape": [n, topo.width], "dtype": "float32"}
+    print(f"[kernel] sell_spmv {k1['shape']}: {k1['ms']:.4f} ms, plain "
+          f"{k1['plain_ms']:.4f} ms, library {k1['library_ms']:.4f} ms, bound "
+          f"{k1['bound_ms']:.4f} ms, max_abs_err {k1['max_abs_err']:.3e}", flush=True)
+    records = [k1, *_assembly_records(asm, mesh, counts)]
     print(f"[kernel] sell_spmv sigma {k1['sigma']}: {k1['slots']} slots "
           f"({k1['slots'] / k1['nnz']:.4f} per nonzero), {k1['ms']:.4f} ms, device "
           f"{k1['device_ms']:.4f} ms, slot bound {k1['slot_bound_ms']:.4f} ms; sigma "
@@ -306,8 +293,8 @@ def main() -> int:
           f"{k1['alt_device_ms']:.4f} ms, slot bound {k1['alt_slot_bound_ms']:.4f} ms; "
           f"nonzero bound {k1['bound_ms']:.4f} ms, CSR torch.mv "
           f"{k1['library_ms']:.4f} ms", flush=True)
-    del A, asm, xr, y, yp, cx, g, gp, csr, gather_idx, ell_vals, ell_cols, alt, \
-        alt_vals, scale
+    del A, asm, xr, y, yp, csr, ell_vals, ell_cols, alt, alt_vals, scale
+    torch.cuda.empty_cache()
 
     # device time by kernel of one main-path solve (its true-residual check
     # included), on phase 4's operator and hierarchy
@@ -411,6 +398,79 @@ def _batched_parity(vals, cols, ucols, gen, dtype, rtol) -> None:
         del tab, want
 
 
+ASM_ROUTES = {  # the assembly's corner fetch (--asm-coords, --asm-compact, --band-pre)
+    "split": {}, "batched": dict(coords_batched=True),
+    "compact": dict(coords_compact=True),
+    "compact batched banded": dict(coords_compact=True, coords_batched=True,
+                                   band_pre=True)}
+
+
+def _assembly_records(asm, mesh, counts) -> list[dict]:
+    """Phase 4: tet_element (both input modes, which must agree exactly)
+    and slot_reduce at the main path's shapes, held to their twins (the
+    element table to 4 ulps of each cell's max |ke|, the reduction exactly)
+    and timed; slot_reduce beside one index_add_ of all 16·nc entries, the
+    reduction it replaces."""
+    import torch
+
+    from arcanefem_tpu_torch.ops.lane_assembly import (
+        tet_corners_plain,
+        tet_element,
+        tet_element_gathered,
+        tet_element_plain,
+    )
+    from arcanefem_tpu_torch.sparse.slot_reduce import slot_reduce, slot_reduce_plain
+    from arcanefem_tpu_torch.utils.timing import time_op
+
+    dev = asm.corner_cols.device
+    coords = torch.as_tensor(mesh.coords, device=dev).to(torch.float32)
+    cols, ptr, ids = asm.corner_cols, asm.ptr, asm.ids
+    nc, n_slots, E = asm.n_cells, ptr.numel() - 1, ids.numel()
+
+    def ulps(yk, yp):
+        m = yp.abs().amax(dim=1, keepdim=True)
+        e = float(((yk - yp).abs() / (torch.nextafter(m, m * 2 + 1) - m)).max())
+        _check(e <= 4, f"tet_element: {e:.2f} ulps of a cell's max|ke| from its twin")
+        return e
+
+    def equal(yk, yp):
+        _check(torch.equal(yk, yp), "slot_reduce differs from its twin")
+        return 0.0
+
+    corners = tet_corners_plain(coords, cols)
+    ke, ke_g = tet_element(coords, cols), tet_element_gathered(corners)
+    torch.cuda.synchronize()
+    _check(torch.equal(ke, ke_g), "tet_element: the two input modes differ")
+    e_g = ulps(ke_g, tet_element_plain(corners))
+    table = ke.view(-1)
+    slot_of = torch.repeat_interleave(torch.arange(n_slots, device=dev),
+                                      (ptr[1:] - ptr[:-1]).long(), output_size=E)
+    entries = table[ids.long()]
+    recs = [
+        _kernel_record(
+            "tet_element", "tet_assembly.cu", "sparse/pallas_spmv.py:444",
+            lambda: tet_element(coords, cols),
+            lambda: tet_element_plain(tet_corners_plain(coords, cols)), None,
+            (nc * 56 + coords.shape[0] * 12, 182 * nc), counts["tet_element"],
+            [nc, 10], ulps),
+        _kernel_record(
+            "slot_reduce", "tet_assembly.cu", "sparse/pallas_spmv.py:444",
+            lambda: slot_reduce(ptr, ids, table),
+            lambda: slot_reduce_plain(ptr, ids, table),
+            lambda: torch.zeros(n_slots, device=dev).index_add_(0, slot_of, entries),
+            (8 * n_slots + 4 + 4 * E + 40 * nc, E), counts["slot_reduce"],
+            [n_slots, E], equal)]
+    recs[0]["gathered_ms"] = time_op(tet_element_gathered, corners, reps=20, outer=3) * 1e3
+    recs[0]["gathered_device_ms"] = _device_ms(lambda: tet_element_gathered(corners))
+    recs[0]["gathered_ulps"] = e_g
+    recs[1]["max_contributors"] = int((ptr[1:] - ptr[:-1]).max())
+    print(f"[kernel] tet_element on gathered corners (3, {4 * nc}): "
+          f"{recs[0]['gathered_ms']:.4f} ms, device {recs[0]['gathered_device_ms']:.4f} ms, "
+          f"{e_g:.2f} ulps from its twin; slot_reduce: {E} contributors, at most "
+          f"{recs[1]['max_contributors']} per slot", flush=True)
+    return recs
+
+
 SN_CONFIGS = {  # phase 9: bench_unstructured's flags of each configuration
     "a": dict(spmv="supernode"),
     "b": dict(spmv="supernode", sn_block=True),
@@ -431,7 +491,7 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
         operator_self_check,
         solve_sphere_cut,
     )
-    from arcanefem_tpu_torch.ops.lane_assembly import TetraAssembler
+    from arcanefem_tpu_torch.ops.lane_assembly import TetraAssembler, tet_corners_plain
     from arcanefem_tpu_torch.sparse.ell_gather import (
         ell_gather_sum_batched,
         ell_gather_sum_batched_plain,
@@ -478,30 +538,32 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
           f"block-Jacobi {runs['b']['iterations']}, (d) ELL + block-Jacobi "
           f"{runs['d']['iterations']}", flush=True)
 
-    # (f) gathers the same coordinates as phase 4 and so assembles the same
-    # values; index_add_'s CUDA atomics add in a run-dependent order, so
-    # the values are compared with torch's deterministic index_add
+    # every assembly route feeds the same corners to the same element
+    # kernel and sums each slot in one fixed order: two assemblies on each
+    # route equal each other and the split route's, bit for bit, with no
+    # deterministic-algorithms switch
     conn = mesh.cells["tetra4"]
     coords = torch.as_tensor(mesh.coords, device=dev).to(torch.float32)
     lay = system["A"].layout
-    asm_s = TetraAssembler(topo, conn, device=dev, layout=lay)
     asm_b = TetraAssembler(topo, conn, device=dev, coords_batched=True, layout=lay)
-    gs, gb = asm_s.gather_corners(coords), asm_b.gather_corners(coords)
+    gs, gb = tet_corners_plain(coords, asm_b.corner_cols), asm_b.gather_corners(coords)
     same = all(torch.equal(gs[k], gb[k]) for k in range(3))
-    v1, v2 = asm_s(coords), asm_s(coords)
-    rep = float((v2 - v1).abs().max() / v1.abs().max())
-    torch.use_deterministic_algorithms(True)
-    try:
-        vs, vb = asm_s(coords), asm_b(coords)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    print(f"[sn] (f) corners equal to the split gather's: {same}; assembled values "
-          f"equal (deterministic index_add): {torch.equal(vs, vb)}; two split "
-          f"assemblies with atomics: equal {torch.equal(v1, v2)}, max diff "
-          f"{rep:.2e} of max|v|", flush=True)
+    print(f"[sn] (f) corners equal to the split gather's: {same}", flush=True)
     _check(same, "(f) batched coordinate gather != split gather")
-    _check(torch.equal(vs, vb), "(f) assembled values != the split path's")
-    del v1, v2, vs, vb, gs, gb, asm_s
+    del gs, gb
+    first, equal = None, {}
+    for route, kw in ASM_ROUTES.items():
+        asm_r = asm_b if kw == dict(coords_batched=True) else TetraAssembler(
+            topo, conn, device=dev, layout=lay, **kw)
+        v1, v2 = asm_r(coords), asm_r(coords)
+        first = v1 if first is None else first
+        equal[route] = [torch.equal(v1, v2), torch.equal(v1, first)]
+        del asm_r, v1, v2
+    print(f"[asm] two assemblies on each route: [equal to each other, equal to the "
+          f"split route's] {json.dumps(equal)}", flush=True)
+    _check(all(a and b for a, b in equal.values()),
+           f"assembled values differ between runs or routes: {equal}")
+    del first
 
     # the kernels at the route's shapes, against their plain twins
     A = system["A"]
@@ -618,18 +680,20 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     return records
 
 
-def _reset_all() -> None:
-    from arcanefem_tpu_torch.sparse import band_gather, diag_spmv, ell_gather, sell
+def _counted():
+    from arcanefem_tpu_torch.ops import lane_assembly
+    from arcanefem_tpu_torch.sparse import band_gather, diag_spmv, ell_gather, sell, slot_reduce
 
-    for m in (ell_gather, sell, band_gather, diag_spmv):
+    return ell_gather, sell, band_gather, diag_spmv, lane_assembly, slot_reduce
+
+
+def _reset_all() -> None:
+    for m in _counted():
         m.reset_launch_counts()
 
 
 def _counts_all() -> dict:
-    from arcanefem_tpu_torch.sparse import band_gather, diag_spmv, ell_gather, sell
-
-    return {**ell_gather.launch_counts(), **sell.launch_counts(),
-            **band_gather.launch_counts(), **diag_spmv.launch_counts()}
+    return {k: v for m in _counted() for k, v in m.launch_counts().items()}
 
 
 def _route_run(tag, mesh, topo, dev, system, ell_iters, **opts):
@@ -730,13 +794,15 @@ def _equal(yk, yp) -> float:
 
 def compact_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     """Phases g-i on phase 4's mesh, operator and AMG hierarchy, the
-    compact corners against the split gather's, K9a and K9b at the route's
-    shapes, and the diag route's refusal on this system."""
+    compact corners against the split gather's, K2 at route (g)'s CG
+    pre-gather and K9a and K9b at their routes' shapes, and the diag
+    route's refusal on this system; returns the kernels' records."""
     import torch
 
     from arcanefem_tpu_torch.bench_unstructured import solve_sphere_cut
-    from arcanefem_tpu_torch.ops.lane_assembly import TetraAssembler
+    from arcanefem_tpu_torch.ops.lane_assembly import TetraAssembler, tet_corners_plain
     from arcanefem_tpu_torch.sparse import band_gather as bg
+    from arcanefem_tpu_torch.sparse.ell_gather import ell_gather_sum, ell_gather_sum_plain
 
     system = res4["system"]
     counts = {}
@@ -772,7 +838,7 @@ def compact_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     asm_c = TetraAssembler(topo, conn, device=dev, layout=lay, coords_batched=True,
                            coords_compact=True, band_pre=True)
     host_s = time.perf_counter() - t0
-    gs = TetraAssembler(topo, conn, device=dev, layout=lay).gather_corners(coords)
+    gs = tet_corners_plain(coords, asm_c.corner_cols)
     gc = asm_c.gather_corners(coords)
     same = all(torch.equal(gs[k], gc[k]) for k in range(3))
     cb = asm_c.compact.pre
@@ -795,7 +861,17 @@ def compact_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     cgidx = torch.where((clcols >= 0) & (clcols < cb.K * 128),
                         cbases.long()[:, None] * 128 + clcols.long(), 0).reshape(-1)
     nreq, creq = lcols.numel(), clcols.numel()
+    # K2 as route (g) runs it: the CG operator's pre-gather x[uniq] (the
+    # V-cycle's levels and transfers run it at smaller shapes; the count
+    # is all of them)
+    ucols = system[("compact", False)][0].pre.cols
+    uidx = ucols[:, 0].long()
     records = [
+        _kernel_record(
+            "ell_gather_sum", "ell_gather.cu", "sparse/pallas_spmv.py:444",
+            lambda: ell_gather_sum(ucols, x), lambda: ell_gather_sum_plain(ucols, x),
+            lambda: x[uidx], (ucols.numel() * 8 + n * 4, 0),
+            counts["g"]["ell_gather_sum"], list(ucols.shape), _equal),
         _kernel_record(
             "band_gather", "band_gather.cu", "sparse/band_gather.py:52",
             lambda: bg.band_gather(bases, lcols, x, band.K),
@@ -809,7 +885,7 @@ def compact_phase(dev, gen, mesh, topo, res4) -> list[dict]:
             lambda: coords.index_select(0, cgidx), (creq * 16 + n * 12, 0),
             counts["i"]["band_gather_batched"], [cb.n_narrow, 128, 3], _equal),
     ]
-    del asm_c, x, gidx, cgidx
+    del asm_c, x, gidx, cgidx, uidx
 
     # no fallback: the diag SpMV raises on this (supernode-ordered) system
     try:
@@ -1045,6 +1121,7 @@ SPHERE_GROUPS = {
     "K1 sell_spmv": "sell_spmv_kernel<float, float>",
     "K1 sell_spmv, bf16 weights": "sell_spmv_kernel<__nv_bfloat16",
     "K2 ell_gather_sum": "ell_gather_kernel", "K9a band_gather": "band_gather_kernel",
+    "tet_element": "tet_element_kernel", "slot_reduce": "slot_reduce_kernel",
     "K10 diag_spmv": "diag_spmv_kernel", "cat/stack copies": "CatArrayBatchedCopy",
     "reductions": "reduce_kernel"}
 

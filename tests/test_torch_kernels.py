@@ -23,8 +23,11 @@ from arcanefem_tpu_torch.bench_structured import (
 )
 from arcanefem_tpu_torch.mesh import stencil_assembly as sa
 from arcanefem_tpu_torch.mesh.structured import StructuredBox
+from arcanefem_tpu_torch.ops import lane_assembly as la
+from arcanefem_tpu_torch.ops.lane_assembly import TetraAssembler
 from arcanefem_tpu_torch.sparse import dia_stencil as ds
 from arcanefem_tpu_torch.sparse import sell
+from arcanefem_tpu_torch.sparse import slot_reduce as sr
 from arcanefem_tpu_torch.sparse.bell import BellMatrix
 from arcanefem_tpu_torch.sparse.ell_gather import (
     ell_gather_sum,
@@ -247,10 +250,13 @@ def test_slice_on_cuda_matches_plain_and_cpu(cuda):
     plain twins, and == the f64 CPU solve to 1e-4 of max|x|."""
     mesh, topo = sphere_cut_system(14.0, 0, cache=False)
     _reset()
+    la.reset_launch_counts()
+    sr.reset_launch_counts()
     k = solve_sphere_cut(mesh, topo, device=cuda, dtype=torch.float32,
                          penalty=1e12)
-    counts = _counts()
-    assert counts["sell_spmv"] > 0 and counts["ell_gather_sum"] > 0
+    counts = {**_counts(), **la.launch_counts(), **sr.launch_counts()}
+    assert counts["sell_spmv"] > 0 and counts["ell_gather_sum"] == 0
+    assert counts["tet_element"] == counts["slot_reduce"] == 1
     p = solve_sphere_cut(mesh, topo, device=cuda, dtype=torch.float32,
                          penalty=1e12, plain=True)
     c = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64,
@@ -261,6 +267,71 @@ def test_slice_on_cuda_matches_plain_and_cpu(cuda):
         xo = other["x"].cpu()
         assert float((xk - xo).abs().max()) <= 1e-4 * float(xo.abs().max())
     assert k["rel"] <= 1e-8 and k["true_residual"] <= 1e-4
+
+
+def _sphere_assembler(cuda, **kw):
+    mesh, topo = sphere_cut_system(14.0, 0, cache=False)
+    asm = TetraAssembler(topo, mesh.cells["tetra4"], device=cuda, **kw)
+    return mesh, topo, asm, torch.as_tensor(mesh.coords, device=cuda).float()
+
+
+def test_tet_element_matches_plain_on_cuda(cuda):
+    """tet_element, on the coordinates and on gathered corners ((3, 4nc)
+    or three rows), == its plain twin to 4 float32 ulps of each cell's
+    max |ke|; its input modes agree exactly."""
+    _, _, asm, coords = _sphere_assembler(cuda)
+    la.reset_launch_counts()
+    corners = la.tet_corners_plain(coords, asm.corner_cols)
+    got = [la.tet_element(coords, asm.corner_cols), la.tet_element_gathered(corners),
+           la.tet_element_gathered(list(corners))]
+    torch.cuda.synchronize()
+    assert la.launch_counts() == {"tet_element": 3}
+    with pytest.raises(ValueError, match="no corner gather"):
+        asm.gather_corners(coords)
+    want = la.tet_element_plain(corners)
+    m = want.abs().amax(dim=1, keepdim=True)
+    ulp = torch.nextafter(m, 2 * m + 1) - m
+    for g in got:
+        assert g.shape == want.shape and g.dtype == torch.float32
+        assert bool(((g - want).abs() <= 4 * ulp).all())
+        assert torch.equal(g, got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slot_reduce_matches_plain_on_cuda(cuda, dtype):
+    """slot_reduce == its plain twin bit for bit on the same table, on the
+    card and on the CPU; padding slots exactly 0."""
+    _, _, asm, _ = _sphere_assembler(cuda)
+    gen = torch.Generator().manual_seed(9)
+    table = torch.rand(10 * asm.n_cells, generator=gen, dtype=torch.float64).to(dtype) - 0.5
+    sr.reset_launch_counts()
+    y = sr.slot_reduce(asm.ptr, asm.ids, table.to(cuda))
+    torch.cuda.synchronize()
+    assert sr.launch_counts() == {"slot_reduce": 1} and y.dtype == dtype
+    assert torch.equal(y, sr.slot_reduce_plain(asm.ptr, asm.ids, table.to(cuda)))
+    assert torch.equal(y.cpu(), sr.slot_reduce(asm.ptr.cpu(), asm.ids.cpu(), table))
+    assert not y[torch.as_tensor(~asm.layout.real, device=cuda)].any()
+
+
+def test_tet_assembly_deterministic_on_cuda(cuda):
+    """Two assemblies on each route are bit-equal, and equal across the
+    four routes; the default route launches the two assembly kernels and
+    no K2, and its contributor lists equal the CPU build's."""
+    mesh, topo, asm, coords = _sphere_assembler(cuda)
+    cpu = TetraAssembler(topo, mesh.cells["tetra4"], device="cpu")
+    assert torch.equal(asm.ptr.cpu(), cpu.ptr) and torch.equal(asm.ids.cpu(), cpu.ids)
+    _reset()
+    la.reset_launch_counts()
+    sr.reset_launch_counts()
+    ref = asm(coords)
+    torch.cuda.synchronize()
+    assert _counts() == {**NO_LAUNCHES, **NO_SELL}
+    assert la.launch_counts() == {"tet_element": 1} and sr.launch_counts() == {"slot_reduce": 1}
+    for kw in ({}, dict(coords_batched=True), dict(coords_compact=True),
+               dict(coords_compact=True, coords_batched=True, band_pre=True)):
+        other = TetraAssembler(topo, mesh.cells["tetra4"], device=cuda,
+                               layout=asm.layout, **kw)
+        assert torch.equal(other(coords), ref) and torch.equal(other(coords), ref), kw
 
 
 def _padded(box, gen, dtype, nan_pads=False):
