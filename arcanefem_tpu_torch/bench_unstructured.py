@@ -469,7 +469,7 @@ def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
            "cheb_deg": CHEB_DEG, "cycle": "V", **options}
     spmv_kernel = SPMV_KERNELS[opt["spmv"]]
     if opt["spmv"] == "compact":
-        spmv_kernel = ("band_gather+ell_gather_sum+sell_spmv" if opt["band_pre"]
+        spmv_kernel = ("band_gather+sell_spmv" if opt["band_pre"]
                        else "ell_gather_sum+sell_spmv")
     return {
         "metric": (f"poisson3d_sphere_cut_{n/1e6:.1f}MDoF_"

@@ -31,9 +31,16 @@
 // Design: one thread per row looping over its W slots.  Threads of a warp
 // are 32 consecutive lanes of one sublane, so each slot's vals and lcols
 // loads are one coalesced 128-byte line, the classic coalesced ELL layout;
-// the tile's c0 and scnt are broadcast loads.  The row sums in f64
-// registers, as the ELL kernels do (f32 row sums left the f32 CG solve's
-// true residual far above f64's), and y is written directly.
+// the tile's c0 and scnt are broadcast loads (packing them as one int2 per
+// tile was tried and measured no faster beyond the spread between runs).
+// The row sums in f64 registers, as the ELL kernels do (f32 row sums left
+// the f32 CG solve's true residual far above f64's), and y is written
+// directly.  At the RCM sphere's 244k rows the body runs at 0.75-0.81 of
+// its byte bound (profiler device time on an H100), so staging x or the
+// tiles in shared memory or through TMA could win no more than the spread
+// between runs.  What the kernel's design does decide is the host's work per
+// call: DiagEllMatrix checks its five plan arrays once and keeps their
+// pointers, so a call checks only x and launches once.
 //
 // The kernel allocates nothing, launches on the caller's stream and never
 // synchronises; each C entry point returns cudaGetLastError().

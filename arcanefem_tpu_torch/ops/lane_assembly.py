@@ -17,8 +17,9 @@ with the JAX TPU default reducer (``AFEM_UNSTR_ASM=window``,
    (K3a) reading the (N, 3) coordinates in place; with
    ``coords_compact=True`` (``AFEM_ASM_COMPACT=1``) the compact two-stage
    gather of ``sparse/compact.py`` in blocks of 16384, its pre-gather K2
-   (or with ``band_pre`` the banded K9a plus K2 on its wide tiles), then
-   K2 over the block-local indices; batched, K9b/K3a and K3a.  Every form
+   (or with ``band_pre`` one banded K9a launch over its narrow and wide
+   tiles), then K2 over the block-local indices; batched, K3a (or K9b)
+   then K3a.  Every form
    fetches the same values, so every route computes the same table.
 2. ``slot_reduce`` (``sparse/slot_reduce.py``): each SELL slot sums its
    contributors ``c*10 + Q2P16[q]`` in ascending (cell, q) order, in

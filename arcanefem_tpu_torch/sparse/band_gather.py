@@ -5,29 +5,34 @@ The counterpart of ``arcanefem_tpu/sparse/band_gather.py``.  A sorted
 request stream (the concatenated per-block distinct columns of
 ``sparse/compact.py``) is cut into tiles of 128 requests.  A tile whose
 requests span at most K table rows of 128 from an 8-aligned base is
-NARROW: it keeps its base row and tile-local indices lrow·128 + lane, and
-the band kernel fetches it.  Every other tile is WIDE and goes through the
-W=1 ELL gather (K2, or K3a when batched) as a plain request list.  The
-output is [narrow tiles; wide tiles] in tile units of 128, and
-``tile_perm[t]`` is the output position of original tile t, which the
-caller bakes into its downstream indices.
+NARROW: it keeps its base row and tile-local indices lrow·128 + lane.
+Every other tile is WIDE and keeps its requests as they are.  The output
+is [narrow tiles; wide tiles] in tile units of 128, and ``tile_perm[t]`` is
+the output position of original tile t, which the caller bakes into its
+downstream indices.
 
     band_gather(bases, lcols, x, K)             K9a: one table
     band_gather_batched(bases, lcols, T, K)     K9b: B <= 8 tables, any strides
 
-compute ``out[t*128 + l] = x[bases[t]*128 + lcols[t, l]]`` for tile t, with
-0 where lcols lies outside [0, K*128) (the plan's pads, ``UNIT_PAD``) or
-the index lies past the table's end.  On a CUDA tensor they launch the
-hand-written kernel of ``csrc/band_gather.cu`` or raise; on a CPU tensor
-they run the plain twin.  ``launch_counts()`` counts the launches.
+compute ``out[t*128 + l] = x[bases[t]*128 + lcols[t, l]]`` over narrow
+tiles t, with 0 where lcols lies outside [0, K*128) (the plan's pads,
+``UNIT_PAD``) or the index lies past the table's end; they check every
+operand on every call.  :class:`BandedGather` runs a whole plan, narrow
+and wide tiles, as ONE launch of the same kernel into one output (counted
+under the same two names): its plan arrays are checked once, at
+construction, and a call checks only the table.  A wide request is a
+plain index, -1 for a pad, and gives 0 on a pad or past the table's end.
+On a CUDA tensor they launch the hand-written kernel of
+``csrc/band_gather.cu`` or raise; on a CPU tensor they run the plain twin.
+``launch_counts()`` counts the launches.
 
 ``BandedGather.build`` is a numpy copy of the JAX build (the CPU tests
 hold it to the original exactly); its arrays keep the JAX layouts, bases
 (nb, 1, G) and lcols (nb, G, 128).  The JAX wide remainder is a window
-plan; here it is the request list itself, (m, 1) int32 with -1 pads.
-``BandedRowSum`` is the JAX split plans' stage 2 (a band gather followed
-by W2-wide row sums); the port splits no rows, so nothing on its paths
-calls it.
+plan; here it is the request list itself, ``wide_cols`` (n_wide·128,)
+int32 with -1 pads.  ``BandedRowSum`` is the JAX split plans' stage 2 (a
+band gather followed by W2-wide row sums); the port splits no rows, so
+nothing on its paths calls it.
 """
 
 from __future__ import annotations
@@ -36,13 +41,7 @@ import numpy as np
 import torch
 
 from ..utils import kernels
-from .ell_gather import (
-    MAX_TABLES,
-    ell_gather_sum,
-    ell_gather_sum_batched,
-    ell_gather_sum_batched_plain,
-    ell_gather_sum_plain,
-)
+from .ell_gather import MAX_TABLES
 
 LANE = 128
 UNIT_PAD = 1 << 28  # pallas_spmv.py::_UNIT_PAD
@@ -75,6 +74,29 @@ def band_gather_plain(bases: torch.Tensor, lcols: torch.Tensor,
                       x: torch.Tensor, K: int) -> torch.Tensor:
     """Plain twin of :func:`band_gather`."""
     return band_gather_batched_plain(bases, lcols, x[None], K)[0]
+
+
+def banded_gather_batched_plain(bases: torch.Tensor, lcols: torch.Tensor,
+                                wide_cols: torch.Tensor | None,
+                                tables: torch.Tensor, K: int) -> torch.Tensor:
+    """Plain twin of :meth:`BandedGather.call_batched`: the narrow tiles'
+    band gather (``bases``, ``lcols`` of the narrow tiles only), then the
+    wide tiles' requests (0 on a -1 pad or past the table's end), (B,
+    n_tiles*128)."""
+    nar = band_gather_batched_plain(bases, lcols, tables, K)
+    if wide_cols is None:
+        return nar
+    w = wide_cols.long()
+    ok = (w >= 0) & (w < tables.shape[1])
+    wid = torch.where(ok, tables[:, torch.where(ok, w, 0)], 0.0).to(tables.dtype)
+    return torch.cat([nar, wid], dim=1)
+
+
+def banded_gather_plain(bases: torch.Tensor, lcols: torch.Tensor,
+                        wide_cols: torch.Tensor | None, x: torch.Tensor,
+                        K: int) -> torch.Tensor:
+    """Plain twin of :meth:`BandedGather.__call__`."""
+    return banded_gather_batched_plain(bases, lcols, wide_cols, x[None], K)[0]
 
 
 def _check(name: str, bases: torch.Tensor, lcols: torch.Tensor,
@@ -112,11 +134,14 @@ def _check(name: str, bases: torch.Tensor, lcols: torch.Tensor,
     return n_tiles
 
 
-def _launch(name: str, bases, lcols, t, out, n_tiles: int, K: int, B: int,
-            n_t: int, ts_r: int, ts_b: int, os_r: int, os_b: int) -> None:
-    kernels.launch(_ENTRY[t.dtype], t.device, bases.data_ptr(), lcols.data_ptr(),
-                   t.data_ptr(), out.data_ptr(), n_tiles, K, B, n_t, ts_r, ts_b,
-                   os_r, os_b)
+def _launch(name: str, ptrs: tuple[int, int, int], t, out, n_tiles: int,
+            n_narrow: int, K: int, B: int, n_t: int, ts_r: int, ts_b: int,
+            os_r: int, os_b: int) -> None:
+    """One launch over ``n_tiles`` tiles, the first ``n_narrow`` narrow;
+    ``ptrs`` are the data pointers of bases, lcols and the wide requests
+    (0 when every tile is narrow)."""
+    kernels.launch(_ENTRY[t.dtype], t.device, *ptrs, t.data_ptr(), out.data_ptr(),
+                   n_tiles, n_narrow, K, B, n_t, ts_r, ts_b, os_r, os_b)
     _LAUNCHES[name] += 1
 
 
@@ -129,8 +154,8 @@ def band_gather(bases: torch.Tensor, lcols: torch.Tensor, x: torch.Tensor,
         return band_gather_plain(bases, lcols, x, K)
     out = x.new_empty(n_tiles * LANE)
     if n_tiles:
-        _launch("band_gather", bases, lcols, x, out, n_tiles, K, 1, x.size(0),
-                1, 0, 1, 0)
+        _launch("band_gather", (bases.data_ptr(), lcols.data_ptr(), 0), x, out,
+                n_tiles, n_tiles, K, 1, x.size(0), 1, 0, 1, 0)
     return out
 
 
@@ -152,53 +177,61 @@ def band_gather_batched(bases: torch.Tensor, lcols: torch.Tensor,
         return out.copy_(band_gather_batched_plain(bases, lcols, tables, K))
     if n_tiles:
         (ts_b, ts_r), (os_b, os_r) = tables.stride(), out.stride()
-        _launch("band_gather_batched", bases, lcols, tables, out, n_tiles, K,
-                shape[0], tables.size(1), ts_r, ts_b, os_r, os_b)
+        _launch("band_gather_batched", (bases.data_ptr(), lcols.data_ptr(), 0),
+                tables, out, n_tiles, n_tiles, K, shape[0], tables.size(1), ts_r,
+                ts_b, os_r, os_b)
     return out
-
-
-class UnitGather:
-    """y[i] = x[cols[i]] over an (m, 1) int32 request list, -1 pads giving
-    0: K2 for one table, K3a for a stack (``plain=True``: their twins on
-    any device)."""
-
-    def __init__(self, cols: torch.Tensor, *, plain: bool = False):
-        self.cols = cols
-        self.plain = plain
-
-    @property
-    def n_rows(self) -> int:
-        return self.cols.shape[0]
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return (ell_gather_sum_plain if self.plain else ell_gather_sum)(self.cols, x)
-
-    def call_batched(self, tables: torch.Tensor,
-                     out: torch.Tensor | None = None) -> torch.Tensor:
-        if self.plain:
-            y = ell_gather_sum_batched_plain(self.cols, tables)
-            return y if out is None else out.copy_(y)
-        return ell_gather_sum_batched(self.cols, tables, out=out)
 
 
 class BandedGather:
     """W=1 unit gather over a sorted-run request stream: narrow tiles on
-    the band kernel, wide tiles on the ELL gather, outputs [narrow; wide]
-    in tile units of 128 (``n_rows`` = n_tiles·128)."""
+    their bands, wide tiles by their requests, outputs [narrow; wide] in
+    tile units of 128 (``n_rows`` = n_tiles·128), in one launch.
+
+    The plan's arrays are checked once, here (dtype, shape, device,
+    contiguity), and their data pointers kept, so that a call checks only
+    its table and launches once."""
 
     def __init__(self, bases: torch.Tensor, lcols: torch.Tensor, K: int, G: int,
-                 wide: UnitGather | None, n_tiles: int, n_narrow: int,
+                 wide_cols: torch.Tensor | None, n_tiles: int, n_narrow: int,
                  need_rows: int, tile_perm: np.ndarray, *, plain: bool = False):
+        nb, n_wide = -(-n_narrow // G), n_tiles - n_narrow
+        i32 = torch.int32
+        if bases.dtype != i32 or lcols.dtype != i32 or (
+                wide_cols is not None and wide_cols.dtype != i32):
+            raise TypeError("BandedGather: bases, lcols and wide_cols must be int32")
+        if K <= 0 or K % 8 or n_wide < 0 or bases.shape != (nb, 1, G) \
+                or lcols.shape != (nb, G, LANE):
+            raise ValueError(
+                f"BandedGather: {n_narrow} narrow tiles in groups of G={G} need "
+                f"bases ({nb}, 1, {G}) and lcols ({nb}, {G}, {LANE}) with K a "
+                f"positive multiple of 8, got {tuple(bases.shape)}, "
+                f"{tuple(lcols.shape)}, K={K} and {n_tiles} tiles")
+        if (wide_cols is None) != (n_wide == 0) or (
+                wide_cols is not None and wide_cols.shape != (n_wide * LANE,)):
+            raise ValueError(f"BandedGather: {n_wide} wide tiles need wide_cols "
+                             f"({n_wide * LANE},), or None when there are none")
+        self.device = bases.device
+        if self.device.type not in ("cpu", "cuda") or lcols.device != self.device \
+                or (wide_cols is not None and wide_cols.device != self.device):
+            raise ValueError("BandedGather: the plan's arrays must lie on one "
+                             "CPU or CUDA device")
+        if not (bases.is_contiguous() and lcols.is_contiguous()
+                and (wide_cols is None or wide_cols.is_contiguous())):
+            raise ValueError("BandedGather: the plan's arrays must be contiguous")
         self.bases = bases  # (nb, 1, G) int32
         self.lcols = lcols  # (nb, G, 128) int32
+        self.wide_cols = wide_cols  # (n_wide*128,) int32, -1 pads, or None
         self.K, self.G = K, G
-        self.wide = wide
         self.n_tiles = n_tiles
         self.n_narrow = n_narrow
         self.n_rows = n_tiles * LANE
         self.need_rows = need_rows  # table rows the narrow bands reach
         self.tile_perm = tile_perm  # (n_tiles,) int64, host
         self.plain = plain
+        self._dev = bases.get_device()
+        self._ptrs = (bases.data_ptr(), lcols.data_ptr(),
+                      0 if wide_cols is None else wide_cols.data_ptr())
 
     @staticmethod
     def build(requests: np.ndarray, *, device: torch.device | str,
@@ -263,9 +296,8 @@ class BandedGather:
         if len(wid_ids):
             wreq = tiles[wid_ids].reshape(-1)
             wpad = pad_mask.reshape(T, LANE)[wid_ids].reshape(-1)
-            wide = UnitGather(torch.tensor(
-                np.where(wpad, -1, wreq).astype(np.int32)[:, None], device=device),
-                plain=plain)
+            wide = torch.tensor(np.where(wpad, -1, wreq).astype(np.int32),
+                                device=device)
         g = BandedGather(
             torch.tensor(bases, device=device),
             torch.tensor(lcols.reshape(nb, G, LANE), device=device),
@@ -277,26 +309,56 @@ class BandedGather:
         return (self.bases.reshape(-1)[: self.n_narrow],
                 self.lcols.reshape(-1, LANE)[: self.n_narrow])
 
+    def _check_table(self, name: str, t: torch.Tensor, batched: bool) -> str | None:
+        """Check a table (one attribute read per test); its kernel's entry
+        point, or None to run the plain twin (a CPU table, or ``plain``)."""
+        entry = _ENTRY.get(t.dtype)
+        if entry is None:
+            raise TypeError(f"BandedGather.{name}: the table must be float32 or "
+                            f"float64, got {t.dtype}")
+        if batched:
+            if t.dim() != 2 or not 1 <= t.size(0) <= MAX_TABLES:
+                raise ValueError(f"BandedGather.{name}: tables must be (B, n) with "
+                                 f"1 <= B <= {MAX_TABLES}, got {tuple(t.shape)}")
+        elif t.dim() != 1:
+            raise ValueError(f"BandedGather.{name}: x must be 1-D, got "
+                             f"{tuple(t.shape)}")
+        if t.get_device() != self._dev:
+            raise ValueError(f"BandedGather.{name}: the table lies on {t.device}, "
+                             f"the plan on {self.device}")
+        if not t.is_cuda:
+            if t.device.type != "cpu":
+                raise ValueError(f"BandedGather.{name}: no kernel for device {t.device}")
+            return None
+        if self.plain:
+            return None
+        if batched and min(t.stride()) < 0:
+            raise ValueError(f"BandedGather.{name}: negative table strides")
+        if not (batched or t.is_contiguous()):
+            raise ValueError(f"BandedGather.{name}: the CUDA kernel takes a "
+                             "contiguous x")
+        return entry
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        bases, lcols = self._narrow()
-        fn = band_gather_plain if self.plain else band_gather
-        nar = fn(bases, lcols, x, self.K)
-        if self.wide is None:
-            return nar
-        return torch.cat([nar, self.wide(x)])
+        """(n,) table -> (n_rows,): K9a over narrow and wide tiles."""
+        if self._check_table("__call__", x, batched=False) is None:
+            return banded_gather_plain(*self._narrow(), self.wide_cols, x, self.K)
+        out = x.new_empty(self.n_rows)
+        _launch("band_gather", self._ptrs, x, out, self.n_tiles, self.n_narrow,
+                self.K, 1, x.size(0), 1, 0, 1, 0)
+        return out
 
     def call_batched(self, tables: torch.Tensor) -> torch.Tensor:
-        """(B, n) tables of any strides -> (B, n_rows)."""
-        bases, lcols = self._narrow()
-        out = torch.empty((tables.shape[0], self.n_rows), dtype=tables.dtype,
-                          device=tables.device)
-        nn = self.n_narrow * LANE
-        if self.plain:
-            out[:, :nn] = band_gather_batched_plain(bases, lcols, tables, self.K)
-        else:
-            band_gather_batched(bases, lcols, tables, self.K, out=out[:, :nn])
-        if self.wide is not None:
-            self.wide.call_batched(tables, out=out[:, nn:])
+        """(B, n) tables of any strides -> (B, n_rows) contiguous: K9b over
+        narrow and wide tiles."""
+        if self._check_table("call_batched", tables, batched=True) is None:
+            return banded_gather_batched_plain(*self._narrow(), self.wide_cols,
+                                               tables, self.K)
+        B = tables.size(0)
+        out = tables.new_empty((B, self.n_rows))
+        ts_b, ts_r = tables.stride()
+        _launch("band_gather_batched", self._ptrs, tables, out, self.n_tiles,
+                self.n_narrow, self.K, B, tables.size(1), ts_r, ts_b, 1, self.n_rows)
         return out
 
 
@@ -308,7 +370,7 @@ class BandedRowSum:
     and round to the table's dtype."""
 
     def __init__(self, band: BandedGather, W2: int, n_rows: int):
-        if band.wide is not None:
+        if band.wide_cols is not None:
             raise ValueError("BandedRowSum: the stream must be all narrow")
         if LANE % W2:
             raise ValueError("BandedRowSum: W2 must divide 128")

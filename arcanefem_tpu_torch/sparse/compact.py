@@ -13,12 +13,12 @@ not real (zero weight) point at their block's first compact slot.  A
 carries the remap into that layout (``SellLayout.with_cols``: the same
 slices, permutation and values), so its second stage is K1 on the SELL
 remap and equals the BellMatrix's own product bit for bit.  The
-pre-gather xc = pre(x) is K2 over ``uniq`` or, with ``band_pre``
-(``AFEM_BAND_PRE=1``), the banded tile gather (``sparse/band_gather.py``:
-K9a on the narrow tiles, K2 on the wide ones), whose narrow/wide tile
-permutation is baked into ``remap`` here.  The unit forms (the assembly's
-coordinate gather) run K2, or the batched K9b and K3a over a stack of
-tables.
+pre-gather xc = pre(x) is K2 over ``uniq`` (:class:`UnitGather`) or, with
+``band_pre`` (``AFEM_BAND_PRE=1``), the banded tile gather
+(``sparse/band_gather.py``: one K9a launch over its narrow and wide
+tiles), whose narrow/wide tile permutation is baked into ``remap`` here.
+The unit forms (the assembly's coordinate gather) run K2 then K2, or over
+a stack of tables K3a (or the batched K9b) then K3a.
 
 The port splits no rows (K1 takes the full width), so R is
 ``adaptive_block_rows(W)``, the block size ``CompactBellSpmv`` uses; the
@@ -35,7 +35,7 @@ import math
 import numpy as np
 import torch
 
-from .band_gather import LANE, BandedGather, UnitGather
+from .band_gather import LANE, BandedGather
 from .bell import BellMatrix
 from .ell_gather import (
     ell_gather_sum,
@@ -54,6 +54,27 @@ def adaptive_block_rows(W: int, target_g: int = 128, cap: int = 16384) -> int:
     return int(max(base, min(cap, r)))
 
 
+class UnitGather:
+    """y[i] = x[cols[i]] over an (m, 1) int32 request list, -1 pads giving
+    0: K2 for one table, K3a for a stack (``plain=True``: their twins on
+    any device)."""
+
+    def __init__(self, cols: torch.Tensor, *, plain: bool = False):
+        self.cols = cols
+        self.plain = plain
+
+    @property
+    def n_rows(self) -> int:
+        return self.cols.shape[0]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return (ell_gather_sum_plain if self.plain else ell_gather_sum)(self.cols, x)
+
+    def call_batched(self, tables: torch.Tensor) -> torch.Tensor:
+        return (ell_gather_sum_batched_plain if self.plain
+                else ell_gather_sum_batched)(self.cols, tables)
+
+
 def compact_columns(cols: np.ndarray, real: np.ndarray, R: int,
                     band_pre: bool, *, device: torch.device | str,
                     plain: bool = False):
@@ -62,7 +83,7 @@ def compact_columns(cols: np.ndarray, real: np.ndarray, R: int,
     carry weight, in blocks of ``R`` rows.  ``pre`` is a
     :class:`~.band_gather.BandedGather` when ``band_pre`` and the banded
     plan builds (then ``remap`` is permuted by its ``tile_perm``), else a
-    :class:`~.band_gather.UnitGather` of ``uniq``."""
+    :class:`UnitGather` of ``uniq``."""
     cols = np.asarray(cols)
     n, W = cols.shape
     nb = -(-n // R)

@@ -19,11 +19,12 @@ float64: on a CUDA tensor the hand-written kernel of ``csrc/diag_spmv.cu``
 (K10), on a CPU tensor its plain twin.  ``launch_counts()`` counts the
 launches.
 
-``DiagEllMatrix`` has the BellMatrix interface the solver uses.  It tiles
-the values slot-major once, at construction (the JAX class re-tiles them
-on every call), and it raises when ``plan_diag`` declines: there is no
-fallback to another kernel (the JAX ``_cached_spmv`` silently runs the
-window kernel then).
+``diag_spmv`` checks every plan array on every call.  ``DiagEllMatrix``
+has the BellMatrix interface the solver uses.  It tiles the values
+slot-major and checks the plan once, at construction (the JAX class
+re-tiles them on every call), so that its ``spmv`` checks only x; and it
+raises when ``plan_diag`` declines: there is no fallback to another
+kernel (the JAX ``_cached_spmv`` silently runs the window kernel then).
 """
 
 from __future__ import annotations
@@ -141,59 +142,86 @@ def diag_spmv_plain(lo: torch.Tensor, c0: torch.Tensor, scnt: torch.Tensor,
     return y[:n].to(x.dtype)
 
 
+def _check_plan(name: str, lo: torch.Tensor, c0: torch.Tensor, scnt: torch.Tensor,
+                lcols: torch.Tensor, vals_tiled: torch.Tensor, W: int) -> int:
+    """Raise on plan arrays the kernel does not take (one attribute read per
+    test); return the rows the plan covers."""
+    nb, G = c0.shape
+    ls = lcols.shape
+    if W <= 0 or G % W or ls != (nb, G, SUB, LANE) or vals_tiled.shape != ls \
+            or lo.shape != (nb,) or scnt.shape != c0.shape:
+        raise ValueError(f"{name}: plan arrays of mismatched shapes")
+    i32 = torch.int32
+    if lo.dtype != i32 or c0.dtype != i32 or scnt.dtype != i32 or lcols.dtype != i32:
+        raise TypeError(f"{name}: lo, c0, scnt and lcols must be int32")
+    if vals_tiled.dtype not in _ENTRY:
+        raise TypeError(f"{name}: vals must be float32 or float64, got "
+                        f"{vals_tiled.dtype}")
+    dev = vals_tiled.device
+    if lo.device != dev or c0.device != dev or scnt.device != dev \
+            or lcols.device != dev:
+        raise ValueError(f"{name}: operands lie on different devices")
+    if dev.type == "cuda" and not (
+            lo.is_contiguous() and c0.is_contiguous() and scnt.is_contiguous()
+            and lcols.is_contiguous() and vals_tiled.is_contiguous()):
+        raise ValueError(f"{name}: the CUDA kernel takes contiguous operands")
+    return nb * (G // W) * TILE_ROWS
+
+
+def _check_x(name: str, x: torch.Tensor, dtype: torch.dtype, dev: int,
+             rows: int) -> bool:
+    """Raise on an x the plan does not take; True for a CUDA x (launch the
+    kernel), False for a CPU one (run the twin)."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: vals {dtype} and x {x.dtype} differ")
+    if x.dim() != 1 or not 0 < x.size(0) <= rows:
+        raise ValueError(f"{name}: x must be 1-D with at most the plan's {rows} "
+                         f"rows, got {tuple(x.shape)}")
+    if x.get_device() != dev:
+        raise ValueError(f"{name}: operands lie on different devices")
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"{name}: no kernel for device {x.device}")
+        return False
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: the CUDA kernel takes a contiguous x")
+    return True
+
+
 def diag_spmv(lo: torch.Tensor, c0: torch.Tensor, scnt: torch.Tensor,
               lcols: torch.Tensor, vals_tiled: torch.Tensor, x: torch.Tensor,
               W: int) -> torch.Tensor:
     """y = A @ x over a ``plan_diag`` plan (lo (nb,), c0 and scnt (nb, G),
     lcols and vals_tiled (nb, G, 8, 128), G = W·qn) and x (n,): K10 on the
-    card.  The rows past n (the last block's padding) are not computed."""
-    # one attribute read per test, to keep a call's host cost near a
-    # PyTorch op's
-    nb, G = c0.shape
-    ls = lcols.shape
-    if G % W or ls != (nb, G, SUB, LANE) or vals_tiled.shape != ls \
-            or lo.shape != (nb,) or scnt.shape != c0.shape:
-        raise ValueError("diag_spmv: plan arrays of mismatched shapes")
-    n = x.size(0) if x.dim() == 1 else 0
-    if not 0 < n <= nb * (G // W) * TILE_ROWS:
-        raise ValueError(f"diag_spmv: x must be 1-D with at most the plan's "
-                         f"{nb * (G // W) * TILE_ROWS} rows, got {tuple(x.shape)}")
-    i32 = torch.int32
-    if lo.dtype != i32 or c0.dtype != i32 or scnt.dtype != i32 or lcols.dtype != i32:
-        raise TypeError("diag_spmv: lo, c0, scnt and lcols must be int32")
-    if x.dtype not in _ENTRY or vals_tiled.dtype != x.dtype:
-        raise TypeError(f"diag_spmv: vals {vals_tiled.dtype} and x {x.dtype} "
-                        "must be one of float32, float64")
-    dev = x.get_device()
-    if lo.get_device() != dev or c0.get_device() != dev or scnt.get_device() != dev \
-            or lcols.get_device() != dev or vals_tiled.get_device() != dev:
-        raise ValueError("diag_spmv: operands lie on different devices")
-    if not x.is_cuda:
-        if x.device.type != "cpu":
-            raise ValueError(f"diag_spmv: no kernel for device {x.device}")
+    card.  The rows past n (the last block's padding) are not computed.
+    Every operand is checked on every call; :class:`DiagEllMatrix` checks
+    its plan once."""
+    rows = _check_plan("diag_spmv", lo, c0, scnt, lcols, vals_tiled, W)
+    if not _check_x("diag_spmv", x, vals_tiled.dtype, vals_tiled.get_device(), rows):
         return diag_spmv_plain(lo, c0, scnt, lcols, vals_tiled, x, W)
-    if not (lo.is_contiguous() and c0.is_contiguous() and scnt.is_contiguous()
-            and lcols.is_contiguous() and vals_tiled.is_contiguous()
-            and x.is_contiguous()):
-        raise ValueError("diag_spmv: the CUDA kernel takes contiguous operands")
-    y = x.new_empty(n)
-    kernels.launch(_ENTRY[x.dtype], x.device, lo.data_ptr(),
-                   c0.data_ptr(), scnt.data_ptr(), lcols.data_ptr(),
-                   vals_tiled.data_ptr(), x.data_ptr(), y.data_ptr(), n, W, G // W)
+    y = x.new_empty(x.size(0))
+    kernels.launch(_ENTRY[x.dtype], x.device, lo.data_ptr(), c0.data_ptr(),
+                   scnt.data_ptr(), lcols.data_ptr(), vals_tiled.data_ptr(),
+                   x.data_ptr(), y.data_ptr(), x.size(0), W, c0.size(1) // W)
     _LAUNCHES["diag_spmv"] += 1
     return y
 
 
 class DiagEllMatrix:
     """y = A @ x through K10: the BellMatrix interface the solver uses
-    (``spmv``, ``diagonal``, ``n_nodes``).  ``plain=True`` runs the plain
-    twin on any device."""
+    (``spmv``, ``diagonal``, ``n_nodes``).  The plan's arrays are built and
+    checked once, here, and their data pointers kept, so that ``spmv``
+    checks only x and launches once.  ``plain=True`` runs the plain twin on
+    any device."""
 
     def __init__(self, values: torch.Tensor, cols: np.ndarray,
                  diag_slot: torch.Tensor | None = None, *,
                  block_rows: int = 4096, plain: bool = False):
         """values (n, W) on the device; cols the host (n, W) column array
         with sorted rows.  Raises ValueError when ``plan_diag`` declines."""
+        if np.shape(cols) != tuple(values.shape):
+            raise ValueError(f"DiagEllMatrix: values {tuple(values.shape)} and "
+                             f"cols {np.shape(cols)} differ in shape")
         n, W = values.shape
         plan = plan_diag(np.asarray(cols), n - 1, block_rows)
         if plan is None:
@@ -207,18 +235,32 @@ class DiagEllMatrix:
             torch.tensor(a, device=dev) for a in (plan.lo, plan.c0, plan.scnt,
                                                   plan.lcols))
         self.vals_tiled = tile_values(values, block_rows)
+        self._rows = _check_plan("DiagEllMatrix", self.lo, self.c0, self.scnt,
+                                 self.lcols, self.vals_tiled, W)
         self.values = values
         self.diag_slot = diag_slot
         self.plain = plain
+        self._entry = _ENTRY[values.dtype]
+        self._dev = values.get_device()
+        self._ptrs = tuple(a.data_ptr() for a in (self.lo, self.c0, self.scnt,
+                                                  self.lcols, self.vals_tiled))
+        self._qn = self.c0.size(1) // W
 
     @property
     def n_nodes(self) -> int:
         return self.values.shape[0]
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        fn = diag_spmv_plain if self.plain else diag_spmv
-        return fn(self.lo, self.c0, self.scnt, self.lcols, self.vals_tiled, x,
-                  self.plan.width)
+        W = self.plan.width
+        if not _check_x("DiagEllMatrix.spmv", x, self.values.dtype, self._dev,
+                        self._rows) or self.plain:
+            return diag_spmv_plain(self.lo, self.c0, self.scnt, self.lcols,
+                                   self.vals_tiled, x, W)
+        y = x.new_empty(x.size(0))
+        kernels.launch(self._entry, x.device, *self._ptrs, x.data_ptr(),
+                       y.data_ptr(), x.size(0), W, self._qn)
+        _LAUNCHES["diag_spmv"] += 1
+        return y
 
     def diagonal(self) -> torch.Tensor:
         if self.diag_slot is None:

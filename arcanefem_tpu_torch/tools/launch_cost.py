@@ -4,9 +4,13 @@
 
 Each wrapper (K1-K10, P1 and the assembly's two kernels) is called N
 times back to back (default 2000, after a warm-up) at a size where the
-card is idle: 32 rows of width 8 for the ELL, SELL and diag kernels, one
-128-request tile for the band gather, one window (nb = 1) for the window
-take, a 4^3 box for the stencil kernels, 8 tetrahedra over 32 nodes and
+card is idle: 32 rows of width 8 for the ELL, SELL and diag kernels (K10
+through ``DiagEllMatrix.spmv``, whose plan is checked once), one
+128-request tile for the band gather's checked entry points, one narrow
+and one wide tile over a 4096-entry table for a whole band plan
+(``BandedGather.__call__``: in one launch since the fused kernel, K9a
+then K2 and a concatenation before it), one window (nb = 1) for the
+window take, a 4^3 box for the stencil kernels, 8 tetrahedra over 32 nodes and
 128 entries into 32 slots for the assembly.  The host clock is read after
 the last call and before one final ``torch.cuda.synchronize()``, so the
 figure is the host's cost of issuing a call; ``host_us`` is the best of 5
@@ -77,6 +81,11 @@ def _cases(dev):
     bases = torch.zeros(1, dtype=torch.int32, device=dev)
     lcols = torch.as_tensor(rng.randint(0, n, (1, 128)).astype(np.int32), device=dev)
     D = DiagEllMatrix(vals, cols_np)
+    # a whole band plan: one narrow tile (one table row) and one wide one
+    # (32 rows apart) over a 4096-entry table
+    plan, _ = bg.BandedGather.build(
+        np.concatenate([np.arange(128), np.arange(128) * 32]), device=dev)
+    xb = torch.as_tensor(rng.rand(4096).astype(np.float32), device=dev)
     cases = []
     try:  # trees from before the assembly kernels have neither
         from arcanefem_tpu_torch.ops.lane_assembly import tet_element
@@ -107,6 +116,7 @@ def _cases(dev):
         ("K9a band_gather", lambda: bg.band_gather(bases, lcols, x, 16), 128),
         ("K9b band_gather_batched", lambda: bg.band_gather_batched(bases, lcols, t3, 16),
          384),
+        ("K9a BandedGather (narrow + wide tile)", lambda: plan(xb), 256),
         ("K10 diag_spmv", lambda: D.spmv(x), n),
         ("P1 window_take", lambda: pg.window_take(win, widx, "column"), widx.numel()),
         *cases,

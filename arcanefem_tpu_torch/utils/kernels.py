@@ -49,8 +49,10 @@ _ELL_GATHER_SUM = [_P, _P, _P, _I64, _I, _P]
 _BATCHED_STRIDES = [_I, _I64, _I64, _I64, _I64, _P]  # B, ts_r, ts_b, ys_r, ys_b, stream
 # vals, cols, slice_ptr, perm, x, y, n_rows, n_slices, stream
 _SELL_SPMV = [_P, _P, _P, _P, _P, _P, _I64, _I64, _P]
-# bases, lcols, t, out, n_tiles, K, B, n_t, ts_r, ts_b, os_r, os_b, stream
-_BAND_GATHER = [_P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _I64, _I64, _I64, _P]
+# bases, lcols, wide, t, out, n_tiles, n_narrow, K, B, n_t, ts_r, ts_b, os_r,
+# os_b, stream
+_BAND_GATHER = [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I64, _I64, _I64, _I64,
+                _I64, _P]
 # lo, c0, scnt, lcols, vals, x, y, n, W, qn, stream
 _DIAG_SPMV = [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P]
 _SLOT_REDUCE = [_P, _P, _P, _P, _I64, _P]  # ptr, ids, table, out, n_slots, stream

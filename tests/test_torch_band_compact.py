@@ -30,6 +30,8 @@ from arcanefem_tpu_torch.sparse.band_gather import (
     BandedRowSum,
     band_gather,
     band_gather_batched,
+    banded_gather_batched_plain,
+    banded_gather_plain,
 )
 from arcanefem_tpu_torch.sparse.bell import BellMatrix
 from arcanefem_tpu_torch.sparse.compact import (
@@ -92,7 +94,9 @@ def test_banded_build_matches_jax(name):
     reach = int(np.asarray(gj.bases).reshape(-1)[: gj.n_narrow].max()) + 16
     assert gp.need_rows == reach
     if gj.wide is None:
-        assert gp.wide is None and gp.need_rows == gj.need_rows
+        assert gp.wide_cols is None and gp.need_rows == gj.need_rows
+    else:
+        assert gp.wide_cols.shape == ((gp.n_tiles - gp.n_narrow) * 128,)
     if name == "mixed":
         assert 0 < gp.n_narrow < gp.n_tiles
     # the plain twins equal the kernel's emulation bit for bit, on one table
@@ -110,6 +114,87 @@ def test_banded_build_matches_jax(name):
     pos = pp[np.arange(m) // 128] * 128 + np.arange(m) % 128
     ok = np.ones(m, bool) if valid is None else valid
     np.testing.assert_array_equal(want[pos][ok], table[req][ok])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["mixed", "valid_masks"])
+def test_banded_gather_one_call_matches_jax_emulate(name, dtype):
+    """The whole plan, narrow and wide tiles, in one call: the fused twin,
+    ``__call__`` and ``call_batched`` (B = 1, and B = 3 over an (N, 3)
+    table read in place as three strided tables) equal the JAX class's
+    emulation exactly, on a plan with wide tiles (mixed) and one without
+    (valid_masks).  The JAX class gathers in float32 whatever the table's
+    type, so the float64 tables hold float32 values: a gather is exact,
+    and the indices are what is compared."""
+    req, valid = STREAMS[name]()
+    kw = {} if valid is None else dict(valid=valid, min_narrow_frac=0.999)
+    gj, _ = JaxBand.build(req, K=16, **kw)
+    gp, _ = BandedGather.build(req, device="cpu", **kw)
+    assert (gj.wide is None) == (gp.wide_cols is None) == (name == "valid_masks")
+    rng = np.random.RandomState(11)
+    tab3 = rng.rand(int(req.max()) + 7, 3).astype(np.float32)
+    want = [gj.emulate(np.ascontiguousarray(tab3[:, b])) for b in range(3)]
+    t3 = torch.as_tensor(tab3).to(dtype)  # (N, 3), row-major
+    x = t3[:, 0].contiguous()
+    for got in (gp(x), banded_gather_plain(*gp._narrow(), gp.wide_cols, x, gp.K),
+                gp.call_batched(x[None])[0]):
+        assert got.dtype == dtype and got.shape == (gp.n_rows,)
+        np.testing.assert_array_equal(got.numpy(), want[0].astype(got.numpy().dtype))
+    for got in (gp.call_batched(t3.T),
+                banded_gather_batched_plain(*gp._narrow(), gp.wide_cols, t3.T, gp.K)):
+        assert got.shape == (3, gp.n_rows)
+        for b in range(3):
+            np.testing.assert_array_equal(got[b].numpy(),
+                                          want[b].astype(got.numpy().dtype))
+
+
+def test_banded_gather_checks_plan_once_and_table_per_call():
+    """BandedGather raises at construction on plan arrays that do not fit
+    together, and per call on a table the kernel does not take; a band that
+    reaches past the table's end gives 0 there."""
+    req, _ = _mixed_stream()
+    g, _ = BandedGather.build(req, device="cpu")
+    args = dict(K=g.K, G=g.G, wide_cols=g.wide_cols, n_tiles=g.n_tiles,
+                n_narrow=g.n_narrow, need_rows=g.need_rows, tile_perm=g.tile_perm)
+
+    def make(**kw):
+        return BandedGather(**{"bases": g.bases, "lcols": g.lcols, **args, **kw})
+
+    assert make().n_rows == g.n_rows
+    with pytest.raises(TypeError):
+        make(lcols=g.lcols.long())
+    with pytest.raises(TypeError):
+        make(wide_cols=g.wide_cols.long())
+    with pytest.raises(ValueError):  # one base group too few
+        make(bases=g.bases[:-1])
+    with pytest.raises(ValueError):
+        make(lcols=g.lcols[..., :64])
+    with pytest.raises(ValueError):  # wide requests of another tile count
+        make(wide_cols=g.wide_cols[:-128])
+    with pytest.raises(ValueError):  # wide tiles without their requests
+        make(wide_cols=None)
+    with pytest.raises(ValueError):
+        make(K=12)
+    with pytest.raises(ValueError):
+        make(lcols=g.lcols.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):  # plan arrays on two devices
+        make(bases=g.bases.to("meta"))
+    x = torch.rand(int(req.max()) + 1)
+    with pytest.raises(TypeError):
+        g(x.int())
+    with pytest.raises(ValueError):
+        g(x[None])
+    with pytest.raises(ValueError):  # a table off the plan's device
+        g(x.to("meta"))
+    with pytest.raises(ValueError):  # B > 8 tables
+        g.call_batched(torch.rand(9, x.shape[0]))
+    with pytest.raises(ValueError):
+        g.call_batched(x)
+    # a table shorter than the bands reach: 0 past its end, narrow and wide
+    short = x[: len(x) // 2]
+    got = g(short)
+    full = g(torch.cat([short, torch.zeros(len(x) - len(short))]))
+    assert torch.equal(got, full)
 
 
 def test_banded_row_sum_matches_jax():

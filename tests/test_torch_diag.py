@@ -118,3 +118,28 @@ def test_diag_wrapper_checks_operands():
         diag_spmv(*args[:-1], A.vals_tiled[:, :-1], x, A.plan.width)
     with pytest.raises(ValueError):  # no kernel off CPU and CUDA
         diag_spmv(*(a.to("meta") for a in args), x.to("meta"), A.plan.width)
+
+
+def test_diag_matrix_checks_plan_once_and_x_per_call():
+    """DiagEllMatrix raises at construction on values that do not fit its
+    columns, and per call on an x its plan does not take."""
+    cols = CASES["rect_90x90_rcm"]()
+    n, W = cols.shape
+    vals = torch.ones((n, W), dtype=torch.float64)
+    with pytest.raises(ValueError):  # values one slot narrower than cols
+        DiagEllMatrix(vals[:, 1:], cols)
+    with pytest.raises(ValueError):  # one row fewer
+        DiagEllMatrix(vals[1:], cols)
+    with pytest.raises(TypeError):  # no kernel for integer values
+        DiagEllMatrix(vals.int(), cols)
+    A = DiagEllMatrix(vals, cols)
+    x = torch.ones(n, dtype=torch.float64)
+    assert A.spmv(x).shape == (n,)
+    with pytest.raises(TypeError):  # x of another type than the values
+        A.spmv(x.float())
+    with pytest.raises(ValueError):
+        A.spmv(x[None])
+    with pytest.raises(ValueError):  # longer than the plan's rows
+        A.spmv(torch.ones(A.lo.shape[0] * 4096 + 1, dtype=torch.float64))
+    with pytest.raises(ValueError):  # off the plan's device
+        A.spmv(x.to("meta"))

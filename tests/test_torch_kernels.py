@@ -475,6 +475,74 @@ def test_band_gather_matches_plain_on_cuda(cuda, dtype):
     assert band.launch_counts() == {"band_gather": 6, "band_gather_batched": 18}
 
 
+def _narrow_stream():
+    """One dense sorted run: every tile narrow, no wide requests."""
+    rng = np.random.RandomState(4)
+    return np.cumsum(rng.randint(1, 4, 60000)).astype(np.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("stream", ["mixed", "narrow"])
+def test_banded_gather_one_launch_matches_twin_on_cuda(cuda, stream, dtype):
+    """A whole band plan, narrow and wide tiles, is one launch of the band
+    kernel (B 1, 3, 8; contiguous and channel-minor tables; a table shorter
+    than the bands reach) equal to its fused plain twin bit for bit, with
+    no K2 or K3a launch."""
+    req = _band_stream() if stream == "mixed" else _narrow_stream()
+    g, _ = BandedGather.build(req, device=cuda)
+    assert (g.wide_cols is None) == (stream == "narrow")
+    assert (g.n_narrow < g.n_tiles) == (stream == "mixed")
+    nar = g._narrow()
+    gen = torch.Generator().manual_seed(9)
+    n_t = int(req.max()) + 3
+    band.reset_launch_counts()
+    _reset()
+    for B in (1, 3, 8):
+        tab = torch.rand((B, n_t), generator=gen, dtype=dtype).to(cuda)
+        for t in (tab, tab.T.contiguous().T):
+            want = band.banded_gather_batched_plain(*nar, g.wide_cols, t, g.K)
+            assert torch.equal(g.call_batched(t), want)
+        x = tab[0]
+        assert torch.equal(g(x), band.banded_gather_plain(*nar, g.wide_cols, x, g.K))
+        short = x[: n_t // 2]
+        assert torch.equal(g(short),
+                           band.banded_gather_plain(*nar, g.wide_cols, short, g.K))
+    torch.cuda.synchronize()
+    assert band.launch_counts() == {"band_gather": 6, "band_gather_batched": 6}
+    assert launch_counts() == NO_LAUNCHES
+
+
+def test_compact_band_route_launches_no_k2_on_cuda(cuda):
+    """CompactMatrix with band_pre: each SpMV is one band-kernel launch
+    (its plan has wide tiles) and one K1, no K2, and equals the ELL
+    product to 1e-5 of each row's sum |a·x| and the CPU compact product."""
+    from arcanefem_tpu_torch.sparse.compact import CompactMatrix
+
+    rng = np.random.RandomState(7)
+    n, W = 4000, 8
+    cols = (np.arange(n)[:, None] * 3 + rng.randint(0, 40, (n, W))) % (3 * n)
+    w = rng.rand(n, W).astype(np.float32)
+    w[rng.rand(n, W) < 0.3] = 0.0
+    A = BellMatrix.from_numpy(w, cols, n_cols=3 * n, device=cuda, dtype=torch.float32)
+    cm = CompactMatrix.from_bell(A, band_pre=True)
+    assert cm.band and cm.pre.wide_cols is not None
+    cc = CompactMatrix.from_bell(BellMatrix.from_numpy(
+        w, cols, n_cols=3 * n, device="cpu", dtype=torch.float32), band_pre=True)
+    x = torch.rand(3 * n, generator=torch.Generator().manual_seed(3))
+    band.reset_launch_counts()
+    _reset()
+    y = cm.spmv(x.to(cuda))
+    torch.cuda.synchronize()
+    counts = {**band.launch_counts(), **_counts()}
+    assert counts["band_gather"] == 1 and counts["sell_spmv"] == 1
+    assert counts["ell_gather_sum"] == 0 and counts["ell_gather_sum_batched"] == 0
+    ct = torch.as_tensor(cols.astype(np.int32))
+    wt = torch.as_tensor(w)
+    scale = ell_spmv_plain(wt.abs(), ct, x.abs()).double()
+    for want in (ell_spmv_plain(wt, ct, x), cc.spmv(x)):
+        assert bool(((y.cpu().double() - want.double()).abs() <= 1e-5 * scale).all())
+
+
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 def test_diag_spmv_matches_plain_on_cuda(cuda, dtype, rtol):
     """K10 == its plain twin on an RCM box (two row blocks, a padded last
@@ -500,6 +568,13 @@ def test_diag_spmv_matches_plain_on_cuda(cuda, dtype, rtol):
     scale = ell_spmv_plain(vals.abs(), cols, x.abs()).double()
     want = DiagEllMatrix(vals, topo.ell_cols).spmv(x)
     assert bool(((y.cpu().double() - want.double()).abs() <= rtol * scale).all())
+    # the plain twin on the card's inputs, and the public wrapper's full
+    # checks in front of the same kernel
+    xc = x.to(cuda)
+    plan = (A.lo, A.c0, A.scnt, A.lcols, A.vals_tiled)
+    twin = dsp.diag_spmv_plain(*plan, xc, topo.width)
+    assert bool(((y.double() - twin.double()).abs() <= rtol * scale.to(cuda)).all())
+    assert torch.equal(dsp.diag_spmv(*plan, xc, topo.width), y)
 
 
 @pytest.mark.parametrize("K,G,nb", [(160, 64, 1), (1024, 64, 3), (16, 8, 256)])
