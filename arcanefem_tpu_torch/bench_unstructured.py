@@ -441,7 +441,7 @@ def check_solution(res: dict) -> None:
 
 
 # the kernel that carries the CG operator's SpMV on each route
-SPMV_KERNELS = {"ell": "sell_spmv", "supernode": "ell_gather_sum_batched",
+SPMV_KERNELS = {"ell": "sell_spmv", "supernode": "bsr8_spmv",
                 "compact": "sell_spmv", "diag": "diag_spmv"}
 
 

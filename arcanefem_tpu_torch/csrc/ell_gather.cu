@@ -16,7 +16,9 @@
 // fast general gather.  On Hopper a gather is an ordinary load through
 // L1/L2, so none of that planning is needed: one kernel reads the (n, W)
 // row-major arrays the callers already hold.  The weighted single-table
-// form, K1 (_products), is the sliced kernel of csrc/sell_spmv.cu.
+// form, K1 (_products), is the sliced kernel of csrc/sell_spmv.cu, and
+// K3a's supernode role (a column gather and a row reduce around the 8x8
+// block products) is the one kernel of csrc/bsr8_spmv.cu.
 //
 // What bounds them.  Bytes.  Each stored slot costs a 4-byte column (and a
 // 4- or 8-byte weight in K3b), plus one gathered value per table that
@@ -27,12 +29,15 @@
 // one row, so neighbouring threads read neighbouring slots of the same row
 // and a warp's loads of vals/cols are contiguous; the T partial sums meet
 // in registers through warp shuffles.  The batched form keeps B partial
-// sums per thread and reads a slot's column once for all B tables; at W = 1
-// it runs one thread per (row, table) instead, tables fastest, so a warp
-// reads the 8 channels of a supernode as one 32-byte sector.  Tables and
-// outputs come with a row stride and a table stride, so an (n, B) row-major
-// array (the supernode x and products, the (N, 3) coordinates) is read and
-// written in place.
+// sums per thread and reads a slot's column once for all B tables.  At
+// W = 1 (the coordinate gather of the assembly routes, the compact remap
+// gathers) it runs one thread per request with B a template parameter: one
+// read of the column, B loads and B stores, no division, 32-bit offsets
+// where they fit, and the unit form copies without widening.  At the
+// 1.9M-DoF coordinate shape (43.9M requests, B = 3) its bytes are 16 per
+// request and 12 per node, 0.217 ms.  Tables and outputs come with a row
+// stride and a table stride, so an (n, B) row-major array (the (N, 3)
+// coordinates) is read and written in place.
 //
 // Inputs and outputs keep their type (f32 on the main path, f64 for the
 // parity phase; the Pallas kernels were f32-only), but every row sum
@@ -124,26 +129,39 @@ ell_rows_batched_kernel(const V* __restrict__ vals,
   }
 }
 
-// Batched, W = 1: one thread per (row, table), tables fastest.
-template <typename V, bool kWeighted>
+// Batched, W = 1: one thread per request serves all B tables (B a
+// template parameter, so no division): one read of the column, B loads
+// and B stores, adjacent when a table or output stride is 1.  The unit
+// form copies values, exactly, without widening them; the weighted form
+// multiplies in V, which rounds the exact product once, as its f64 twin
+// does.  I is int32_t where every offset the launch can form fits in 31
+// bits, else int64_t.
+template <typename V, int B, bool kWeighted, typename I>
 __global__ void __launch_bounds__(kThreads)
 ell_w1_batched_kernel(const V* __restrict__ vals,
                       const int32_t* __restrict__ cols,
-                      const V* __restrict__ t, V* __restrict__ y, int64_t n,
-                      int B, int64_t ts_r, int64_t ts_b, int64_t ys_r,
-                      int64_t ys_b) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (tid >= n * B) return;
-  const int64_t row = tid / B;
-  const int b = static_cast<int>(tid % B);
+                      const V* __restrict__ t, V* __restrict__ y, I n,
+                      I ts_r, I ts_b, I ys_r, I ys_b) {
+  const I row = static_cast<I>(blockIdx.x) * kThreads + static_cast<I>(threadIdx.x);
+  if (row >= n) return;
   const int32_t c = cols[row];
-  double v = 0.0;
-  if (kWeighted) {
-    v = f64(vals[row]) * f64(t[b * ts_b + static_cast<int64_t>(c) * ts_r]);
-  } else if (c >= 0) {
-    v = f64(t[b * ts_b + static_cast<int64_t>(c) * ts_r]);
+  V v[B];
+  if (kWeighted || c >= 0) {
+    const V* tc = t + static_cast<I>(c) * ts_r;
+#pragma unroll
+    for (int b = 0; b < B; ++b) v[b] = __ldg(tc + b * ts_b);
+    if (kWeighted) {
+      const V w = vals[row];
+#pragma unroll
+      for (int b = 0; b < B; ++b) v[b] *= w;
+    }
+  } else {
+#pragma unroll
+    for (int b = 0; b < B; ++b) v[b] = V(0);
   }
-  y[b * ys_b + row * ys_r] = static_cast<V>(v);
+  V* yr = y + row * ys_r;
+#pragma unroll
+  for (int b = 0; b < B; ++b) yr[b * ys_b] = v[b];
 }
 
 // Threads per row: the smallest power of two >= ceil(W / 2), at most 32.
@@ -185,19 +203,53 @@ int launch(const int32_t* cols, const V* x, V* y, int64_t n, int W,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename V, int B, bool kWeighted, typename I>
+void launch_w1(dim3 grid, cudaStream_t s, const V* vals, const int32_t* cols,
+               const V* t, V* y, int64_t n, int64_t ts_r, int64_t ts_b,
+               int64_t ys_r, int64_t ys_b) {
+  ell_w1_batched_kernel<V, B, kWeighted, I><<<grid, kThreads, 0, s>>>(
+      vals, cols, t, y, static_cast<I>(n), static_cast<I>(ts_r),
+      static_cast<I>(ts_b), static_cast<I>(ys_r), static_cast<I>(ys_b));
+}
+
+template <typename V, bool kWeighted, typename I>
+void launch_w1_b(int B, dim3 grid, cudaStream_t s, const V* vals,
+                 const int32_t* cols, const V* t, V* y, int64_t n,
+                 int64_t ts_r, int64_t ts_b, int64_t ys_r, int64_t ys_b) {
+#define AFEM_W1(BB)                                                          \
+  case BB:                                                                   \
+    launch_w1<V, BB, kWeighted, I>(grid, s, vals, cols, t, y, n, ts_r, ts_b, \
+                                   ys_r, ys_b);                              \
+    break
+  switch (B) {
+    AFEM_W1(1); AFEM_W1(2); AFEM_W1(3); AFEM_W1(4);
+    AFEM_W1(5); AFEM_W1(6); AFEM_W1(7); default: AFEM_W1(8);
+  }
+#undef AFEM_W1
+}
+
 template <typename V, bool kWeighted>
 int launch_batched(const V* vals, const int32_t* cols, const V* t, V* y,
-                   int64_t n, int W, int B, int64_t ts_r, int64_t ts_b,
-                   int64_t ys_r, int64_t ys_b, void* stream) {
-  if (n <= 0 || W <= 0 || B <= 0 || B > kMaxTables) {
+                   int64_t n, int W, int B, int64_t n_t, int64_t ts_r,
+                   int64_t ts_b, int64_t ys_r, int64_t ys_b, void* stream) {
+  if (n <= 0 || W <= 0 || B <= 0 || B > kMaxTables || n_t < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid;
   if (W == 1) {
-    if (!grid_for(n * B, &grid)) return static_cast<int>(cudaErrorInvalidValue);
-    ell_w1_batched_kernel<V, kWeighted><<<grid, kThreads, 0, s>>>(
-        vals, cols, t, y, n, B, ts_r, ts_b, ys_r, ys_b);
+    if (!grid_for(n, &grid)) return static_cast<int>(cudaErrorInvalidValue);
+    // the largest offset into the tables, the output and the grid
+    const int64_t reach = n_t * ts_r + (B - 1) * ts_b;
+    const int64_t wreach = (n - 1) * ys_r + (B - 1) * ys_b;
+    const int64_t span = static_cast<int64_t>(grid.x) * kThreads;
+    if (reach < (1LL << 31) && wreach < (1LL << 31) && span < (1LL << 31)) {
+      launch_w1_b<V, kWeighted, int32_t>(B, grid, s, vals, cols, t, y, n, ts_r,
+                                         ts_b, ys_r, ys_b);
+    } else {
+      launch_w1_b<V, kWeighted, int64_t>(B, grid, s, vals, cols, t, y, n, ts_r,
+                                         ts_b, ys_r, ys_b);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   const int T = group_width(W);
@@ -232,33 +284,33 @@ int afem_ell_gather_sum_f64(const int32_t* cols, const double* x, double* y,
 
 int afem_ell_spmv_batched_f32(const float* vals, const int32_t* cols,
                               const float* t, float* y, int64_t n, int W,
-                              int B, int64_t ts_r, int64_t ts_b, int64_t ys_r,
-                              int64_t ys_b, void* stream) {
-  return launch_batched<float, true>(vals, cols, t, y, n, W, B, ts_r, ts_b,
-                                     ys_r, ys_b, stream);
+                              int B, int64_t n_t, int64_t ts_r, int64_t ts_b,
+                              int64_t ys_r, int64_t ys_b, void* stream) {
+  return launch_batched<float, true>(vals, cols, t, y, n, W, B, n_t, ts_r,
+                                     ts_b, ys_r, ys_b, stream);
 }
 
 int afem_ell_spmv_batched_f64(const double* vals, const int32_t* cols,
                               const double* t, double* y, int64_t n, int W,
-                              int B, int64_t ts_r, int64_t ts_b, int64_t ys_r,
-                              int64_t ys_b, void* stream) {
-  return launch_batched<double, true>(vals, cols, t, y, n, W, B, ts_r, ts_b,
-                                      ys_r, ys_b, stream);
+                              int B, int64_t n_t, int64_t ts_r, int64_t ts_b,
+                              int64_t ys_r, int64_t ys_b, void* stream) {
+  return launch_batched<double, true>(vals, cols, t, y, n, W, B, n_t, ts_r,
+                                      ts_b, ys_r, ys_b, stream);
 }
 
 int afem_ell_gather_sum_batched_f32(const int32_t* cols, const float* t,
                                     float* y, int64_t n, int W, int B,
-                                    int64_t ts_r, int64_t ts_b, int64_t ys_r,
-                                    int64_t ys_b, void* stream) {
-  return launch_batched<float, false>(nullptr, cols, t, y, n, W, B, ts_r,
+                                    int64_t n_t, int64_t ts_r, int64_t ts_b,
+                                    int64_t ys_r, int64_t ys_b, void* stream) {
+  return launch_batched<float, false>(nullptr, cols, t, y, n, W, B, n_t, ts_r,
                                       ts_b, ys_r, ys_b, stream);
 }
 
 int afem_ell_gather_sum_batched_f64(const int32_t* cols, const double* t,
                                     double* y, int64_t n, int W, int B,
-                                    int64_t ts_r, int64_t ts_b, int64_t ys_r,
-                                    int64_t ys_b, void* stream) {
-  return launch_batched<double, false>(nullptr, cols, t, y, n, W, B, ts_r,
+                                    int64_t n_t, int64_t ts_r, int64_t ts_b,
+                                    int64_t ys_r, int64_t ys_b, void* stream) {
+  return launch_batched<double, false>(nullptr, cols, t, y, n, W, B, n_t, ts_r,
                                        ts_b, ys_r, ys_b, stream);
 }
 

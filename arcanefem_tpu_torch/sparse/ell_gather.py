@@ -33,9 +33,9 @@ the plain PyTorch twin below, which is also the kernel's test oracle.
 ``launch_counts()`` counts the kernel launches by wrapper.
 
 The wrappers check device, dtype, shape and contiguity, not the range of
-``cols``: the constructors that build the column arrays on the host
-(``SellLayout.build``, ``TetraAssembler``, ``SupernodeSpmv``) check
-that once.
+``cols``: the host code that builds the column arrays
+(``SellLayout.build``, ``TetraAssembler``, ``compact_columns``) checks
+or constructs them in range once.
 """
 
 from __future__ import annotations
@@ -166,7 +166,7 @@ def _launch_batched(name: str, ptrs: list, cols: torch.Tensor,
     (ts_b, ts_r), (ys_b, ys_r) = tables.stride(), y.stride()
     kernels.launch(_ENTRY[name, tables.dtype], tables.device, *ptrs,
                    cols.data_ptr(), tables.data_ptr(), y.data_ptr(), n, W,
-                   tables.size(0), ts_r, ts_b, ys_r, ys_b)
+                   tables.size(0), tables.size(1), ts_r, ts_b, ys_r, ys_b)
     _LAUNCHES[name] += 1
 
 

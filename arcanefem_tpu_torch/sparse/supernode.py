@@ -7,23 +7,27 @@ supernode order (``sparse/ordering.py::supernode_order``): supernode i owns
 nodes [8i, 8i + 8), so the blocked x and y are plain reshapes, and the last
 supernode is padded with zero rows and columns.
 
-One SpMV is three steps, as in the JAX package:
+The JAX package runs one SpMV as three steps: a column gather of x into
+an (nnzb, 8) buffer (K3a), the 8x8 block products (an XLA einsum) and a
+row reduce of the products into (n_sup, 8) (K3a again).  The port runs it
+as one hand-written kernel, ``bsr8_spmv`` (``csrc/bsr8_spmv.cu``): one
+warp per block row reads each block once, multiplies it with x's 8 values
+of its block column and sums the products in float64, so no padded x, no
+gathered buffer and no product temporary exist.  The block columns and
+the block-row pointer live on the device as int32, checked once when the
+operator is built; a call checks x and launches.
 
-    xg = x[bcol]                   (nnzb, 8)  column gather, K3a at W=1
-    yp = blocks @ xg               (nnzb, 8)  8x8 block products, torch
-    y  = sum of yp over block rows (n_sup, 8) row reduce, K3a at W = max
-                                              block-row degree
+    y[8i + r] = sum_{e = bptr[i]}^{bptr[i+1]-1}  sum_j  blocks[e, r, j] x[8 bcol[e] + j]
 
-The TPU's window plans become plain index arrays: the column gather is
-``bcol`` as an (nnzb, 1) ELL, the row reduce an (n_sup, Wb) ELL of block
-ids with -1 pads.  Both gathers run on the 8 channels of the (n, 8)
-row-major arrays in place (``ell_gather_sum_batched``); the row reduce
-sums in float64.  The block products stay PyTorch ops, as they are an XLA
-einsum outside Pallas in the JAX package: an elementwise product and a sum
-over the 8 columns, which cannot run in TF32 whatever the process-wide
-setting (the JAX einsum carries no ``precision=HIGHEST``, so on the TPU it
-ran with bf16 operands), and which ran faster than ``torch.bmm`` of the
-same on an H100 at the 1.9M-DoF sphere's shapes (PERF.md).
+bfloat16 blocks take x rounded to bfloat16, as the JAX einsum
+(``xg.astype(blocks.dtype)``); their products are exact in float32 and,
+like every product here, are summed in float64.  ``bsr8_spmv_plain`` is
+the three steps written in PyTorch, summed in float64: the kernel's plain
+twin (CPU tensors, and the oracle on the card).
+
+``block_products`` stays for the block-Jacobi apply of
+``solver/amg.py``: an elementwise product and a sum over the 8 columns,
+which cannot run in TF32 whatever the process-wide setting.
 """
 
 from __future__ import annotations
@@ -33,9 +37,22 @@ import copy
 import numpy as np
 import torch
 
-from .ell_gather import ell_gather_sum_batched, ell_gather_sum_batched_plain
+from ..utils import kernels
 
 BS = 8  # supernode size
+_ENTRY = {torch.float32: "afem_bsr8_spmv_f32", torch.float64: "afem_bsr8_spmv_f64",
+          torch.bfloat16: "afem_bsr8_spmv_bf16_f32"}
+# launches by block type: float32/float64 blocks, bfloat16 blocks
+_LAUNCHES = {"bsr8_spmv": 0, "bsr8_spmv_bf16": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_LAUNCHES)
 
 
 def block_products(blocks: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -50,6 +67,90 @@ def block_products(blocks: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     else:
         a, b = blocks.to(v.dtype), v
     return (a * b.unsqueeze(1)).sum(dim=2).to(v.dtype)
+
+
+def bsr8_spmv_plain(blocks: torch.Tensor, bcol: torch.Tensor,
+                    bptr: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`bsr8_spmv`: x's 8-value segments gathered by
+    block column (zeros past n), the 8x8 products summed over j, then the
+    products summed per block row with ``index_add_``, all in float64;
+    the result in x's dtype."""
+    n_sup, n = bptr.numel() - 1, x.shape[0]
+    xv = x.to(torch.bfloat16) if blocks.dtype == torch.bfloat16 else x
+    xb = torch.zeros(n_sup * BS, dtype=torch.float64, device=x.device)
+    xb[:n] = xv.double()
+    yp = (blocks.double() * xb.view(n_sup, BS)[bcol.long()].unsqueeze(1)).sum(dim=2)
+    brow = torch.repeat_interleave(torch.arange(n_sup, device=x.device),
+                                   bptr.long().diff())
+    yb = torch.zeros((n_sup, BS), dtype=torch.float64, device=x.device)
+    return yb.index_add_(0, brow, yp).reshape(-1)[:n].to(x.dtype)
+
+
+def _check_plan(blocks: torch.Tensor, bcol: torch.Tensor,
+                bptr: torch.Tensor) -> None:
+    """Raise on a block array or index array the kernel does not take:
+    (nnzb, 8, 8) float32, float64 or bfloat16 blocks, contiguous and
+    16-byte aligned on a card; int32 (nnzb,) bcol and (n_sup + 1,) bptr
+    on the blocks' device, contiguous."""
+    if blocks.dim() != 3 or tuple(blocks.shape[1:]) != (BS, BS):
+        raise ValueError(f"bsr8_spmv: blocks must be (nnzb, {BS}, {BS}), got "
+                         f"{tuple(blocks.shape)}")
+    if blocks.dtype not in _ENTRY:
+        raise TypeError(f"bsr8_spmv: blocks must be float32, float64 or "
+                        f"bfloat16, got {blocks.dtype}")
+    nnzb = blocks.shape[0]
+    if bcol.dtype != torch.int32 or bptr.dtype != torch.int32:
+        raise TypeError("bsr8_spmv: bcol and bptr must be int32")
+    if bcol.shape != (nnzb,) or bptr.dim() != 1 or bptr.numel() < 2:
+        raise ValueError(f"bsr8_spmv: bcol ({nnzb},) and bptr (n_sup + 1,), got "
+                         f"{tuple(bcol.shape)} and {tuple(bptr.shape)}")
+    dev = blocks.device
+    if bcol.device != dev or bptr.device != dev:
+        raise ValueError("bsr8_spmv: blocks, bcol and bptr lie on different devices")
+    if dev.type == "cuda":
+        if not (blocks.is_contiguous() and bcol.is_contiguous()
+                and bptr.is_contiguous()) or blocks.data_ptr() % 16:
+            raise ValueError("bsr8_spmv: the CUDA kernel takes contiguous "
+                             "operands and 16-byte aligned blocks")
+    elif dev.type != "cpu":
+        raise ValueError(f"bsr8_spmv: no kernel for device {dev}")
+
+
+def _check_x(blocks: torch.Tensor, n_sup: int, x: torch.Tensor) -> None:
+    """Raise on an x the kernel does not take with these blocks."""
+    if x.dim() != 1 or not BS * (n_sup - 1) < x.shape[0] <= BS * n_sup:
+        raise ValueError(f"bsr8_spmv: x must be 1-D of length in "
+                         f"({BS * (n_sup - 1)}, {BS * n_sup}], got {tuple(x.shape)}")
+    want = torch.float32 if blocks.dtype == torch.bfloat16 else blocks.dtype
+    if x.dtype != want:
+        raise TypeError(f"bsr8_spmv: {blocks.dtype} blocks take {want} x, got "
+                        f"{x.dtype}")
+    if x.device != blocks.device:
+        raise ValueError("bsr8_spmv: x and the blocks lie on different devices")
+    if x.is_cuda and not x.is_contiguous():
+        raise ValueError("bsr8_spmv: the CUDA kernel takes a contiguous x")
+
+
+def bsr8_spmv(blocks: torch.Tensor, bcol: torch.Tensor, bptr: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+    """y = A x for A in BSR-8 form: blocks (nnzb, 8, 8), int32 block columns
+    bcol (nnzb,) and block-row pointer bptr (n_sup + 1,), x of length n
+    with 8 (n_sup - 1) < n <= 8 n_sup (the last supernode's columns past n
+    read 0).  On a CUDA tensor the kernel of ``csrc/bsr8_spmv.cu``, on a
+    CPU tensor its plain twin.  The block columns are not range-checked
+    here: :class:`SupernodeSpmv` checks them once on the host."""
+    _check_plan(blocks, bcol, bptr)
+    _check_x(blocks, bptr.shape[0] - 1, x)
+    if not x.is_cuda:
+        return bsr8_spmv_plain(blocks, bcol, bptr, x)
+    if int(bptr[-1]) != blocks.shape[0]:
+        raise ValueError("bsr8_spmv: bptr[-1] differs from the number of blocks")
+    y = x.new_empty(x.shape[0])
+    kernels.launch(_ENTRY[blocks.dtype], x.device, blocks.data_ptr(),
+                   bcol.data_ptr(), bptr.data_ptr(), x.data_ptr(), y.data_ptr(),
+                   x.shape[0], bptr.shape[0] - 1)
+    _LAUNCHES["bsr8_spmv_bf16" if blocks.dtype == torch.bfloat16 else "bsr8_spmv"] += 1
+    return y
 
 
 def build_blocks(values: np.ndarray, topo, bs: int = BS):
@@ -91,38 +192,44 @@ class SupernodeSpmv:
     """y = A x through 8x8 supernode blocks on one device.
 
     ``blocks`` (nnzb, bs, bs) is a device tensor; ``bcol``, ``bptr`` and
-    ``brow`` stay on the host (numpy, int64) for the smoother's set-up.
-    ``plain=True`` runs the kernels' plain twins on any device."""
+    ``brow`` stay on the host (numpy, int64) for the smoother's set-up, and
+    ``cols``/``ptr`` are their int32 device copies the kernel reads.
+    ``plain=True`` runs the kernel's plain twin on any device."""
 
     def __init__(self, n: int, blocks: torch.Tensor, bcol: np.ndarray,
                  bptr: np.ndarray, brow: np.ndarray, *, plain: bool = False):
         nnzb, bs, bs2 = blocks.shape
         n_sup = len(bptr) - 1
-        if bs != bs2 or n_sup != -(-n // bs) or len(bcol) != nnzb \
+        if bs != BS or bs2 != BS or n_sup != -(-n // bs) or len(bcol) != nnzb \
                 or len(brow) != nnzb or int(bptr[-1]) != nnzb:
             raise ValueError("SupernodeSpmv: blocks, bcol, bptr and brow "
                              f"disagree (n={n}, blocks {tuple(blocks.shape)})")
         if nnzb and (bcol.min() < 0 or bcol.max() >= n_sup):
             raise ValueError("SupernodeSpmv: bcol outside [0, n_sup)")
+        if nnzb >= 2**31:
+            raise ValueError("SupernodeSpmv: more blocks than int32 indexes")
         deg = np.diff(bptr)
         if np.any(deg < 0) or not np.array_equal(
                 np.repeat(np.arange(n_sup), deg), brow):
             raise ValueError("SupernodeSpmv: brow and bptr disagree")
         self.n, self.n_sup, self.bs = n, n_sup, bs
-        self.blocks = blocks
         self.bcol, self.bptr, self.brow = bcol, bptr, brow
         self.plain = plain
         dev = blocks.device
-        # (nnzb, 1) int32 block columns
-        self.cols = torch.as_tensor(bcol.astype(np.int32).reshape(-1, 1),
-                                    device=dev)
-        # row reduce: block-row i sums blocks bptr[i] .. bptr[i+1]-1, as an
-        # (n_sup, Wb) int32 ELL of block ids with -1 pads
-        rb = np.full((n_sup, max(int(deg.max()), 1) if n_sup else 1), -1,
-                     np.int32)
-        rb[brow, np.arange(nnzb) - np.repeat(bptr[:-1], deg)] = np.arange(
-            nnzb, dtype=np.int32)
-        self.row_blocks = torch.as_tensor(rb, device=dev)
+        self.cols = torch.as_tensor(bcol.astype(np.int32), device=dev)
+        self.ptr = torch.as_tensor(bptr.astype(np.int32), device=dev)
+        self._bind(blocks.contiguous())
+
+    def _bind(self, blocks: torch.Tensor) -> None:
+        """Take ``blocks``, check the plan once and keep what a call on the
+        card needs: the entry point, x's dtype and device, the pointers."""
+        _check_plan(blocks, self.cols, self.ptr)
+        self.blocks = blocks
+        self._entry = _ENTRY[blocks.dtype]
+        self._xdtype = torch.float32 if blocks.dtype == torch.bfloat16 else blocks.dtype
+        self._dev = blocks.get_device()
+        self._args = (blocks.data_ptr(), self.cols.data_ptr(), self.ptr.data_ptr())
+        self._count = "bsr8_spmv_bf16" if blocks.dtype == torch.bfloat16 else "bsr8_spmv"
 
     @classmethod
     def from_numpy(cls, blocks: np.ndarray, bcol: np.ndarray, bptr: np.ndarray,
@@ -146,34 +253,34 @@ class SupernodeSpmv:
                               plain=A.plain)
 
     def as_bf16(self) -> "SupernodeSpmv":
-        """Preconditioner-grade copy with bfloat16 blocks (float32 sums in
-        the products) and the same index arrays.  For the V-cycle only:
-        the CG operator defines the solution and keeps its float32 blocks."""
+        """Preconditioner-grade copy with bfloat16 blocks (exact products,
+        float64 sums, float32 x and y) and the same index arrays.  For the
+        V-cycle only: the CG operator defines the solution and keeps its
+        float32 blocks."""
         out = copy.copy(self)
-        out.blocks = self.blocks.to(torch.bfloat16)
+        out._bind(self.blocks.to(torch.bfloat16))
         return out
 
     @property
     def nbytes(self) -> int:
         return self.blocks.numel() * self.blocks.element_size()
 
-    def _gather(self, cols: torch.Tensor, tables: torch.Tensor,
-                out: torch.Tensor) -> None:
-        if self.plain:
-            out.copy_(ell_gather_sum_batched_plain(cols, tables))
-        else:
-            ell_gather_sum_batched(cols, tables, out=out)
-
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        nnzb, n_sup, bs = self.blocks.shape[0], self.n_sup, self.bs
-        xb = torch.nn.functional.pad(x, (0, n_sup * bs - self.n)).view(n_sup, bs)
-        # the 8 channels of the (rows, 8) arrays, read and written in place
-        xg = torch.empty((nnzb, bs), dtype=x.dtype, device=x.device)
-        self._gather(self.cols, xb.T, xg.T)
-        yp = block_products(self.blocks, xg)
-        yb = torch.empty((n_sup, bs), dtype=x.dtype, device=x.device)
-        self._gather(self.row_blocks, yp.T, yb.T)
-        return yb.reshape(-1)[: self.n]
+        """y = A x: on the card one bsr8_spmv launch (x checked against
+        what the plan's check kept), else the plain twin."""
+        if x.shape != (self.n,):
+            raise ValueError(f"SupernodeSpmv: x must be ({self.n},), got "
+                             f"{tuple(x.shape)}")
+        if self.plain or not x.is_cuda:
+            return bsr8_spmv_plain(self.blocks, self.cols, self.ptr, x)
+        if x.dtype != self._xdtype or x.get_device() != self._dev \
+                or not x.is_contiguous():
+            _check_x(self.blocks, self.n_sup, x)  # raises with the reason
+        y = x.new_empty(self.n)
+        kernels.launch(self._entry, x.device, *self._args, x.data_ptr(),
+                       y.data_ptr(), self.n, self.n_sup)
+        _LAUNCHES[self._count] += 1
+        return y
 
     spmv = __call__
 

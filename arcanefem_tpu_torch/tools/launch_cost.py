@@ -2,16 +2,18 @@
 
     python arcanefem_tpu_torch/tools/launch_cost.py [--tree DIR] [--calls N]
 
-Each wrapper (K1-K10, P1 and the assembly's two kernels) is called N
-times back to back (default 2000, after a warm-up) at a size where the
-card is idle: 32 rows of width 8 for the ELL, SELL and diag kernels (K10
-through ``DiagEllMatrix.spmv``, whose plan is checked once), one
-128-request tile for the band gather's checked entry points, one narrow
-and one wide tile over a 4096-entry table for a whole band plan
-(``BandedGather.__call__``: in one launch since the fused kernel, K9a
-then K2 and a concatenation before it), one window (nb = 1) for the
-window take, a 4^3 box for the stencil kernels, 8 tetrahedra over 32 nodes and
-128 entries into 32 slots for the assembly.  The host clock is read after
+Each wrapper (K1-K10, P1, the assembly's two kernels and the BSR-8
+supernode SpMV) is called N times back to back (default 2000, after a
+warm-up) at a size where the card is idle: 32 rows of width 8 for the
+ELL, SELL and diag kernels (K10 through ``DiagEllMatrix.spmv``, whose plan
+is checked once), one 128-request tile for the band gather's checked
+entry points, one narrow and one wide tile over a 4096-entry table for a
+whole band plan (``BandedGather.__call__``: in one launch since the fused
+kernel, K9a then K2 and a concatenation before it), one window (nb = 1)
+for the window take, a 4^3 box for the stencil kernels, 8 tetrahedra over
+32 nodes and 128 entries into 32 slots for the assembly, and 4 block rows
+of three 8x8 blocks (n = 32) for the BSR-8 supernode SpMV through
+``SupernodeSpmv``.  The host clock is read after
 the last call and before one final ``torch.cuda.synchronize()``, so the
 figure is the host's cost of issuing a call; ``host_us`` is the best of 5
 such blocks, since the host's clock moves with its other load.  Beside
@@ -34,7 +36,9 @@ import sys
 import time
 
 
-def _host_us(fn, calls: int, blocks: int = 5) -> float:
+def host_us(fn, calls: int, blocks: int = 5) -> float:
+    """Host µs per call of fn: ``calls`` back to back, the clock read
+    before the final synchronise, the best of ``blocks`` blocks."""
     import torch
 
     for _ in range(20):
@@ -98,6 +102,14 @@ def _cases(dev):
         ke = torch.rand(128, device=dev)
         cases = [("tet_element", lambda: tet_element(t3.T, corner), 80),
                  ("slot_reduce", lambda: slot_reduce(ptr, ids, ke), n)]
+    from arcanefem_tpu_torch.sparse import supernode
+
+    if hasattr(supernode, "bsr8_spmv"):  # earlier trees ran K3a, products, K3a
+        # 4 block rows of 3 blocks each (n = 32)
+        sn = supernode.SupernodeSpmv.from_numpy(
+            rng.rand(12, 8, 8), np.array([0, 1, 2, 0, 1, 3, 1, 2, 3, 0, 2, 3]),
+            np.arange(0, 13, 3), np.repeat(np.arange(4), 3), n, device=dev)
+        cases.append(("bsr8_spmv (SupernodeSpmv)", lambda: sn(x), n))
     box = StructuredBox(4, 4, 4)
     nyp, nzp = ds._pads(box)
     bands = torch.rand((box.nx + 1, 15, nyp, nzp), device=dev)
@@ -133,8 +145,8 @@ def measure_all(calls: int = 2000) -> list[dict]:
     for name, fn, m in _cases(dev):
         src = torch.rand(m, device=dev)
         idx = torch.randint(0, m, (m,), device=dev)
-        out.append({"launch": name, "host_us": _host_us(fn, calls),
-                    "torch_us": _host_us(lambda: torch.gather(src, 0, idx), calls),
+        out.append({"launch": name, "host_us": host_us(fn, calls),
+                    "torch_us": host_us(lambda: torch.gather(src, 0, idx), calls),
                     "calls": calls})
     return out
 

@@ -10,8 +10,11 @@ which in-VMEM gather forms Mosaic compiles on the TPU.  Over windows win
     window_take(win, idx, "flat")     out[b,g,l] = win[b].flat[idx[b,g,l]] (P2)
 
 On a CUDA tensor the hand-written kernel of ``csrc/window_gather.cu``
-runs (``launch_counts()`` counts it); on a CPU tensor its plain twin.
-Indices outside the window give 0.
+runs (``launch_counts()`` counts it): a window of K <= ``SMEM_MAX_K``
+rows is staged in shared memory by one bulk asynchronous copy and every
+take is served from there, as the TPU probes take from VMEM; a larger one
+is read through L1/L2.  On a CPU tensor its plain twin runs.  Indices
+outside the window give 0.
 
 ``probe_A`` (P1) and ``probe_B`` (P2) check one window (nb = 1) against
 numpy's ``take_along_axis`` and flat indexing; ``bench_A`` (P3) times the
@@ -33,6 +36,9 @@ from ..utils import kernels
 
 LANE = 128
 MODES = {"column": 0, "flat": 1}
+# the largest K whose (K, 128) float32 window the kernel stages in a block's
+# shared memory (csrc/window_gather.cu); larger windows are read through L1/L2
+SMEM_MAX_K = 448
 _LAUNCHES = {"window_take": 0}
 
 
@@ -60,29 +66,32 @@ def window_take_plain(win: torch.Tensor, idx: torch.Tensor,
 
 
 def window_take(win: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor:
-    """The column or flat take of each window (P1-P3 on the card)."""
-    if mode not in MODES:
+    """The column or flat take of each window (P1-P3 on the card).  The
+    wrapper checks what the kernel needs (shapes, types, one device,
+    contiguity), allocates the output and makes one ctypes call."""
+    m = MODES.get(mode)
+    if m is None:
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
     ws, xs = win.shape, idx.shape
-    if len(ws) != 3 or ws[2] != LANE or len(xs) != 3 or xs[0] != ws[0] \
-            or xs[2] != LANE:
+    if len(ws) != 3 or len(xs) != 3 or ws[2] != LANE or xs[2] != LANE \
+            or xs[0] != ws[0]:
         raise ValueError(f"window_take: win (nb, K, {LANE}) and idx (nb, G, "
                          f"{LANE}), got {tuple(ws)} and {tuple(xs)}")
     if win.dtype != torch.float32 or idx.dtype != torch.int32:
         raise TypeError("window_take: win must be float32 and idx int32")
-    if win.get_device() != idx.get_device():
+    dev = win.get_device()
+    if idx.get_device() != dev:
         raise ValueError("window_take: operands lie on different devices")
-    if not win.is_cuda:
+    if dev < 0:
         if win.device.type != "cpu":
             raise ValueError(f"window_take: no kernel for device {win.device}")
         return window_take_plain(win, idx, mode)
     if not (win.is_contiguous() and idx.is_contiguous()):
         raise ValueError("window_take: the CUDA kernel takes contiguous operands")
-    nb, K, _ = ws
     out = win.new_empty(xs)
-    if nb and xs[1]:
+    if ws[0] and xs[1]:
         kernels.launch("afem_window_take_f32", win.device, win.data_ptr(),
-                       idx.data_ptr(), out.data_ptr(), nb, K, xs[1], MODES[mode])
+                       idx.data_ptr(), out.data_ptr(), ws[0], ws[1], xs[1], m)
         _LAUNCHES["window_take"] += 1
     return out
 
@@ -111,15 +120,20 @@ def probe_B(K: int, G: int, device) -> bool:
 
 
 def measure(mode: str, K: int, G: int, nb: int, reps: int = 20,
-            outer: int = 3, device="cuda") -> dict:
+            outer: int = 3, device="cuda", calls: int = 2000) -> dict:
     """One take over nb windows on the card, checked against its plain
     twin and timed (CUDA events, best of ``outer`` × ``reps`` calls) beside
     the twin and the library call (``torch.gather`` for the column take,
     flat indexing for the flat take); the byte bound at 3.35 TB/s: 4 bytes
     of index and 4 of output per element, and the windows read once, or
     one 32-byte sector per element where that is less (a K = 1024 take
-    touches a few percent of its window)."""
+    touches a few percent of its window).  ``host_us`` is the host's cost
+    per call (``tools/launch_cost.py``, ``calls`` back to back, best of 5
+    blocks) and ``gather_host_us`` the same for ``torch.gather`` over the
+    same windows and indices (on the flattened windows for the flat take);
+    where the card is the slower side, both read its time instead."""
     from ..utils.timing import time_op
+    from .launch_cost import host_us
 
     win, idx = _inputs(nb, K, G, mode, device)
     y, yp = window_take(win, idx, mode), window_take_plain(win, idx, mode)
@@ -130,12 +144,16 @@ def measure(mode: str, K: int, G: int, nb: int, reps: int = 20,
         lib, largs = win.reshape(-1).__getitem__, (flat,)
     ms = time_op(window_take, win, idx, mode, reps=reps, outer=outer) * 1e3
     n_el = nb * G * LANE
+    gwin, gidx = ((win, idx.long()) if mode == "column" else
+                  (win.reshape(nb, -1), idx.reshape(nb, -1).long()))
     return {"mode": mode, "K": K, "G": G, "nb": nb, "equal": bool(torch.equal(y, yp)),
             "max_abs_err": float((y - yp).abs().max()), "ms": ms,
             "gelem_s": n_el / (ms * 1e-3) / 1e9,
             "plain_ms": time_op(window_take_plain, win, idx, mode, reps=reps,
                                 outer=outer) * 1e3,
             "library_ms": time_op(lib, *largs, reps=reps, outer=outer) * 1e3,
+            "host_us": host_us(lambda: window_take(win, idx, mode), calls),
+            "gather_host_us": host_us(lambda: torch.gather(gwin, 1, gidx), calls),
             "bound_ms": (min(win.numel() * 4, n_el * 32) + n_el * 8) / 3.35e12 * 1e3}
 
 

@@ -46,7 +46,8 @@ _STENCIL_ASSEMBLY = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _I64,
                      _F64, _F64, _P]
 _ELL_SPMV_BATCHED = [_P, _P, _P, _P, _I64, _I]  # vals, cols, t, y, n, W
 _ELL_GATHER_SUM = [_P, _P, _P, _I64, _I, _P]
-_BATCHED_STRIDES = [_I, _I64, _I64, _I64, _I64, _P]  # B, ts_r, ts_b, ys_r, ys_b, stream
+# B, n_t (table rows), ts_r, ts_b, ys_r, ys_b, stream
+_BATCHED_STRIDES = [_I, _I64, _I64, _I64, _I64, _I64, _P]
 # vals, cols, slice_ptr, perm, x, y, n_rows, n_slices, stream
 _SELL_SPMV = [_P, _P, _P, _P, _P, _P, _I64, _I64, _P]
 # bases, lcols, wide, t, out, n_tiles, n_narrow, K, B, n_t, ts_r, ts_b, os_r,
@@ -56,6 +57,7 @@ _BAND_GATHER = [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I64, _I64, _I64, _I64,
 # lo, c0, scnt, lcols, vals, x, y, n, W, qn, stream
 _DIAG_SPMV = [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P]
 _SLOT_REDUCE = [_P, _P, _P, _P, _I64, _P]  # ptr, ids, table, out, n_slots, stream
+_BSR8_SPMV = [_P, _P, _P, _P, _P, _I64, _I64, _P]  # blocks, bcol, bptr, x, y, n, n_sup, stream
 # (name, argtypes) of every C entry point in csrc/; all return an int
 # cudaError_t from cudaGetLastError() after the launch
 _SIGNATURES = {
@@ -84,6 +86,9 @@ _SIGNATURES = {
     "afem_tet_element_f32": [_P, _P, _P, _P, _I64, _P, _I64, _P],
     "afem_slot_reduce_f32": _SLOT_REDUCE,
     "afem_slot_reduce_f64": _SLOT_REDUCE,
+    "afem_bsr8_spmv_f32": _BSR8_SPMV,
+    "afem_bsr8_spmv_f64": _BSR8_SPMV,
+    "afem_bsr8_spmv_bf16_f32": _BSR8_SPMV,
 }
 
 

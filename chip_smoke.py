@@ -28,11 +28,15 @@ script then exits non-zero without the final line:
    supernode operator, (b) with the block-Jacobi fine smoother, (c) with
    bf16 fine-level blocks too, (d) the ELL operator with the block-Jacobi
    smoother, (e) the bf16 V-cycle, (f) the batched coordinate gather; each
-   solve checked and printed with its launch counts as an ``[sn]`` line;
-   two assemblies on each of the four assembly routes (``ASM_ROUTES``),
-   all eight equal bit for bit (``[asm]``); then K3a at its three shapes,
-   K3b at the fine operator's and K1 bf16 held against their plain twins
-   and timed;
+   solve checked and printed with its launch counts as an ``[sn]`` line,
+   (a)-(c) with every supernode SpMV one ``bsr8_spmv`` launch (no K3a) and
+   24, 22 and 28 iterations ± 1; two assemblies on each of the four
+   assembly routes (``ASM_ROUTES``), all eight equal bit for bit
+   (``[asm]``); then ``bsr8_spmv`` on f32 and bf16 blocks held to its
+   twin (and K1) and timed beside cuSPARSE BSR, K3a at its three shapes
+   (the supernode column gather and row reduce, which no path runs since
+   ``bsr8_spmv``, as kernel checks), K3b at the fine operator's and K1
+   bf16 held against their plain twins and timed;
 g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    compact`` (pre-gather K2), (h) with ``--band-pre`` (each pre-gather of
    the CG operator, the levels and the transfers one K9a launch over its
@@ -48,10 +52,13 @@ j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
    then ``--spmv diag`` (K10) on the same system, ``[diag]`` lines; K10
    held to its twin and timed there and on the 80^3 RCM box, beside K1 and
    CSR ``torch.mv`` on the same operator; the gather probes P1-P3
-   (``tools/probe_gather.py``) at (K, G) = (160, 64) and (1024, 64);
+   (``tools/probe_gather.py``) at (K, G) = (160, 64) (window in shared
+   memory) and (1024, 64) (L1/L2), each with its host µs per call beside
+   ``torch.gather``'s;
 5. the same system at h=8 with the plain twins in place of the kernels,
    and in float64 on the CPU: iterations and solutions must agree, on the
-   ELL route and (9b) on the supernode route with the block smoother;
+   ELL route and (9b) on the supernode route with the block smoother, also
+   with bf16 V-cycle blocks (9c);
 6. structured kernel parity: the stencil kernel (K5-K8) in every mode and
    layout, f32 and bf16 bands, and the stencil assembly (K4), stiffness
    only and fused with the BC, against their plain twins on a 96x80x136
@@ -323,15 +330,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. the kernel path against the plain path, and against float64 on
-    #    the CPU, at h=8; 9b. the same for the supernode route with the
-    #    block smoother, on each run's own operator and hierarchy
+    #    the CPU, at h=8; 9b, 9c. the same for the supernode route with the
+    #    block smoother, also with bf16 V-cycle blocks, on each run's own
+    #    operator and hierarchy
     systems: dict = {}
     mesh, topo = sphere_cut_system(8.0, 0)
     setups = {"kernel": dict(device=dev, dtype=torch.float32, penalty=1e12),
               "plain": dict(device=dev, dtype=torch.float32, penalty=1e12,
                             plain=True),
               "cpu_f64": dict(device="cpu", dtype=torch.float64, penalty=1e30)}
-    for route, opts in (("h8", {}), ("h8sn", dict(spmv="supernode", sn_block=True))):
+    for route, opts in (("h8", {}), ("h8sn", dict(spmv="supernode", sn_block=True)),
+                        ("h8snbf16", dict(spmv="supernode", sn_block=True, sn_bf16=True))):
         runs = {}
         for name, kw in setups.items():
             runs[name] = solve_sphere_cut(mesh, topo, **kw, **opts,
@@ -481,11 +490,16 @@ SN_CONFIGS = {  # phase 9: bench_unstructured's flags of each configuration
     "e": dict(vcycle_bf16=True),
     "f": dict(asm_coords="batched"),
 }
+# the supernode routes' iteration counts at 1.9M, held ± 1: (a) and (b)
+# take the ELL operator's counts (phase 4, and (d) for the block smoother);
+# (c)'s bf16 V-cycle blocks, whose exact products bsr8_spmv sums in f64
+# (the three-step SpMV summed each block's 8 in f32 and took 28), take 25
+SN_ITERS = {"a": 24, "b": 22, "c": 25}
 
 
 def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     """Phase 9: the configurations of SN_CONFIGS on phase 4's operator and
-    AMG hierarchy (``res4``), then K3a, K3b and K1 bf16 at the route's
+    AMG hierarchy (``res4``), then bsr8_spmv, K3a, K3b and K1 bf16 at the route's
     shapes; returns their records."""
     import torch
 
@@ -501,6 +515,8 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
         ell_spmv_batched_plain,
     )
     from arcanefem_tpu_torch.sparse.sell import sell_spmv, sell_spmv_plain
+    import numpy as np
+
     from arcanefem_tpu_torch.sparse.supernode import block_products
     from arcanefem_tpu_torch.utils.timing import time_op
 
@@ -528,14 +544,32 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
         _check(bool(torch.isfinite(r["x"]).all()), f"[sn] {key}: non-finite x")
         _check(counts[key]["sell_spmv"] > 0, f"[sn] {key}: K1 never ran")
         if opts.get("spmv") == "supernode":
+            # every supernode SpMV is one bsr8_spmv launch: no K3a
             _check(r["spmv_path"] == "SupernodeMatrix", f"[sn] {key}: spmv path")
-            _check(counts[key]["ell_gather_sum_batched"] > 0,
-                   f"[sn] {key}: K3a never ran on the supernode route")
+            _check(counts[key]["bsr8_spmv"] > 0
+                   and counts[key]["ell_gather_sum_batched"] == 0,
+                   f"[sn] {key}: the supernode SpMV did not run through "
+                   f"bsr8_spmv alone: {counts[key]}")
+            _check(abs(r["iterations"] - SN_ITERS[key]) <= 1,
+                   f"[sn] {key}: {r['iterations']} iterations, not {SN_ITERS[key]} ± 1")
         del r["x"]
+    _check(counts["c"]["bsr8_spmv_bf16"] > 0, "[sn] c: bsr8_spmv on bf16 blocks never ran")
     _check(counts["e"]["sell_spmv_bf16"] > 0, "[sn] e: bf16 K1 never ran")
     _check(counts["f"]["ell_gather_sum_batched"] > 0
            and counts["f"]["ell_gather_sum"] == 0,
            f"[sn] f: the assembly did not gather through K3a alone: {counts['f']}")
+    # device time by kernel of one (a) solve (its self-check included)
+    def solve_a():
+        return solve_sphere_cut(mesh, topo, device=dev, dtype=torch.float32,
+                                penalty=1e12, system=system, **SN_CONFIGS["a"])
+
+    solve_a()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve_a()
+    torch.cuda.synchronize()
+    _profile(solve_a, os.path.join("build", "profile", "supernode_a.txt"),
+             time.perf_counter() - t0, groups=SPHERE_GROUPS)
     print(f"[sn] iterations: ELL (phase 4) {res4['iterations']}, (b) supernode + "
           f"block-Jacobi {runs['b']['iterations']}, (d) ELL + block-Jacobi "
           f"{runs['d']['iterations']}", flush=True)
@@ -577,13 +611,23 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     nnzb, n_sup = sn.blocks.shape[0], sn.n_sup
     e_sn = operator_self_check(sn, A)
     print(f"[sn] supernode SpMV vs K1 sell_spmv on a unit-random x: {e_sn:.2e} of "
-          f"each row's sum |a x| (tol 1e-5); {nnzb} blocks, {sn.nbytes / 1e9:.3f} GB, "
-          f"row-reduce width {sn.row_blocks.shape[1]}", flush=True)
+          f"each row's sum |a x| (tol 1e-5); {nnzb} blocks, {sn.nbytes / 1e9:.3f} GB",
+          flush=True)
     _check(e_sn <= 1e-5, f"supernode SpMV vs K1: {e_sn:.2e}")
     x = torch.rand(n, generator=gen, device=dev) * 2 - 1
+    records = _bsr8_records(sn, A, x, counts)
+    # K3a's supernode role before bsr8_spmv, which no path runs any more:
+    # the column gather into (nnzb, 8) and the row reduce of the block
+    # products, kept at the route's shapes as kernel checks
+    deg = np.diff(sn.bptr)
+    rb = np.full((n_sup, int(deg.max())), -1, np.int32)
+    rb[sn.brow, np.arange(nnzb) - np.repeat(sn.bptr[:-1], deg)] = np.arange(
+        nnzb, dtype=np.int32)
+    row_blocks = torch.as_tensor(rb, device=dev)
+    sn_cols = sn.cols.view(-1, 1)
     xb = torch.nn.functional.pad(x, (0, n_sup * 8 - n)).view(n_sup, 8)
     xg = torch.empty((nnzb, 8), device=dev)
-    yp = block_products(sn.blocks, ell_gather_sum_batched(sn.cols, xb.T, out=xg.T).T)
+    yp = block_products(sn.blocks, ell_gather_sum_batched(sn_cols, xb.T, out=xg.T).T)
     yb = torch.empty((n_sup, 8), device=dev)
     bcol = torch.as_tensor(sn.bcol, device=dev)
     rsum = torch.sparse_csr_tensor(
@@ -598,21 +642,20 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     asm_corner = asm_b.corner_cols
     vbf = A.values.bfloat16()
     perm_bytes = 0 if lay.perm is None else 4 * n
-    sn_launch = counts["b"]["ell_gather_sum_batched"] // 2  # cols + rows per SpMV
     cases = [
         # name, source line, kernel, plain twin, library call, (bytes, flops),
         # launches, shape
         ("ell_gather_sum_batched (sn cols)", "sparse/pallas_spmv.py:478",
-         lambda: ell_gather_sum_batched(sn.cols, xb.T, out=xg.T),
-         lambda: ell_gather_sum_batched_plain(sn.cols, xb.T),
+         lambda: ell_gather_sum_batched(sn_cols, xb.T, out=xg.T),
+         lambda: ell_gather_sum_batched_plain(sn_cols, xb.T),
          lambda: xb.index_select(0, bcol), (nnzb * 36 + n_sup * 32, 0),
-         sn_launch, [nnzb, 1, 8]),
+         0, [nnzb, 1, 8]),
         ("ell_gather_sum_batched (sn rows)", "sparse/pallas_spmv.py:478",
-         lambda: ell_gather_sum_batched(sn.row_blocks, yp.T, out=yb.T),
-         lambda: ell_gather_sum_batched_plain(sn.row_blocks, yp.T),
+         lambda: ell_gather_sum_batched(row_blocks, yp.T, out=yb.T),
+         lambda: ell_gather_sum_batched_plain(row_blocks, yp.T),
          lambda: torch.sparse.mm(rsum, yp),
-         (nnzb * 32 + sn.row_blocks.numel() * 4 + n_sup * 32, nnzb * 8),
-         sn_launch, [n_sup, sn.row_blocks.shape[1], 8]),
+         (nnzb * 32 + row_blocks.numel() * 4 + n_sup * 32, nnzb * 8),
+         0, [n_sup, row_blocks.shape[1], 8]),
         ("ell_gather_sum_batched (coords)", "sparse/pallas_spmv.py:478",
          lambda: ell_gather_sum_batched(asm_corner, coords.T),
          lambda: ell_gather_sum_batched_plain(asm_corner, coords.T),
@@ -632,11 +675,10 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     # gathers copy values and must equal their twins
     scales = {
         "ell_gather_sum_batched (sn rows)": ell_gather_sum_batched_plain(
-            sn.row_blocks, yp.T.abs()),
+            row_blocks, yp.T.abs()),
         "ell_spmv_batched": ell_spmv_batched_plain(ell_vals.abs(), ell_cols, X8.T.abs()),
         "sell_spmv (bf16 weights)": sell_spmv_plain(vbf.abs(), lay, x.abs()),
     }
-    records = []
     for name, rep_, fk, fp, lib, (nbytes, flops), launches, shape in cases:
         yk, yp_ = fk(), fp()
         torch.cuda.synchronize()
@@ -668,8 +710,9 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
               f"{bms:.4f} ms, {bby}), plain {pms:.3f} ms, library "
               f"{'n/a' if lms is None else f'{lms:.4f} ms'}, max_abs_err {err:.3e} "
               f"({rel:.2e} held), launches {launches}", flush=True)
-    # the 8x8 block products are PyTorch ops (an XLA einsum in the JAX
-    # package, no Pallas kernel); torch.bmm of the same, for the record
+    # the 8x8 block products of the three-step SpMV, PyTorch ops (an XLA
+    # einsum in the JAX package, no Pallas kernel) that the block-Jacobi
+    # apply still runs; torch.bmm of the same, for the record
     torch.backends.cuda.matmul.allow_tf32 = False
     ms = [time_op(f, *a, reps=20, outer=3) * 1e3 for f, a in (
         (block_products, (sn.blocks, xg)),
@@ -682,11 +725,79 @@ def supernode_phase(dev, gen, mesh, topo, res4) -> list[dict]:
     return records
 
 
+def _bsr8_records(sn, A, x, counts) -> list[dict]:
+    """Phase 9: bsr8_spmv at the 1.9M route's shapes, on f32 blocks (the CG
+    operator of (a)-(c)) and bf16 blocks (the V-cycle's fine level on
+    (c)), through ``SupernodeSpmv``: held to its plain twin (1e-6 of each
+    row's sum |a·x|) and, on f32 blocks, to K1 on the same operator (1e-5);
+    timed beside the twin and cuSPARSE BSR (``torch.sparse_bsr_tensor`` of
+    the same blocks times x, padded to 8 n_sup), whose refusal is recorded
+    in its own words."""
+    import torch
+
+    from arcanefem_tpu_torch.sparse.sell import sell_spmv, sell_spmv_plain
+    from arcanefem_tpu_torch.sparse.supernode import bsr8_spmv_plain
+
+    n, n_sup, nnzb = sn.n, sn.n_sup, sn.blocks.shape[0]
+    k1, k1_scale = (sell_spmv(A.values, A.layout, x),
+                    sell_spmv_plain(A.values.abs(), A.layout, x.abs()))
+    crow, bcol = sn.ptr.long(), sn.cols.long()
+    xp = torch.nn.functional.pad(x, (0, 8 * n_sup - n))
+    records = []
+    for op, label, launches in ((sn, "f32 blocks", counts["a"]["bsr8_spmv"]),
+                                (sn.as_bf16(), "bf16 blocks", counts["c"]["bsr8_spmv_bf16"])):
+        blk = op.blocks
+        bf16 = blk.dtype == torch.bfloat16
+        scale = bsr8_spmv_plain(blk.abs(), op.cols, op.ptr, x.abs())
+
+        def held(yk, yp, scale=scale, bf16=bf16, label=label):
+            e = _rel_err(yk, yp, scale)
+            _check(e <= 1e-6, f"bsr8_spmv ({label}) vs its twin: {e:.2e}")
+            if not bf16:
+                e1 = _rel_err(yk, k1, k1_scale)
+                print(f"[sn] bsr8_spmv ({label}) vs K1 sell_spmv: {e1:.2e} of each "
+                      "row's sum |a x| (tol 1e-5)", flush=True)
+                _check(e1 <= 1e-5, f"bsr8_spmv ({label}) vs K1: {e1:.2e}")
+            return e
+
+        xl = xp.bfloat16() if bf16 else xp
+        lib, note = None, None
+        try:
+            bsr = torch.sparse_bsr_tensor(crow, bcol, blk, size=(8 * n_sup, 8 * n_sup))
+            yl = torch.mv(bsr, xl)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            note = f"refused: {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        else:
+            lib = lambda bsr=bsr, xl=xl: torch.mv(bsr, xl)  # noqa: E731
+            note = (f"{_rel_err(yl[:n], bsr8_spmv_plain(blk, op.cols, op.ptr, x), scale):.2e}"
+                    " of each row's sum |a x| from the twin")
+            del yl
+        print(f"[sn] cuSPARSE BSR ({label}, torch.sparse_bsr_tensor @ x): {note}", flush=True)
+        nbytes = blk.numel() * blk.element_size() + 4 * nnzb + 4 * (n_sup + 1) + 8 * n
+        rec = _kernel_record(
+            f"bsr8_spmv ({label})", "bsr8_spmv.cu", "sparse/pallas_spmv.py:478",
+            lambda op=op: op(x), lambda blk=blk, op=op: bsr8_spmv_plain(blk, op.cols, op.ptr, x),
+            lib, (nbytes, 128 * nnzb), launches, [n_sup, nnzb, 8, 8], held,
+            dtype="bfloat16 blocks, float32" if bf16 else "float32")
+        rec.update(library="cuSPARSE BSR (torch.sparse_bsr_tensor @ x)", library_note=note)
+        records.append(rec)
+        del scale
+    return records
+
+
 def _counted():
     from arcanefem_tpu_torch.ops import lane_assembly
-    from arcanefem_tpu_torch.sparse import band_gather, diag_spmv, ell_gather, sell, slot_reduce
+    from arcanefem_tpu_torch.sparse import (
+        band_gather,
+        diag_spmv,
+        ell_gather,
+        sell,
+        slot_reduce,
+        supernode,
+    )
 
-    return ell_gather, sell, band_gather, diag_spmv, lane_assembly, slot_reduce
+    return ell_gather, sell, band_gather, diag_spmv, lane_assembly, slot_reduce, supernode
 
 
 def _reset_all() -> None:
@@ -1042,7 +1153,9 @@ def probe_phase(dev) -> list[dict]:
             print(f"[probe] {name} K={K} G=64 nb={nb}: {m['ms']:.4f} ms, device "
                   f"{m['device_ms']:.4f} ms, "
                   f"{m['gelem_s']:.2f} Gelem/s, plain {m['plain_ms']:.4f} ms, library "
-                  f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms", flush=True)
+                  f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms; host "
+                  f"{m['host_us']:.2f} us per call, torch.gather {m['gather_host_us']:.2f} "
+                  f"us ({'shared memory' if K <= pg.SMEM_MAX_K else 'L1/L2'})", flush=True)
             records.append({
                 "name": f"window_take ({name}, K={K})", "route": "cuda",
                 "source": "arcanefem_tpu_torch/csrc/window_gather.cu",
@@ -1051,6 +1164,8 @@ def probe_phase(dev) -> list[dict]:
                 "device_ms": m["device_ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": "bytes",
                 "library_ms": m["library_ms"], "gelem_s": m["gelem_s"],
+                "host_us": m["host_us"], "gather_host_us": m["gather_host_us"],
+                "window_in": "shared memory" if K <= pg.SMEM_MAX_K else "L1/L2",
                 "shape": [nb, K, 64], "dtype": "float32"})
     return records
 
@@ -1144,7 +1259,7 @@ SPHERE_GROUPS = {
     "K2 ell_gather_sum": "ell_gather_kernel", "K9a band_gather": "band_gather_kernel",
     "tet_element": "tet_element_kernel", "slot_reduce": "slot_reduce_kernel",
     "K10 diag_spmv": "diag_spmv_kernel", "cat/stack copies": "CatArrayBatchedCopy",
-    "reductions": "reduce_kernel"}
+    "bsr8_spmv": "bsr8_spmv_kernel", "reductions": "reduce_kernel"}
 
 
 def _profile(fn, path: str, wall_s: float, top: int = 12,

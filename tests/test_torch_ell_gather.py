@@ -165,3 +165,40 @@ def test_batched_match_pallas_plans(name, B, layout):
                                                      dtype=torch.int32),
                                      t[b].contiguous()))
             assert torch.equal(got[k][b], single)
+
+
+@pytest.mark.parametrize("layout", ["table_major", "channel_minor", "row_strided"])
+@pytest.mark.parametrize("B", list(range(1, 9)))
+def test_batched_w1_gather_matches_unit_plan(B, layout):
+    """The W=1 batched gather (K3a's coordinate and remap role) for every B
+    in 1..8 == the JAX unit plan (compact, as the assembly builds it)
+    emulated table by table, and == numpy's take, exactly: a copy, with -1
+    pads giving 0.  ``channel_minor`` reads an (n_t, B) row-major array in
+    place and writes the result into an (n, B) one; ``row_strided`` reads
+    and writes through a row stride of B + 2 (every other column of a wider
+    array)."""
+    rng = np.random.RandomState(10 + B)
+    n_t, n = 700, 2500
+    cols = rng.randint(0, n_t, (n, 1)).astype(np.int32)
+    real = rng.rand(n, 1) > 0.1
+    ucols = np.where(real, cols, -1).astype(np.int32)
+    tables = rng.rand(B, n_t).astype(np.float32)
+    if layout == "table_major":
+        t, out = torch.as_tensor(tables), None
+    elif layout == "channel_minor":
+        t = torch.as_tensor(np.ascontiguousarray(tables.T)).T
+        out = torch.empty((n, B)).T
+    else:
+        wide = np.zeros((n_t, B + 2), np.float32)
+        wide[:, :B] = tables.T
+        t = torch.as_tensor(wide)[:, :B].T
+        out = torch.empty((n, B + 2))[:, :B].T
+    got = ell_gather_sum_batched(torch.as_tensor(ucols), t, out=out)
+    assert got.shape == (B, n)
+    if out is not None:
+        assert got is out
+    want = np.where(real[:, 0], tables[:, cols[:, 0]], 0.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    g = PlannedGather.build(cols, real.astype(np.bool_), wcap=0, compact=True)
+    np.testing.assert_array_equal(
+        got.numpy(), np.stack([emulate_gather(g, tb) for tb in tables]))

@@ -45,7 +45,8 @@ from arcanefem_tpu_torch.sparse import band_gather as band
 from arcanefem_tpu_torch.sparse import diag_spmv as dsp
 from arcanefem_tpu_torch.sparse.band_gather import BandedGather
 from arcanefem_tpu_torch.sparse.diag_spmv import DiagEllMatrix
-from arcanefem_tpu_torch.sparse.supernode import SupernodeSpmv
+from arcanefem_tpu_torch.sparse import supernode as snm
+from arcanefem_tpu_torch.sparse.supernode import SupernodeSpmv, bsr8_spmv, bsr8_spmv_plain
 from arcanefem_tpu_torch.tools import probe_gather as pg
 
 NO_LAUNCHES = {"ell_gather_sum": 0, "ell_spmv_batched": 0,
@@ -219,9 +220,9 @@ def test_bf16_spmv_matches_plain_on_cuda(cuda):
 
 
 def test_supernode_spmv_on_cuda_matches_cpu(cuda):
-    """The supernode SpMV of the h=14 operator through K3a on the card ==
-    its CPU twin (f32 blocks, f64 row reduce: 1e-5 of each row's sum
-    |a·x|), and the f64 operator to 1e-12; bf16 blocks too."""
+    """The supernode SpMV of the h=14 operator through bsr8_spmv on the card
+    (one launch, no K3a) == its CPU twin (f32 blocks: 1e-5 of each row's
+    sum |a·x|), and the f64 operator to 1e-12; bf16 blocks with f32 x too."""
     mesh, topo = sphere_cut_system(14.0, 0, cache=False)
     res = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64,
                            penalty=1e12)
@@ -235,14 +236,92 @@ def test_supernode_spmv_on_cuda_matches_cpu(cuda):
         dev = SupernodeSpmv.build(BellMatrix.from_numpy(
             Ad.ell_values().numpy(), topo.ell_cols, topo.diag_slot, device=cuda,
             dtype=dtype), topo)
-        # bf16 blocks sum their products in f32 whatever x's dtype
-        for a, b, tol in ((cpu, dev, rtol), (cpu.as_bf16(), dev.as_bf16(), 1e-5)):
+        # bf16 blocks take f32 x and sum their exact products in f64
+        for a, b, tol, xd in ((cpu, dev, rtol, dtype),
+                              (cpu.as_bf16(), dev.as_bf16(), 1e-5, torch.float32)):
             reset_launch_counts()
-            y = b(x.to(dtype).to(cuda)).cpu()
-            assert launch_counts()["ell_gather_sum_batched"] == 2
-            want = a(x.to(dtype))
+            snm.reset_launch_counts()
+            y = b(x.to(xd).to(cuda)).cpu()
+            bf16 = b.blocks.dtype == torch.bfloat16
+            assert snm.launch_counts() == {"bsr8_spmv": int(not bf16),
+                                           "bsr8_spmv_bf16": int(bf16)}
+            assert launch_counts()["ell_gather_sum_batched"] == 0
+            want = a(x.to(xd))
             assert bool(((y.double() - want.double()).abs() <= tol * scale).all())
         assert bool(((y.double() - A.spmv(x)).abs() <= 2e-2 * scale.max()).all())
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6), (torch.float64, 1e-12),
+                                        (torch.bfloat16, 1e-6)])
+def test_bsr8_spmv_matches_plain_on_cuda(cuda, dtype, rtol):
+    """bsr8_spmv == its plain twin on the card, to rtol of each row's sum
+    |a·x| (f32 and bf16 blocks: one f32 rounding of y; f64: the sum
+    order), on random block rows of 0 to 44 blocks (44 is the 1.9M
+    sphere's largest degree) with an empty block row and one at 44, n not a
+    multiple of 8, x 16-byte aligned and not (a view at offset 1);
+    SupernodeSpmv and the public wrapper agree bit for bit, one launch per
+    call, and the empty block row gives zeros."""
+    rng = np.random.RandomState(11)
+    n_sup = 3000
+    n = 8 * n_sup - 3
+    deg = rng.randint(0, 45, n_sup)
+    deg[1], deg[2] = 0, 44
+    bptr = np.concatenate([[0], np.cumsum(deg)])
+    bcol = np.concatenate([np.sort(rng.choice(n_sup, d, replace=False)) for d in deg])
+    blocks = rng.rand(bptr[-1], 8, 8) * 2 - 1
+    sn = SupernodeSpmv.from_numpy(blocks, bcol, bptr, np.repeat(np.arange(n_sup), deg),
+                                  n, device=cuda, dtype=dtype)
+    xd = torch.float32 if dtype == torch.bfloat16 else dtype
+    base = torch.as_tensor(rng.rand(n + 1) * 2 - 1, dtype=xd, device=cuda)
+    snm.reset_launch_counts()
+    for x in (base[:n], base[1:]):
+        y = sn(x)
+        yk = bsr8_spmv(sn.blocks, sn.cols, sn.ptr, x)
+        torch.cuda.synchronize()
+        assert y.dtype == xd and y.shape == (n,) and torch.equal(y, yk)
+        want = bsr8_spmv_plain(sn.blocks, sn.cols, sn.ptr, x)
+        scale = bsr8_spmv_plain(sn.blocks.abs(), sn.cols, sn.ptr, x.abs())
+        assert bool(((y.double() - want.double()).abs() <= rtol * scale.double()).all())
+        assert not bool(y[8:16].any())
+    bf16 = dtype == torch.bfloat16
+    assert snm.launch_counts() == {"bsr8_spmv": 0 if bf16 else 4,
+                                   "bsr8_spmv_bf16": 4 if bf16 else 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_w1_matches_plain_on_cuda(cuda, dtype):
+    """K3a (and K3b) at W=1 for every B in 1..8, with -1 pads, tables and
+    results table-major, channel-minor and row-strided (a stride of B + 2):
+    equal to their plain twins bit for bit (a copy; one rounded product)."""
+    gen = torch.Generator().manual_seed(12)
+    _reset()
+    n_t, n = 70_001, 300_007
+    calls = 0
+    for B in range(1, 9):
+        cols = torch.randint(0, n_t, (n, 1), generator=gen, dtype=torch.int32)
+        ucols = torch.where(torch.rand((n, 1), generator=gen) < 0.1, -1, cols)
+        vals = torch.rand((n, 1), generator=gen, dtype=dtype)
+        cols, ucols, vals = (t.to(cuda) for t in (cols, ucols, vals))
+        tab = torch.rand((B, n_t), generator=gen, dtype=dtype).to(cuda)
+        for layout in ("table_major", "channel_minor", "row_strided"):
+            if layout == "table_major":
+                t, outs = tab, (None, None)
+            elif layout == "channel_minor":
+                t = tab.T.contiguous().T
+                outs = [torch.empty((n, B), dtype=dtype, device=cuda).T for _ in range(2)]
+            else:
+                t = torch.zeros((n_t, B + 2), dtype=dtype, device=cuda)[:, :B].T
+                t.copy_(tab)
+                outs = [torch.empty((n, B + 2), dtype=dtype, device=cuda)[:, :B].T
+                        for _ in range(2)]
+            u = ell_gather_sum_batched(ucols, t, out=outs[0])
+            y = ell_spmv_batched(vals, cols, t, out=outs[1])
+            torch.cuda.synchronize()
+            calls += 1
+            assert torch.equal(u, ell_gather_sum_batched_plain(ucols, t)), (B, layout)
+            assert torch.equal(y, ell_spmv_batched_plain(vals, cols, t)), (B, layout)
+    assert _counts() == {**NO_LAUNCHES, **NO_SELL, "ell_spmv_batched": calls,
+                         "ell_gather_sum_batched": calls}
 
 
 def test_slice_on_cuda_matches_plain_and_cpu(cuda):
@@ -587,6 +666,30 @@ def test_window_take_matches_plain_on_cuda(cuda, K, G, nb):
                            pg.window_take_plain(win, idx, mode))
     assert pg.probe_A(K, G, cuda) and pg.probe_B(K, G, cuda)
     assert pg.launch_counts() == {"window_take": 4}
+
+
+@pytest.mark.parametrize("K", [448, 449])
+def test_window_take_cutover_on_cuda(cuda, K):
+    """The window take at the shared-memory cut-over K = 448 and at 449
+    (the L1/L2 path): both modes, one window (chunked), 3 and 140 windows,
+    indices out of range on both sides (negative, >= K, >= K·128) and a
+    window array that is not 16-byte aligned (a view at offset 1, which
+    the shared-memory path does not take), equal to the twin bit for bit."""
+    gen = torch.Generator().manual_seed(13)
+    pg.reset_launch_counts()
+    calls = 0
+    for nb, G in ((1, 64), (3, 5), (140, 3)):
+        buf = torch.rand(nb * K * 128 + 1, generator=gen).to(cuda)
+        for win in (buf[:-1].view(nb, K, 128), buf[1:].view(nb, K, 128)):
+            for mode, hi in (("column", K), ("flat", K * 128)):
+                idx = torch.randint(-3, hi + 3, (nb, G, 128), generator=gen,
+                                    dtype=torch.int32).to(cuda)
+                got = pg.window_take(win, idx, mode)
+                torch.cuda.synchronize()
+                calls += 1
+                assert torch.equal(got, pg.window_take_plain(win, idx, mode)), \
+                    (nb, G, mode, win.data_ptr() % 16)
+    assert pg.launch_counts() == {"window_take": calls}
 
 
 def test_slice4_routes_on_cuda_match_cpu(cuda):

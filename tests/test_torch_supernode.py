@@ -27,15 +27,20 @@ from arcanefem_tpu_torch.bench_unstructured import dirichlet_data, sphere_cut_sy
 from arcanefem_tpu_torch.solver.amg import amg_from_numpy, with_supernode_smoother
 from arcanefem_tpu_torch.solver.iterative import pcg
 from arcanefem_tpu_torch.sparse.bell import BellMatrix
-from arcanefem_tpu_torch.sparse.supernode import SupernodeMatrix, SupernodeSpmv
+from arcanefem_tpu_torch.sparse.supernode import (
+    SupernodeMatrix,
+    SupernodeSpmv,
+    bsr8_spmv,
+    bsr8_spmv_plain,
+)
 
 from test_torch_amg import _as_numpy
 
 
-def _box():
+def _box(dims=(9, 8, 7)):
     """The JAX tests' supernode box (tests/test_supernode.py::_system) at
     9x8x7: (JAX BellMatrix, Dirichlet mask of the boundary nodes)."""
-    mesh = box_tetra_mesh(9, 8, 7)
+    mesh = box_tetra_mesh(*dims)
     t0 = build_topology(mesh.n_nodes, mesh.cells)
     mesh = renumber_mesh(mesh, jax_sn_order(t0, mesh.coords))
     A = FemProblem(mesh, ndof=1, dtype=np.float32).assemble_matrix(
@@ -243,3 +248,84 @@ def test_bench_flags_map_to_route_options(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             bu.bench_unstructured(14.0, 0, spmv="supernode", sn_block=True)
+
+
+@pytest.mark.parametrize("dims", [(9, 8, 7), (9, 8, 6)])
+def test_bsr8_plain_matches_jax(dims):
+    """The kernel's plain twin ``bsr8_spmv_plain`` (and the CPU wrapper
+    ``bsr8_spmv``) on the JAX build's blocks of the supernode box (720
+    nodes, and 630: n not a multiple of 8) == the JAX ``emulate()``,
+    relative to each row's sum |a·x|, with f64 blocks to 1e-12 and f32
+    blocks to 1e-6 (one f32 rounding of y), and == ``A.spmv`` to 1e-6 (the
+    JAX BELL product runs in f32 there); the port's bf16 blocks (the
+    JAX ``as_bf16()`` blocks) == ``as_bf16().emulate`` of x rounded to bf16,
+    as the JAX einsum rounds it, to 1e-6, and within the bf16 test's 2e-2
+    of the f32 operator."""
+    A, _ = _box(dims)
+    sn = JaxSn.build(A)
+    n = sn.n
+    assert (n % 8 == 0) == (dims == (9, 8, 7))
+    x = np.random.RandomState(5).rand(n).astype(np.float32).astype(np.float64)
+    absval = np.abs(np.asarray(A.values, np.float64).reshape(n, -1))
+    row_scale = (absval * x[A.topo.ell_cols]).sum(1)
+    bcol = torch.as_tensor(sn._bcol.astype(np.int32))
+    bptr = torch.as_tensor(sn._bptr.astype(np.int32))
+    want = {"emulate": sn.emulate(x),
+            "A.spmv": np.asarray(A.spmv(jnp.asarray(x)), np.float64)}
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
+        blocks = torch.tensor(np.asarray(sn.blocks), dtype=dtype)
+        xt = torch.as_tensor(x).to(dtype)
+        got = bsr8_spmv_plain(blocks, bcol, bptr, xt)
+        assert got.dtype == dtype and got.shape == (n,)
+        assert torch.equal(bsr8_spmv(blocks, bcol, bptr, xt), got)
+        for name, w in want.items():
+            tol = rtol if name == "emulate" else max(rtol, 1e-6)
+            err = np.abs(got.double().numpy() - w)
+            assert (err <= tol * row_scale).all(), (dtype, name, err.max())
+    lo = sn.as_bf16()
+    xr = np.asarray(jnp.asarray(x, jnp.float32).astype(jnp.bfloat16), np.float64)
+    got = bsr8_spmv_plain(_from_jax(sn, torch.float32).as_bf16().blocks, bcol, bptr,
+                          torch.as_tensor(x, dtype=torch.float32))
+    assert got.dtype == torch.float32
+    xp = np.zeros(sn.n_sup * 8)
+    xp[:n] = np.abs(xr)
+    bscale = (np.abs(np.asarray(lo.blocks, np.float64))
+              * xp.reshape(-1, 8)[sn._bcol][:, None, :]).sum(2)
+    rs = np.zeros((sn.n_sup, 8))
+    np.add.at(rs, sn._brow, bscale)
+    err = np.abs(got.double().numpy() - lo.emulate(xr))
+    assert (err <= 1e-6 * rs.reshape(-1)[:n]).all()
+    ref = want["emulate"]
+    assert np.abs(got.numpy() - ref).max() / np.abs(ref).max() < 2e-2
+
+
+def test_bsr8_spmv_checks_operands():
+    """The wrapper raises on operands the kernel does not take; the
+    operator checks its plan once and a call checks x."""
+    blocks = torch.zeros((3, 8, 8))
+    bcol = torch.tensor([0, 1, 1], dtype=torch.int32)
+    bptr = torch.tensor([0, 2, 3], dtype=torch.int32)
+    x = torch.zeros(12)
+    assert bsr8_spmv(blocks, bcol, bptr, x).shape == (12,)
+    with pytest.raises(TypeError):  # int64 indices
+        bsr8_spmv(blocks, bcol.long(), bptr, x)
+    with pytest.raises(TypeError):  # f64 x with f32 blocks
+        bsr8_spmv(blocks, bcol, bptr, x.double())
+    with pytest.raises(TypeError):  # bf16 blocks take f32 x only
+        bsr8_spmv(blocks.bfloat16(), bcol, bptr, x.double())
+    with pytest.raises(ValueError):  # x too short for 2 supernodes
+        bsr8_spmv(blocks, bcol, bptr, torch.zeros(8))
+    with pytest.raises(ValueError):  # x too long
+        bsr8_spmv(blocks, bcol, bptr, torch.zeros(17))
+    with pytest.raises(ValueError):  # 4x4 blocks
+        bsr8_spmv(torch.zeros((3, 4, 4)), bcol, bptr, x)
+    with pytest.raises(ValueError):  # no kernel off CPU and CUDA
+        bsr8_spmv(blocks.to("meta"), bcol.to("meta"), bptr.to("meta"), x.to("meta"))
+    sn = SupernodeSpmv(12, blocks, np.array([0, 1, 1]), np.array([0, 2, 3]),
+                       np.array([0, 0, 1]))
+    assert sn.cols.dtype == sn.ptr.dtype == torch.int32
+    with pytest.raises(ValueError):
+        sn(torch.zeros(13))
+    with pytest.raises(ValueError):  # a block column past the last supernode
+        SupernodeSpmv(12, blocks, np.array([0, 1, 2]), np.array([0, 2, 3]),
+                      np.array([0, 0, 1]))
