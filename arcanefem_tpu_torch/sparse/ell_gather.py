@@ -1,7 +1,6 @@
 """ELL gather-reduce: the gathers of the unstructured paths.
 
     ell_gather_sum(cols, x)      y[r] = sum_w x[cols[r, w]]  (cols < 0 add 0)
-    ell_spmv_batched(vals, cols, T)      Y[b, r] = sum_w vals[r, w] * T[b, cols[r, w]]
     ell_gather_sum_batched(cols, T)      Y[b, r] = sum_w T[b, cols[r, w]]
 
 ``vals`` and ``cols`` are (n, W) row-major; ``cols`` is int32.  At W=1
@@ -10,21 +9,21 @@ coordinate fetch).  Padding of a BellMatrix row keeps its own row as the
 column with value 0; padding of an AMG transfer row has column 0 and value
 0; padding of a unit-weight gather has a negative column.
 
-The batched forms apply one index array (and weights) to B <= 8 tables
-at once: ``T`` is (B, n_t) and the result (B, n).  Both may have any
+The batched form applies one index array to B <= 8 tables at once: ``T`` is (B, n_t) and the result (B, n).  Both may have any
 strides, so an (n_t, B) row-major array is passed as its transpose
 ``a.T`` and read in place; the result is a new contiguous (B, n) tensor,
 or is written into a given ``out`` of any strides (``torch.empty((n, B)).T``
-for an (n, B) row-major result).  They are the counterparts of
-``PlannedGather.call_batched`` (K3a unit, K3b weighted).
+for an (n, B) row-major result).  It is the counterpart of the unit
+``PlannedGather.call_batched`` (K3a).
 
 Inputs and outputs are float32 or float64; every row sum accumulates in
 float64 (in the kernels and in the twins alike), which keeps the
 cancellation error of Poisson rows out of the float32 CG recurrence.
 
-The weighted single-table product, K1, runs on the sliced layout of
-``sparse/sell.py``; ``ell_spmv_plain`` below stays as the definition of
-y = A x over an (n, W) pair that the tests hold both layouts to.
+The weighted products, K1 and its batched form K3b, run on the sliced
+layout of ``sparse/sell.py``; ``ell_spmv_plain`` and
+``ell_spmv_batched_plain`` below stay as the definitions over an (n, W)
+pair that the tests hold the SELL kernels to.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/ell_gather.cu``, which replaces the Pallas window kernels of
@@ -47,11 +46,9 @@ from ..utils import kernels
 _FLOATS = (torch.float32, torch.float64)
 MAX_TABLES = 8
 _ENTRY = {(name, dt): f"afem_{name}_{'f32' if dt == torch.float32 else 'f64'}"
-          for name in ("ell_gather_sum", "ell_gather_sum_batched",
-                       "ell_spmv_batched") for dt in _FLOATS}
+          for name in ("ell_gather_sum", "ell_gather_sum_batched") for dt in _FLOATS}
 
-_LAUNCHES = {"ell_gather_sum": 0, "ell_spmv_batched": 0,
-             "ell_gather_sum_batched": 0}
+_LAUNCHES = {"ell_gather_sum": 0, "ell_gather_sum_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -78,7 +75,9 @@ def ell_gather_sum_plain(cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def ell_spmv_batched_plain(vals: torch.Tensor, cols: torch.Tensor,
                            tables: torch.Tensor) -> torch.Tensor:
-    """Plain twin of :func:`ell_spmv_batched`, (B, n) contiguous."""
+    """Y[b, r] = sum_w vals[r, w] * T[b, cols[r, w]] over an (n, W) pair,
+    (B, n) contiguous, summed in float64: the definition K3b
+    (``sparse/sell.py::sell_spmv_batched``) is held to."""
     return (vals.double() * tables[:, cols].double()).sum(dim=2).to(tables.dtype)
 
 
@@ -90,7 +89,7 @@ def ell_gather_sum_batched_plain(cols: torch.Tensor,
 
 
 def _check(name: str, cols: torch.Tensor, x: torch.Tensor,
-           vals: torch.Tensor | None = None, batched: bool = False) -> bool:
+           batched: bool = False) -> bool:
     """Raise on an operand the kernel does not take; True for a CUDA x
     (launch the kernel), False for a CPU one (run the twin).  Each test is
     one attribute read, so that a call's host cost stays near a PyTorch
@@ -107,16 +106,7 @@ def _check(name: str, cols: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"{name}: x must be 1-D, got {tuple(x.shape)}")
     if x.dtype not in _FLOATS:
         raise TypeError(f"{name}: x must be float32 or float64, got {x.dtype}")
-    dev = x.get_device()
-    if vals is not None:
-        if vals.shape != cols.shape:
-            raise ValueError(f"{name}: vals {tuple(vals.shape)} and cols "
-                             f"{tuple(cols.shape)} differ in shape")
-        if vals.dtype != x.dtype:
-            raise TypeError(f"{name}: vals {vals.dtype} and x {x.dtype} differ")
-        if vals.get_device() != dev or not (dev < 0 or vals.is_contiguous()):
-            raise ValueError(f"{name}: vals must be contiguous, on x's device")
-    if cols.get_device() != dev:
+    if cols.get_device() != x.get_device():
         raise ValueError(f"{name}: operands lie on different devices")
     if not x.is_cuda:
         if x.device.type != "cpu":
@@ -125,7 +115,7 @@ def _check(name: str, cols: torch.Tensor, x: torch.Tensor,
     # the tables of a batched call may be strided; nothing else
     if not cols.is_contiguous() or not (batched or x.is_contiguous()):
         raise ValueError(f"{name}: the CUDA kernel takes contiguous "
-                         "index, weight and vector operands")
+                         "index and vector operands")
     if batched and min(x.stride()) < 0:
         raise ValueError(f"{name}: negative table strides")
     return True
@@ -145,53 +135,30 @@ def ell_gather_sum(cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _batched_out(name: str, tables: torch.Tensor, n: int,
-                 out: torch.Tensor | None) -> torch.Tensor:
-    """The (B, n) result: ``out`` checked, or a new contiguous tensor."""
-    B = tables.shape[0]
-    if out is None:
-        return tables.new_empty((B, n))
-    if out.shape != (B, n) or out.dtype != tables.dtype \
-            or out.device != tables.device:
-        raise ValueError(f"{name}: out must be ({B}, {n}) {tables.dtype} on "
-                         f"{tables.device}, got {tuple(out.shape)} {out.dtype}")
-    if min(out.stride()) < 0:
-        raise ValueError(f"{name}: negative output strides")
-    return out
-
-
-def _launch_batched(name: str, ptrs: list, cols: torch.Tensor,
-                    tables: torch.Tensor, y: torch.Tensor) -> None:
-    n, W = cols.shape
-    (ts_b, ts_r), (ys_b, ys_r) = tables.stride(), y.stride()
-    kernels.launch(_ENTRY[name, tables.dtype], tables.device, *ptrs,
-                   cols.data_ptr(), tables.data_ptr(), y.data_ptr(), n, W,
-                   tables.size(0), tables.size(1), ts_r, ts_b, ys_r, ys_b)
-    _LAUNCHES[name] += 1
-
-
 def ell_gather_sum_batched(cols: torch.Tensor, tables: torch.Tensor,
                            out: torch.Tensor | None = None) -> torch.Tensor:
     """Y[b, r] = sum_w T[b, cols[r, w]], negative columns add 0, for
     (B, n_t) tables ``T`` of any strides (K3a on the card)."""
     cuda = _check("ell_gather_sum_batched", cols, tables, batched=True)
-    y = _batched_out("ell_gather_sum_batched", tables, cols.shape[0], out)
+    B, n = tables.shape[0], cols.shape[0]
+    if out is None:
+        y = tables.new_empty((B, n))
+    elif out.shape != (B, n) or out.dtype != tables.dtype or out.device != tables.device:
+        raise ValueError(f"ell_gather_sum_batched: out must be ({B}, {n}) "
+                         f"{tables.dtype} on {tables.device}, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    elif min(out.stride()) < 0:
+        raise ValueError("ell_gather_sum_batched: negative output strides")
+    else:
+        y = out
     if not cuda:
         return y.copy_(ell_gather_sum_batched_plain(cols, tables))
-    if cols.shape[0]:
-        _launch_batched("ell_gather_sum_batched", [], cols, tables, y)
+    if n:
+        W = cols.shape[1]
+        (ts_b, ts_r), (ys_b, ys_r) = tables.stride(), y.stride()
+        kernels.launch(_ENTRY["ell_gather_sum_batched", tables.dtype], tables.device,
+                       cols.data_ptr(), tables.data_ptr(), y.data_ptr(), n, W,
+                       tables.size(0), tables.size(1), ts_r, ts_b, ys_r, ys_b)
+        _LAUNCHES["ell_gather_sum_batched"] += 1
     return y
 
-
-def ell_spmv_batched(vals: torch.Tensor, cols: torch.Tensor,
-                     tables: torch.Tensor,
-                     out: torch.Tensor | None = None) -> torch.Tensor:
-    """Y[b, r] = sum_w vals[r, w] * T[b, cols[r, w]] for (B, n_t) tables
-    ``T`` of any strides (K3b on the card)."""
-    cuda = _check("ell_spmv_batched", cols, tables, vals, batched=True)
-    y = _batched_out("ell_spmv_batched", tables, cols.shape[0], out)
-    if not cuda:
-        return y.copy_(ell_spmv_batched_plain(vals, cols, tables))
-    if cols.shape[0]:
-        _launch_batched("ell_spmv_batched", [vals.data_ptr()], cols, tables, y)
-    return y

@@ -1,7 +1,10 @@
-"""Sliced ELL storage (SELL-32-σ) and K1, the weighted SpMV kernel.
+"""Sliced ELL storage (SELL-32-σ), K1 (the weighted SpMV kernel) and K3b
+(the same product over a stack of tables).
 
     sell_spmv(values, layout, x)    y[r] = sum over r's stored slots q of
                                            values[q] * x[layout.cols[q]]
+    sell_spmv_batched(values, layout, T)
+                                    Y[b, r] = the same over T[b], b < B <= 8
 
 A :class:`SellLayout` is built once per column structure, on the host,
 from an (N, W) ELL column array and the mask of its real slots (the
@@ -34,7 +37,15 @@ below (an f64 product per slot, an ``index_add_`` onto rows, a cast),
 which is also the kernel's test oracle.  Values are float32 or float64
 with x of the same type, or bfloat16 with float32 x (the bf16 V-cycle
 copies); every row sum accumulates in float64.  ``launch_counts()`` counts
-the launches, bf16-weight ones apart as ``sell_spmv_bf16``.
+the launches, bf16-weight ones apart as ``sell_spmv_bf16`` and the batched
+form's as ``sell_spmv_batched``.
+
+:func:`sell_spmv_batched` is the counterpart of the weighted
+``PlannedGather.call_batched`` (K3b): the tables ``T`` are (B, n_cols) of
+any strides (an (n_cols, B) row-major array is passed as ``a.T`` and read
+in place) and the result is a new contiguous (B, n_rows) tensor, or is
+written into a given ``out`` of any strides.  Table b's sum is K1's on
+``T[b]``, in the same order.
 """
 
 from __future__ import annotations
@@ -54,7 +65,9 @@ _PERM_BYTES = 4  # one int32 row index per row
 _ENTRY = {(torch.float32, torch.float32): "afem_sell_spmv_f32",
           (torch.float64, torch.float64): "afem_sell_spmv_f64",
           (torch.bfloat16, torch.float32): "afem_sell_spmv_bf16_f32"}
-_LAUNCHES = {"sell_spmv": 0, "sell_spmv_bf16": 0}
+_BATCHED_ENTRY = {k: v.replace("sell_spmv", "sell_spmv_batched") for k, v in _ENTRY.items()}
+MAX_TABLES = 8
+_LAUNCHES = {"sell_spmv": 0, "sell_spmv_bf16": 0, "sell_spmv_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -290,3 +303,58 @@ def sell_spmv(values: torch.Tensor, layout: SellLayout,
         _LAUNCHES["sell_spmv_bf16" if values.dtype == torch.bfloat16
                   else "sell_spmv"] += 1
     return y
+
+
+def sell_spmv_batched_plain(values: torch.Tensor, layout: SellLayout,
+                            tables: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`sell_spmv_batched`, (B, n_rows) contiguous:
+    :func:`sell_spmv_plain` of each table."""
+    return torch.stack([sell_spmv_plain(values, layout, t) for t in tables])
+
+
+def sell_spmv_batched(values: torch.Tensor, layout: SellLayout,
+                      tables: torch.Tensor,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """Y[b] = A @ T[b] for the SELL matrix (``values``, ``layout``) and
+    (B, n_cols) tables ``T`` of any strides, 1 <= B <= 8 (K3b on the
+    card)."""
+    entry = _BATCHED_ENTRY.get((values.dtype, tables.dtype))
+    if entry is None:
+        raise TypeError(f"sell_spmv_batched: no kernel for values {values.dtype} "
+                        f"and tables {tables.dtype}")
+    if (values.shape != layout.values_shape or tables.dim() != 2
+            or tables.shape[1] != layout.n_cols
+            or not 1 <= tables.shape[0] <= MAX_TABLES):
+        raise ValueError(f"sell_spmv_batched: values {tuple(values.shape)} and tables "
+                         f"{tuple(tables.shape)}, expected ({layout.n_slots},) and "
+                         f"(B, {layout.n_cols}) with 1 <= B <= {MAX_TABLES}")
+    dev = tables.get_device()
+    if values.get_device() != dev:
+        raise ValueError("sell_spmv_batched: values and tables lie on different devices")
+    B = tables.shape[0]
+    if out is None:
+        out = tables.new_empty((B, layout.n_rows))
+    elif (out.shape != (B, layout.n_rows) or out.dtype != tables.dtype
+          or out.get_device() != dev):
+        raise ValueError(f"sell_spmv_batched: out must be ({B}, {layout.n_rows}) "
+                         f"{tables.dtype} on {tables.device}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    if not tables.is_cuda:
+        if tables.device.type != "cpu":
+            raise ValueError(f"sell_spmv_batched: no kernel for device {tables.device}")
+        return out.copy_(sell_spmv_batched_plain(values, layout, tables))
+    if layout.device_index != dev:
+        raise ValueError(f"sell_spmv_batched: tables on {tables.device}, the layout "
+                         f"on {layout.device}")
+    if not values.is_contiguous():
+        raise ValueError("sell_spmv_batched: the CUDA kernel takes contiguous values")
+    if min(tables.stride()) < 0 or min(out.stride()) < 0:
+        raise ValueError("sell_spmv_batched: negative table or output strides")
+    if layout.n_rows:
+        (ts_b, ts_r), (ys_b, ys_r) = tables.stride(), out.stride()
+        kernels.launch(entry, layout.device, values.data_ptr(), layout.cols_ptr,
+                       layout.slice_ptr_ptr, layout.perm_ptr, tables.data_ptr(),
+                       out.data_ptr(), layout.n_rows, layout.n_slices, B,
+                       ts_r, ts_b, ys_r, ys_b)
+        _LAUNCHES["sell_spmv_batched"] += 1
+    return out

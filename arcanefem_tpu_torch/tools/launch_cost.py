@@ -1,6 +1,7 @@
 """Host cost per launch of every kernel wrapper, beside a PyTorch op.
 
     python arcanefem_tpu_torch/tools/launch_cost.py [--tree DIR] [--calls N]
+    python arcanefem_tpu_torch/tools/launch_cost.py [--tree DIR] --k4-box N
 
 Each wrapper (K1-K10, P1, the assembly's two kernels and the BSR-8
 supernode SpMV) is called N times back to back (default 2000, after a
@@ -24,7 +25,18 @@ it, ``torch_us`` is the same for one PyTorch op over as many elements
 of an earlier commit, unpacked into DIR), so two trees' launch paths go
 through the same loop on one card.  K1 is timed through whichever form the
 tree has (``sparse/sell.py::sell_spmv``, or the earlier row-major
-``ell_spmv``).  It needs a CUDA card.
+``ell_spmv``), and K3b likewise (``sell_spmv_batched``, or
+``ell_spmv_batched``).  It needs a CUDA card.
+
+``--k4-box N`` times K4 instead, at the bench's N^3-hex box
+(``bench_structured.box_system``): the fused assembly into the padded
+plane layout with its mask and penalty planes (``assemble_system``, the
+box pass's call) and the stiffness-only DiaMatrix layout
+(``assemble_stiffness_kernel``), each the best of 5 blocks of 20
+back-to-back calls on CUDA events, which at this size is the kernel's
+device time.  One JSON line; with ``--tree`` run once per tree in one
+call (parent, this tree, this tree, parent) it is the A/B of two K4
+sources on one card.
 """
 
 from __future__ import annotations
@@ -82,6 +94,12 @@ def _cases(dev):
         lay = SellLayout.build(cols_np, np.ones((n, W), bool), device=dev)
         sv = lay.from_ell(vals)
         k1 = ("K1 sell_spmv", lambda: sell_spmv(sv, lay, x), n)
+    try:
+        from arcanefem_tpu_torch.sparse.sell import sell_spmv_batched
+    except ImportError:  # a tree from before K3b moved onto the SELL layout
+        k3b = ("K3b ell_spmv_batched", lambda: eg.ell_spmv_batched(vals, cols, t3), 3 * n)
+    else:
+        k3b = ("K3b sell_spmv_batched", lambda: sell_spmv_batched(sv, lay, t3), 3 * n)
     bases = torch.zeros(1, dtype=torch.int32, device=dev)
     lcols = torch.as_tensor(rng.randint(0, n, (1, 128)).astype(np.int32), device=dev)
     D = DiagEllMatrix(vals, cols_np)
@@ -120,7 +138,7 @@ def _cases(dev):
         k1,
         ("K2 ell_gather_sum", lambda: eg.ell_gather_sum(cols, x), n),
         ("K3a ell_gather_sum_batched", lambda: eg.ell_gather_sum_batched(cols, t3), 3 * n),
-        ("K3b ell_spmv_batched", lambda: eg.ell_spmv_batched(vals, cols, t3), 3 * n),
+        k3b,
         ("K4 stencil_assembly", lambda: sa.assemble_stiffness_kernel(box, c3),
          15 * box.n_nodes),
         ("K5-K8 dia_stencil", lambda: ds.dia_stencil(
@@ -133,6 +151,40 @@ def _cases(dev):
         ("P1 window_take", lambda: pg.window_take(win, widx, "column"), widx.numel()),
         *cases,
     ]
+
+
+def k4_ms(n: int) -> dict:
+    """CUDA-event ms per call of the fused and the stiffness-only K4 at
+    the bench's n^3-hex box: the best of 5 blocks of 20 calls."""
+    import torch
+
+    from arcanefem_tpu_torch.bench_structured import PENALTY, box_system
+    from arcanefem_tpu_torch.mesh.stencil_assembly import (
+        assemble_stiffness_kernel,
+        assemble_system,
+    )
+
+    s = box_system(n, torch.device("cuda", torch.cuda.current_device()))
+
+    def best_ms(fn, reps: int = 20, blocks: int = 5) -> float:
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(blocks):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            best = min(best, a.elapsed_time(b) / reps)
+        return best
+
+    return {"launch": "K4 stencil_assembly", "box": list(s.box.shape),
+            "fused_ms": best_ms(lambda: assemble_system(
+                s.box, s.coords3d, s.mask_p, s.pg_p, PENALTY, f=1.0)),
+            "stiffness_ms": best_ms(lambda: assemble_stiffness_kernel(s.box, s.coords3d)),
+            "gpu": torch.cuda.get_device_name(0)}
 
 
 def measure_all(calls: int = 2000) -> list[dict]:
@@ -157,6 +209,8 @@ def main(argv=None) -> None:
                     help="checkout whose arcanefem_tpu_torch to import "
                          "(default: the one this file is in)")
     ap.add_argument("--calls", type=int, default=2000)
+    ap.add_argument("--k4-box", type=int, default=None, metavar="N",
+                    help="time K4 at the bench's N^3-hex box instead")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     tree = os.path.abspath(args.tree or here)
@@ -170,7 +224,8 @@ def main(argv=None) -> None:
     pkg = os.path.dirname(arcanefem_tpu_torch.__file__)
     if os.path.dirname(pkg) != tree:
         raise RuntimeError(f"imported {pkg}, not the tree {tree}")
-    for rec in measure_all(args.calls):
+    recs = [k4_ms(args.k4_box)] if args.k4_box else measure_all(args.calls)
+    for rec in recs:
         print(json.dumps({**rec, "tree": tree}), flush=True)
 
 

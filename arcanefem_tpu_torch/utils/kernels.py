@@ -44,12 +44,14 @@ _P, _I, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_dou
 _DIA_STENCIL = [_I, _P, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F64, _P]
 _STENCIL_ASSEMBLY = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _I64,
                      _F64, _F64, _P]
-_ELL_SPMV_BATCHED = [_P, _P, _P, _P, _I64, _I]  # vals, cols, t, y, n, W
 _ELL_GATHER_SUM = [_P, _P, _P, _I64, _I, _P]
 # B, n_t (table rows), ts_r, ts_b, ys_r, ys_b, stream
 _BATCHED_STRIDES = [_I, _I64, _I64, _I64, _I64, _I64, _P]
 # vals, cols, slice_ptr, perm, x, y, n_rows, n_slices, stream
 _SELL_SPMV = [_P, _P, _P, _P, _P, _P, _I64, _I64, _P]
+# vals, cols, slice_ptr, perm, t, y, n_rows, n_slices, B, ts_r, ts_b, ys_r,
+# ys_b, stream
+_SELL_SPMV_BATCHED = _SELL_SPMV[:-1] + [_I, _I64, _I64, _I64, _I64, _P]
 # bases, lcols, wide, t, out, n_tiles, n_narrow, K, B, n_t, ts_r, ts_b, os_r,
 # os_b, stream
 _BAND_GATHER = [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I64, _I64, _I64, _I64,
@@ -64,10 +66,11 @@ _SIGNATURES = {
     "afem_sell_spmv_f32": _SELL_SPMV,
     "afem_sell_spmv_f64": _SELL_SPMV,
     "afem_sell_spmv_bf16_f32": _SELL_SPMV,
+    "afem_sell_spmv_batched_f32": _SELL_SPMV_BATCHED,
+    "afem_sell_spmv_batched_f64": _SELL_SPMV_BATCHED,
+    "afem_sell_spmv_batched_bf16_f32": _SELL_SPMV_BATCHED,
     "afem_ell_gather_sum_f32": _ELL_GATHER_SUM,
     "afem_ell_gather_sum_f64": _ELL_GATHER_SUM,
-    "afem_ell_spmv_batched_f32": _ELL_SPMV_BATCHED + _BATCHED_STRIDES,
-    "afem_ell_spmv_batched_f64": _ELL_SPMV_BATCHED + _BATCHED_STRIDES,
     "afem_ell_gather_sum_batched_f32": _ELL_GATHER_SUM[:-1] + _BATCHED_STRIDES,
     "afem_ell_gather_sum_batched_f64": _ELL_GATHER_SUM[:-1] + _BATCHED_STRIDES,
     "afem_dia_stencil_f32_f32": _DIA_STENCIL,

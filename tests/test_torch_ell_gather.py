@@ -18,9 +18,9 @@ from arcanefem_tpu_torch.sparse.bell import BellMatrix
 from arcanefem_tpu_torch.sparse.ell_gather import (
     ell_gather_sum,
     ell_gather_sum_batched,
-    ell_spmv_batched,
     ell_spmv_plain,
 )
+from arcanefem_tpu_torch.sparse.sell import SellLayout, sell_spmv, sell_spmv_batched
 
 
 @pytest.fixture(scope="module")
@@ -126,12 +126,13 @@ def test_gather_w1_matches_compact_coords_plan(h14):
 @pytest.mark.parametrize("B", [3, 8])
 @pytest.mark.parametrize("name", ["plain", "wide_split", "empty_rows"])
 def test_batched_match_pallas_plans(name, B, layout):
-    """The batched twins (K3b weighted, K3a unit) == the JAX weighted and
-    unit plans emulated table by table, as PlannedGather.call_batched
-    applies one plan to a (B, n) stack.  ``channel_minor`` passes the
-    tables as the transpose of an (n, B) row-major array and asks for the
-    result in that layout, as the supernode SpMV does; both are read and
-    written through their strides."""
+    """The batched twins (K3b weighted, on the SELL layout of the real
+    slots; K3a unit) == the JAX weighted and unit plans emulated table by
+    table, as PlannedGather.call_batched applies one plan to a (B, n)
+    stack, and each table == the single-table twin (K1's for K3b) exactly.
+    ``channel_minor`` passes the tables as the transpose of an (n, B)
+    row-major array and asks for the result in that layout; both are read
+    and written through their strides."""
     cols, w, table = _weighted_case(name)
     rng = np.random.RandomState(4)
     tables = np.stack([table] + [rng.rand(table.size).astype(np.float32)
@@ -144,9 +145,10 @@ def test_batched_match_pallas_plans(name, B, layout):
         out = {k: torch.empty((cols.shape[0], B)).T for k in plans}
     else:
         t, out = torch.as_tensor(tables), {k: None for k in plans}
-    c32 = torch.as_tensor(cols, dtype=torch.int32)
+    lay = SellLayout.build(cols, real, n_cols=table.size, device="cpu")
+    sv = lay.from_ell(w)
     got = {
-        "weighted": ell_spmv_batched(torch.as_tensor(w), c32, t, out=out["weighted"]),
+        "weighted": sell_spmv_batched(sv, lay, t, out=out["weighted"]),
         "unit": ell_gather_sum_batched(
             torch.as_tensor(np.where(real, cols, -1), dtype=torch.int32), t,
             out=out["unit"]),
@@ -159,7 +161,7 @@ def test_batched_match_pallas_plans(name, B, layout):
         np.testing.assert_allclose(got[k].numpy(), want, rtol=2e-5, atol=1e-5)
         # each table exactly as the single-table twin reduces it
         for b in range(B):
-            single = (ell_spmv_plain(torch.as_tensor(w), c32, t[b].contiguous())
+            single = (sell_spmv(sv, lay, t[b].contiguous())
                       if k == "weighted" else
                       ell_gather_sum(torch.as_tensor(np.where(real, cols, -1),
                                                      dtype=torch.int32),

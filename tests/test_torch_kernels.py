@@ -34,13 +34,18 @@ from arcanefem_tpu_torch.sparse.ell_gather import (
     ell_gather_sum_batched,
     ell_gather_sum_batched_plain,
     ell_gather_sum_plain,
-    ell_spmv_batched,
     ell_spmv_batched_plain,
     ell_spmv_plain,
     launch_counts,
     reset_launch_counts,
 )
-from arcanefem_tpu_torch.sparse.sell import SellLayout, sell_spmv, sell_spmv_plain
+from arcanefem_tpu_torch.sparse.sell import (
+    SellLayout,
+    sell_spmv,
+    sell_spmv_batched,
+    sell_spmv_batched_plain,
+    sell_spmv_plain,
+)
 from arcanefem_tpu_torch.sparse import band_gather as band
 from arcanefem_tpu_torch.sparse import diag_spmv as dsp
 from arcanefem_tpu_torch.sparse.band_gather import BandedGather
@@ -49,9 +54,8 @@ from arcanefem_tpu_torch.sparse import supernode as snm
 from arcanefem_tpu_torch.sparse.supernode import SupernodeSpmv, bsr8_spmv, bsr8_spmv_plain
 from arcanefem_tpu_torch.tools import probe_gather as pg
 
-NO_LAUNCHES = {"ell_gather_sum": 0, "ell_spmv_batched": 0,
-               "ell_gather_sum_batched": 0}
-NO_SELL = {"sell_spmv": 0, "sell_spmv_bf16": 0}
+NO_LAUNCHES = {"ell_gather_sum": 0, "ell_gather_sum_batched": 0}
+NO_SELL = {"sell_spmv": 0, "sell_spmv_bf16": 0, "sell_spmv_batched": 0}
 
 
 def _reset():
@@ -104,13 +108,18 @@ def test_wrappers_check_operands():
     with pytest.raises(ValueError):
         BellMatrix.from_numpy(np.zeros((4, 2)), np.full((4, 2), 4),
                               device="cpu", dtype=torch.float64)
-    # bf16 weights go with float32 x only, and not in the batched form
+    # bf16 weights go with float32 x or tables only
     with pytest.raises(TypeError):
         sell_spmv(torch.zeros(lay.n_slots, dtype=torch.bfloat16), lay,
                   x.double())
     with pytest.raises(TypeError):
-        ell_spmv_batched(torch.zeros(4, 2, dtype=torch.bfloat16), cols,
-                         torch.zeros(2, 4))
+        sell_spmv_batched(torch.zeros(lay.n_slots, dtype=torch.bfloat16), lay,
+                          torch.zeros(2, 4, dtype=torch.float64))
+    with pytest.raises(ValueError):  # B > 8 tables
+        sell_spmv_batched(torch.zeros(lay.n_slots), lay, torch.zeros(9, 4))
+    with pytest.raises(ValueError):  # an out of the wrong shape
+        sell_spmv_batched(torch.zeros(lay.n_slots), lay, torch.zeros(3, 4),
+                          out=torch.zeros(4, 3))
     with pytest.raises(ValueError):  # B > 8 tables
         ell_gather_sum_batched(cols, torch.zeros(9, 4))
     with pytest.raises(ValueError):  # an out of the wrong shape
@@ -130,7 +139,7 @@ def test_cpu_tensors_launch_nothing():
     assert A.with_values(A.values.bfloat16()).spmv(x).tolist() == [3.5, 6.0]
     t = torch.stack([x, 2 * x])
     assert ell_gather_sum_batched(cols, t).tolist() == [[5.0, 3.0], [10.0, 6.0]]
-    assert ell_spmv_batched(vals, cols.clamp(min=0), t.T.contiguous().T).tolist() \
+    assert sell_spmv_batched(A.values, A.layout, t.T.contiguous().T).tolist() \
         == [[3.5, 6.0], [7.0, 12.0]]
     assert _counts() == {**NO_LAUNCHES, **NO_SELL}
 
@@ -166,9 +175,11 @@ def test_kernels_match_plain_on_cuda(cuda, dtype, rtol):
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
                                         (torch.float64, 1e-12)])
 def test_batched_kernels_match_plain_on_cuda(cuda, dtype, rtol):
-    """K3b and K3a == their plain twins on the card, for B in 1, 3, 8 and
-    W in 1, 8, 25, 136 with padding, tables and results contiguous or
-    channel-minor (strided); error against each row's sum |v·x|."""
+    """K3b (on the SELL layout of the real slots) and K3a == their plain
+    twins on the card, K3b also == the (n, W) definition, for B in 1, 3, 8
+    and W in 1, 8, 25, 136 with padding, tables and results contiguous or
+    channel-minor (strided: 16-byte rows at B = 8); error against each
+    row's sum |v·x|."""
     gen = torch.Generator().manual_seed(2)
     _reset()
     n = 20_000
@@ -179,7 +190,9 @@ def test_batched_kernels_match_plain_on_cuda(cuda, dtype, rtol):
         pad = torch.rand((n, W), generator=gen) < 0.2
         vals[pad] = 0
         ucols = torch.where(pad, -1, cols)
+        lay = SellLayout.build(cols.numpy(), (~pad).numpy(), device=cuda)
         cols, vals, ucols = (t.to(cuda) for t in (cols, vals, ucols))
+        sv = lay.from_ell(vals)
         for B in (1, 3, 8):
             tab = torch.rand((B, n), generator=gen, dtype=dtype) * 2 - 1
             for minor in (False, True):
@@ -188,22 +201,25 @@ def test_batched_kernels_match_plain_on_cuda(cuda, dtype, rtol):
                     t = t.T.contiguous().T
                 out = (torch.empty((n, B), dtype=dtype, device=cuda).T
                        if minor else None)
-                y = ell_spmv_batched(vals, cols, t, out=out)
+                y = sell_spmv_batched(sv, lay, t, out=out)
                 u = ell_gather_sum_batched(ucols, t)
                 torch.cuda.synchronize()
                 launches += 1
+                assert out is None or y is out
                 scale = ell_spmv_batched_plain(vals.abs(), cols, t.abs())
                 uscale = ell_gather_sum_batched_plain(ucols, t.abs())
-                assert bool(((y - ell_spmv_batched_plain(vals, cols, t)).abs()
-                             <= rtol * scale).all()), (W, B, minor)
+                for want in (sell_spmv_batched_plain(sv, lay, t),
+                             ell_spmv_batched_plain(vals, cols, t)):
+                    assert bool(((y - want).abs() <= rtol * scale).all()), (W, B, minor)
                 assert bool(((u - ell_gather_sum_batched_plain(ucols, t)).abs()
                              <= rtol * uscale).all()), (W, B, minor)
-    assert _counts() == {**NO_LAUNCHES, **NO_SELL, "ell_spmv_batched": launches,
+    assert _counts() == {**NO_LAUNCHES, **NO_SELL, "sell_spmv_batched": launches,
                          "ell_gather_sum_batched": launches}
 
 
 def test_bf16_spmv_matches_plain_on_cuda(cuda):
-    """K1 with bf16 weights and f32 x == its twin (1e-5 of sum |v·x|)."""
+    """K1 with bf16 weights and f32 x == its twin (1e-5 of sum |v·x|), and
+    K3b with bf16 weights and 8 channel-minor f32 tables likewise."""
     gen = torch.Generator().manual_seed(3)
     _reset()
     for W in (1, 25, 136):
@@ -216,7 +232,13 @@ def test_bf16_spmv_matches_plain_on_cuda(cuda):
         scale = ell_spmv_plain(vals.abs(), cols, x.abs())
         assert bool(((y - sell_spmv_plain(sv, lay, x)).abs() <= 1e-5 * scale).all())
         assert bool(((y - ell_spmv_plain(vals, cols, x)).abs() <= 1e-5 * scale).all())
-    assert _counts() == {**NO_LAUNCHES, **NO_SELL, "sell_spmv_bf16": 3}
+        t = (torch.rand((n, 8), generator=gen) * 2 - 1).to(cuda).T
+        yb = sell_spmv_batched(sv, lay, t, out=torch.empty((n, 8), device=cuda).T)
+        bscale = ell_spmv_batched_plain(vals.abs(), cols, t.abs())
+        assert bool(((yb - sell_spmv_batched_plain(sv, lay, t)).abs()
+                     <= 1e-5 * bscale).all())
+    assert _counts() == {**NO_LAUNCHES, **NO_SELL, "sell_spmv_bf16": 3,
+                         "sell_spmv_batched": 3}
 
 
 def test_supernode_spmv_on_cuda_matches_cpu(cuda):
@@ -292,7 +314,8 @@ def test_bsr8_spmv_matches_plain_on_cuda(cuda, dtype, rtol):
 def test_batched_w1_matches_plain_on_cuda(cuda, dtype):
     """K3a (and K3b) at W=1 for every B in 1..8, with -1 pads, tables and
     results table-major, channel-minor and row-strided (a stride of B + 2):
-    equal to their plain twins bit for bit (a copy; one rounded product)."""
+    equal to their plain twins bit for bit (a copy; one rounded product).
+    K3b runs on the SELL layout of the (n, 1) columns."""
     gen = torch.Generator().manual_seed(12)
     _reset()
     n_t, n = 70_001, 300_007
@@ -301,7 +324,10 @@ def test_batched_w1_matches_plain_on_cuda(cuda, dtype):
         cols = torch.randint(0, n_t, (n, 1), generator=gen, dtype=torch.int32)
         ucols = torch.where(torch.rand((n, 1), generator=gen) < 0.1, -1, cols)
         vals = torch.rand((n, 1), generator=gen, dtype=dtype)
+        lay = SellLayout.build(cols.numpy(), np.ones((n, 1), bool), device=cuda,
+                               n_cols=n_t)
         cols, ucols, vals = (t.to(cuda) for t in (cols, ucols, vals))
+        sv = lay.from_ell(vals)
         tab = torch.rand((B, n_t), generator=gen, dtype=dtype).to(cuda)
         for layout in ("table_major", "channel_minor", "row_strided"):
             if layout == "table_major":
@@ -315,12 +341,13 @@ def test_batched_w1_matches_plain_on_cuda(cuda, dtype):
                 outs = [torch.empty((n, B + 2), dtype=dtype, device=cuda)[:, :B].T
                         for _ in range(2)]
             u = ell_gather_sum_batched(ucols, t, out=outs[0])
-            y = ell_spmv_batched(vals, cols, t, out=outs[1])
+            y = sell_spmv_batched(sv, lay, t, out=outs[1])
             torch.cuda.synchronize()
             calls += 1
             assert torch.equal(u, ell_gather_sum_batched_plain(ucols, t)), (B, layout)
             assert torch.equal(y, ell_spmv_batched_plain(vals, cols, t)), (B, layout)
-    assert _counts() == {**NO_LAUNCHES, **NO_SELL, "ell_spmv_batched": calls,
+            assert torch.equal(y, sell_spmv_batched_plain(sv, lay, t)), (B, layout)
+    assert _counts() == {**NO_LAUNCHES, **NO_SELL, "sell_spmv_batched": calls,
                          "ell_gather_sum_batched": calls}
 
 
@@ -458,17 +485,27 @@ def test_dia_stencil_matches_plain_on_cuda(cuda, band_dtype, dtype, rtol, band_m
     assert counts["dia_spmv" if band_major else "dia_spmv_p"] == 3
 
 
+def _bc_case(box, dtype):
+    """Coordinates (jitter 0.1), the Dirichlet mask (the x faces; only xmin
+    on a box one hex thick) and the padded mask and penalty·g planes."""
+    c3 = torch.as_tensor(box.grid_coords(np.float64, jitter=0.1)).to(dtype)
+    mask = box.boundary_mask(("xmin", "xmax") if box.nx > 1 else ("xmin",))
+    g = np.where(box.boundary_mask(("xmax",)), 1.0, 0.0)
+    mask_p = torch.as_tensor(ds.pad_host_vec(box, mask, np.float64)).to(dtype)
+    pg_p = torch.as_tensor(ds.pad_host_vec(box, 1e12 * g * mask, np.float64)).to(dtype)
+    return c3, mask, mask_p, pg_p
+
+
+# shapes that cut K4's 8 x 32 tiles and 16-plane slabs unevenly: one hex
+# thick (the wrapper takes no box thinner than 2 hexes in y and z), one
+# node beyond a tile in y and z and beyond a slab in x, a z of 130
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-5), (torch.float64, 1e-12)])
-@pytest.mark.parametrize("dims", [(6, 5, 4), (17, 9, 130)])
+@pytest.mark.parametrize("dims", [(6, 5, 4), (17, 9, 130), (1, 2, 2), (16, 8, 32)])
 def test_stencil_assembly_matches_plain_on_cuda(cuda, dtype, rtol, dims):
     """Stiffness-only and fused assembly == their plain twins to rtol of the
     largest band entry; the fused form's pads exactly 0."""
     box = StructuredBox(*dims)
-    c3 = torch.as_tensor(box.grid_coords(np.float64, jitter=0.1)).to(dtype)
-    mask = box.boundary_mask(("xmin", "xmax"))
-    g = np.where(box.boundary_mask(("xmax",)), 1.0, 0.0)
-    mask_p = torch.as_tensor(ds.pad_host_vec(box, mask, np.float64)).to(dtype)
-    pg_p = torch.as_tensor(ds.pad_host_vec(box, 1e12 * g * mask, np.float64)).to(dtype)
+    c3, mask, mask_p, pg_p = _bc_case(box, dtype)
     sa.reset_launch_counts()
     A = sa.assemble_stiffness_kernel(box, c3.to(cuda))
     Ap_ = sa.assemble_stiffness_plain(box, c3)
@@ -491,6 +528,21 @@ def test_stencil_assembly_matches_plain_on_cuda(cuda, dtype, rtol, dims):
     assert bool((rk[~real] == 0).all())
     assert bool((Ak.bands_p.movedim(1, 0)[:, ~real] == 0).all())
     assert sa.launch_counts() == {"stencil_assembly": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil_assembly_deterministic_on_cuda(cuda, dtype):
+    """Two launches of each form are equal bit for bit: every band entry
+    is one thread's sum in a fixed order, with no atomics."""
+    box = StructuredBox(40, 33, 70)
+    c3, _, mask_p, pg_p = (t.to(cuda) if torch.is_tensor(t) else t
+                           for t in _bc_case(box, dtype))
+    a1, a2 = (sa.assemble_stiffness_kernel(box, c3) for _ in range(2))
+    (b1, r1), (b2, r2) = (sa.assemble_system(box, c3, mask_p, pg_p, 1e12, 1.0)
+                          for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a1.bands, a2.bands)
+    assert torch.equal(b1.bands_p, b2.bands_p) and torch.equal(r1, r2)
 
 
 def test_structured_slice_on_cuda_matches_cpu(cuda):

@@ -198,7 +198,8 @@ def test_sigma_choice_and_counts():
                            device="cpu")
     y = sell_spmv(torch.ones(lay.n_slots), lay, torch.full((5,), 2.0))
     assert y.tolist() == [4.0] * 5
-    assert launch_counts() == {"sell_spmv": 0, "sell_spmv_bf16": 0}
+    assert launch_counts() == {"sell_spmv": 0, "sell_spmv_bf16": 0,
+                               "sell_spmv_batched": 0}
 
 
 @st.composite
