@@ -13,12 +13,16 @@ degree-2 Chebyshev smoother) to rtol 1e-8.  It prints one JSON line with
 ``--asm-compact``, ``--band-pre``, ``--order``, ``--smoother``, ``--cheb-deg``
 and ``--cycle`` select the routes of ``bench.py``'s knobs (see
 :func:`solve_sphere_cut`).  ``--h 6 --refine 3`` is the 8.9M-DoF
-north-star size, whose host set-up on a cold cache takes tens of minutes.
+north-star size, whose host set-up on a cold cache takes minutes;
+``--prime`` builds and caches only that set-up, timed per stage.
 
 The mesh and topology are cached as host numpy under
-``utils.cache.CACHE_DIR``, in the same files ``bench.py``
-uses.  Assembly and solve are timed with CUDA events; the AMG set-up runs
-on the host and is timed with the host clock.
+``utils.cache.CACHE_DIR``, in the same files ``bench.py`` uses; the fine
+operator's SELL layout and the AMG hierarchy (with its levels' and
+transfers' SELL layouts) beside them, checked against digests of their
+inputs (``BENCH_NO_CACHE=1`` skips these two).  Assembly and solve are
+timed with CUDA events; the AMG set-up (or its load) runs on the host and
+is timed with the host clock.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from .mesh.core import Mesh
 from .mesh.unstructured import refine_tetra, sphere_cut_tetra_mesh
 from .ops.lane_assembly import TetraAssembler
 from .solver.amg import (
-    amg_from_numpy,
+    amg_cached,
     with_bf16_vcycle,
     with_compact_vcycle,
     with_supernode_smoother,
@@ -47,9 +51,10 @@ from .sparse.bell import BellMatrix, fine_layout
 from .sparse.compact import CompactMatrix
 from .sparse.diag_spmv import DiagEllMatrix
 from .sparse.ordering import supernode_order
+from .sparse.sell import SellLayout
 from .sparse.supernode import SupernodeMatrix, SupernodeSpmv
 from .sparse.topology import Topology, build_topology
-from .utils.cache import CACHE_DIR
+from .utils.cache import CACHE_DIR, cache_enabled, digest, load_npz, save_npz
 from .utils.ordering import rcm_order, renumber_mesh
 from .utils.timing import time_op
 
@@ -97,6 +102,12 @@ def _topology(mesh: Mesh, path: str | None) -> Topology:
 ORDERS = ("sn", "rcm")
 
 
+def mesh_key(h: float, refine: int, order: str = "sn") -> str:
+    """The cache key of the sphere_cut system in ``order``, as
+    ``bench.py`` forms it."""
+    return f"sphere_cut_v3_h{h:g}_r{refine}" + ("_sn" if order == "sn" else "")
+
+
 def sphere_cut_system(h: float, refine: int, cache: bool = True,
                       order: str = "sn") -> tuple[Mesh, Topology]:
     """The sphere_cut mesh in supernode order, and its topology.
@@ -107,7 +118,7 @@ def sphere_cut_system(h: float, refine: int, cache: bool = True,
     npz under CACHE_DIR, in ``bench.py``'s file names."""
     if order not in ORDERS:
         raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
-    key = f"sphere_cut_v3_h{h:g}_r{refine}"
+    key = mesh_key(h, refine, "rcm")
     if cache:
         os.makedirs(CACHE_DIR, exist_ok=True)
 
@@ -168,6 +179,43 @@ def true_residual(A: BellMatrix, b: torch.Tensor, x: torch.Tensor,
                  / torch.linalg.vector_norm(b.double()[interior]))
 
 
+def cached_fine_layout(topo: Topology, device, cache: str | None) -> SellLayout:
+    """:func:`fine_layout`, kept under the cache prefix ``cache`` (see
+    :func:`solve_sphere_cut`) when it is not None."""
+    if not cache:
+        return fine_layout(topo, device)
+    d, key = os.path.split(cache)
+    path = os.path.join(d, f"sell_{key}_v1.npz")
+    meta = {"what": "fine SELL layout", "cols": digest(topo.ell_cols),
+            "valid": digest(topo.ell_valid)}
+    arrays = load_npz(path, meta, "fine SELL layout")
+    if arrays is not None:
+        return SellLayout.from_arrays(arrays, device=device)
+    layout = fine_layout(topo, device)
+    save_npz(path, layout.to_arrays(), meta)
+    return layout
+
+
+def amg_cache_entry(cache: str, topo: Topology, flat: np.ndarray, *,
+                    smoother: str, cheb_deg, penalty: float, device,
+                    dtype: torch.dtype) -> tuple[str, dict]:
+    """(path, meta) of the AMG hierarchy's cache file under the prefix
+    ``cache``: keyed as ``bench.py`` keys its pickle (mesh, smoother,
+    Chebyshev degree, theta, platform, penalty) plus the dtype, and checked
+    against the digests of the column structure and of the penalised
+    values ``flat`` that ``amg_setup`` reads."""
+    d, key = os.path.split(cache)
+    platform = torch.device(device).type
+    dt = str(dtype).removeprefix("torch.")
+    name = (f"amg_{key}_{smoother}{str(cheb_deg).replace(' ', '')}"
+            f"_t{THETA:g}_{platform}_p{penalty:g}_{dt}_v1.npz")
+    meta = {"what": "AMG hierarchy", "mesh": key, "smoother": smoother,
+            "cheb_deg": cheb_deg, "theta": THETA, "platform": platform,
+            "penalty": penalty, "dtype": dt, "cols": digest(topo.ell_cols),
+            "values": digest(flat)}
+    return os.path.join(d, name), meta
+
+
 SPMV_PATHS = ("ell", "supernode", "compact", "diag")
 ASM_COORDS = ("split", "batched")
 
@@ -226,16 +274,28 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
                      band_pre: bool = False, order: str = "sn",
                      smoother: str = "chebyshev",
                      cheb_deg: int | tuple = CHEB_DEG, cycle: str = "V",
+                     rtol: float = RTOL, cache: str | None = None,
                      system: dict | None = None) -> dict:
     """Assemble, set up AMG and solve on ``device``.
 
     Returns the operator ``A`` (the BellMatrix), the solution ``x`` (device
     tensor), ``iterations``, the monitored ``rel`` residual, the float64
     ``true_residual``, the AMG ``levels``, ``spmv_path``, ``sell`` (the
-    SELL layout of each operator K1 runs on, ``SellLayout.describe``) and, with
-    ``timed``, ``assembly_s`` and ``solve_s`` (CUDA events) and
-    ``amg_setup_s`` (host).  ``plain=True`` runs every kernel's plain twin
-    instead of the kernel.
+    SELL layout of each operator K1 runs on, ``SellLayout.describe``),
+    ``amg_setup_s`` (host clock: the set-up, or the cache's digest and
+    load, and ``amg_from_numpy``), ``amg_setup_cached`` and, with
+    ``timed``, ``assembly_s`` and ``solve_s`` (CUDA events).  ``plain=True``
+    runs every kernel's plain twin instead of the kernel.  CG stops at
+    ``rtol``.
+
+    ``cache``: the system's cache prefix, ``os.path.join(CACHE_DIR,
+    mesh_key(...))``, or None.  The fine operator's SELL layout and the AMG
+    hierarchy (with its levels' and transfers' layouts) are then kept in
+    npz files beside it (``sell_<key>_v1.npz``, ``amg_<key>_<smoother>
+    <degree>_t<theta>_<platform>_p<penalty>_<dtype>_v1.npz``) and loaded,
+    instead of built, when the digests of the column structure (and of the
+    penalised values ``amg_setup`` reads) match; any mismatch or unreadable
+    file rebuilds and rewrites it (``utils/cache.py``).
 
     The options are ``bench.py``'s knobs of the same names: ``spmv`` the
     CG operator and AMG fine level ("ell"; "supernode" for 8x8 supernode
@@ -278,7 +338,7 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
     asm_key = (asm_coords, asm_compact, band_pre and asm_compact)
     if system is None or asm_key != system["asm_key"]:
         # one SELL layout per column structure: the assembly writes into it
-        layout = (fine_layout(topo, device) if system is None
+        layout = (cached_fine_layout(topo, device, cache) if system is None
                   else system["A"].layout)
         asm = TetraAssembler(topo, mesh.cells["tetra4"], device=device,
                              plain=plain,
@@ -313,17 +373,25 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
     if system is None:
         flat = A.ell_values().cpu().numpy()  # the AMG set-up's host copy
         t0 = time.perf_counter()
-        hier = amg_setup(flat, topo, theta=THETA, smoother=smoother,
-                         cheb_deg=cheb_deg, dtype=_NP_DTYPE[dtype])
-        M0 = amg_from_numpy(hier, device, dtype, plain=plain)
-        out["amg_setup_s"] = time.perf_counter() - t0
+        path = meta = None
+        if cache:
+            path, meta = amg_cache_entry(cache, topo, flat, smoother=smoother,
+                                         cheb_deg=cheb_deg, penalty=penalty,
+                                         device=device, dtype=dtype)
+        M0, cached = amg_cached(
+            path, meta, lambda: amg_setup(flat, topo, theta=THETA,
+                                          smoother=smoother, cheb_deg=cheb_deg,
+                                          dtype=_NP_DTYPE[dtype]),
+            device, dtype, plain=plain)
+        del flat
         system = {"device": torch.device(device), "dtype": dtype,
                   "plain": plain, "asm_key": asm_key, "A": A, "b": b,
                   "x0": x0, "interior": interior, "M": M0,
-                  "amg_setup_s": out["amg_setup_s"],
+                  "amg_setup_s": time.perf_counter() - t0,
+                  "amg_setup_cached": cached,
                   **({"assembly_s": out["assembly_s"]} if timed else {})}
-    else:
-        out["amg_setup_s"] = system["amg_setup_s"]
+    out["amg_setup_s"] = system["amg_setup_s"]
+    out["amg_setup_cached"] = system["amg_setup_cached"]
     M = system["M"].replace(smoother=smoother, cheb_deg=cheb_deg, cycle=cycle)
     out["levels"] = [m.n_nodes for m in M.mats] + [M.coarse_inv.shape[0]]
     own = system["A"] is A  # structures built on A are kept for later runs
@@ -392,10 +460,10 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
     if vcycle_bf16:
         M = with_bf16_vcycle(M)
 
-    x, iters, rel = pcg(Aop, b, M, x0, RTOL, 0.0, 1000, use_precise_dot=True)
+    x, iters, rel = pcg(Aop, b, M, x0, rtol, 0.0, 1000, use_precise_dot=True)
     if timed:
         out["solve_s"] = time_op(
-            pcg, Aop, b, M, x0, RTOL, 0.0, 1000, True, reps=1, outer=2)
+            pcg, Aop, b, M, x0, rtol, 0.0, 1000, True, reps=1, outer=2)
     out.update(A=A, x=x, iterations=iters, rel=rel,
                true_residual=true_residual(A, b, x, interior),
                spmv_path=type(Aop).__name__, system=system,
@@ -428,10 +496,10 @@ def gpu_name_and_power() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def check_solution(res: dict) -> None:
-    """Raise unless the solve converged to RTOL with a true interior
+def check_solution(res: dict, rtol: float = RTOL) -> None:
+    """Raise unless the solve converged to ``rtol`` with a true interior
     residual <= 1e-4 and a finite solution."""
-    if not res["rel"] <= RTOL:
+    if not res["rel"] <= rtol:
         raise RuntimeError(f"AMG-PCG did not converge: rel {res['rel']:.3e}")
     if not res["true_residual"] <= 1e-4:
         raise RuntimeError(
@@ -445,20 +513,54 @@ SPMV_KERNELS = {"ell": "sell_spmv", "supernode": "bsr8_spmv",
                 "compact": "sell_spmv", "diag": "diag_spmv"}
 
 
-def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
+def _counted_modules():
+    from .ops import lane_assembly
+    from .sparse import band_gather, diag_spmv, ell_gather, sell, slot_reduce, supernode
+
+    return ell_gather, sell, band_gather, diag_spmv, lane_assembly, slot_reduce, supernode
+
+
+def reset_launch_counts() -> None:
+    """Zero the launch counts of every kernel the sphere's routes run."""
+    for m in _counted_modules():
+        m.reset_launch_counts()
+
+
+def launch_counts() -> dict[str, int]:
+    """The launch counts of every kernel the sphere's routes run."""
+    return {k: v for m in _counted_modules() for k, v in m.launch_counts().items()}
+
+
+def bench_unstructured(h: float = 6, refine: int = 3, rtol: float = RTOL,
+                       **options) -> dict:
     """The main path at mesh size (h, refine) on one CUDA card, in f32
-    with penalty 1e12 as the JAX package runs it on its accelerator;
-    ``options`` are :func:`solve_sphere_cut`'s route options."""
+    with penalty 1e12 as the JAX package runs it on its accelerator, CG to
+    ``rtol``; ``options`` are :func:`solve_sphere_cut`'s route options.
+    Unless ``BENCH_NO_CACHE=1`` the fine SELL layout and the AMG hierarchy
+    come from, or go to, npz files under CACHE_DIR.
+    ``launches`` counts the kernels of the whole run (nine assemblies and
+    five solves, as :func:`solve_sphere_cut` times them, and its
+    true-residual check); ``peak_mem_gb`` is the run's peak of
+    ``torch.cuda.max_memory_allocated``."""
     if not torch.cuda.is_available():
         raise RuntimeError("bench_unstructured measures a CUDA card; none "
                            "is available")
     torch.backends.cuda.matmul.allow_tf32 = False
+    order = options.get("order", "sn")
     t0 = time.perf_counter()
-    mesh, topo = sphere_cut_system(h, refine, order=options.get("order", "sn"))
+    mesh, topo = sphere_cut_system(h, refine, order=order)
     host_s = time.perf_counter() - t0
+    prefix = (os.path.join(CACHE_DIR, mesh_key(h, refine, order))
+              if cache_enabled() else None)
+    builds = SellLayout.builds
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     res = solve_sphere_cut(mesh, topo, device="cuda", dtype=torch.float32,
-                           penalty=1e12, timed=True, **options)
-    check_solution(res)
+                           penalty=1e12, timed=True, rtol=rtol, cache=prefix,
+                           **options)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_solution(res, rtol)
     n = topo.n_nodes
     iters = res["iterations"]
     asm_s, solve_s = res["assembly_s"], res["solve_s"]
@@ -473,14 +575,15 @@ def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
                        else "ell_gather_sum+sell_spmv")
     return {
         "metric": (f"poisson3d_sphere_cut_{n/1e6:.1f}MDoF_"
-                   f"assembly+amgpcg_to_{RTOL:g}_s"),
+                   f"assembly+amgpcg_to_{rtol:g}_s"),
         "value": round(asm_s + solve_s, 4),
         "assembly_s": round(asm_s, 4),
         "solve_s": round(solve_s, 4),
         "ms_per_iter": round(solve_s / max(iters, 1) * 1e3, 2),
         "assembly_mdofs": round(n / asm_s / 1e6, 1),
         "amg_setup_s": round(res["amg_setup_s"], 1),
-        "amg_setup_cached": False,
+        "amg_setup_cached": res["amg_setup_cached"],
+        "sell_layout_builds": SellLayout.builds - builds,
         "host_setup_s": round(host_s, 1),
         "iterations": iters,
         "rel": res["rel"],
@@ -489,6 +592,7 @@ def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
         "n_dofs": int(n),
         "nnz_stored": int(topo.nnz),
         "sell_sigma": res["A"].layout.sigma,
+        "sell_slots": res["A"].layout.n_slots,
         "sell_slots_per_nnz": res["A"].layout.describe()["slots_per_nnz"],
         "spmv_path": res["spmv_path"],
         "spmv_kernel": spmv_kernel,
@@ -512,11 +616,30 @@ def bench_unstructured(h: float = 6, refine: int = 3, **options) -> dict:
         "amg_cheb_deg": opt["cheb_deg"],
         "amg_cycle": opt["cycle"],
         "vcycle_bf16": opt["vcycle_bf16"],
+        "launches": {k: v for k, v in counts.items() if v},
+        "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2),
         "platform": "cuda",
         "backend": "torch",
         "gpu": name,
         "power_limit": power,
     }
+
+
+def prime_host(h: float, refine: int) -> dict:
+    """Build (or load) and cache the host set-up of the sphere at (h,
+    refine): the mesh, its refinements, RCM and the RCM topology, then the
+    supernode order and its topology, each stage timed on the host clock.
+    No card is needed; a cold 8.9M set-up takes minutes, longer than a
+    bench budget gives it."""
+    t0 = time.perf_counter()
+    sphere_cut_system(h, refine, order="rcm")
+    t1 = time.perf_counter()
+    mesh, topo = sphere_cut_system(h, refine)
+    t2 = time.perf_counter()
+    return {"mesh_key": mesh_key(h, refine), "rcm_stage_s": round(t1 - t0, 1),
+            "sn_stage_s": round(t2 - t1, 1), "n_dofs": int(topo.n_nodes),
+            "n_cells": int(mesh.cells["tetra4"].shape[0]),
+            "nnz_stored": int(topo.nnz), "width": int(topo.width)}
 
 
 def _cheb_deg(text: str) -> int | tuple:
@@ -557,7 +680,13 @@ def main(argv=None) -> None:
                          "(BENCH_AMG_CHEB_DEG)")
     ap.add_argument("--cycle", choices=("V", "W"), default="V",
                     help="AMG cycle (BENCH_AMG_CYCLE)")
+    ap.add_argument("--prime", action="store_true",
+                    help="only build and cache the host set-up (mesh, orders, "
+                         "topologies), timed per stage; no card needed")
     args = ap.parse_args(argv)
+    if args.prime:
+        print(json.dumps(prime_host(args.h, args.refine)), flush=True)
+        return
     print(json.dumps(bench_unstructured(
         args.h, args.refine, spmv=args.spmv, sn_block=args.sn_block,
         sn_bf16=args.sn_bf16, vcycle_bf16=args.vcycle_bf16,

@@ -19,12 +19,15 @@ inside the cycle, :func:`with_compact_vcycle`), ``sawtooth``, and
 and rigid-body-mode paths (elasticity) are not ported.
 
 The hierarchy is built on the host by ``solver/amg_setup.py::amg_setup``
-and moved to a device by :func:`amg_from_numpy`.
+and moved to a device by :func:`amg_from_numpy`; :func:`amg_cached` keeps
+it, with the SELL layouts of its levels and transfers, in an npz file
+(:func:`hierarchy_arrays`, :func:`hierarchy_from_arrays`).
 """
 
 from __future__ import annotations
 
 import copy
+import json
 
 import numpy as np
 import scipy.sparse as sp
@@ -32,7 +35,9 @@ import torch
 
 from ..sparse.bell import BellMatrix
 from ..sparse.compact import CompactMatrix
+from ..sparse.sell import SellLayout
 from ..sparse.supernode import block_products
+from ..utils.cache import load_npz, save_npz
 
 # levels and transfers the bf16 V-cycle casts: those with at least this
 # many (fine) rows, the ones the JAX package gives a Pallas plan
@@ -191,21 +196,34 @@ def amg_from_numpy(d: dict, device: torch.device | str,
     ``smoother``, ``cheb_deg`` (an int or a per-level tuple), ``nu`` and
     ``cycle``, and optionally ``sawtooth`` and ``l0_binv`` ((n_sup, bs, bs)
     or None).  Every level and transfer becomes a BellMatrix (SELL storage
-    of its non-zero values, column ranges checked once, here).
+    of its non-zero values, column ranges checked once, here), on the SELL
+    layouts of ``d["layouts"]`` when the dict carries them (``{"mats",
+    "P", "Pt"}``: lists of ``SellLayout.to_arrays``, as
+    :func:`hierarchy_from_arrays` gives them), which are moved, not built.
     ``plain=True`` builds the kernel-free twin."""
     def t(a):
         return torch.tensor(np.asarray(a), device=device, dtype=dtype)
 
-    def bell(v, cl, n_cols):
-        return BellMatrix.from_numpy(v, cl, device=device, dtype=dtype,
-                                     n_cols=n_cols, plain=plain)
+    layouts = d.get("layouts") or {}
+
+    def bell(v, cl, n_cols, role, l):
+        if not layouts:
+            return BellMatrix.from_numpy(v, cl, device=device, dtype=dtype,
+                                         n_cols=n_cols, plain=plain)
+        layout = SellLayout.from_arrays(layouts[role][l], device=device)
+        if layout.ell_cols.shape != np.shape(v) or layout.n_cols != n_cols:
+            raise ValueError(f"amg_from_numpy: the {role}[{l}] layout does not "
+                             f"fit its {np.shape(v)} values and {n_cols} columns")
+        return BellMatrix(layout.from_ell(np.asarray(v)).to(dtype), layout,
+                          plain=plain)
 
     sizes = [np.shape(v)[0] for v, _ in d["mats"]] + [
         np.asarray(d["coarse_inv"]).shape[0]]
-    mats = [bell(v, cl, n) for (v, cl), n in zip(d["mats"], sizes)]
-    P = [bell(v, cl, sizes[l + 1])
+    mats = [bell(v, cl, n, "mats", l)
+            for l, ((v, cl), n) in enumerate(zip(d["mats"], sizes))]
+    P = [bell(v, cl, sizes[l + 1], "P", l)
          for l, (v, cl) in enumerate(zip(d["pvals"], d["pcols"]))]
-    Pt = [bell(v, cl, sizes[l])
+    Pt = [bell(v, cl, sizes[l], "Pt", l)
           for l, (v, cl) in enumerate(zip(d["ptvals"], d["ptcols"]))]
     binv = d.get("l0_binv")
     if binv is not None and (np.ndim(binv) != 3 or mats and
@@ -219,6 +237,70 @@ def amg_from_numpy(d: dict, device: torch.device | str,
         sawtooth=d.get("sawtooth", False),
         l0_binv=None if binv is None else t(binv),
     )
+
+
+def hierarchy_arrays(d: dict, M: AMGPrecond) -> dict[str, np.ndarray]:
+    """The host arrays of :func:`amg_setup`'s dict ``d`` and of the SELL
+    layouts that ``M = amg_from_numpy(d, ...)`` built for its levels and
+    transfers, flat for an npz file (the column arrays once, in their
+    layouts); :func:`hierarchy_from_arrays` takes them back."""
+    out = {"coarse_inv": np.asarray(d["coarse_inv"]),
+           "scalars": np.array(json.dumps(
+               {k: d[k] for k in ("omegas", "rhos", "smoother", "cheb_deg",
+                                  "nu", "cycle")}))}
+    roles = {"mats": (M.mats, [v for v, _ in d["mats"]]),
+             "P": (M.P, d["pvals"]), "Pt": (M.Pt, d["ptvals"])}
+    for role, (ops, values) in roles.items():
+        for l, (op, v) in enumerate(zip(ops, values, strict=True)):
+            out[f"{role}{l}_values"] = np.asarray(v)
+            for k, a in op.layout.to_arrays().items():
+                out[f"{role}{l}_sell_{k}"] = a
+    for l, a in enumerate(d["inv_diags"]):
+        out[f"inv_diags{l}"] = np.asarray(a)
+    return out
+
+
+def hierarchy_from_arrays(arrays: dict[str, np.ndarray]) -> dict:
+    """:func:`amg_from_numpy`'s dict, with its ``layouts``, from
+    :func:`hierarchy_arrays`' arrays."""
+    scalars = json.loads(str(arrays["scalars"]))
+    if isinstance(scalars["cheb_deg"], list):
+        scalars["cheb_deg"] = tuple(scalars["cheb_deg"])
+    d = {"coarse_inv": arrays["coarse_inv"], "layouts": {},
+         **{k: tuple(scalars[k]) for k in ("omegas", "rhos")},
+         **{k: scalars[k] for k in ("smoother", "cheb_deg", "nu", "cycle")}}
+    for role in ("mats", "P", "Pt"):
+        d["layouts"][role] = lays = []
+        while f"{role}{len(lays)}_values" in arrays:
+            pre = f"{role}{len(lays)}_sell_"
+            lays.append({k[len(pre):]: a for k, a in arrays.items()
+                         if k.startswith(pre)})
+    vals = {role: [arrays[f"{role}{l}_values"] for l in range(len(lays))]
+            for role, lays in d["layouts"].items()}
+    cols = {role: [lay["ell_cols"] for lay in lays]
+            for role, lays in d["layouts"].items()}
+    d["mats"] = list(zip(vals["mats"], cols["mats"]))
+    d["pvals"], d["pcols"] = vals["P"], cols["P"]
+    d["ptvals"], d["ptcols"] = vals["Pt"], cols["Pt"]
+    d["inv_diags"] = [arrays[f"inv_diags{l}"] for l in range(len(d["mats"]))]
+    return d
+
+
+def amg_cached(path: str | None, meta: dict, build, device: torch.device | str,
+               dtype: torch.dtype, *, plain: bool = False) -> tuple[AMGPrecond, bool]:
+    """(M, cached): the hierarchy of the npz file ``path`` when its stored
+    meta equals ``meta`` (``utils/cache.py::load_npz``), with its SELL
+    layouts, moved to ``device``; else ``M = amg_from_numpy(build(), ...)``
+    and the file written anew.  ``path`` None: no cache."""
+    arrays = load_npz(path, meta, "AMG hierarchy") if path else None
+    if arrays is not None:
+        return amg_from_numpy(hierarchy_from_arrays(arrays), device, dtype,
+                              plain=plain), True
+    d = build()
+    M = amg_from_numpy(d, device, dtype, plain=plain)
+    if path:
+        save_npz(path, hierarchy_arrays(d, M), meta)
+    return M, False
 
 
 def with_supernode_smoother(M: AMGPrecond, A, sn,

@@ -1,9 +1,11 @@
 """Preconditioned conjugate gradients with compensated dot products.
 
-The counterpart of ``pcg``, ``precise_dot`` and ``Precond`` in
-``arcanefem_tpu/solver/iterative.py``: the same recurrence, the same
-stopping rule (the preconditioned residual r^T M r relative to its initial
-value) and the same return values ``(x, iterations, rel)``.
+The counterpart of ``pcg``, ``pcg_chunked``, ``precise_dot`` and
+``Precond`` in ``arcanefem_tpu/solver/iterative.py``: the same
+recurrence, the same stopping rule (the preconditioned residual r^T M r
+relative to its initial value) and the same return values
+``(x, iterations, rel)``.  ``pcg`` is ``pcg_chunked`` with ``chunk=1``:
+one loop body.
 
 ``A`` is anything with ``.spmv(x)`` and ``M`` anything with ``.apply(r)``.
 Vectors may have any shape: every dot sums over all elements, so the
@@ -72,18 +74,25 @@ def default_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
-def pcg(A, b: torch.Tensor, M, x0: torch.Tensor, rtol: float, atol: float,
-        max_iter: int, use_precise_dot: bool = False, replace_every: int = 0):
-    """Solve A x = b.  Stops when r^T M r <= max(rtol^2 |r0^T M r0|, atol^2)
-    or after max_iter iterations.  Returns (x, iterations, rel) with
-    rel = sqrt(|r^T M r| / |r0^T M r0|) and x in float64.
+def pcg_chunked(A, b: torch.Tensor, M, x0: torch.Tensor, rtol: float,
+                atol: float, max_iter: int, use_precise_dot: bool = False,
+                chunk: int = 4, replace_every: int = 0):
+    """PCG with the stopping test read every ``chunk`` iterations.
+
+    The counterpart of the JAX ``pcg_chunked``: ``chunk`` CG steps run
+    between two host reads of the test r^T M r <= max(rtol^2 |r0^T M r0|,
+    atol^2), so the count is a multiple of ``chunk`` and may run up to
+    chunk − 1 steps past convergence (and past max_iter).  ``chunk=1`` is
+    :func:`pcg`.  Returns (x, iterations, rel) with rel = sqrt(|r^T M r| /
+    |r0^T M r0|) and x in float64.
 
     ``replace_every`` > 0 replaces the recurrence's residual by the true
     one, ``A.residual(b, x)`` evaluated in float64 and rounded to the
     working dtype, after every that many iterations (residual replacement;
-    the JAX ``pcg`` has none).  It drops the rounding errors the recurrence
-    has collected, of which the first, the working-dtype rounding of
-    r0 = b − A x0, is the largest when x0 carries Dirichlet values.
+    the JAX solvers have none).  It drops the rounding errors the
+    recurrence has collected, of which the first, the working-dtype
+    rounding of r0 = b − A x0, is the largest when x0 carries Dirichlet
+    values.
 
     The iterate x is accumulated in float64 whatever the working dtype.
     CG never reads x back (r, z and p carry the recurrence), so the
@@ -91,6 +100,8 @@ def pcg(A, b: torch.Tensor, M, x0: torch.Tensor, rtol: float, atol: float,
     what changes is that x no longer collects one rounding of the working
     type per iteration.  In float32 at 1.9M DoF that rounding alone held
     the true residual near 2e-4."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
     dot = precise_dot if use_precise_dot else default_dot
     x = x0.to(torch.float64)
     r = b - A.spmv(x0)
@@ -100,22 +111,31 @@ def pcg(A, b: torch.Tensor, M, x0: torch.Tensor, rtol: float, atol: float,
     rz0 = rz
     tol2 = torch.clamp(rtol * rtol * rz0.abs(), min=atol * atol)
     k = 0
-    # One host read of the stopping test per iteration.  It costs a
-    # device sync per iteration; a loop kept on the device (a CUDA graph
-    # of a few iterations per check) is later work.
+    # One host read of the stopping test per chunk: a device sync each
+    # time, which is what a CUDA graph of one chunk would leave.
     while k < max_iter and bool(rz.abs() > tol2):
-        Ap = A.spmv(p)
-        alpha = rz / dot(p, Ap)
-        x = x + alpha.to(torch.float64) * p.to(torch.float64)
-        r = r - alpha * Ap
-        k += 1
-        if replace_every and k % replace_every == 0:
-            r = A.residual(b.double(), x).to(b.dtype)
-        z = M.apply(r)
-        rz_new = dot(r, z)
-        beta = rz_new / rz
-        p = z + beta * p
-        rz = rz_new
+        for _ in range(chunk):
+            Ap = A.spmv(p)
+            alpha = rz / dot(p, Ap)
+            x = x + alpha.to(torch.float64) * p.to(torch.float64)
+            r = r - alpha * Ap
+            k += 1
+            if replace_every and k % replace_every == 0:
+                r = A.residual(b.double(), x).to(b.dtype)
+            z = M.apply(r)
+            rz_new = dot(r, z)
+            beta = rz_new / rz
+            p = z + beta * p
+            rz = rz_new
     tiny = torch.finfo(b.dtype).tiny
     rel = float(torch.sqrt(rz.abs() / torch.clamp(rz0.abs(), min=tiny)))
     return x, k, rel
+
+
+def pcg(A, b: torch.Tensor, M, x0: torch.Tensor, rtol: float, atol: float,
+        max_iter: int, use_precise_dot: bool = False, replace_every: int = 0):
+    """Solve A x = b: :func:`pcg_chunked` with the stopping test read after
+    every iteration (``chunk=1``), stopping when r^T M r <=
+    max(rtol^2 |r0^T M r0|, atol^2) or after max_iter iterations."""
+    return pcg_chunked(A, b, M, x0, rtol, atol, max_iter, use_precise_dot,
+                       chunk=1, replace_every=replace_every)

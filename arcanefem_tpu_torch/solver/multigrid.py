@@ -14,7 +14,8 @@ free rows' residual and a penalty row gets the exact Jacobi action 1/P.
   sweep from x = 0 is the elementwise ω·D⁻¹·b, later sweeps are the fused
   Jacobi kernel (K6), the masked residual is the fused residual kernel
   (K7); only the transfers touch the real layout.  Levels are assembled by
-  the fused stencil-assembly kernel (K4) and may hold bf16 bands.
+  the fused stencil-assembly kernel (K4), or with ``fused=False`` by its
+  stiffness-only mode, and may hold bf16 bands.
 * ``mg_from_numpy``: a JAX ``MGPrecondP``'s arrays, as numpy, in the port.
 
 ``prolong3`` and ``restrict3`` are trilinear interpolation and its
@@ -34,8 +35,10 @@ from ..sparse.dia_stencil import (
     DiaPlaneMatrixP,
     _inv_nonzero,
     pad_host_vec,
+    to_plane_matrix,
     to_stencil_matrix,
 )
+from ..sparse.dia import DiaMatrix
 
 # --- per-axis transfers -----------------------------------------------------
 
@@ -137,6 +140,16 @@ class MGPrecond:
         return torch.where(self.masks[0], r * self.inv_diags[0], z)
 
 
+def _penalised_stiffness(box: StructuredBox, c3: torch.Tensor,
+                         mask: torch.Tensor, penalty: float) -> DiaMatrix:
+    """The level's stiffness (K4 on the card) with ``penalty`` written on
+    the diagonal of its Dirichlet rows ``mask``."""
+    A = assemble_stiffness_kernel(box, c3.contiguous())
+    bands = A.bands.clone()
+    bands[D0] = torch.where(mask, torch.full_like(bands[D0], penalty), bands[D0])
+    return A.with_bands(bands)
+
+
 def build_mg(box: StructuredBox, coords3d: torch.Tensor,
              dirichlet_mask: np.ndarray, penalty: float,
              bc_planes: tuple = ("xmin", "xmax"), min_size: int = 8,
@@ -148,13 +161,10 @@ def build_mg(box: StructuredBox, coords3d: torch.Tensor,
     mats, inv_diags, masks, shapes = [], [], [], []
     c3 = coords3d
     for b, mask in _levels(box, dirichlet_mask, bc_planes, min_size):
-        A = assemble_stiffness_kernel(b, c3.contiguous())
-        c3 = c3[::2, ::2, ::2]
         m = torch.as_tensor(mask, device=coords3d.device)
-        bands = A.bands.clone()
-        bands[D0] = torch.where(m, torch.full_like(bands[D0], penalty), bands[D0])
-        Ap = A.with_bands(bands)
-        inv_diags.append(_inv_nonzero(bands[D0]))
+        Ap = _penalised_stiffness(b, c3, m, penalty)
+        c3 = c3[::2, ::2, ::2]
+        inv_diags.append(_inv_nonzero(Ap.bands[D0]))
         mats.append(to_stencil_matrix(Ap, b) if use_stencil_spmv else Ap)
         masks.append(m)
         shapes.append(b.shape)
@@ -247,15 +257,19 @@ def build_mg_padded(box: StructuredBox, coords3d: torch.Tensor,
                     dirichlet_mask: np.ndarray, penalty: float,
                     bc_planes: tuple = ("xmin", "xmax"), min_size: int = 8,
                     nu: int = 2, omega: float = 0.8, coarse_iters: int = 40,
-                    fine: DiaPlaneMatrixP | None = None, cheb: bool = False,
-                    band_dtype=None, masks_p: list | None = None) -> MGPrecondP:
+                    fine: DiaPlaneMatrixP | None = None, fused: bool = True,
+                    cheb: bool = False, band_dtype=None,
+                    masks_p: list | None = None) -> MGPrecondP:
     """The padded-layout hierarchy.  Every level is assembled and penalised
     by the fused stencil assembly (K4 on the card), unless ``fine`` (an
     already penalised operator, e.g. the solve's own) is given for level 0.
-    ``band_dtype`` (e.g. torch.bfloat16) stores the hierarchy's bands at that
-    width; each inverse diagonal is taken before the cast.  ``masks_p``:
-    the levels' padded mask planes (``level_masks_p``), else built here.
-    The JAX ``fused=False`` branch is not ported: this is the fused one."""
+    ``fused=False`` re-discretises each level by the stiffness-only
+    assembly (K4's DiaMatrix mode on the card), writes the penalty on its
+    Dirichlet diagonal and moves it to the plane layout (``to_plane_matrix``),
+    as the JAX ``fused=False`` branch.  ``band_dtype`` (e.g. torch.bfloat16)
+    stores the hierarchy's bands at that width; each inverse diagonal is
+    taken before the cast.  ``masks_p``: the levels' padded mask planes
+    (``level_masks_p``), else built here."""
     if masks_p is None:
         masks_p = level_masks_p(box, dirichlet_mask, device=coords3d.device,
                                 bc_planes=bc_planes, min_size=min_size,
@@ -263,9 +277,12 @@ def build_mg_padded(box: StructuredBox, coords3d: torch.Tensor,
     mats, inv_diags, maskmuls, masks, shapes = [], [], [], [], []
     levels = _levels(box, dirichlet_mask, bc_planes, min_size)
     c3 = coords3d
-    for (b, _), mask_p in zip(levels, masks_p, strict=True):
+    for (b, mask), mask_p in zip(levels, masks_p, strict=True):
         if fine is not None and not mats:
             Ap = fine
+        elif not fused:
+            m = torch.as_tensor(mask, device=coords3d.device)
+            Ap = to_plane_matrix(_penalised_stiffness(b, c3, m, penalty), b)
         else:
             Ap, _ = assemble_system(b, c3.contiguous(), mask_p,
                                     torch.zeros_like(mask_p), penalty)

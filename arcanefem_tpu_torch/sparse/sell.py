@@ -111,7 +111,13 @@ class SellLayout:
     """The SELL-32-σ structure of one (N, W) ELL column array on one
     device: ``cols`` (n_slots,) int32, ``slice_ptr`` (n_slices+1,) int64
     and ``perm`` ((N,) int32 or None) there, and on the host ``ell_cols``,
-    ``src``, ``real`` (n_slots,) bool, ``slice_width`` and ``sigma``."""
+    ``src``, ``real`` (n_slots,) bool, ``slice_width`` and ``sigma``.
+    :meth:`to_arrays` and :meth:`from_arrays` carry a layout through a
+    host cache; ``SellLayout.builds`` counts the calls of :meth:`build`."""
+
+    builds = 0
+    _FIELDS = ("ell_cols", "n_cols", "sigma", "src", "real", "slot_row",
+               "slice_ptr", "slice_width", "perm", "cols")
 
     def __init__(self, ell_cols: np.ndarray, n_cols: int, sigma: int,
                  src: np.ndarray, real: np.ndarray, slot_row: np.ndarray,
@@ -152,6 +158,7 @@ class SellLayout:
         """From host (N, W) ``ell_cols`` in [0, n_cols) (n_cols defaults to
         N) and the (N, W) mask ``real`` of the slots to keep; ``sigma``
         defaults to :func:`choose_sigma`."""
+        SellLayout.builds += 1
         ell_cols = np.asarray(ell_cols)
         real = np.asarray(real, bool)
         if ell_cols.ndim != 2 or real.shape != ell_cols.shape:
@@ -194,6 +201,40 @@ class SellLayout:
                                device=device)
         return cls(ell_cols, n_cols, sigma, src, keep, row.astype(np.int32),
                    ptr, width.astype(np.int32), perm, cols, device)
+
+    def to_arrays(self) -> dict[str, np.ndarray]:
+        """The layout as host numpy arrays (``perm`` empty when σ = 1),
+        which :meth:`from_arrays` takes back."""
+        return {"ell_cols": self.ell_cols, "n_cols": np.int64(self.n_cols),
+                "sigma": np.int64(self.sigma), "src": self.src,
+                "real": self.real, "slot_row": self._slot_row,
+                "slice_ptr": self.slice_ptr.cpu().numpy(),
+                "slice_width": self.slice_width,
+                "perm": (np.zeros(0, np.int32) if self.perm is None
+                         else self.perm.cpu().numpy()),
+                "cols": self.cols.cpu().numpy()}
+
+    @classmethod
+    def from_arrays(cls, arrays: dict, *, device: torch.device | str) -> "SellLayout":
+        """The layout of :meth:`to_arrays`' ``arrays`` on ``device``: the
+        arrays are moved, nothing is rebuilt."""
+        missing = [k for k in cls._FIELDS if k not in arrays]
+        if missing:
+            raise KeyError(f"SellLayout.from_arrays: missing {missing}")
+        a = arrays
+        sigma = int(a["sigma"])
+        ell_cols = np.asarray(a["ell_cols"])
+        n_slots = int(a["slice_ptr"][-1])
+        if (ell_cols.ndim != 2 or a["src"].shape != (n_slots,)
+                or a["real"].shape != (n_slots,) or a["cols"].shape != (n_slots,)
+                or a["slot_row"].shape != (n_slots,)
+                or len(a["slice_width"]) + 1 != len(a["slice_ptr"])
+                or (sigma > 1 and a["perm"].shape != (ell_cols.shape[0],))):
+            raise ValueError("SellLayout.from_arrays: inconsistent array shapes")
+        return cls(ell_cols, int(a["n_cols"]), sigma, a["src"], a["real"],
+                   a["slot_row"], a["slice_ptr"], a["slice_width"],
+                   a["perm"] if sigma > 1 else None,
+                   torch.as_tensor(a["cols"], device=device), device)
 
     def with_cols(self, ell_cols: np.ndarray, n_cols: int) -> "SellLayout":
         """The same slices, permutation and slot map over another (N, W)

@@ -23,7 +23,11 @@ script then exits non-zero without the final line:
    every operator K1 ran on (``[sell]`` lines); then each kernel timed
    against its plain twin at the shapes of the path (tet_element in both
    input modes, slot_reduce beside one index_add_ of all its entries), K1
-   at both σ, and a torch.profiler breakdown of one solve;
+   at both σ, and a torch.profiler breakdown of one solve; then
+   ``[cache]``: the same system through the AMG hierarchy's npz cache in
+   a fresh directory, cold (set-up, saved) and warm (loaded, no SELL
+   layout build): every array equal bit for bit, the same iterations and
+   x as phase 4, bit for bit, with both ``amg_setup_s``;
 9. (run right after 4, on its mesh, operator and AMG hierarchy) the
    supernode route and the other bench knobs of the sphere: (a) the
    supernode operator, (b) with the block-Jacobi fine smoother, (c) with
@@ -69,11 +73,21 @@ j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
    the launch counts of one solve, a torch.profiler breakdown of one solve
    (the operator table in build/profile/), the Jacobi-PCG variant (K8a)
    and the flat-vector MG variant (K8a, K8b), each with its own counts
-   and bench line, then each kernel held against its plain twin and timed
-   at the path's shapes (CUDA events and profiler device time), and two
-   fused 225^3 assemblies held equal bit for bit;
+   and bench line, ``[chunk]``: the pass with ``pcg_chunked``, chunk 4 (a
+   multiple of 4 iterations within 4 of ``pcg``'s, true residual <= 1e-4)
+   and chunk 1 (equal to ``pcg`` bit for bit), ``[unfused]``: the pass with
+   the unfused assembly and MG build (K4's stiffness-only mode on every
+   level; 13 ± 1 iterations, true residual <= 1e-4), then each kernel held
+   against its plain twin and timed at the path's shapes (CUDA events and
+   profiler device time), and two fused 225^3 assemblies held equal bit
+   for bit;
 8. the MG path at 64^3 through the kernels, on the plain twins (float32 on
-   the CPU) and in float64 on the CPU: iterations and solutions must agree.
+   the CPU) and in float64 on the CPU: iterations and solutions must agree;
+``[bench]``: ``python -m arcanefem_tpu_torch.bench`` twice at check size
+   (sphere h=8 refine=0, box 64^3) in a fresh cache directory: bench.py's
+   keys and metric names, a numeric ``vs_baseline``, the AMG hierarchy
+   built in the first run and loaded in the second without a SELL layout
+   build, the same iterations.
 
 Then one JSON line with the kernels' records and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -327,6 +341,7 @@ def main() -> int:
     _profile(solve_ell, os.path.join("build", "profile", "ell.txt"),
              time.perf_counter() - t0, groups=SPHERE_GROUPS)
     torch.cuda.empty_cache()
+    cache_phase(dev, mesh, topo, res)
 
     records += supernode_phase(dev, gen, mesh, topo, res)
     res["system"].pop("sn", None)  # 1.35 GB of blocks no later phase reads
@@ -371,6 +386,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     records += structured_phases(dev, gen)
+    bench_phase()
 
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
@@ -827,27 +843,16 @@ def _bsr8_records(sn, A, x, counts) -> list[dict]:
     return records
 
 
-def _counted():
-    from arcanefem_tpu_torch.ops import lane_assembly
-    from arcanefem_tpu_torch.sparse import (
-        band_gather,
-        diag_spmv,
-        ell_gather,
-        sell,
-        slot_reduce,
-        supernode,
-    )
-
-    return ell_gather, sell, band_gather, diag_spmv, lane_assembly, slot_reduce, supernode
-
-
 def _reset_all() -> None:
-    for m in _counted():
-        m.reset_launch_counts()
+    from arcanefem_tpu_torch.bench_unstructured import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def _counts_all() -> dict:
-    return {k: v for m in _counted() for k, v in m.launch_counts().items()}
+    from arcanefem_tpu_torch.bench_unstructured import launch_counts
+
+    return launch_counts()
 
 
 def _route_run(tag, mesh, topo, dev, system, ell_iters, **opts):
@@ -1383,6 +1388,144 @@ def _profile(fn, path: str, wall_s: float, top: int = 12,
         print(f"[profile] group {g}: {t / 1e3:.3f} ms {t / total:.1%} {n}x", flush=True)
 
 
+def cache_phase(dev, mesh, topo, res4) -> None:
+    """[cache]: phase 4's system through the AMG hierarchy's npz cache in a
+    fresh directory, cold (set-up, then saved) and warm (loaded): every
+    array of the two hierarchies equal bit for bit, the warm run without a
+    SELL layout build, both solves equal to phase 4's, bit for bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.bench_unstructured import mesh_key, solve_sphere_cut
+    from arcanefem_tpu_torch.sparse.sell import SellLayout
+
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        prefix = os.path.join(tmp, mesh_key(5.0, 2))
+        runs = []
+        for _ in range(2):
+            builds = SellLayout.builds
+            r = solve_sphere_cut(mesh, topo, device=dev, dtype=torch.float32,
+                                 penalty=1e12, cache=prefix)
+            runs.append((r, SellLayout.builds - builds))
+        files = {f: os.path.getsize(os.path.join(tmp, f)) for f in sorted(os.listdir(tmp))}
+    (cold, cold_builds), (warm, warm_builds) = runs
+    Mc, Mw = cold["system"]["M"], warm["system"]["M"]
+    same = []
+    for role in ("mats", "P", "Pt"):
+        for a, b in zip(getattr(Mc, role), getattr(Mw, role), strict=True):
+            la, lb = a.layout.to_arrays(), b.layout.to_arrays()
+            same.append(torch.equal(a.values, b.values) and la.keys() == lb.keys()
+                        and all(np.array_equal(la[k], lb[k]) and la[k].dtype == lb[k].dtype
+                                for k in la))
+    for a, b in zip(Mc.inv_diags + (Mc.coarse_inv,), Mw.inv_diags + (Mw.coarse_inv,),
+                    strict=True):
+        same.append(torch.equal(a, b))
+    same.append((Mc.omegas, Mc.rhos, Mc.smoother, Mc.cheb_deg, Mc.nu, Mc.cycle)
+                == (Mw.omegas, Mw.rhos, Mw.smoother, Mw.cheb_deg, Mw.nu, Mw.cycle))
+    line = {"amg_setup_s": [cold["amg_setup_s"], warm["amg_setup_s"]],
+            "amg_setup_cached": [cold["amg_setup_cached"], warm["amg_setup_cached"]],
+            "sell_layout_builds": [cold_builds, warm_builds],
+            "iterations": [cold["iterations"], warm["iterations"]],
+            "arrays_equal": all(same), "arrays": len(same),
+            "x_equal": torch.equal(cold["x"], warm["x"]),
+            "x_equal_phase4": torch.equal(cold["x"], res4["x"]),
+            "file_bytes": files}
+    print(f"[cache] {json.dumps(line)}", flush=True)
+    _check(not cold["amg_setup_cached"] and warm["amg_setup_cached"],
+           f"[cache] cached flags {line['amg_setup_cached']}")
+    _check(warm_builds == 0, f"[cache] the warm run built {warm_builds} SELL layouts")
+    _check(all(same), "[cache] the loaded hierarchy differs from the built one")
+    _check(cold["iterations"] == warm["iterations"] == res4["iterations"]
+           and line["x_equal"] and line["x_equal_phase4"],
+           "[cache] the loaded hierarchy does not solve bit for bit like the built one")
+    del runs, cold, warm, Mc, Mw
+
+
+def chunk_unfused_phases(s, res) -> None:
+    """[chunk]: the 224^3 bench pass with pcg_chunked, chunk 4 (a multiple
+    of 4 iterations, within 4 of pcg's, true residual <= 1e-4) and chunk 1
+    (pcg itself: equal bit for bit); [unfused]: the pass with the unfused
+    assembly and MG build (K4's stiffness-only mode on every level), 13 ± 1
+    iterations, true residual <= 1e-4."""
+    import torch
+
+    from arcanefem_tpu_torch.bench_structured import Options, bench_line, solve_mg
+    from arcanefem_tpu_torch.mesh import stencil_assembly as sa
+    from arcanefem_tpu_torch.sparse import dia_stencil as ds
+
+    iters = res["iterations"]
+    for tag, opts in (("chunk", Options(chunk=4)), ("chunk", Options(chunk=1)),
+                      ("unfused", Options(fused=False))):
+        ds.reset_launch_counts()
+        sa.reset_launch_counts()
+        r = solve_mg(s, opts=opts)
+        torch.cuda.synchronize()
+        counts = {**sa.launch_counts(), **ds.launch_counts()}
+        line = bench_line(s, r, "mg", opts)  # raises on a failed residual check
+        line.update(launches=counts, pcg_iterations=iters,
+                    x_equal_pcg=torch.equal(r["x"], res["x"]))
+        print(f"[{tag}] {json.dumps(line)}", flush=True)
+        k = r["iterations"]
+        if opts.chunk == 4:
+            _check(k % 4 == 0 and 0 <= k - iters < 4,
+                   f"[chunk] chunk 4: {k} iterations, pcg {iters}")
+        elif tag == "chunk":
+            _check(k == iters and line["x_equal_pcg"],
+                   "[chunk] chunk 1 differs from pcg")
+        else:
+            _check(abs(k - 13) <= 1 and counts["stencil_assembly"] > 0,
+                   f"[unfused] {k} iterations, launches {counts}")
+        del r
+
+
+def bench_phase() -> None:
+    """[bench]: ``python -m arcanefem_tpu_torch.bench`` twice at check size
+    (sphere h=8 refine=0, box 64^3) in a fresh cache directory: bench.py's
+    keys and metric names, a numeric vs_baseline, the AMG hierarchy built
+    in the first run and loaded in the second (no SELL layout build), the
+    same iterations."""
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("BENCH_", "AFEM_"))}
+        env.update(AFEM_CACHE_DIR=tmp, BENCH_UNSTR_H="8", BENCH_UNSTR_REFINE="0",
+                   BENCH_N=str(CHECK_N))
+        lines = []
+        for run in (1, 2):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "arcanefem_tpu_torch.bench"],
+                                  env=env, stdout=subprocess.PIPE, text=True, timeout=900)
+            _check(proc.returncode == 0, f"[bench] run {run} exited {proc.returncode}")
+            lines.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            print(f"[bench] run {run} in {time.perf_counter() - t0:.1f} s: "
+                  f"{json.dumps(lines[-1])}", flush=True)
+    box_n = (CHECK_N + 1) ** 3
+    for line in lines:
+        ex = line["extra"]
+        _check(set(line) == {"metric", "value", "unit", "vs_baseline", "extra"},
+               f"[bench] keys {sorted(line)}")
+        _check({"secondary_metric", "secondary_value", "secondary_assembly_mdofs",
+                "baseline_kind", "baseline_estimate_s", "gpu", "power_limit"} <= set(ex)
+               and "error" not in ex, f"[bench] extra keys {sorted(ex)}")
+        _check(line["metric"] == f"poisson3d_sphere_cut_{ex['n_dofs'] / 1e6:.1f}MDoF_"
+               "assembly+amgpcg_to_1e-08_s"
+               and ex["secondary_metric"] == f"poisson3d_box_{box_n / 1e6:.3g}MDoF_"
+               "assembly+cg_to_1e-08_s", f"[bench] metric names {line['metric']}, "
+               f"{ex['secondary_metric']}")
+        _check(isinstance(line["vs_baseline"], float) and line["vs_baseline"] > 0,
+               f"[bench] vs_baseline {line['vs_baseline']}")
+    (a, b) = (ln["extra"] for ln in lines)
+    _check(a["amg_setup_cached"] is False and b["amg_setup_cached"] is True
+           and b["sell_layout_builds"] == 0 and a["iterations"] == b["iterations"],
+           f"[bench] cold/warm: cached {a['amg_setup_cached']}, {b['amg_setup_cached']}; "
+           f"builds {b['sell_layout_builds']}; iterations {a['iterations']}, "
+           f"{b['iterations']}")
+
+
 def structured_phases(dev, gen) -> list[dict]:
     """Phases 6-8; returns the records of K4-K8."""
     import torch
@@ -1445,6 +1588,7 @@ def structured_phases(dev, gen) -> list[dict]:
     _check(jcounts["dia_spmv"] > 0, "K8a never ran on the Jacobi path")
     _check(fcounts["dia_spmv"] > 0 and fcounts["dia_sweep"] > 0,
            "K8a or K8b never ran on the flat MG path")
+    chunk_unfused_phases(s, res)
 
     # each kernel at the path's shapes
     box, N = s.box, s.box.n_nodes

@@ -124,3 +124,87 @@ def test_mg_from_numpy_applies_like_own(box_data, bf16_hierarchies):
     rp = M.mats[0].pad_vec(torch.as_tensor(r, dtype=torch.float32))
     z, zc = M.apply(rp), Mc.apply(rp)
     assert float((z - zc).abs().max()) <= 1e-2 * float(z.abs().max())
+
+
+@pytest.fixture(scope="module")
+def unfused_hierarchies(box_data):
+    """``fused=False`` padded hierarchies, (port, JAX): float64 bands from
+    float64 coordinates, and bf16 bands from float32 ones."""
+    box, jbox, c, mask, _ = box_data
+    out = {}
+    for name, cc, dt, jdt in (("f64", c, None, None),
+                              ("bf16", c.astype(np.float32), torch.bfloat16, jnp.bfloat16)):
+        out[name] = (build_mg_padded(box, torch.as_tensor(cc), mask, PENALTY, nu=2,
+                                     fused=False, band_dtype=dt),
+                     jax_build_mg_padded(jbox, jnp.asarray(cc), mask, PENALTY, nu=2,
+                                         fused=False, band_dtype=jdt))
+    return out
+
+
+@pytest.mark.parametrize("bands", ["f64", "bf16"])
+def test_unfused_hierarchy_matches_jax(unfused_hierarchies, box_data, bands):
+    """The port's ``fused=False`` branch against the JAX one.  The JAX
+    branch's ``to_plane_matrix`` rounds the plane bands to float32
+    (sparse/dia_pallas.py), the port's keeps float64: so the f64 bands are
+    held within that rounding (2^-24 of each entry) of the JAX plane bands
+    and within 1e-12 of the largest non-penalty band of the JAX flat
+    ``build_mg`` levels (float64, the same rediscretisation and penalty);
+    the bf16 bands within 1 bf16 ulp, their penalty entries equal.
+    Inverse diagonals within 1e-6 relative, masks equal.  One V-cycle apply: the JAX padded
+    apply runs the Pallas plane kernels, which have no CPU mode here, so
+    the f64 apply is held to the JAX flat ``build_mg(...).apply`` (the same
+    V-cycle on flat vectors, 1e-10 of max|z|) and the bf16 one to the JAX
+    bf16 hierarchy carried across by ``mg_from_numpy`` (1e-2: bf16 keeps 8
+    bits)."""
+    M, Mj = unfused_hierarchies[bands]
+    box, jbox, c, mask, r = box_data
+    assert M.shapes == tuple(Mj.shapes) and len(M.mats) == 2
+    f64 = bands == "f64"
+    if f64:
+        Mflat = jax_build_mg(jbox, jnp.asarray(c), mask, PENALTY, nu=2)
+    for l in range(len(M.mats)):
+        b = M.mats[l].bands_p.double().numpy()
+        bj = np.asarray(Mj.mats[l].bands_p, np.float64)
+        pen = np.abs(bj) >= 1e11
+        if f64:
+            assert (np.abs(b - bj) <= 2.0 ** -24 * np.abs(bj)).all()
+            (nx, ny, nz) = M.shapes[l]
+            real = np.moveaxis(b, 1, 0)[:, :, 1:ny + 1, 1:nz + 1].reshape(15, -1)
+            flat = np.asarray(Mflat.mats[l].bands)
+            fpen = np.abs(flat) >= 1e11
+            assert np.abs(real - flat)[~fpen].max() <= 1e-12 * np.abs(flat[~fpen]).max()
+            np.testing.assert_array_equal(real[fpen], flat[fpen])
+        else:
+            assert (np.abs(b - bj) <= 2.0 ** -7 * np.maximum(np.abs(b), np.abs(bj))).all()
+            np.testing.assert_array_equal(b[pen], bj[pen])
+        ij = np.asarray(Mj.inv_diags_p[l], np.float64)
+        assert np.abs(M.inv_diags_p[l].double().numpy() - ij).max() <= 1e-6 * np.abs(ij).max()
+        np.testing.assert_array_equal(M.masks_p[l].numpy(), np.asarray(Mj.masks_p[l]))
+        np.testing.assert_array_equal(M.maskmul_p[l].numpy(), np.asarray(Mj.maskmul_p[l]))
+    dt = torch.float64 if f64 else torch.float32
+    rt = torch.as_tensor(r, dtype=dt)
+    z = M.mats[0].unpad_vec(M.apply(M.mats[0].pad_vec(rt))).double().numpy()
+    if f64:
+        zj = np.asarray(Mflat.apply(jnp.asarray(r)))
+        assert np.abs(z - zj).max() <= 1e-10 * np.abs(zj).max()
+    else:
+        Mc = mg_from_numpy([np.asarray(m.bands_p) for m in Mj.mats], Mj.inv_diags_p,
+                           Mj.maskmul_p, Mj.masks_p, Mj.shapes, device="cpu",
+                           nu=Mj.nu, omega=Mj.omega, coarse_iters=Mj.coarse_iters,
+                           omegas=Mj.omegas)
+        zc = Mc.mats[0].unpad_vec(Mc.apply(Mc.mats[0].pad_vec(rt))).double().numpy()
+        assert np.abs(z - zc).max() <= 1e-2 * np.abs(zc).max()
+
+
+def test_unfused_levels_equal_fused_levels(box_data):
+    """On the CPU both branches assemble with the plain twins: the unfused
+    levels equal the fused ones to round-off (1e-12 of the largest
+    non-penalty band, f64)."""
+    box, _, c, mask, _ = box_data
+    Mf = build_mg_padded(box, torch.as_tensor(c), mask, PENALTY, nu=1)
+    Mu = build_mg_padded(box, torch.as_tensor(c), mask, PENALTY, nu=1, fused=False)
+    for a, b in zip(Mf.mats, Mu.mats, strict=True):
+        a, b = a.bands_p.numpy(), b.bands_p.numpy()
+        pen = np.abs(a) >= 1e11
+        np.testing.assert_array_equal(a[pen], b[pen])
+        assert np.abs(a - b)[~pen].max() <= 1e-12 * np.abs(a[~pen]).max()

@@ -1,6 +1,6 @@
 """The port runs where jax is not installed: neither the package nor
-chip_smoke.py imports jax or anything of arcanefem_tpu (the port keeps its
-own copies of the host code it needs)."""
+chip_smoke.py imports jax, anything of arcanefem_tpu or the root bench.py
+(the port keeps its own copies of the host code it needs)."""
 
 import ast
 import json
@@ -12,7 +12,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-FORBIDDEN = ("jax", "jaxlib", "arcanefem_tpu")
+FORBIDDEN = ("jax", "jaxlib", "arcanefem_tpu", "bench")
 
 
 def _port_files():
@@ -43,13 +43,14 @@ _PRELUDE = """
 import json, sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
 sys.modules["arcanefem_tpu"] = None  # and so does any of the JAX package
+sys.modules["bench"] = None  # and of the root bench.py
 import torch
 """
 _REPORT = """
 print(json.dumps({"iterations": res["iterations"], "rel": res["rel"],
                   "true_residual": tr,
                   "loaded": [m for m in sys.modules
-                             if m.split(".")[0] in ("jax", "arcanefem_tpu")
+                             if m.split(".")[0] in ("jax", "arcanefem_tpu", "bench")
                              and sys.modules[m] is not None]}))
 """
 _SCRIPT = _PRELUDE + """
@@ -129,3 +130,33 @@ def test_diag_route_runs_without_jax():
 def test_structured_slice_runs_without_jax():
     """The 16^3 structured slice (MG-PCG, float64) the same way."""
     assert _run_blocked(_STRUCTURED_SCRIPT)["iterations"] == 12
+
+
+_BENCH_SCRIPT = _PRELUDE + """
+import runpy
+from arcanefem_tpu_torch import bench
+line = bench.final_json({"metric": "m", "value": 1e-6, "n_dofs": 10, "nnz_stored": 50,
+                         "platform": "cuda"}, None)
+args = bench.primary_args({}), bench.secondary_args({})
+try:  # the module as `python -m` runs it: without CUDA it exits 1
+    runpy.run_module("arcanefem_tpu_torch.bench", run_name="__main__")
+    code = 0
+except SystemExit as e:
+    code = e.code
+print(json.dumps({"code": code, "vs_baseline": line["vs_baseline"],
+                  "loaded": [m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "arcanefem_tpu", "bench")
+                             and sys.modules[m] is not None]}))
+"""
+
+
+def test_bench_runs_without_jax():
+    """arcanefem_tpu_torch.bench (its line, its knobs and its entry point,
+    which exits 1 without CUDA) in a process where neither jax,
+    arcanefem_tpu nor the root bench can be imported."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _BENCH_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["code"] == 1 and out["loaded"] == [] and out["vs_baseline"] > 0
