@@ -1,14 +1,17 @@
 """arcanefem_tpu_torch: the PyTorch and CUDA port of arcanefem_tpu.
 
 The JAX package ``arcanefem_tpu`` stays the reference.  This package runs
-two of its paths on an NVIDIA Hopper card, with hand-written CUDA kernels
+three of its paths on an NVIDIA Hopper card, with hand-written CUDA kernels
 where the JAX package had Pallas ones (``csrc/``):
 
 * the unstructured Poisson main path (sphere_cut P1 tetrahedra, BELL
   assembly, smoothed-aggregation AMG-preconditioned CG),
   ``bench_unstructured.py``;
 * the structured Kuhn-box Poisson path (stencil assembly into 15 DIA
-  bands, geometric-multigrid-preconditioned CG), ``bench_structured.py``.
+  bands, geometric-multigrid-preconditioned CG), ``bench_structured.py``;
+* the FEM core and the Poisson/Laplace model behind
+  ``python -m arcanefem_tpu_torch run <case.arc>`` (``fem/``,
+  ``models/``, ``solver/linear_system.py``).
 
 It imports ``torch`` and never ``jax`` nor anything of ``arcanefem_tpu``:
 the host code it needs (mesh generation, topology, node orders, the

@@ -1,0 +1,76 @@
+"""CLI: run reference .arc cases on one CUDA card.
+
+The counterpart of ``python -m arcanefem_tpu run``: dispatches on the
+case's codename as the reference's per-module executables do.
+
+    python -m arcanefem_tpu_torch run case.arc [--f32] [--no-check]
+                                     [--mesh-root DIR] [--device cuda|cpu]
+
+The case runs on ``--device`` (default ``cuda``, the card).  Nothing falls
+back: without a CUDA device the command exits 1 unless ``--device cpu``
+asks for the CPU.  ``--output-dir`` and the ``testlab`` sub-command are
+not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+TESTLAB_NOT_PORTED = ("the testlab sub-command (testlab.py, sparse/coo.py, "
+                      "models/testlab_model.py) is not ported yet "
+                      "(ROADMAP Queue 1 item 10)")
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    p = argparse.ArgumentParser(prog="arcanefem_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    runp = sub.add_parser("run", help="run a reference .arc case")
+    runp.add_argument("case")
+    runp.add_argument("--f32", action="store_true", help="float32 system")
+    runp.add_argument("--no-check", action="store_true",
+                      help="skip golden-file validation")
+    runp.add_argument("--mesh-root", default=None)
+    runp.add_argument("--device", default="cuda",
+                      help="torch device of the run (default: cuda)")
+    runp.add_argument("--output-dir", default=None,
+                      help="not ported yet: raises NotImplementedError")
+
+    sub.add_parser("testlab", add_help=False)
+
+    if argv and argv[0] == "testlab":
+        raise NotImplementedError(TESTLAB_NOT_PORTED)
+
+    args = p.parse_args(argv)
+
+    import torch
+
+    from .fem.runner import run_case
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("arcanefem_tpu_torch: no CUDA device is available; pass "
+              "--device cpu to run on the CPU", file=sys.stderr)
+        return 1
+
+    res = run_case(
+        args.case,
+        dtype=torch.float32 if args.f32 else torch.float64,
+        mesh_root=args.mesh_root,
+        check=not args.no_check,
+        verbose=True,
+        output_dir=args.output_dir,
+        device=device,
+    )
+    info = {
+        k: v for k, v in vars(res).items()
+        if isinstance(v, (int, float, str))
+    }
+    print(f"done: {type(res).__name__} {info}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -25,7 +25,10 @@ Knobs (environment, as ``bench.py`` reads them):
   ``BENCH_SN_BLOCK``, ``BENCH_SN_BF16``, ``BENCH_UNSTR_BF16``,
   ``AFEM_ASM_COORDS``, ``AFEM_ASM_COMPACT``, ``AFEM_BAND_PRE``,
   ``BENCH_UNSTR_ORDER``, ``BENCH_AMG_SMOOTHER``, ``BENCH_AMG_CHEB_DEG``,
-  ``BENCH_AMG_CYCLE``.  The defaults are the port's own route (ELL on
+  ``BENCH_AMG_CYCLE``, ``BENCH_AMG_THETA`` (0.03, the set-up's strength
+  threshold, part of the AMG cache key) and ``BENCH_AMG_CHEB_APPLY`` (a
+  Chebyshev degree applied to the hierarchy built at
+  ``BENCH_AMG_CHEB_DEG``, which stays its cache key).  The defaults are the port's own route (ELL on
   SELL, split assembly, supernode order), not the TPU's compact default;
   the line's route fields say which route ran;
 - the SECONDARY's: ``BENCH_PRECOND`` (``mg``, ``jacobi``, ``mg_flat``),
@@ -61,8 +64,6 @@ NO_COUNTERPART = {
     "AFEM_PRE_ROWS": "1024",  # rows per compact pre-gather tile
     "AFEM_ASM_MAX_GB": "6",  # the window-assembly plan's HBM cap
     "BENCH_SN_MAX_GB": "5",  # the supernode blocks' HBM cap
-    "BENCH_AMG_CHEB_APPLY": "",  # apply-time degree patch of a cached pickle
-    "BENCH_AMG_THETA": "0.03",  # the port's strength threshold is fixed
     "AFEM_UNSTR_ASM": "window",  # one reduction: the slot-sorted one
     "BENCH_SUBPROC": "1",  # the port runs each metric in its own child
     "BENCH_CPU": "0",  # no CPU path
@@ -175,8 +176,12 @@ def primary_args(env) -> tuple[float, int, float, dict]:
             "order": env.get("BENCH_UNSTR_ORDER", "sn"),
             "smoother": env.get("BENCH_AMG_SMOOTHER", "chebyshev"),
             "cheb_deg": _cheb_deg(env.get("BENCH_AMG_CHEB_DEG", "2")),
-            "cycle": env.get("BENCH_AMG_CYCLE", "V")}
-    _check_options(**{k: v for k, v in opts.items() if k != "cheb_deg"})
+            "cycle": env.get("BENCH_AMG_CYCLE", "V"),
+            "theta": float(env.get("BENCH_AMG_THETA", "0.03")),
+            "cheb_apply": (_cheb_deg(env["BENCH_AMG_CHEB_APPLY"])
+                           if env.get("BENCH_AMG_CHEB_APPLY") else None)}
+    _check_options(**{k: v for k, v in opts.items()
+                      if k not in ("cheb_deg", "theta", "cheb_apply")})
     return (float(env.get("BENCH_UNSTR_H", "6")),
             int(env.get("BENCH_UNSTR_REFINE", "3")),
             float(env.get("BENCH_RTOL", "1e-8")), opts)

@@ -198,19 +198,19 @@ def cached_fine_layout(topo: Topology, device, cache: str | None) -> SellLayout:
 
 def amg_cache_entry(cache: str, topo: Topology, flat: np.ndarray, *,
                     smoother: str, cheb_deg, penalty: float, device,
-                    dtype: torch.dtype) -> tuple[str, dict]:
+                    dtype: torch.dtype, theta: float = THETA) -> tuple[str, dict]:
     """(path, meta) of the AMG hierarchy's cache file under the prefix
     ``cache``: keyed as ``bench.py`` keys its pickle (mesh, smoother,
-    Chebyshev degree, theta, platform, penalty) plus the dtype, and checked
+    Chebyshev degree, build theta, platform, penalty) plus the dtype, and checked
     against the digests of the column structure and of the penalised
     values ``flat`` that ``amg_setup`` reads."""
     d, key = os.path.split(cache)
     platform = torch.device(device).type
     dt = str(dtype).removeprefix("torch.")
     name = (f"amg_{key}_{smoother}{str(cheb_deg).replace(' ', '')}"
-            f"_t{THETA:g}_{platform}_p{penalty:g}_{dt}_v1.npz")
+            f"_t{theta:g}_{platform}_p{penalty:g}_{dt}_v1.npz")
     meta = {"what": "AMG hierarchy", "mesh": key, "smoother": smoother,
-            "cheb_deg": cheb_deg, "theta": THETA, "platform": platform,
+            "cheb_deg": cheb_deg, "theta": theta, "platform": platform,
             "penalty": penalty, "dtype": dt, "cols": digest(topo.ell_cols),
             "values": digest(flat)}
     return os.path.join(d, name), meta
@@ -274,6 +274,7 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
                      band_pre: bool = False, order: str = "sn",
                      smoother: str = "chebyshev",
                      cheb_deg: int | tuple = CHEB_DEG, cycle: str = "V",
+                     theta: float = THETA, cheb_apply: int | tuple | None = None,
                      rtol: float = RTOL, cache: str | None = None,
                      system: dict | None = None) -> dict:
     """Assemble, set up AMG and solve on ``device``.
@@ -314,7 +315,12 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
     and ``topo`` come in ("sn" or "rcm", ``BENCH_UNSTR_ORDER``: only
     checked against the other options here); ``smoother``, ``cheb_deg``
     (an int or per-level tuple) and ``cycle`` (``BENCH_AMG_SMOOTHER``,
-    ``BENCH_AMG_CHEB_DEG``, ``BENCH_AMG_CYCLE``).  Unlike ``bench.py``
+    ``BENCH_AMG_CHEB_DEG``, ``BENCH_AMG_CYCLE``); ``theta`` the AMG set-up's
+    strength threshold (``BENCH_AMG_THETA``, part of the cache key);
+    ``cheb_apply`` a Chebyshev degree applied to the hierarchy built (or
+    cached) at ``cheb_deg``, which stays its cache key
+    (``BENCH_AMG_CHEB_APPLY``; the hierarchy does not depend on the
+    degree).  Unlike ``bench.py``
     nothing falls back: a failed supernode, compact or diag self-check
     (:func:`operator_self_check` above 1e-5) raises, and so do
     ``spmv="diag"`` where the diagonal plan declines and ``band_pre`` where
@@ -332,9 +338,11 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
     _check_options(spmv, sn_block, sn_bf16, vcycle_bf16, asm_coords,
                    asm_compact, band_pre, order, smoother, cycle)
     out = {}
-    if system is not None and (system["device"], system["dtype"], system["plain"]) \
-            != (torch.device(device), dtype, plain):
-        raise ValueError("system was built for another device, dtype or plain")
+    if system is not None and (system["device"], system["dtype"], system["plain"],
+                               system["theta"]) \
+            != (torch.device(device), dtype, plain, theta):
+        raise ValueError("system was built for another device, dtype, plain "
+                         "or theta")
     asm_key = (asm_coords, asm_compact, band_pre and asm_compact)
     if system is None or asm_key != system["asm_key"]:
         # one SELL layout per column structure: the assembly writes into it
@@ -377,22 +385,23 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
         if cache:
             path, meta = amg_cache_entry(cache, topo, flat, smoother=smoother,
                                          cheb_deg=cheb_deg, penalty=penalty,
-                                         device=device, dtype=dtype)
+                                         device=device, dtype=dtype, theta=theta)
         M0, cached = amg_cached(
-            path, meta, lambda: amg_setup(flat, topo, theta=THETA,
+            path, meta, lambda: amg_setup(flat, topo, theta=theta,
                                           smoother=smoother, cheb_deg=cheb_deg,
                                           dtype=_NP_DTYPE[dtype]),
             device, dtype, plain=plain)
         del flat
         system = {"device": torch.device(device), "dtype": dtype,
-                  "plain": plain, "asm_key": asm_key, "A": A, "b": b,
+                  "plain": plain, "theta": theta, "asm_key": asm_key, "A": A, "b": b,
                   "x0": x0, "interior": interior, "M": M0,
                   "amg_setup_s": time.perf_counter() - t0,
                   "amg_setup_cached": cached,
                   **({"assembly_s": out["assembly_s"]} if timed else {})}
     out["amg_setup_s"] = system["amg_setup_s"]
     out["amg_setup_cached"] = system["amg_setup_cached"]
-    M = system["M"].replace(smoother=smoother, cheb_deg=cheb_deg, cycle=cycle)
+    deg = cheb_deg if cheb_apply is None else cheb_apply
+    M = system["M"].replace(smoother=smoother, cheb_deg=deg, cycle=cycle)
     out["levels"] = [m.n_nodes for m in M.mats] + [M.coarse_inv.shape[0]]
     own = system["A"] is A  # structures built on A are kept for later runs
 
@@ -433,7 +442,7 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
                 system["M"], band_pre, l0=cm0 if same else None))
         cm0, Mc = system[key]
         cm = cm0.with_values(A.values)
-        M = Mc.replace(smoother=smoother, cheb_deg=cheb_deg, cycle=cycle)
+        M = Mc.replace(smoother=smoother, cheb_deg=deg, cycle=cycle)
         out["compact_check"] = operator_self_check(cm.spmv, A)
         if not out["compact_check"] <= 1e-5:
             raise RuntimeError(
@@ -568,7 +577,7 @@ def bench_unstructured(h: float = 6, refine: int = 3, rtol: float = RTOL,
     opt = {"spmv": "ell", "sn_block": False, "sn_bf16": False,
            "vcycle_bf16": False, "asm_coords": "split", "asm_compact": False,
            "band_pre": False, "order": "sn", "smoother": "chebyshev",
-           "cheb_deg": CHEB_DEG, "cycle": "V", **options}
+           "cheb_deg": CHEB_DEG, "cycle": "V", "cheb_apply": None, **options}
     spmv_kernel = SPMV_KERNELS[opt["spmv"]]
     if opt["spmv"] == "compact":
         spmv_kernel = ("band_gather+sell_spmv" if opt["band_pre"]
@@ -613,7 +622,8 @@ def bench_unstructured(h: float = 6, refine: int = 3, rtol: float = RTOL,
         "asm_compact": opt["asm_compact"],
         "asm_coords": opt["asm_coords"],
         "amg_smoother": opt["smoother"],
-        "amg_cheb_deg": opt["cheb_deg"],
+        "amg_cheb_deg": (opt["cheb_deg"] if opt["cheb_apply"] is None
+                         else opt["cheb_apply"]),
         "amg_cycle": opt["cycle"],
         "vcycle_bf16": opt["vcycle_bf16"],
         "launches": {k: v for k, v in counts.items() if v},

@@ -1,0 +1,284 @@
+"""FemProblem — the per-module FEM infrastructure, in torch on one device.
+
+The counterpart of ``arcanefem_tpu/fem/problem.py``: what every reference
+module repeats (FemDoFsOnNodes numbering, femutils/FemDoFsOnNodes.cc:71-128;
+the sparsity set-up; right-hand sides and boundary conditions,
+femutils/ArcaneFemFunctions.h:824-1222).
+
+Host numpy work happens once per problem: the topology, the SELL layout of
+the assembled operator (``sparse/bell.py::fine_layout``), boundary-face
+orientation and group index arrays.  Per solve, on ``device``: the element
+matrices (``ops/elements.py``, plain torch), their sum into the BELL matrix
+(``assemble_bell``: one ``slot_reduce`` launch on the card, no atomics),
+the RHS (``index_add`` of O(nodes) values, as the JAX package's
+``.at[].add``) and the Dirichlet conditions, deferred to
+``solver/linear_system.py``.
+
+Only scalar problems (``ndof`` 1) are ported: block BELL comes with the
+elasticity family (ROADMAP Queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..mesh.core import _FACES_OF, Mesh
+from ..ops import elements, geometry
+from ..solver.linear_system import LinearSystem, SolverOptions
+from ..sparse.bell import BellMatrix, assemble_bell, fine_layout
+from ..sparse.sell import SellLayout
+from ..sparse.topology import Topology, build_topology
+
+_FACE_MEASURE = {
+    "line2": geometry.edge2_length,
+    "tria3": geometry.tria3_area,
+}
+_FACE_NORMAL = {
+    "line2": geometry.edge2_normal,
+    "tria3": geometry.tria3_normal,
+}
+
+_TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
+                np.dtype(np.float64): torch.float64}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """float32 or float64 as a torch dtype, from a torch or numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"the FEM path runs float32 or float64, not {dtype}")
+        return dtype
+    try:
+        return _TORCH_DTYPE[np.dtype(dtype)]
+    except KeyError:
+        raise TypeError(f"the FEM path runs float32 or float64, not {dtype}") from None
+
+
+def numpy_dtype(dtype) -> np.dtype:
+    """The numpy dtype of a float32 or float64 torch or numpy dtype."""
+    return np.dtype(str(torch_dtype(dtype)).removeprefix("torch."))
+
+
+def orient_faces_outward(mesh: Mesh, conn: np.ndarray) -> np.ndarray:
+    """Flip boundary faces so their normal points out of the domain.
+
+    The reference gets this from Arcane's face orientation
+    (`isSubDomainBoundaryOutside`, ArcaneFemFunctions.h:271-284); as in the
+    JAX package, it is recovered from face-cell adjacency: the outward
+    normal points away from the centroid of the cell that has the face.
+    Vectorised: every cell face of the face's node count, in the JAX
+    loop's order (cell bucket, local face, cell), and for each face of
+    ``conn`` the last of them with the same nodes (the cell the JAX dict
+    keeps); faces no cell has are left as they are.
+    """
+    nfn = conn.shape[1]
+    keys, cents = [], []
+    for ctype, cells in mesh.cells.items():
+        cent = mesh.coords[cells].mean(axis=1)
+        for loc in _FACES_OF.get(ctype, []):
+            if len(loc) != nfn:
+                continue
+            keys.append(np.sort(cells[:, loc], axis=1))
+            cents.append(cent)
+    out = conn.copy()
+    if not keys or not len(conn):
+        return out
+    keys = np.concatenate(keys)
+    cents = np.concatenate(cents)
+    nk = len(keys)
+    _, inv = np.unique(np.concatenate([keys[::-1], np.sort(conn, axis=1)]),
+                       axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    # the first occurrence in reversed order is the last in the loop's order
+    uid, first = np.unique(inv[:nk], return_index=True)
+    owner = np.full(int(inv.max()) + 1, -1, np.int64)
+    owner[uid] = nk - 1 - first
+    own = owner[inv[nk:]]
+    found = own >= 0
+    fc = mesh.coords[conn[found]]  # (nf, nfn, 3)
+    centroid = fc.mean(axis=1)
+    if nfn == 2:
+        d = fc[:, 1] - fc[:, 0]
+        n = np.stack([d[:, 1], -d[:, 0], np.zeros(len(d))], axis=1)
+    else:
+        n = np.cross(fc[:, 1] - fc[:, 0], fc[:, 2] - fc[:, 0])
+    flip = np.zeros(len(conn), bool)
+    flip[found] = np.einsum("ij,ij->i", n, centroid - cents[own[found]]) < 0
+    out[flip, 0], out[flip, 1] = conn[flip, 1], conn[flip, 0]
+    return out
+
+
+@dataclass
+class FemProblem:
+    mesh: Mesh
+    ndof: int = 1
+    dtype: torch.dtype = torch.float64
+    pad_width_to: int = 1
+    device: torch.device | str = "cuda"
+
+    topo: Topology = field(init=False)
+    coords: torch.Tensor = field(init=False)
+
+    def __post_init__(self):
+        if self.ndof != 1:
+            raise NotImplementedError(
+                f"ndof={self.ndof}: block BELL comes with the elasticity "
+                "family, which is not ported yet (ROADMAP Queue 1 item 9)")
+        self.dtype = torch_dtype(self.dtype)
+        self.device = torch.device(self.device)
+        self.topo = build_topology(
+            self.mesh.n_nodes, self.mesh.cells, pad_width_to=self.pad_width_to
+        )
+        self.coords = torch.as_tensor(self.mesh.coords, device=self.device).to(self.dtype)
+        self._oriented_faces: dict[str, dict[str, np.ndarray]] = {}
+
+    @functools.cached_property
+    def layout(self) -> SellLayout:
+        """The SELL layout of the assembled operator, built once."""
+        return fine_layout(self.topo, self.device)
+
+    # -- dof helpers --------------------------------------------------------
+    @property
+    def n_dofs(self) -> int:
+        return self.mesh.n_nodes * self.ndof
+
+    def dof_ids(self, nodes: np.ndarray, comp: int = 0) -> np.ndarray:
+        """dof uid = node*ndof + comp (FemDoFsOnNodes.cc:86)."""
+        return nodes.astype(np.int64) * self.ndof + comp
+
+    def _index(self, ids: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+
+    def cell_xyz(self, cell_type: str) -> torch.Tensor:
+        return self.coords[self._index(self.mesh.cells[cell_type])]
+
+    def face_xyz(self, conn: np.ndarray) -> torch.Tensor:
+        return self.coords[self._index(conn)]
+
+    # -- matrix assembly ------------------------------------------------------
+    def assemble_matrix(
+        self,
+        element_fn: Callable[[str, torch.Tensor], torch.Tensor],
+    ) -> BellMatrix:
+        """element_fn(cell_type, xyz) -> (nc, npc, npc) element matrices,
+        summed by ``assemble_bell`` (``slot_reduce``)."""
+        mats = {
+            ctype: element_fn(ctype, self.cell_xyz(ctype))
+            for ctype in self.mesh.cells
+        }
+        return assemble_bell(self.topo, mats, device=self.device,
+                             dtype=self.dtype, layout=self.layout)
+
+    def stiffness_matrix(self, coef=1.0) -> BellMatrix:
+        return self.assemble_matrix(
+            lambda ct, xyz: coef * elements.stiffness(ct, xyz)
+        )
+
+    def new_system(self, matrix: BellMatrix,
+                   options: SolverOptions | None = None) -> LinearSystem:
+        rhs = torch.zeros(self.n_dofs, dtype=matrix.values.dtype, device=self.device)
+        return LinearSystem(
+            matrix=matrix, rhs=rhs, options=options or SolverOptions()
+        )
+
+    # -- right-hand sides -------------------------------------------------------
+    def constant_source_rhs(self, qdot, comp: int = 0) -> torch.Tensor:
+        """rhs[node] += qdot * measure / npc over all cells
+        (applyConstantSourceToRhs, ArcaneFemFunctions.h:845-855/1010-1021)."""
+        rhs = torch.zeros(self.n_dofs, dtype=self.dtype, device=self.device)
+        for ctype, conn in self.mesh.cells.items():
+            xyz = self.cell_xyz(ctype)
+            meas = elements.measure(ctype, xyz)  # (nc,)
+            npc = conn.shape[1]
+            contrib = torch.repeat_interleave(qdot * meas / npc, npc)
+            rhs = rhs.index_add(0, self._index(self.dof_ids(conn.reshape(-1), comp)),
+                                contrib)
+        return rhs
+
+    def oriented_group(self, name: str) -> dict[str, np.ndarray]:
+        """Outward-oriented face connectivity for a boundary group."""
+        if name not in self._oriented_faces:
+            self._oriented_faces[name] = {
+                ftype: orient_faces_outward(self.mesh, conn)
+                for ftype, conn in self.mesh.face_groups[name].items()
+            }
+        return self._oriented_faces[name]
+
+    def neumann_rhs(
+        self,
+        rhs: torch.Tensor,
+        group: str,
+        value: float | None = None,
+        vector: tuple | None = None,
+        comp: int = 0,
+    ) -> torch.Tensor:
+        """applyNeumannToRhs (ArcaneFemFunctions.h:934-988 / 1062-1116):
+        per boundary face, each node gets value*measure/n_face_nodes; for
+        vector loads the value is n·v."""
+        for ftype, conn in self.oriented_group(group).items():
+            xyz = self.face_xyz(conn)
+            meas = _FACE_MEASURE[ftype](xyz)
+            if value is not None:
+                per_face = value * meas
+            else:
+                normal = _FACE_NORMAL[ftype](xyz)  # (nf, dim)
+                v = torch.as_tensor(vector[: normal.shape[1]], dtype=self.dtype,
+                                    device=self.device)
+                per_face = (normal @ v) * meas
+            nfn = conn.shape[1]
+            contrib = torch.repeat_interleave(per_face / nfn, nfn)
+            rhs = rhs.index_add(0, self._index(self.dof_ids(conn.reshape(-1), comp)),
+                                contrib)
+        return rhs
+
+    # -- Dirichlet methods ------------------------------------------------------
+    def group_dofs(self, group: str, comp: int = 0) -> np.ndarray:
+        return self.dof_ids(self.mesh.group_nodes(group), comp)
+
+    def apply_dirichlet(
+        self,
+        system: LinearSystem,
+        dofs: np.ndarray,
+        value,
+        method: str = "Penalty",
+        penalty: float = 1.0e30,
+    ) -> None:
+        """The four enforcement methods of the reference
+        (modules/elasticity/FemModule.cc:285-400, FemBoundaryConditions.axl
+        enforce-Dirichlet-method): Penalty, WeakPenalty, RowElimination,
+        RowColumnElimination.
+        """
+        dofs = np.asarray(dofs)
+        vals = torch.as_tensor(value, device=self.device).to(self.dtype)
+        vals = torch.broadcast_to(vals, dofs.shape)
+        system.add_guess(dofs, vals)
+        if method == "Penalty":
+            system.set_forced_diag(
+                dofs, torch.full(dofs.shape, penalty, dtype=self.dtype,
+                                 device=self.device))
+            system.set_rhs(dofs, penalty * vals)
+        elif method == "WeakPenalty":
+            # matrixAddValue(diag, P) instead of set
+            A = system.matrix
+            slots = A.diag_slot[self._index(dofs // self.ndof)]
+            add = torch.full(slots.shape, penalty, dtype=A.values.dtype,
+                             device=self.device)
+            system.matrix = A.with_values(A.values.index_add(0, slots, add))
+            system.set_rhs(dofs, penalty * vals)
+        elif method == "RowElimination":
+            system.eliminate_row(dofs, vals)
+        elif method == "RowColumnElimination":
+            system.eliminate_row_col(dofs, vals)
+        else:
+            raise ValueError(f"unknown Dirichlet method '{method}'")
+
+    # -- solution handling -----------------------------------------------------
+    def node_values(self, x: torch.Tensor) -> np.ndarray:
+        """Solution as an (n_nodes, ndof) host array in the problem's dtype
+        (the _updateVariables copy)."""
+        return x.to(self.dtype).cpu().numpy().reshape(self.mesh.n_nodes, self.ndof)

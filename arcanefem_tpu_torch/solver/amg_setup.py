@@ -19,6 +19,7 @@ are not ported yet.
 from __future__ import annotations
 
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import scipy.sparse as sp
@@ -222,6 +223,23 @@ def _p_ell(P, dtype):
     pc[rows, slot] = P.indices.astype(np.int32)
     pv[rows, slot] = P.data.astype(dtype)
     return pc, pv
+
+
+def stored_graph(layout) -> SimpleNamespace:
+    """The CSR graph of the slots a SELL layout stores (``sparse/sell.py``),
+    with the fields of a ``Topology`` that :func:`amg_setup` reads:
+    ``n_nodes``, ``width``, ``row_ptr``, ``csr_cols`` and ``csr_to_ell``.
+    For the fine layout of a mesh (``sparse/bell.py::fine_layout``, built
+    from the topology's ``ell_valid``) these equal the topology's own: its
+    ELL rows hold each row's CSR entries first, in CSR order."""
+    n, W = layout.n_rows, layout.width
+    real = (layout.ell_to_sell >= 0).reshape(n, W)
+    csr_to_ell = np.flatnonzero(real)
+    row_ptr = np.zeros(n + 1, np.int32)
+    np.cumsum(real.sum(axis=1), out=row_ptr[1:])
+    return SimpleNamespace(
+        n_nodes=n, width=W, row_ptr=row_ptr, csr_to_ell=csr_to_ell,
+        csr_cols=layout.ell_cols.reshape(-1)[csr_to_ell])
 
 
 def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,

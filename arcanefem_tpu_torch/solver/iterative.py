@@ -1,7 +1,7 @@
 """Preconditioned conjugate gradients with compensated dot products.
 
-The counterpart of ``pcg``, ``pcg_chunked``, ``precise_dot`` and
-``Precond`` in ``arcanefem_tpu/solver/iterative.py``: the same
+The counterpart of ``pcg``, ``pcg_chunked``, ``precise_dot``, ``Precond``
+and ``make_precond`` in ``arcanefem_tpu/solver/iterative.py``: the same
 recurrence, the same stopping rule (the preconditioned residual r^T M r
 relative to its initial value) and the same return values
 ``(x, iterations, rel)``.  ``pcg`` is ``pcg_chunked`` with ``chunk=1``:
@@ -19,10 +19,12 @@ import torch
 
 
 class Precond:
-    """Pointwise preconditioner: kind "none" or "jacobi"."""
+    """Pointwise or block preconditioner: kind "none", "jacobi" (data: the
+    (N,) inverse diagonal) or "block-jacobi" (data: the (N, b, b) inverse
+    diagonal blocks)."""
 
     def __init__(self, kind: str, inv_diag: torch.Tensor | None = None):
-        if kind not in ("none", "jacobi"):
+        if kind not in ("none", "jacobi", "block-jacobi"):
             raise ValueError(f"unknown preconditioner kind {kind!r}")
         self.kind = kind
         self.inv_diag = inv_diag
@@ -33,10 +35,61 @@ class Precond:
         one = torch.ones((), dtype=d.dtype, device=d.device)
         return cls("jacobi", torch.where(d != 0, 1.0 / torch.where(d == 0, one, d), one))
 
+    @classmethod
+    def block_jacobi(cls, A) -> "Precond":
+        """Inverses of the (1, 1) diagonal blocks of the scalar BellMatrix
+        ``A``, as the JAX ``jnp.linalg.inv(A.diag_blocks())`` (no guard:
+        a zero diagonal gives inf)."""
+        return cls("block-jacobi", torch.linalg.inv(A.diagonal()[:, None, None]))
+
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         if self.kind == "none":
             return r
-        return self.inv_diag * r
+        if self.kind == "jacobi":
+            return self.inv_diag * r
+        n, b, _ = self.inv_diag.shape
+        return torch.einsum("nab,nb->na", self.inv_diag, r.reshape(n, b)).reshape(-1)
+
+
+# build_amg's defaults, with which the JAX make_precond builds its AMG
+AMG_THETA = 0.08
+AMG_SMOOTHER = "jacobi"
+AMG_CHEB_DEG = 2
+
+
+def make_precond(A, name: str | None, nullspace=None):
+    """The preconditioner ``name`` of the scalar BellMatrix ``A``, as the
+    JAX ``make_precond``: "none", "jacobi", "block-jacobi", "amg" (the
+    smoothed-aggregation set-up of ``solver/amg_setup.py`` at
+    ``build_amg``'s defaults, theta 0.08 and the Jacobi smoother, on ``A``'s
+    values and stored pattern, moved to ``A``'s device as an
+    ``AMGPrecond``; with ``A.plain`` its levels run the plain twin) or
+    "poly" (``solver/poly.py``).  A near-nullspace (the elasticity
+    family's rigid body modes) is not ported yet."""
+    if name in (None, "none"):
+        return Precond("none")
+    if name == "jacobi":
+        return Precond.jacobi(A)
+    if name == "block-jacobi":
+        return Precond.block_jacobi(A)
+    if name == "amg":
+        if nullspace is not None:
+            raise NotImplementedError(
+                "AMG with a near-nullspace belongs to the elasticity family, "
+                "which is not ported yet (ROADMAP Queue 1 item 9)")
+        from .amg import amg_from_numpy
+        from .amg_setup import amg_setup, stored_graph
+
+        host = A.ell_values().cpu().numpy()  # in A's dtype, the hierarchy's
+        d = amg_setup(host, stored_graph(A.layout), theta=AMG_THETA,
+                      smoother=AMG_SMOOTHER, cheb_deg=AMG_CHEB_DEG,
+                      dtype=host.dtype)
+        return amg_from_numpy(d, A.values.device, A.values.dtype, plain=A.plain)
+    if name == "poly":
+        from .poly import build_chebyshev
+
+        return build_chebyshev(A)
+    raise ValueError(f"unknown preconditioner '{name}'")
 
 
 def _two_sum(a: torch.Tensor, b: torch.Tensor):

@@ -91,6 +91,18 @@ class BellMatrix:
         """The (N, W) values, 0 on dropped slots (a device scatter)."""
         return self.layout.to_ell(self.values)
 
+    def todense(self) -> torch.Tensor:
+        """The dense (N, n_cols) matrix on the values' device: each (N, W)
+        slot added at (row, ell_cols), as the JAX ``todense`` (small systems
+        and the dense direct solve only)."""
+        lay = self.layout
+        ev = self.ell_values()
+        dev = ev.device
+        rows = torch.arange(lay.n_rows, device=dev).repeat_interleave(lay.width)
+        cols = torch.as_tensor(lay.ell_cols.reshape(-1), device=dev, dtype=torch.int64)
+        dense = torch.zeros((lay.n_rows, lay.n_cols), dtype=ev.dtype, device=dev)
+        return dense.index_put_((rows, cols), ev.reshape(-1), accumulate=True)
+
 
 def fine_layout(topo, device: torch.device | str) -> SellLayout:
     """The SELL layout of a mesh's assembled operator: ``topo.ell_cols``
@@ -98,23 +110,36 @@ def fine_layout(topo, device: torch.device | str) -> SellLayout:
     return SellLayout.build(topo.ell_cols, topo.ell_valid, device=device)
 
 
+def slot_contributors(topo, names, layout: SellLayout) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ptr, ids) of ``group_by_slot`` on ``layout``'s device: the entries
+    ``base + c·npc² + i·npc + j`` of the buckets ``names`` (in that order,
+    their element matrices concatenated) that sum into each SELL slot of
+    ``layout`` (:func:`fine_layout` of ``topo``), in entry order."""
+    e2s = layout.ell_to_sell
+    slots = np.concatenate([e2s[np.asarray(topo.slot_maps[name], np.int64).reshape(-1)]
+                            for name in names])
+    return group_by_slot(torch.as_tensor(slots, device=layout.device), layout.n_slots)
+
+
 def assemble_bell(topo, element_matrices: dict[str, torch.Tensor], *,
                   device: torch.device | str,
-                  dtype: torch.dtype | None = None) -> BellMatrix:
+                  dtype: torch.dtype | None = None,
+                  layout: SellLayout | None = None) -> BellMatrix:
     """Sum per-cell (nc, npc, npc) element matrices into the BELL matrix
     of ``topo`` (a ``sparse.topology.Topology``), the counterpart of the
     JAX package's segment-sum: the buckets' slot maps, remapped on the host
-    into the SELL slots of :func:`fine_layout`, are grouped by slot, and
-    each slot sums its entries ``base + c·npc² + i·npc + j`` of the
-    concatenated matrices in entry order (``slot_reduce``; no atomics)."""
-    layout = fine_layout(topo, device)
-    e2s = layout.ell_to_sell
-    slots = np.concatenate([e2s[np.asarray(topo.slot_maps[name], np.int64).reshape(-1)]
-                            for name in element_matrices])
-    ptr, ids = group_by_slot(torch.as_tensor(slots, device=device), layout.n_slots)
+    into the SELL slots of ``layout`` (default: :func:`fine_layout`, built
+    here), are grouped by slot (:func:`slot_contributors`), and each slot
+    sums its entries of the concatenated matrices in entry order
+    (``slot_reduce``, one launch; no atomics)."""
+    if layout is None:
+        layout = fine_layout(topo, device)
+    ptr, ids = slot_contributors(topo, list(element_matrices), layout)
     table = torch.cat([ke.reshape(-1) for ke in element_matrices.values()])
     acc = slot_reduce(ptr, ids, table.to(device).contiguous())
+    del ptr, ids
     if dtype is not None:
         acc = acc.to(dtype)
-    diag = torch.as_tensor(e2s[np.asarray(topo.diag_slot, np.int64)], device=device)
+    diag = torch.as_tensor(layout.ell_to_sell[np.asarray(topo.diag_slot, np.int64)],
+                           device=device)
     return BellMatrix(acc, layout, diag)

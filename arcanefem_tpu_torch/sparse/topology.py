@@ -5,7 +5,8 @@ The port's copy of ``Topology`` and ``build_topology`` from
 with exact equality.  The node-pair graph of a mesh in two views: ELL rows
 padded to a fixed width W (the device layout of ``BellMatrix``) and CSR
 (the AMG set-up's), plus, per cell bucket, the flat ELL slot of every
-(cell, i, j) entry, which turns assembly into one segment sum.
+(cell, i, j) entry, which turns assembly into one segment sum;
+``face_dof_slots`` finds the ELL slots of arbitrary (row, col) pairs.
 """
 
 from __future__ import annotations
@@ -117,3 +118,27 @@ def build_topology(
         diag_slot=diag_slot,
         slot_maps=slot_maps,
     )
+
+
+def face_dof_slots(
+    topo: Topology, face_rows: np.ndarray, face_cols: np.ndarray
+) -> np.ndarray:
+    """Flat ELL slots for arbitrary (row_node, col_node) pairs.
+
+    Used by boundary-element assembly (paraxial terms in soildynamics) and
+    tests; pairs must exist in the sparsity. Vectorised binary search over
+    the CSR structure.
+    """
+    uniq = (
+        topo.csr_cols.astype(np.int64)
+        + np.repeat(
+            np.arange(topo.n_nodes, dtype=np.int64),
+            np.diff(topo.row_ptr),
+        )
+        * topo.n_nodes
+    )
+    want = face_rows.astype(np.int64) * topo.n_nodes + face_cols.astype(np.int64)
+    idx = np.searchsorted(uniq, want)
+    if not np.all(uniq[np.minimum(idx, len(uniq) - 1)] == want):
+        raise ValueError("requested (row,col) pair not present in sparsity")
+    return topo.csr_to_ell[idx]

@@ -54,6 +54,26 @@ g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    (``BandedGather.__call__``) and K9b at (i)'s coordinates
    (``call_batched``) held to their plain twins and timed; and
    ``--spmv diag`` must raise on this system, where plan_diag declines;
+``[fem]`` (run after g-i, on phase 4's mesh and solution): the FEM core
+   and the Poisson/Laplace model.  F1: cases written into
+   ``build/fem_cases/`` (``tools/write_msh.py``): Laplace u = x on a 128x128
+   ``rect_tria_mesh`` and a 24^3 ``box_tetra_mesh`` with each Dirichlet
+   method (Aleph default: Jacobi-CG to 1e-12), a Poisson case with a
+   Neumann group and the Hypre (AMG), poly and dense (8x8) routes; each run
+   in-process on the CPU (float64, its u written as the case's golden
+   file), in-process on the card and through ``python -m arcanefem_tpu_torch
+   run`` in a subprocess (the card by default, the golden file checked;
+   two cases alone first, the rest four at a time beside the in-process
+   runs): the card's u within 1e-9 of max|u| of the CPU's, within 1e-6 of
+   x on the Laplace cases, iterations equal ± 1.  F2: ``models/poisson.solve``
+   on phase 4's mesh (−Δu = 1, Penalty Cut = 0 and sphere = 1, AMG-PCG to
+   1e-8) in float32 and float64, each with its launch counts
+   (``slot_reduce`` once, ``tet_element`` never, ``sell_spmv``), its
+   ``PhaseTimer`` phases, AMG set-up seconds, peak memory and true
+   free-row residual (<= 1e-6); the float32 u within 1e-4 of max|u| of
+   phase 4's x on the free nodes; the assembly's ``slot_reduce`` held to
+   ``slot_reduce_plain`` within 4 ulps at the mesh's shapes; then one more
+   float32 solve under torch.profiler for each phase's device busy time;
 j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
    then ``--spmv diag`` (K10) on the same system, ``[diag]`` lines; K10
    held to its twin and timed there and on the 80^3 RCM box, beside K1 and
@@ -346,6 +366,7 @@ def main() -> int:
     records += supernode_phase(dev, gen, mesh, topo, res)
     res["system"].pop("sn", None)  # 1.35 GB of blocks no later phase reads
     records += compact_phase(dev, gen, mesh, topo, res)
+    fem_phase(dev, mesh, res)
     del res, mesh, topo
     torch.cuda.empty_cache()
     records += diag_phase(dev, gen)
@@ -1524,6 +1545,294 @@ def bench_phase() -> None:
            f"[bench] cold/warm: cached {a['amg_setup_cached']}, {b['amg_setup_cached']}; "
            f"builds {b['sell_layout_builds']}; iterations {a['iterations']}, "
            f"{b['iterations']}")
+
+
+FEM_METHODS = ("Penalty", "WeakPenalty", "RowElimination", "RowColumnElimination")
+FEM_2D_N, FEM_3D_N, FEM_DENSE_N = 128, 24, 8  # [fem] F1 mesh sizes
+FEM_CLI_WORKERS = 4  # F1's CLI subprocesses at a time
+FEM_CLI_ALONE = ("rect_Penalty", "box_hypre")  # F1's CLI cases also timed alone
+
+
+def _fem_cases(root: str) -> list[dict]:
+    """F1's meshes and case files (no result file yet): (name, path,
+    exact) with exact True where u = x."""
+    from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh, rect_tria_mesh
+    from arcanefem_tpu_torch.tools.write_msh import write_arc, write_msh
+
+    os.makedirs(root, exist_ok=True)
+    meshes = {"rect": (rect_tria_mesh(FEM_2D_N, FEM_2D_N), "left", "right", "top"),
+              "box": (box_tetra_mesh(FEM_3D_N, FEM_3D_N, FEM_3D_N), "xmin", "xmax",
+                      "ymax"),
+              "tiny": (rect_tria_mesh(FEM_DENSE_N, FEM_DENSE_N), "left", "right", "top")}
+    for name, (m, *_g) in meshes.items():
+        write_msh(os.path.join(root, f"{name}.msh"), m)
+    hypre = {"name": "HypreLinearSystem", "rtol": "1e-10"}
+    specs = [(f"{mesh}_{meth}", mesh, meth, None, {}) for mesh in ("rect", "box")
+             for meth in FEM_METHODS]
+    specs += [("rect_neumann", "rect", "Penalty", hypre,
+               dict(codename="Poisson", f=1.0, neumann=True)),
+              ("box_hypre", "box", "Penalty", hypre, {}),
+              ("rect_poly", "rect", "Penalty",
+               {"name": "AlephLinearSystem", "preconditioner": "poly",
+                "epsilon": "1e-10"}, {}),
+              ("tiny_dense", "tiny", "Penalty",
+               {"name": "SequentialBasicLinearSystem"}, {})]
+    cases = []
+    for name, mesh, meth, ls, extra in specs:
+        _m, left, right, top = meshes[mesh]
+        path = os.path.join(root, f"{name}.arc")
+        write_arc(path, f"{mesh}.msh", codename=extra.get("codename", "Laplace"),
+                  f=extra.get("f"), dirichlet=[(left, 0.0, meth), (right, 1.0, meth)],
+                  neumann=[(top, 0.5)] if extra.get("neumann") else [],
+                  linear_system=ls)
+        cases.append({"name": name, "path": path, "exact": "neumann" not in name})
+    return cases
+
+
+def _fem_cli(path: str, alone: bool = False) -> dict:
+    """``python -m arcanefem_tpu_torch run path`` (the card by default):
+    exit code, wall seconds and the ``done:`` line's dict.  ``alone``: the
+    only process at work, in the caller's environment; otherwise one of
+    FEM_CLI_WORKERS beside the in-process solves, with two host threads
+    each to keep them from crowding the host's cores."""
+    import ast
+    import subprocess
+
+    t0 = time.perf_counter()
+    env = os.environ if alone else dict(os.environ, OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-m", "arcanefem_tpu_torch", "run", path],
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                          timeout=600, env=env)
+    done = [ln for ln in proc.stdout.splitlines() if ln.startswith("done: PoissonResult ")]
+    return {"code": proc.returncode, "s": time.perf_counter() - t0,
+            "info": ast.literal_eval(done[-1].split(" ", 2)[2]) if done else None,
+            "stderr": proc.stderr[-2000:]}
+
+
+def fem_cli_phase(dev) -> None:
+    """[fem] F1: each case on the CPU (float64; its u becomes the case's
+    golden file), in-process on the card, and through the CLI in a
+    subprocess: the FEM_CLI_ALONE cases alone first, then every case
+    FEM_CLI_WORKERS at a time while the in-process runs go on."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.fem.runner import run_case
+
+    cases = _fem_cases(os.path.join("build", "fem_cases"))
+    for c in cases:
+        t0 = time.perf_counter()
+        cpu = run_case(c["path"], device="cpu")
+        c["cpu_s"] = time.perf_counter() - t0
+        c["cpu_u"], c["cpu_iters"] = cpu.u, cpu.iterations
+        golden = os.path.abspath(c["path"][:-4] + ".golden.txt")
+        np.savetxt(golden, np.column_stack([cpu.problem.mesh.node_uids, cpu.u]),
+                   fmt=["%d", "%.17g"])
+        with open(c["path"]) as f:
+            text = f.read().replace("</fem>", f"  <result-file>{golden}</result-file>\n  </fem>")
+        with open(c["path"], "w") as f:
+            f.write(text)
+        c["x"] = cpu.problem.mesh.coords[:, 0]
+    for c in cases:
+        if c["name"] in FEM_CLI_ALONE:
+            c["cli_alone"] = _fem_cli(c["path"], alone=True)
+    with ThreadPoolExecutor(FEM_CLI_WORKERS) as pool:
+        clis = [pool.submit(_fem_cli, c["path"]) for c in cases]
+        for c in cases:
+            _reset_all()
+            t0 = time.perf_counter()
+            card = run_case(c["path"], device=dev)  # checks the golden file too
+            c["card_s"] = time.perf_counter() - t0
+            c["launches"] = {k: v for k, v in _counts_all().items() if v}
+            c["card_u"], c["card_iters"] = card.u, card.iterations
+        for c, fut in zip(cases, clis):
+            c["cli"] = fut.result()
+    for c in cases:
+        scale = float(np.abs(c["cpu_u"]).max())
+        diff = float(np.abs(c["card_u"] - c["cpu_u"]).max()) / scale
+        exact = float(np.abs(c["card_u"] - c["x"]).max()) if c["exact"] else None
+        cli = c["cli"]
+        line = {"case": c["name"], "n_nodes": len(c["cpu_u"]),
+                "iterations": {"cpu": c["cpu_iters"], "card": c["card_iters"],
+                               "cli": cli["info"] and cli["info"]["iterations"]},
+                "card_vs_cpu": diff, "card_vs_x": exact, "cpu_s": c["cpu_s"],
+                "card_s": c["card_s"], "cli_s": cli["s"], "cli_code": cli["code"],
+                "cli_alone_s": c["cli_alone"]["s"] if "cli_alone" in c else None,
+                "launches": c["launches"]}
+        print(f"[fem] F1 {json.dumps(line)}", flush=True)
+        _check(cli["code"] == 0 and cli["info"] is not None,
+               f"[fem] F1 {c['name']}: the CLI exited {cli['code']}: {cli['stderr']}")
+        _check(diff <= 1e-9, f"[fem] F1 {c['name']}: card u {diff:.3e} of max|u| "
+               "from the CPU's")
+        _check(exact is None or exact <= 1e-6,
+               f"[fem] F1 {c['name']}: card u {exact} from u = x")
+        its = (c["cpu_iters"], c["card_iters"], cli["info"]["iterations"])
+        if "cli_alone" in c:
+            alone = c["cli_alone"]
+            _check(alone["code"] == 0 and alone["info"] is not None,
+                   f"[fem] F1 {c['name']}: the CLI alone exited {alone['code']}: "
+                   f"{alone['stderr']}")
+            its += (alone["info"]["iterations"],)
+        _check(max(its) - min(its) <= 1, f"[fem] F1 {c['name']}: iterations {its}")
+        _check(c["launches"].get("slot_reduce") == 1 and c["launches"].get("sell_spmv", 0) > 0,
+               f"[fem] F1 {c['name']}: launches {c['launches']}")
+    del cases
+    torch.cuda.empty_cache()
+
+
+def fem_full_width_phase(dev, mesh, res4) -> None:
+    """[fem] F2: models/poisson.solve on phase 4's mesh in float32 and
+    float64 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.fem.bcs import BoundaryConditions, DirichletBC
+    from arcanefem_tpu_torch.fem.timer import PhaseTimer
+    from arcanefem_tpu_torch.models import poisson
+    from arcanefem_tpu_torch.ops import elements
+    from arcanefem_tpu_torch.solver.linear_system import SolverOptions
+    from arcanefem_tpu_torch.sparse.bell import slot_contributors
+    from arcanefem_tpu_torch.sparse.slot_reduce import slot_reduce, slot_reduce_plain
+
+    cfg = poisson.PoissonConfig(
+        f=1.0, bcs=BoundaryConditions(dirichlet=[DirichletBC("Cut", 0.0),
+                                                 DirichletBC("sphere", 1.0)]),
+        solver=SolverOptions(method="cg", preconditioner="amg", rtol=1e-8))
+    fixed = np.zeros(mesh.n_nodes, bool)
+    fixed[mesh.group_nodes("Cut")] = True
+    fixed[mesh.group_nodes("sphere")] = True
+    x4 = res4["x"].double().cpu().numpy()
+    for dtype in (torch.float32, torch.float64):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        timer = PhaseTimer(verbose=False)
+        _reset_all()
+        t0 = time.perf_counter()
+        r = poisson.solve(mesh, cfg, dtype=dtype, timer=timer, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts_all()
+        peak = torch.cuda.max_memory_allocated()
+        u = r.u
+        scale = float(np.abs(u).max())
+        vs4 = float(np.abs(u[~fixed] - x4[~fixed]).max()) / scale
+        line = {"dtype": str(dtype)[6:], "n_dofs": int(mesh.n_nodes),
+                "n_cells": int(mesh.cells["tetra4"].shape[0]),
+                "iterations": r.iterations, "residual": r.residual,
+                "true_residual": r.info["true_residual"],
+                "free_residual": r.info["free_residual"],
+                "amg_setup_s": r.info["precond_setup_s"], "solve_s": r.info["solve_s"],
+                "ms_per_iter": r.info["solve_s"] / max(r.iterations, 1) * 1e3,
+                "phases_s": timer.stats, "wall_s": wall,
+                "peak_mem_gb": peak / 1e9, "base_mem_gb": base / 1e9,
+                "vs_phase4": vs4,
+                "launches": {k: v for k, v in counts.items() if v}}
+        print(f"[fem] F2 {json.dumps(line)}", flush=True)
+        _check(counts["slot_reduce"] == 1 and counts["tet_element"] == 0
+               and counts["sell_spmv"] > 0, f"[fem] F2 {dtype}: launches {counts}")
+        _check(r.residual <= 1e-8, f"[fem] F2 {dtype}: monitored residual {r.residual:.3e}")
+        _check(r.info["free_residual"] <= 1e-6,
+               f"[fem] F2 {dtype}: true free-row residual {r.info['free_residual']:.3e}")
+        _check(u.shape == (mesh.n_nodes,) and bool(np.isfinite(u).all()),
+               f"[fem] F2 {dtype}: u of shape {u.shape}, finite {np.isfinite(u).all()}")
+        _check(u.dtype == np.dtype(str(dtype)[6:]), f"[fem] F2 {dtype}: u is {u.dtype}")
+        if dtype == torch.float32:
+            _check(vs4 <= 1e-4, f"[fem] F2: float32 u {vs4:.3e} of max|u| from "
+                   "phase 4's x on the free nodes")
+            # the assembly's reduction at these shapes, kernel against twin
+            prob = r.problem
+            table = elements.stiffness("tetra4", prob.cell_xyz("tetra4")).reshape(-1)
+            ptr, ids = slot_contributors(prob.topo, ["tetra4"], prob.layout)
+            yk = slot_reduce(ptr, ids, table.contiguous())
+            yp = slot_reduce_plain(ptr, ids, table)
+            ulps = float(((yk.double() - yp.double()).abs()
+                          / (torch.finfo(torch.float32).eps
+                             * yp.double().abs().clamp(min=torch.finfo(torch.float32).tiny))
+                          ).max())
+            print(f"[fem] F2 assembly: slot_reduce vs slot_reduce_plain on "
+                  f"{table.numel()} entries into {prob.layout.n_slots} slots: "
+                  f"{ulps:.2f} ulps", flush=True)
+            _check(ulps <= 4, f"[fem] F2 assembly: slot_reduce {ulps:.2f} ulps from "
+                   "its plain twin")
+            del prob, table, ptr, ids, yk, yp
+        del r, u
+    torch.cuda.empty_cache()
+    _fem_phase_busy(dev, mesh, cfg)
+    torch.cuda.empty_cache()
+
+
+def _fem_phase_busy(dev, mesh, cfg) -> None:
+    """One more float32 F2 solve under torch.profiler: each PhaseTimer
+    phase's device busy time (the kernels, copies and fills that start
+    inside it) beside its wall time in this profiled run, and the traced
+    ``sell_spmv`` kernels beside the wrapper's count (the profiler can lose
+    events late in a long run)."""
+    from contextlib import contextmanager
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from arcanefem_tpu_torch.fem.timer import PhaseTimer
+    from arcanefem_tpu_torch.models import poisson
+
+    class TracedTimer(PhaseTimer):
+        @contextmanager
+        def phase(self, label: str):
+            # the span closes after the phase's synchronise
+            with record_function(f"phase:{label}"), super().phase(label):
+                yield
+
+    timer = TracedTimer(verbose=False)
+    _reset_all()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        poisson.solve(mesh, cfg, dtype=torch.float32, timer=timer, device=dev)
+        torch.cuda.synchronize()
+    counted = _counts_all()["sell_spmv"]
+    events = prof.events()
+    spans = {e.name[6:]: e.time_range for e in events
+             if e.device_type == DeviceType.CPU and e.name.startswith("phase:")}
+    # the phase spans also stand on the device's timeline, as annotations
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("phase:")]
+    busy = {label: [0.0, 0, {}] for label in spans}
+    for e in device:
+        for label, span in spans.items():
+            if span.start <= e.time_range.start < span.end:
+                us = e.time_range.elapsed_us()
+                busy[label][0] += us
+                busy[label][1] += 1
+                by_name = busy[label][2]
+                by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + us
+                break
+    for label, (us, n, by_name) in busy.items():
+        wall = timer.stats[label]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        rec = {"phase": label, "wall_s": wall, "busy_ms": us / 1e3,
+               "busy_share": us / 1e6 / wall, "device_events": n,
+               "top_ms": {name: t / 1e3 for name, t in top}}
+        print(f"[fem] F2 busy {json.dumps(rec)}", flush=True)
+    total_us = sum(us for us, _, _ in busy.values())
+    traced = sum(1 for e in device if "sell_spmv" in e.name)
+    print(f"[fem] F2 busy: {total_us / 1e3:.3f} ms of device time in "
+          f"{sum(n for _, n, _ in busy.values())} events over "
+          f"{sum(timer.stats.values()):.3f} s of phases (float32, profiled); "
+          f"sell_spmv traced {traced}, counted {counted}", flush=True)
+    _check(total_us > 0 and counted > 0, f"[fem] F2 busy: no device work traced "
+           f"({total_us} us, sell_spmv counted {counted})")
+
+
+def fem_phase(dev, mesh, res4) -> None:
+    """[fem]: F1 then F2, with the phase's wall time."""
+    t0 = time.perf_counter()
+    fem_cli_phase(dev)
+    t1 = time.perf_counter()
+    fem_full_width_phase(dev, mesh, res4)
+    print(f"[fem] wall time: F1 {t1 - t0:.1f} s, F2 {time.perf_counter() - t1:.1f} s",
+          flush=True)
 
 
 def structured_phases(dev, gen) -> list[dict]:

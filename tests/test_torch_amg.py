@@ -93,6 +93,32 @@ def test_amg_setup_matches_build_amg(hierarchies):
         ("chebyshev", 2, 1, "V")
 
 
+@pytest.mark.parametrize("smoother", ["chebyshev", "jacobi"])
+def test_amg_setup_matches_build_amg_theta_008(system, smoother):
+    """amg_setup at theta 0.08 (``BENCH_AMG_THETA=0.08``; and build_amg's
+    default, which ``make_precond("amg")`` runs with the Jacobi smoother)
+    equals the JAX build_amg(theta=0.08) on the h=8 bench system: the same
+    levels, transfers and coarse inverse."""
+    A, flat, topo = system
+    M = build_amg(A, smoother=smoother, cheb_deg=2, theta=0.08, values_np=flat)
+    d = amg_setup(flat, topo, theta=0.08, smoother=smoother, cheb_deg=2)
+    ref = _as_numpy(M)
+    assert len(d["mats"]) == len(ref["mats"]) >= 2
+    for (v, c), (rv, rc) in zip(d["mats"], ref["mats"], strict=True):
+        np.testing.assert_array_equal(c, rc)
+        np.testing.assert_array_equal(v, rv)
+    for k in ("pcols", "ptcols", "inv_diags"):
+        for a, b in zip(d[k], ref[k], strict=True):
+            np.testing.assert_array_equal(a, b)
+    for k in ("pvals", "ptvals"):
+        for a, b in zip(d[k], ref[k], strict=True):
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(d["rhos"], ref["rhos"], rtol=1e-12)
+    np.testing.assert_allclose(d["coarse_inv"], ref["coarse_inv"], rtol=1e-12,
+                               atol=1e-12 * np.abs(ref["coarse_inv"]).max())
+    assert (d["smoother"], d["cheb_deg"]) == (smoother, 2)
+
+
 @pytest.mark.parametrize("smoother,cycle", [("chebyshev", "V"),
                                             ("chebyshev", "W"),
                                             ("jacobi", "V")])

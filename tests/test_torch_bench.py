@@ -93,7 +93,8 @@ def test_primary_knobs_map_to_the_port_routes():
     assert opts == {"spmv": "ell", "sn_block": False, "sn_bf16": False,
                     "vcycle_bf16": False, "asm_coords": "split",
                     "asm_compact": False, "band_pre": False, "order": "sn",
-                    "smoother": "chebyshev", "cheb_deg": 2, "cycle": "V"}
+                    "smoother": "chebyshev", "cheb_deg": 2, "cycle": "V",
+                    "theta": 0.03, "cheb_apply": None}
     env = {"BENCH_UNSTR_H": "5", "BENCH_UNSTR_REFINE": "2", "BENCH_RTOL": "1e-6",
            "BENCH_UNSTR_SPMV": "supernode", "BENCH_SN_BLOCK": "1",
            "BENCH_SN_BF16": "1", "AFEM_ASM_COORDS": "batched",
@@ -234,3 +235,56 @@ def test_prime_host_caches_the_host_set_up(monkeypatch, tmp_path):
     keys = ("mesh_key", "n_dofs", "n_cells", "nnz_stored", "width")
     assert {k: first[k] for k in keys} == {k: second[k] for k in keys}
     assert first["mesh_key"] == "sphere_cut_v3_h14_r0_sn" and first["n_dofs"] == 1887
+
+
+def test_amg_knobs_map_to_the_port():
+    """BENCH_AMG_THETA and BENCH_AMG_CHEB_APPLY are honoured (no longer
+    refused): the build theta and the apply-time degree reach the route
+    options; the defaults leave both where they were."""
+    for name in ("BENCH_AMG_THETA", "BENCH_AMG_CHEB_APPLY"):
+        assert name not in bench.NO_COUNTERPART
+        bench.check_knobs({name: "7"})
+    opts = bench.primary_args({"BENCH_AMG_THETA": "0.08",
+                               "BENCH_AMG_CHEB_APPLY": "3"})[3]
+    assert (opts["theta"], opts["cheb_apply"], opts["cheb_deg"]) == (0.08, 3, 2)
+    opts = bench.primary_args({"BENCH_AMG_CHEB_APPLY": "2,4"})[3]
+    assert (opts["theta"], opts["cheb_apply"]) == (0.03, (2, 4))
+    assert bench.primary_args({"BENCH_AMG_CHEB_APPLY": ""})[3]["cheb_apply"] is None
+    with pytest.raises(ValueError):
+        bench.primary_args({"BENCH_AMG_THETA": "loose"})
+
+
+def test_amg_cache_is_keyed_by_build_theta_and_degree(tmp_path):
+    """The AMG cache file carries the build theta (as bench.py's pickle
+    name does) and the build degree; an apply-time degree solves exactly as
+    a hierarchy built at that degree, from the file of the build degree."""
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.bench_unstructured import (
+        amg_cache_entry,
+        solve_sphere_cut,
+        sphere_cut_system,
+    )
+
+    mesh, topo = sphere_cut_system(14.0, 0, cache=False)
+    flat = np.zeros(topo.n_nodes * topo.width)
+    kw = dict(smoother="chebyshev", cheb_deg=2, penalty=1e30, device="cpu",
+              dtype=torch.float64)
+    p3, m3 = amg_cache_entry(str(tmp_path / "k"), topo, flat, **kw)
+    p8, m8 = amg_cache_entry(str(tmp_path / "k"), topo, flat, theta=0.08, **kw)
+    assert "_t0.03_" in p3 and "_t0.08_" in p8 and (m3["theta"], m8["theta"]) == (0.03, 0.08)
+    run = dict(device="cpu", dtype=torch.float64, penalty=1e30)
+    built3 = solve_sphere_cut(mesh, topo, cheb_deg=3, **run)
+    applied = solve_sphere_cut(mesh, topo, cheb_deg=2, cheb_apply=3,
+                               cache=str(tmp_path / "k"), **run)
+    assert applied["iterations"] == built3["iterations"]
+    assert torch.equal(applied["x"], built3["x"])
+    names = [f.name for f in tmp_path.iterdir()]
+    assert any(n.startswith("amg_k_chebyshev2_t0.03_cpu") for n in names), names
+    loose = solve_sphere_cut(mesh, topo, theta=0.08, cache=str(tmp_path / "k"), **run)
+    assert any("_t0.08_" in f.name for f in tmp_path.iterdir())
+    assert loose["rel"] <= 1e-8 and loose["true_residual"] <= 1e-6
+    with pytest.raises(ValueError, match="theta"):
+        solve_sphere_cut(mesh, topo, theta=0.03, system=loose["system"], **run)
+

@@ -61,3 +61,24 @@ def test_own_events_ms_is_none_when_the_trace_is_short_or_doubled():
     assert own(_events([540.0] * 39), names, 20)[0] == pytest.approx(0.54)
     assert own(_events([540.0] * 40), names, 20) == (None, [40, 20])
     assert own([], names, 20) == (None, [0, 20])
+
+
+def test_fem_cases_cover_every_method_and_route(tmp_path, monkeypatch):
+    """[fem] F1's case files, written at a small size: every Dirichlet
+    method on both meshes, and the Hypre (AMG), Aleph default (Jacobi),
+    poly and dense routes, each loadable by the port's reader."""
+    from arcanefem_tpu_torch.fem.arc import load_case
+
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "FEM_2D_N", 6)
+    monkeypatch.setattr(smoke, "FEM_3D_N", 3)
+    cases = smoke._fem_cases(str(tmp_path))
+    assert len(cases) == 12 and len({c["name"] for c in cases}) == 12
+    loaded = {c["name"]: load_case(c["path"]) for c in cases}
+    methods = {(n.split("_")[0], bc.method) for n, case in loaded.items()
+               for bc in case.bcs.dirichlet}
+    assert {(m, meth) for m in ("rect", "box") for meth in smoke.FEM_METHODS} <= methods
+    routes = {(c.solver.method, c.solver.preconditioner) for c in loaded.values()}
+    assert routes == {("cg", "jacobi"), ("cg", "amg"), ("cg", "poly"), ("dense", "jacobi")}
+    assert loaded["rect_neumann"].bcs.neumann and loaded["rect_neumann"].codename == "Poisson"
+    assert all(c["exact"] == (c["name"] != "rect_neumann") for c in cases)

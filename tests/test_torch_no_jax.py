@@ -160,3 +160,43 @@ def test_bench_runs_without_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["code"] == 1 and out["loaded"] == [] and out["vs_baseline"] > 0
+
+
+_CLI_SCRIPT = _PRELUDE + """
+import runpy
+from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh
+from arcanefem_tpu_torch.tools.write_msh import write_arc, write_msh
+d = sys.argv[1]
+write_msh(d + "/box.msh", box_tetra_mesh(6, 5, 4))
+write_arc(d + "/case.arc", "box.msh", codename="Poisson", f=1.0,
+          dirichlet=[("xmin", 0.0), ("xmax", 1.0, "RowColumnElimination")],
+          neumann=[("ymax", 0.5)], linear_system={"name": "HypreLinearSystem"})
+codes = []
+for extra in ([], ["--device", "cpu"]):  # without CUDA: exit 1, then the CPU
+    sys.argv = ["arcanefem_tpu_torch", "run", d + "/case.arc", *extra]
+    try:
+        runpy.run_module("arcanefem_tpu_torch", run_name="__main__")
+        codes.append(0)
+    except SystemExit as e:
+        codes.append(e.code)
+print(json.dumps({"codes": codes,
+                  "loaded": [m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "arcanefem_tpu", "bench")
+                             and sys.modules[m] is not None]}))
+"""
+
+
+def test_cli_runs_without_jax(tmp_path):
+    """python -m arcanefem_tpu_torch run on a Poisson case (AMG, penalty and
+    row-column elimination, a Neumann flux) in a process where neither jax,
+    arcanefem_tpu nor the root bench can be imported: exit 1 without
+    --device (no CUDA here), a solve with --device cpu."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _CLI_SCRIPT, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    assert out["codes"] == [1, 0] and out["loaded"] == []
+    assert sum(ln.startswith("done: PoissonResult {'iterations': ") for ln in lines) == 1
