@@ -5,11 +5,14 @@ case's codename as the reference's per-module executables do.
 
     python -m arcanefem_tpu_torch run case.arc [--f32] [--no-check]
                                      [--mesh-root DIR] [--device cuda|cpu]
+                                     [--output-dir DIR]
 
 The case runs on ``--device`` (default ``cuda``, the card).  Nothing falls
 back: without a CUDA device the command exits 1 unless ``--device cpu``
-asks for the CPU.  ``--output-dir`` and the ``testlab`` sub-command are
-not ported yet and raise ``NotImplementedError``.
+asks for the CPU.  ``--output-dir`` writes the case's
+``<arcane-post-processing>`` variables there: a VTKHDF file where h5py can
+be imported, legacy VTK where it cannot.  The ``testlab`` sub-command is
+not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ def main(argv=None) -> int:
     runp.add_argument("--device", default="cuda",
                       help="torch device of the run (default: cuda)")
     runp.add_argument("--output-dir", default=None,
-                      help="not ported yet: raises NotImplementedError")
+                      help="write the case's post-processing variables here "
+                           "(VTKHDF, or legacy VTK without h5py)")
 
     sub.add_parser("testlab", add_help=False)
 

@@ -64,6 +64,31 @@ def numpy_dtype(dtype) -> np.dtype:
     return np.dtype(str(torch_dtype(dtype)).removeprefix("torch."))
 
 
+def row_ids(rows: np.ndarray) -> np.ndarray:
+    """int64 ids of the (m, k) non-negative integer ``rows``: equal rows get
+    equal ids, in the rows' lexicographic order (the inverse of
+    ``np.unique(rows, axis=0)``, which takes ~90 s on the 43.9M cell faces
+    of the 1.9M sphere).  One sort of packed int64 keys where the rows fit
+    in 63 bits, a lexsort otherwise."""
+    m, k = rows.shape
+    if not m:
+        return np.zeros(0, np.int64)
+    r = rows.astype(np.int64)
+    bits = max(int(r.max()).bit_length(), 1)
+    if k * bits <= 63:
+        key = np.zeros(m, np.int64)
+        for c in range(k):
+            key = (key << bits) | r[:, c]
+        return np.unique(key, return_inverse=True)[1].reshape(-1)
+    order = np.lexsort(r.T[::-1])
+    srt = r[order]
+    new = np.ones(m, bool)
+    new[1:] = (srt[1:] != srt[:-1]).any(axis=1)
+    ids = np.empty(m, np.int64)
+    ids[order] = np.cumsum(new) - 1
+    return ids
+
+
 def orient_faces_outward(mesh: Mesh, conn: np.ndarray) -> np.ndarray:
     """Flip boundary faces so their normal points out of the domain.
 
@@ -91,9 +116,7 @@ def orient_faces_outward(mesh: Mesh, conn: np.ndarray) -> np.ndarray:
     keys = np.concatenate(keys)
     cents = np.concatenate(cents)
     nk = len(keys)
-    _, inv = np.unique(np.concatenate([keys[::-1], np.sort(conn, axis=1)]),
-                       axis=0, return_inverse=True)
-    inv = inv.reshape(-1)
+    inv = row_ids(np.concatenate([keys[::-1], np.sort(conn, axis=1)]))
     # the first occurrence in reversed order is the last in the loop's order
     uid, first = np.unique(inv[:nk], return_index=True)
     owner = np.full(int(inv.max()) + 1, -1, np.int64)

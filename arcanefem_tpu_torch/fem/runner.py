@@ -3,8 +3,10 @@
 The counterpart of ``arcanefem_tpu/fem/runner.py``: each model registers a
 ``run(case, mesh, dtype, device, ...)`` callable and :func:`run_case` plays
 the role of the reference's ArcaneLauncher, on one device (the card by
-default).  Post-processing output (``output_dir``, the VTKHDF writer of
-``fem/vtkhdf.py``) is not ported yet.
+default).  ``output_dir`` writes the case's ``<arcane-post-processing>``
+variables after the run: VTKHDF (``fem/vtkhdf.py``) where h5py can be
+imported, legacy VTK (``fem/vtk.py``) where it cannot, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -18,10 +20,6 @@ from .arc import load_case
 
 _REGISTRY: dict[str, Callable] = {}
 
-# the ROADMAP entry of the features that raise until they are ported
-OUTPUT_NOT_PORTED = ("--output-dir / output_dir (fem/vtk.py and fem/vtkhdf.py) "
-                     "is not ported yet (ROADMAP Queue 1 item 5)")
-
 
 def register(codename: str):
     def deco(fn):
@@ -31,6 +29,46 @@ def register(codename: str):
         return fn
 
     return deco
+
+
+def _write_post_processing(case, mesh, res, output_dir: str) -> str:
+    """Write the case's `<arcane-post-processing>` variables as a VTKHDF
+    file (the reference's VtkHdfV2PostProcessor output), or as legacy
+    ASCII VTK where h5py cannot be imported; returns the file's path."""
+    import os
+
+    point_data, cell_data = {}, {}
+    for name in case.post_processing.variables:
+        # the declared name, then its lower case: the ported modules'
+        # fields (U -> u, Phi -> phi, E, psi) need no alias table
+        attrs = (name, name.lower())
+        val = next(
+            (getattr(res, a) for a in attrs if getattr(res, a, None)
+             is not None),
+            None,
+        )
+        if val is None:
+            continue  # derived-only variables (e.g. UExact): no field held
+        if isinstance(val, dict):
+            cell_data[name] = val
+        else:
+            arr = np.asarray(val)
+            (point_data if arr.shape[0] == mesh.n_nodes else cell_data)[
+                name
+            ] = arr
+    os.makedirs(output_dir, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(case.path))[0]
+    from . import vtkhdf
+
+    if vtkhdf.HAVE_H5PY:
+        out = os.path.join(output_dir, stem + ".hdf")
+        vtkhdf.write_vtkhdf(out, mesh, point_data=point_data, cell_data=cell_data)
+    else:
+        from .vtk import write_vtk
+
+        out = os.path.join(output_dir, stem + ".vtk")
+        write_vtk(out, mesh, point_data=point_data, cell_data=cell_data)
+    return out
 
 
 def run_case(
@@ -51,22 +89,22 @@ def run_case(
     validation is uid-keyed, so results are invariant.
     verbose: print `[ArcaneFem-Timer]` phase lines (the reference's
     per-phase wall-clock instrumentation, modules/poisson/FemModule.cc:28-39).
-    output_dir: not ported yet; raises NotImplementedError.
+    output_dir: write the case's `<arcane-post-processing>` variables
+    there after the run (VTKHDF with h5py, legacy VTK without).
     """
-    if output_dir:
-        raise NotImplementedError(OUTPUT_NOT_PORTED)
     case = load_case(path, mesh_root=mesh_root)
     key = (case.codename or "").lower()
     if key not in _REGISTRY:
         # import model modules lazily so registration side-effects run
-        from ..models import _ALL
+        from ..models import NOT_PORTED
 
-        _ = _ALL
+        if key in NOT_PORTED:
+            raise KeyError(f"codename '{case.codename}' is not ported yet "
+                           f"({NOT_PORTED[key]})")
     if key not in _REGISTRY:
         raise KeyError(
             f"no model registered for codename '{case.codename}' "
-            f"(have: {sorted(_REGISTRY)}; the others are not ported yet, "
-            "ROADMAP Queue 1 item 9)"
+            f"(have: {sorted(_REGISTRY)})"
         )
     mesh = read_msh(case.mesh_file)
     if rcm:
@@ -81,4 +119,9 @@ def run_case(
         from .timer import PhaseTimer
 
         kw["timer"] = PhaseTimer(verbose=True)
-    return _REGISTRY[key](case, mesh, dtype=dtype or np.float64, device=device, **kw)
+    res = _REGISTRY[key](case, mesh, dtype=dtype or np.float64, device=device, **kw)
+    if output_dir and case.post_processing is not None:
+        out = _write_post_processing(case, mesh, res, output_dir)
+        if verbose:
+            print(f"[post-processing] wrote {out}")
+    return res

@@ -1,9 +1,10 @@
 """Synthetic structured meshes (host numpy).
 
-The port's copy of ``rect_tria_mesh`` and ``box_tetra_mesh`` from
-``arcanefem_tpu/mesh/generate.py``; the CPU tests hold them to the
-originals with exact equality.  They give the RCM-ordered meshes of the
-diagonal SpMV's tests and its box measurement.
+The port's copy of ``rect_tria_mesh``, ``box_tetra_mesh`` and
+``quadratize`` from ``arcanefem_tpu/mesh/generate.py``; the CPU tests hold
+them to the originals with exact equality.  They give the RCM-ordered
+meshes of the diagonal SpMV's tests and its box measurement, and the P2
+meshes of the model tests and chip_smoke.
 """
 
 from __future__ import annotations
@@ -134,4 +135,89 @@ def box_tetra_mesh(
         cells={"tetra4": tets},
         dim=3,
         face_groups=fg,
+    )
+
+
+# --- quadratic (P2/serendipity) mesh refinement ----------------------------
+
+# gmsh edge-node orderings, matching ops/quadrature.py shape_tables
+_Q_EDGES = {
+    "line2": ("line3", [(0, 1)]),
+    "tria3": ("tria6", [(0, 1), (1, 2), (2, 0)]),
+    "quad4": ("quad8", [(0, 1), (1, 2), (2, 3), (3, 0)]),
+    "tetra4": ("tetra10", [(0, 1), (1, 2), (0, 2), (0, 3), (2, 3), (1, 3)]),
+    "hexa8": (
+        "hexa20",
+        [(0, 1), (0, 3), (0, 4), (1, 2), (1, 5), (2, 3),
+         (2, 6), (3, 7), (4, 5), (4, 7), (5, 6), (6, 7)],
+    ),
+}
+
+
+def quadratize(mesh: Mesh) -> Mesh:
+    """Convert a linear mesh to its quadratic counterpart (tria3->tria6,
+    tetra4->tetra10, quad4->quad8, hexa8->hexa20, boundary line2->line3)
+    by inserting one mid-edge node per unique edge, gmsh node ordering.
+
+    The reference ships quadratic meshes from Gmsh (passmo quadratic
+    cases); this generates them from any linear mesh, so the quadratic
+    elements (ops/quadrature.py) run on in-repo meshes at any size.
+    """
+
+    def blocks():
+        for ct, conn in mesh.cells.items():
+            yield ("cell", None, ct, conn)
+        for g, types in mesh.face_groups.items():
+            for ct, conn in types.items():
+                yield ("face", g, ct, conn)
+
+    # collect every unique undirected edge that needs a midpoint
+    edge_lists = []
+    for _, _, ct, conn in blocks():
+        if ct not in _Q_EDGES:
+            raise ValueError(f"no quadratic counterpart for '{ct}'")
+        pairs = np.asarray(_Q_EDGES[ct][1])
+        edge_lists.append(
+            conn.astype(np.int64)[:, pairs].reshape(-1, 2)
+        )
+    all_edges = np.sort(np.concatenate(edge_lists), axis=1)
+    uniq, inv = np.unique(all_edges, axis=0, return_inverse=True)
+    mid_ids = (mesh.n_nodes + np.arange(len(uniq))).astype(np.int64)
+
+    coords = np.concatenate(
+        [mesh.coords, 0.5 * (mesh.coords[uniq[:, 0]] + mesh.coords[uniq[:, 1]])]
+    )
+    uid0 = int(mesh.node_uids.max()) + 1
+    node_uids = np.concatenate(
+        [mesh.node_uids, np.arange(uid0, uid0 + len(uniq), dtype=np.int64)]
+    )
+
+    new_cells, new_fg = {}, {g: {} for g in mesh.face_groups}
+    new_cell_groups = {}
+    pos = 0
+    for kind, g, ct, conn in blocks():
+        qt, pairs = _Q_EDGES[ct]
+        ne = len(pairs) * len(conn)
+        mids = mid_ids[inv[pos : pos + ne]].reshape(len(conn), len(pairs))
+        pos += ne
+        qconn = np.concatenate([conn.astype(np.int64), mids], axis=1).astype(
+            np.int32
+        )
+        if kind == "cell":
+            new_cells[qt] = qconn
+        else:
+            new_fg[g][qt] = qconn
+    for g, types in mesh.cell_groups.items():
+        new_cell_groups[g] = {
+            _Q_EDGES[ct][0]: idx for ct, idx in types.items()
+        }
+
+    return Mesh(
+        coords=coords,
+        node_uids=node_uids,
+        cells=new_cells,
+        dim=mesh.dim,
+        face_groups=new_fg,
+        node_groups=dict(mesh.node_groups),
+        cell_groups=new_cell_groups,
     )

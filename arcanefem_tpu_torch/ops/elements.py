@@ -8,9 +8,9 @@ b)``, the batched form of the reference's per-cell
 Pallas kernel in the JAX package either); the CPU tests hold each to the
 JAX function on random cells.
 
-The isoparametric stiffness of the quadratic and higher-order elements
-(``stiffness_iso``) needs ``ops/quadrature.py``, which the port does not
-have yet (ROADMAP Queue 1 item 6): it raises ``NotImplementedError``.
+Every other element of the zoo (the quadratic ones and hexa8, penta6,
+pyramid5) goes through the isoparametric path, ``stiffness_iso`` over
+``ops/quadrature.py``.
 """
 
 from __future__ import annotations
@@ -27,10 +27,7 @@ from .geometry import (
     tria3_gradients,
 )
 
-# the element types ``stiffness`` sends through the isoparametric path
-# (``REF_DIM`` of the JAX ``ops/quadrature.py``, without the lines)
-ISO_TYPES = ("tria6", "quad8", "tetra10", "hexa8", "hexa20", "penta6",
-             "pyramid5")
+from .quadrature import REF_DIM, iso_geometry
 
 
 def stiffness_tria3(xyz: torch.Tensor) -> torch.Tensor:
@@ -66,11 +63,11 @@ def stiffness_quad4(xyz: torch.Tensor) -> torch.Tensor:
 
 
 def stiffness_iso(cell_type: str, xyz: torch.Tensor) -> torch.Tensor:
-    """The isoparametric Laplace stiffness of any zoo element: not ported
-    yet."""
-    raise NotImplementedError(
-        f"stiffness_iso ({cell_type}) needs ops/quadrature.py, which is not "
-        "ported yet (ROADMAP Queue 1 item 6)")
+    """Scalar Laplace stiffness Σ_g w·|detJ|·∇N_i·∇N_j through the
+    isoparametric path: any zoo element, quadratic ones included (the
+    CellFEMDispatcher role, femutils/ArcaneFemFunctions.h:1224-2342)."""
+    _, grads, wdet = iso_geometry(cell_type, xyz, REF_DIM[cell_type])
+    return torch.einsum("gc,gcid,gcjd->cij", wdet, grads, grads)
 
 
 def stiffness(cell_type: str, xyz: torch.Tensor) -> torch.Tensor:
@@ -80,7 +77,7 @@ def stiffness(cell_type: str, xyz: torch.Tensor) -> torch.Tensor:
         return stiffness_tetra4(xyz)
     if cell_type == "quad4":
         return stiffness_quad4(xyz)
-    if cell_type in ISO_TYPES:
+    if cell_type in REF_DIM and not cell_type.startswith("line"):
         return stiffness_iso(cell_type, xyz)
     raise ValueError(f"no stiffness kernel for cell type '{cell_type}'")
 

@@ -16,15 +16,15 @@ are the same:
 
 Everything is applied as masked elementwise operations over the SELL
 slots in :func:`apply_bcs`.  Back ends (``SolverOptions.method``):
-"dense" (``torch.linalg.solve`` of ``BellMatrix.todense``) and "cg"
-(``solver/iterative.py::pcg`` with the preconditioner of
-``make_precond``).  "bicgstab", "bicgstab2" and "gmres" come with the
-models that need them and raise ``NotImplementedError`` until then.
+"dense" (``torch.linalg.solve`` of ``BellMatrix.todense``), and "cg",
+"bicgstab", "bicgstab2" and "gmres" (``solver/iterative.py``) with the
+preconditioner of ``make_precond``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 import os
 import time
 import warnings
@@ -34,10 +34,7 @@ import numpy as np
 import torch
 
 from ..sparse.bell import BellMatrix
-from .iterative import make_precond, pcg
-
-# the methods that wait for the models that use them (aerodynamics)
-NOT_PORTED = ("bicgstab", "bicgstab2", "gmres")
+from .iterative import bicgstab, bicgstab2, gmres, make_precond, pcg
 
 
 @dataclass
@@ -122,10 +119,11 @@ def apply_bcs(A: BellMatrix, rhs: torch.Tensor,
 class SolverOptions:
     """Mirrors HypreDoFLinearSystemFactory.axl:4-13 defaults."""
 
-    method: str = "cg"  # cg | dense (bicgstab | bicgstab2 | gmres: not ported yet)
+    method: str = "cg"  # cg | bicgstab | bicgstab2 | gmres | dense
     rtol: float = 1.0e-7
     atol: float = 0.0
     max_iter: int = 1000
+    gmres_restart: int = 30  # Krylov basis size for method="gmres"
     preconditioner: str = "jacobi"  # none | jacobi | block-jacobi | amg | poly
     precise_dot: bool = True  # compensated f32 dots (no-op for f64)
     # SpMV: "pallas" (the JAX name of its kernel route) is the hand-written
@@ -215,12 +213,15 @@ def solve_finalized(A: BellMatrix, b: torch.Tensor, options: SolverOptions,
     """Dispatch on the back end; returns (x, info).
 
     "dense": x in b's dtype and info {"iterations": 1, "residual": 0.0},
-    as in JAX.  "cg": x in float64 (``pcg`` accumulates the iterate in
-    float64; the caller casts) and info with ``iterations``, ``residual``
-    (the monitored preconditioned residual), ``true_residual`` (||b − A
-    x|| / ||b|| over all rows, in float64), ``precond_setup_s`` and
-    ``solve_s`` (host clock of the preconditioner's set-up and of the CG
-    iterations, the card synchronised)."""
+    as in JAX.  The Krylov methods: x (in float64 from "cg", whose ``pcg``
+    accumulates the iterate in float64, in b's dtype from the others, as
+    in JAX; the caller casts) and info with ``iterations``, ``residual``
+    (the monitored residual), ``true_residual`` (||b − A x|| / ||b|| over
+    all rows, in float64), ``precond_setup_s`` and ``solve_s`` (host
+    clock of the preconditioner's set-up and of the iterations, the card
+    synchronised).  ``use_precise_dot`` is on in float32 only; the
+    failure rule (``fail_action``) is JAX's max-iteration rule, and also
+    takes a non-finite residual or x as a failure."""
     if options.spmv == "xla":
         A = BellMatrix(A.values, A.layout, A.diag_slot, plain=True)
     elif options.spmv != "pallas":
@@ -229,11 +230,9 @@ def solve_finalized(A: BellMatrix, b: torch.Tensor, options: SolverOptions,
     if options.method == "dense":
         x = torch.linalg.solve(A.todense(), b)
         return x, {"iterations": 1, "residual": 0.0}
-    if options.method in NOT_PORTED:
-        raise NotImplementedError(
-            f"solver method '{options.method}' is not ported yet; it comes "
-            "with the models that use it (ROADMAP Queue 1 item 7)")
-    if options.method != "cg":
+    solvers = {"cg": pcg, "bicgstab": bicgstab, "bicgstab2": bicgstab2,
+               "gmres": functools.partial(gmres, restart=options.gmres_restart)}
+    if options.method not in solvers:
         raise ValueError(f"unknown solver method '{options.method}'")
 
     def clock() -> float:
@@ -247,37 +246,45 @@ def solve_finalized(A: BellMatrix, b: torch.Tensor, options: SolverOptions,
     # No operator swap: the JAX package solves f32 AMG systems with the
     # hierarchy's level-0 window-kernel operator in place of A (a TPU
     # layout with fewer padded slots); here level 0 is the same SELL
-    # matrix as A, so A runs the CG SpMV itself.
+    # matrix as A, so A runs the Krylov SpMV itself, whatever the method.
     if x0 is None:
         x0 = torch.zeros_like(b)
     use_precise = options.precise_dot and b.dtype == torch.float32
-    x, iters, res = pcg(A, b, M, x0, options.rtol, options.atol,
-                        options.max_iter, use_precise_dot=use_precise)
+    x, iters, res = solvers[options.method](
+        A, b, M, x0, options.rtol, options.atol, options.max_iter,
+        use_precise_dot=use_precise)
     t2 = clock()
 
     # true-residual report (Hypre monitors ||b-Ax||/||b|| for cold solves;
-    # CG here monitors the preconditioned norm): one SpMV more per solve
+    # the Krylov methods here monitor a preconditioned norm): one SpMV more
+    # per solve
     b64 = b.double()
     bn = torch.linalg.vector_norm(b64)
-    true_res = float(torch.linalg.vector_norm(b64 - _float64(A).spmv(x))
+    true_res = float(torch.linalg.vector_norm(b64 - _float64(A).spmv(x.double()))
                      / (bn if bn > 0 else 1.0))
     info = {"iterations": iters, "residual": res, "true_residual": true_res,
             "precond_setup_s": t1 - t0, "solve_s": t2 - t1}
 
     if options.fail_action != "ignore":
-        if iters >= options.max_iter and res > options.rtol:
+        # JAX's rule (max_iter spent above rtol), and a non-finite residual
+        # or x, which ends a Krylov loop early and which the JAX package
+        # returns without a word
+        finite = math.isfinite(res) and bool(torch.isfinite(x).all())
+        if not finite or (iters >= options.max_iter and res > options.rtol):
             path = _dump_solve_failure(A, b, x0, options, info)
             warnings.warn(
                 f"solver '{options.method}' did NOT converge: "
                 f"{iters} iters, monitored rel residual {res:.3e} "
                 f"(true ||b-Ax||/||b|| {true_res:.3e})"
+                + ("" if finite else ", not finite")
                 + (f"; system dumped to {path}" if path else ""),
                 stacklevel=2,
             )
             if options.fail_action == "raise":
                 raise RuntimeError(
                     f"linear solve failed to converge ({iters} iters, "
-                    f"rel residual {res:.3e} > rtol {options.rtol:g})"
+                    f"rel residual {res:.3e} > rtol {options.rtol:g}"
+                    + ("" if finite else ", not finite") + ")"
                 )
     return x, info
 

@@ -2,6 +2,7 @@
 
     write_msh(path, mesh)
     write_arc(path, mesh_file, codename="Laplace", dirichlet=[("left", 1.0)])
+    rect_quad_mesh(nx, ny, regions=True)
 
 The repository holds no ``.msh`` or ``.arc`` file, so the tests and
 ``chip_smoke.py`` write their own from generated meshes (``mesh/generate.py``)
@@ -14,15 +15,20 @@ to 17 significant digits, so they read back bit for bit) in one block, the
 cells in one entity of the mesh's dimension, each face group as one entity
 of dimension ``dim - 1`` per face type and each node group as one entity
 of dimension 0 (``point1`` elements), every group under its own physical
-name.  ``read_msh`` gives back the same coordinates, tags, cells and
-groups.  Cell groups are not written (their cells would be read as a
-second copy of the mesh's cells).
+name.  Cell groups must be disjoint sets of the mesh's cells: each is
+one entity of the mesh's dimension under its name, and the cells of no
+group one more entity without a name.  ``read_msh`` gives back the same
+coordinates, tags and groups, and the same cells, grouped by entity.
+
+:func:`rect_quad_mesh` is the quad4 rectangle of the tests and chip_smoke
+(the package's ``mesh/generate.py`` has triangles and tetrahedra only).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..fem.problem import row_ids
 from ..mesh.gmsh import ELEMENT_TYPES
 
 _TYPE_ID = {name: tid for tid, (name, _nn, _dim) in ELEMENT_TYPES.items()}
@@ -32,14 +38,34 @@ def _lines(rows) -> str:
     return "".join(" ".join(map(str, r)) + "\n" for r in rows)
 
 
+def _cell_blocks(mesh) -> list:
+    """(dim, group name or None, type, connectivity) of the mesh's cells:
+    each cell group's rows of each type, then the rows of no group."""
+    blocks = []
+    for t, cells in mesh.cells.items():
+        owner = np.full(len(cells), -1, np.int64)
+        names = [g for g, by_type in mesh.cell_groups.items() if t in by_type]
+        for k, g in enumerate(names):
+            sel = np.asarray(mesh.cell_groups[g][t]).reshape(-1, cells.shape[1])
+            inv = row_ids(np.concatenate([cells, sel]))
+            rows = np.flatnonzero(np.isin(inv[: len(cells)], inv[len(cells):]))
+            if len(rows) != len(sel) or (owner[rows] >= 0).any():
+                raise ValueError(f"write_msh: cell group '{g}' is not a disjoint "
+                                 f"set of the {t} cells")
+            owner[rows] = k
+        for k, g in enumerate(names):
+            blocks.append((mesh.dim, g, t, cells[owner == k]))
+        if (owner < 0).any():
+            blocks.append((mesh.dim, None, t, cells[owner < 0]))
+    return blocks
+
+
 def write_msh(path: str, mesh) -> None:
     """``mesh`` (a ``mesh.core.Mesh``) as a Gmsh 4.1 ASCII file."""
-    if mesh.cell_groups:
-        raise ValueError("write_msh: cell groups are not written")
     uids = np.asarray(mesh.node_uids, np.int64)
     dim = mesh.dim
     # (entity dim, physical name, element type, connectivity)
-    blocks = [(dim, None, t, c) for t, c in mesh.cells.items()]
+    blocks = _cell_blocks(mesh)
     for name, by_type in mesh.face_groups.items():
         blocks += [(dim - 1, name, t, c) for t, c in by_type.items()]
     for name, nodes in mesh.node_groups.items():
@@ -89,14 +115,27 @@ def write_msh(path: str, mesh) -> None:
 def write_arc(path: str, mesh_file: str, *, codename: str = "Laplace",
               f: float | None = None, dirichlet=(), neumann=(),
               linear_system: dict | None = None,
-              result_file: str | None = None) -> None:
-    """A reference case file for the Poisson/Laplace module.
+              result_file: str | None = None, values: dict | None = None,
+              materials=(), manufactured: dict | None = None, farfield=(),
+              dirichlet_bc=(), post_processing=()) -> None:
+    """A reference case file for the scalar modules (Poisson, Laplace,
+    Fourier, Electrostatics, Acoustics, Aerodynamics).
 
     ``dirichlet``: (surface, value[, method]) tuples; ``neumann``: (surface,
-    value) tuples; ``linear_system``: None (the Aleph default, no
-    <linear-system>) or {"name": service, tag: text, ...} (e.g.
-    {"name": "HypreLinearSystem", "rtol": "1e-10"}); ``mesh_file`` and
-    ``result_file`` as ``load_case`` resolves them (absolute paths work)."""
+    value) tuples, both in ``<boundary-conditions>``; ``linear_system``:
+    None (the Aleph default, no <linear-system>) or {"name": service, tag:
+    text, ...} (e.g. {"name": "HypreLinearSystem", "rtol": "1e-10"});
+    ``mesh_file`` and ``result_file`` as ``load_case`` resolves them
+    (absolute paths work).  The other modules' fields: ``values``, scalar
+    ``<fem>`` fields by tag (``lambda``, ``qdot``, ``rho``, ``epsilon``,
+    ``kc2``, ``penalty``); ``materials``, (volume, lambda) pairs as
+    ``<material-property>``; ``manufactured``, {"dirichlet": function name,
+    "source": function name[, "method": ..., "penalty": ...]} as the
+    ``<manufactured-solution>`` of ``<boundary-conditions>``; ``farfield``,
+    (surface, angle) pairs as ``<farfield-boundary-condition>``;
+    ``dirichlet_bc``, (surface, value) pairs as aerodynamics'
+    ``<dirichlet-boundary-condition>``; ``post_processing``, the variable
+    names of an ``<arcane-post-processing>`` block."""
     bcs = []
     for d in dirichlet:
         surface, value = d[0], d[1]
@@ -106,9 +145,25 @@ def write_arc(path: str, mesh_file: str, *, codename: str = "Laplace",
                    f"<value>{value!r}</value>{method}</dirichlet>\n")
     bcs += [f"      <neumann><surface>{s}</surface><value>{v!r}</value></neumann>\n"
             for s, v in neumann]
+    if manufactured is not None:
+        ms = dict(manufactured)
+        inner = "".join(f'<manufactured-{k} function="{ms.pop(k)}"/>'
+                        for k in ("dirichlet", "source") if k in ms)
+        if "method" in ms:
+            inner += (f"<enforce-Dirichlet-method>{ms.pop('method')}"
+                      "</enforce-Dirichlet-method>")
+        inner += "".join(f"<{k}>{v!r}</{k}>" for k, v in ms.items())
+        bcs.append(f"      <manufactured-solution>{inner}</manufactured-solution>\n")
     fem = []
     if f is not None:
         fem.append(f"    <f>{f!r}</f>\n")
+    fem += [f"    <{k}>{v!r}</{k}>\n" for k, v in (values or {}).items()]
+    fem += [f"    <material-property><volume>{vol}</volume><lambda>{lam!r}</lambda>"
+            "</material-property>\n" for vol, lam in materials]
+    fem += [f"    <farfield-boundary-condition><surface>{s}</surface><angle>{a!r}"
+            "</angle></farfield-boundary-condition>\n" for s, a in farfield]
+    fem += [f"    <dirichlet-boundary-condition><surface>{s}</surface><value>{v!r}"
+            "</value></dirichlet-boundary-condition>\n" for s, v in dirichlet_bc]
     fem.append("    <boundary-conditions>\n" + "".join(bcs)
                + "    </boundary-conditions>\n")
     if linear_system is not None:
@@ -119,10 +174,55 @@ def write_arc(path: str, mesh_file: str, *, codename: str = "Laplace",
                    + "</linear-system>\n")
     if result_file is not None:
         fem.append(f"    <result-file>{result_file}</result-file>\n")
+    post = ""
+    if post_processing:
+        post = ("  <arcane-post-processing><output-period>1</output-period>"
+                '<format name="VtkHdfV2PostProcessor"/><output>'
+                + "".join(f"<variable>{v}</variable>" for v in post_processing)
+                + "</output></arcane-post-processing>\n")
     text = (f'<?xml version="1.0"?>\n<case codename="{codename}" xml:lang="en" '
             'codeversion="1.0">\n'
             f"  <arcane><title>{codename}</title></arcane>\n"
             f"  <meshes><mesh><filename>{mesh_file}</filename></mesh></meshes>\n"
-            "  <fem>\n" + "".join(fem) + "  </fem>\n</case>\n")
+            + post + "  <fem>\n" + "".join(fem) + "  </fem>\n</case>\n")
     with open(path, "w") as fh:
         fh.write(text)
+
+
+def rect_quad_mesh(nx: int, ny: int, lx: float = 1.0, ly: float = 1.0,
+                   regions: bool = False):
+    """Structured quad4 mesh of an (lx × ly) rectangle, the node numbering
+    of ``mesh/generate.py::rect_tria_mesh`` (node (i, j) is i·(ny+1) + j),
+    each cell (i, j), (i+1, j), (i+1, j+1), (i, j+1) counter-clockwise;
+    face groups left/right/bottom/top (line2).  ``regions``: cell groups
+    "west" (the cells left of x = lx/2) and "east" (the others)."""
+    from ..mesh.core import Mesh
+
+    xs = np.linspace(0.0, lx, nx + 1)
+    ys = np.linspace(0.0, ly, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    coords = np.zeros(((nx + 1) * (ny + 1), 3), np.float64)
+    coords[:, 0] = X.ravel()
+    coords[:, 1] = Y.ravel()
+
+    def nid(i, j):
+        return i * (ny + 1) + j
+
+    I, J = (a.ravel() for a in np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij"))
+    quads = np.stack([nid(I, J), nid(I + 1, J), nid(I + 1, J + 1), nid(I, J + 1)],
+                     axis=1).astype(np.int32)
+    i, j = np.arange(nx), np.arange(ny)
+
+    def edges(a, b):
+        return {"line2": np.stack([a, b], axis=1).astype(np.int32)}
+
+    fg = {"left": edges(nid(0, j), nid(0, j + 1)),
+          "right": edges(nid(nx, j), nid(nx, j + 1)),
+          "bottom": edges(nid(i, 0), nid(i + 1, 0)),
+          "top": edges(nid(i, ny), nid(i + 1, ny))}
+    cg = {}
+    if regions:
+        west = I < (nx + 1) // 2
+        cg = {"west": {"quad4": quads[west]}, "east": {"quad4": quads[~west]}}
+    return Mesh(coords=coords, node_uids=np.arange(1, len(coords) + 1, dtype=np.int64),
+                cells={"quad4": quads}, dim=2, face_groups=fg, cell_groups=cg)

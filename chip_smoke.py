@@ -67,13 +67,41 @@ g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    runs): the card's u within 1e-9 of max|u| of the CPU's, within 1e-6 of
    x on the Laplace cases, iterations equal ± 1.  F2: ``models/poisson.solve``
    on phase 4's mesh (−Δu = 1, Penalty Cut = 0 and sphere = 1, AMG-PCG to
-   1e-8) in float32 and float64, each with its launch counts
-   (``slot_reduce`` once, ``tet_element`` never, ``sell_spmv``), its
-   ``PhaseTimer`` phases, AMG set-up seconds, peak memory and true
-   free-row residual (<= 1e-6); the float32 u within 1e-4 of max|u| of
-   phase 4's x on the free nodes; the assembly's ``slot_reduce`` held to
-   ``slot_reduce_plain`` within 4 ulps at the mesh's shapes; then one more
-   float32 solve under torch.profiler for each phase's device busy time;
+   1e-8) in float32 (its float64 run and its profiled solve went to make
+   room for ``[models]``, whose electrostatics is this system with another
+   source in both dtypes and whose GMRES solve is profiled), with its
+   launch counts (``slot_reduce`` once, ``tet_element`` never,
+   ``sell_spmv``), its ``PhaseTimer`` phases, AMG set-up seconds, peak
+   memory and true free-row residual (<= 1e-6); u within 1e-4 of max|u|
+   of phase 4's x on the free nodes; the assembly's ``slot_reduce`` held
+   to ``slot_reduce_plain`` within 4 ulps at the mesh's shapes;
+``[models]`` (run after ``[fem]``, on phase 4's mesh): the Fourier,
+   Electrostatics, Acoustics and Aerodynamics models.  M1: 14 cases
+   written into ``build/model_cases/`` (a 96x96 tria3 rect, a 96x96 quad4
+   rect with λ regions, a 16^3 tetra4 box, quadratized 48x48 tria6 and 8^3
+   tetra10 meshes; the Hypre, Aleph-default, gmres, bicgstab, bicgstab2
+   and dense routes; ``MODEL_OUTPUT_CASE`` with ``--output-dir``), each on
+   the CPU (float64, the golden file), in-process on the card and through
+   the CLI: the card's fields (φ and E, u and ψ, u) within 1e-9 of the
+   CPU's, iterations ± 1 (5% for BiCGStab on 1e30 penalty rows and for
+   unpreconditioned BiCGStab on the Helmholtz system, whose counts
+   round-off sets), ``slot_reduce`` once, ``sell_spmv``; the
+   post-processing file read back (legacy VTK on a machine without h5py)
+   and held to the card's φ.  M2, at full width, each with its
+   iterations, monitored and true residuals, solve_s, ms/iter, the
+   launches of ``sell_spmv`` and ``slot_reduce`` and peak memory: (a)
+   electrostatics on phase 4's mesh, AMG-CG to 1e-8, float32 and float64,
+   E over every cell; (b) aerodynamics there (farfield penalty on the
+   sphere, 0 on Cut), GMRES(30) + AMG in float32 with the compensated
+   dots to 1e-8; (c) the same system through bicgstab and bicgstab2 + AMG
+   in float32 and float64, GMRES once more under torch.profiler (busy
+   share); (d) Fourier on a 1414^2 quad4 rect (two λ regions, the
+   manufactured solution), its error against the exact field held to the
+   CPU's at 64^2 (the one-point quad4 element's own); (e) Fourier on the
+   quadratized h=5 refine=1 sphere (tetra10), AMG-CG in float32, with
+   ``slot_reduce`` at its shapes held to its twin within 4 ulps and timed
+   (a ``kernels`` record); (f) acoustics (unpreconditioned BiCGStab, the
+   model's forcing) in float64 on phase 4's sphere;
 j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
    then ``--spmv diag`` (K10) on the same system, ``[diag]`` lines; K10
    held to its twin and timed there and on the 80^3 RCM box, beside K1 and
@@ -367,7 +395,9 @@ def main() -> int:
     res["system"].pop("sn", None)  # 1.35 GB of blocks no later phase reads
     records += compact_phase(dev, gen, mesh, topo, res)
     fem_phase(dev, mesh, res)
-    del res, mesh, topo
+    del res
+    records += models_phase(dev, mesh)
+    del mesh, topo
     torch.cuda.empty_cache()
     records += diag_phase(dev, gen)
     records += probe_phase(dev)
@@ -1589,23 +1619,25 @@ def _fem_cases(root: str) -> list[dict]:
     return cases
 
 
-def _fem_cli(path: str, alone: bool = False) -> dict:
-    """``python -m arcanefem_tpu_torch run path`` (the card by default):
-    exit code, wall seconds and the ``done:`` line's dict.  ``alone``: the
-    only process at work, in the caller's environment; otherwise one of
-    FEM_CLI_WORKERS beside the in-process solves, with two host threads
-    each to keep them from crowding the host's cores."""
+def _fem_cli(path: str, alone: bool = False, extra: list | None = None) -> dict:
+    """``python -m arcanefem_tpu_torch run path [extra]`` (the card by
+    default): exit code, wall seconds and the ``done:`` line's dict.
+    ``alone``: the only process at work, in the caller's environment;
+    otherwise one of FEM_CLI_WORKERS beside the in-process solves, with two
+    host threads each to keep them from crowding the host's cores."""
     import ast
     import subprocess
 
     t0 = time.perf_counter()
     env = os.environ if alone else dict(os.environ, OMP_NUM_THREADS="2")
-    proc = subprocess.run([sys.executable, "-m", "arcanefem_tpu_torch", "run", path],
+    proc = subprocess.run([sys.executable, "-m", "arcanefem_tpu_torch", "run", path,
+                           *(extra or [])],
                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                           timeout=600, env=env)
-    done = [ln for ln in proc.stdout.splitlines() if ln.startswith("done: PoissonResult ")]
+    done = [m for m in (re.match(r"done: \w+Result (\{.*\})$", ln)
+                        for ln in proc.stdout.splitlines()) if m]
     return {"code": proc.returncode, "s": time.perf_counter() - t0,
-            "info": ast.literal_eval(done[-1].split(" ", 2)[2]) if done else None,
+            "info": ast.literal_eval(done[-1].group(1)) if done else None,
             "stderr": proc.stderr[-2000:]}
 
 
@@ -1683,8 +1715,8 @@ def fem_cli_phase(dev) -> None:
 
 
 def fem_full_width_phase(dev, mesh, res4) -> None:
-    """[fem] F2: models/poisson.solve on phase 4's mesh in float32 and
-    float64 (see the module docstring)."""
+    """[fem] F2: models/poisson.solve on phase 4's mesh in float32 (see
+    the module docstring)."""
     import numpy as np
     import torch
 
@@ -1704,125 +1736,61 @@ def fem_full_width_phase(dev, mesh, res4) -> None:
     fixed[mesh.group_nodes("Cut")] = True
     fixed[mesh.group_nodes("sphere")] = True
     x4 = res4["x"].double().cpu().numpy()
-    for dtype in (torch.float32, torch.float64):
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        timer = PhaseTimer(verbose=False)
-        _reset_all()
-        t0 = time.perf_counter()
-        r = poisson.solve(mesh, cfg, dtype=dtype, timer=timer, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _counts_all()
-        peak = torch.cuda.max_memory_allocated()
-        u = r.u
-        scale = float(np.abs(u).max())
-        vs4 = float(np.abs(u[~fixed] - x4[~fixed]).max()) / scale
-        line = {"dtype": str(dtype)[6:], "n_dofs": int(mesh.n_nodes),
-                "n_cells": int(mesh.cells["tetra4"].shape[0]),
-                "iterations": r.iterations, "residual": r.residual,
-                "true_residual": r.info["true_residual"],
-                "free_residual": r.info["free_residual"],
-                "amg_setup_s": r.info["precond_setup_s"], "solve_s": r.info["solve_s"],
-                "ms_per_iter": r.info["solve_s"] / max(r.iterations, 1) * 1e3,
-                "phases_s": timer.stats, "wall_s": wall,
-                "peak_mem_gb": peak / 1e9, "base_mem_gb": base / 1e9,
-                "vs_phase4": vs4,
-                "launches": {k: v for k, v in counts.items() if v}}
-        print(f"[fem] F2 {json.dumps(line)}", flush=True)
-        _check(counts["slot_reduce"] == 1 and counts["tet_element"] == 0
-               and counts["sell_spmv"] > 0, f"[fem] F2 {dtype}: launches {counts}")
-        _check(r.residual <= 1e-8, f"[fem] F2 {dtype}: monitored residual {r.residual:.3e}")
-        _check(r.info["free_residual"] <= 1e-6,
-               f"[fem] F2 {dtype}: true free-row residual {r.info['free_residual']:.3e}")
-        _check(u.shape == (mesh.n_nodes,) and bool(np.isfinite(u).all()),
-               f"[fem] F2 {dtype}: u of shape {u.shape}, finite {np.isfinite(u).all()}")
-        _check(u.dtype == np.dtype(str(dtype)[6:]), f"[fem] F2 {dtype}: u is {u.dtype}")
-        if dtype == torch.float32:
-            _check(vs4 <= 1e-4, f"[fem] F2: float32 u {vs4:.3e} of max|u| from "
-                   "phase 4's x on the free nodes")
-            # the assembly's reduction at these shapes, kernel against twin
-            prob = r.problem
-            table = elements.stiffness("tetra4", prob.cell_xyz("tetra4")).reshape(-1)
-            ptr, ids = slot_contributors(prob.topo, ["tetra4"], prob.layout)
-            yk = slot_reduce(ptr, ids, table.contiguous())
-            yp = slot_reduce_plain(ptr, ids, table)
-            ulps = float(((yk.double() - yp.double()).abs()
-                          / (torch.finfo(torch.float32).eps
-                             * yp.double().abs().clamp(min=torch.finfo(torch.float32).tiny))
-                          ).max())
-            print(f"[fem] F2 assembly: slot_reduce vs slot_reduce_plain on "
-                  f"{table.numel()} entries into {prob.layout.n_slots} slots: "
-                  f"{ulps:.2f} ulps", flush=True)
-            _check(ulps <= 4, f"[fem] F2 assembly: slot_reduce {ulps:.2f} ulps from "
-                   "its plain twin")
-            del prob, table, ptr, ids, yk, yp
-        del r, u
+    # float32 only: the [models] electrostatics runs are this system with
+    # another source, in float32 and float64
     torch.cuda.empty_cache()
-    _fem_phase_busy(dev, mesh, cfg)
-    torch.cuda.empty_cache()
-
-
-def _fem_phase_busy(dev, mesh, cfg) -> None:
-    """One more float32 F2 solve under torch.profiler: each PhaseTimer
-    phase's device busy time (the kernels, copies and fills that start
-    inside it) beside its wall time in this profiled run, and the traced
-    ``sell_spmv`` kernels beside the wrapper's count (the profiler can lose
-    events late in a long run)."""
-    from contextlib import contextmanager
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from arcanefem_tpu_torch.fem.timer import PhaseTimer
-    from arcanefem_tpu_torch.models import poisson
-
-    class TracedTimer(PhaseTimer):
-        @contextmanager
-        def phase(self, label: str):
-            # the span closes after the phase's synchronise
-            with record_function(f"phase:{label}"), super().phase(label):
-                yield
-
-    timer = TracedTimer(verbose=False)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    timer = PhaseTimer(verbose=False)
     _reset_all()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        poisson.solve(mesh, cfg, dtype=torch.float32, timer=timer, device=dev)
-        torch.cuda.synchronize()
-    counted = _counts_all()["sell_spmv"]
-    events = prof.events()
-    spans = {e.name[6:]: e.time_range for e in events
-             if e.device_type == DeviceType.CPU and e.name.startswith("phase:")}
-    # the phase spans also stand on the device's timeline, as annotations
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("phase:")]
-    busy = {label: [0.0, 0, {}] for label in spans}
-    for e in device:
-        for label, span in spans.items():
-            if span.start <= e.time_range.start < span.end:
-                us = e.time_range.elapsed_us()
-                busy[label][0] += us
-                busy[label][1] += 1
-                by_name = busy[label][2]
-                by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + us
-                break
-    for label, (us, n, by_name) in busy.items():
-        wall = timer.stats[label]
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-        rec = {"phase": label, "wall_s": wall, "busy_ms": us / 1e3,
-               "busy_share": us / 1e6 / wall, "device_events": n,
-               "top_ms": {name: t / 1e3 for name, t in top}}
-        print(f"[fem] F2 busy {json.dumps(rec)}", flush=True)
-    total_us = sum(us for us, _, _ in busy.values())
-    traced = sum(1 for e in device if "sell_spmv" in e.name)
-    print(f"[fem] F2 busy: {total_us / 1e3:.3f} ms of device time in "
-          f"{sum(n for _, n, _ in busy.values())} events over "
-          f"{sum(timer.stats.values()):.3f} s of phases (float32, profiled); "
-          f"sell_spmv traced {traced}, counted {counted}", flush=True)
-    _check(total_us > 0 and counted > 0, f"[fem] F2 busy: no device work traced "
-           f"({total_us} us, sell_spmv counted {counted})")
+    t0 = time.perf_counter()
+    r = poisson.solve(mesh, cfg, dtype=torch.float32, timer=timer, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts_all()
+    peak = torch.cuda.max_memory_allocated()
+    u = r.u
+    scale = float(np.abs(u).max())
+    vs4 = float(np.abs(u[~fixed] - x4[~fixed]).max()) / scale
+    line = {"dtype": "float32", "n_dofs": int(mesh.n_nodes),
+            "n_cells": int(mesh.cells["tetra4"].shape[0]),
+            "iterations": r.iterations, "residual": r.residual,
+            "true_residual": r.info["true_residual"],
+            "free_residual": r.info["free_residual"],
+            "amg_setup_s": r.info["precond_setup_s"], "solve_s": r.info["solve_s"],
+            "ms_per_iter": r.info["solve_s"] / max(r.iterations, 1) * 1e3,
+            "phases_s": timer.stats, "wall_s": wall,
+            "peak_mem_gb": peak / 1e9, "base_mem_gb": base / 1e9,
+            "vs_phase4": vs4,
+            "launches": {k: v for k, v in counts.items() if v}}
+    print(f"[fem] F2 {json.dumps(line)}", flush=True)
+    _check(counts["slot_reduce"] == 1 and counts["tet_element"] == 0
+           and counts["sell_spmv"] > 0, f"[fem] F2: launches {counts}")
+    _check(r.residual <= 1e-8, f"[fem] F2: monitored residual {r.residual:.3e}")
+    _check(r.info["free_residual"] <= 1e-6,
+           f"[fem] F2: true free-row residual {r.info['free_residual']:.3e}")
+    _check(u.shape == (mesh.n_nodes,) and bool(np.isfinite(u).all()),
+           f"[fem] F2: u of shape {u.shape}, finite {np.isfinite(u).all()}")
+    _check(u.dtype == np.float32, f"[fem] F2: u is {u.dtype}")
+    _check(vs4 <= 1e-4, f"[fem] F2: float32 u {vs4:.3e} of max|u| from "
+           "phase 4's x on the free nodes")
+    # the assembly's reduction at these shapes, kernel against twin
+    prob = r.problem
+    table = elements.stiffness("tetra4", prob.cell_xyz("tetra4")).reshape(-1)
+    ptr, ids = slot_contributors(prob.topo, ["tetra4"], prob.layout)
+    yk = slot_reduce(ptr, ids, table.contiguous())
+    yp = slot_reduce_plain(ptr, ids, table)
+    ulps = float(((yk.double() - yp.double()).abs()
+                  / (torch.finfo(torch.float32).eps
+                     * yp.double().abs().clamp(min=torch.finfo(torch.float32).tiny))
+                  ).max())
+    print(f"[fem] F2 assembly: slot_reduce vs slot_reduce_plain on "
+          f"{table.numel()} entries into {prob.layout.n_slots} slots: "
+          f"{ulps:.2f} ulps", flush=True)
+    _check(ulps <= 4, f"[fem] F2 assembly: slot_reduce {ulps:.2f} ulps from "
+           "its plain twin")
+    del prob, table, ptr, ids, yk, yp, r, u
+    torch.cuda.empty_cache()
 
 
 def fem_phase(dev, mesh, res4) -> None:
@@ -1833,6 +1801,469 @@ def fem_phase(dev, mesh, res4) -> None:
     fem_full_width_phase(dev, mesh, res4)
     print(f"[fem] wall time: F1 {t1 - t0:.1f} s, F2 {time.perf_counter() - t1:.1f} s",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# [models]: the Fourier, Electrostatics, Acoustics and Aerodynamics models
+
+MODEL_2D_N, MODEL_3D_N, MODEL_P2_2D_N, MODEL_P2_3D_N = 96, 16, 48, 8  # M1 meshes
+MODEL_SOLVERS = {
+    "aleph": None,  # Jacobi-CG, rtol 1e-12
+    "hypre": {"name": "HypreLinearSystem", "rtol": "1e-11"},
+    "dense": {"name": "SequentialBasicLinearSystem"},
+    **{m: {"name": "AlephLinearSystem", "solver-method": m, "preconditioner": "amg",
+           "epsilon": "1e-11"} for m in ("gmres", "bicgstab", "bicgstab2")},
+}
+# the M1 case whose CLI run also writes the post-processing file
+MODEL_OUTPUT_CASE = "es_rect_hypre"
+# M2: acoustics runs on phase 4's sphere (h=5 refined twice, 1.9M nodes), with
+# unpreconditioned BiCGStab (the model's forcing) allowed this many iterations
+ACOUSTICS_MAX_ITER = 20000
+FOURIER_QUAD_N = 1414  # M2: 1414^2 quad4 cells, 2,002,225 nodes
+P2_SPHERE_REFINE = 1  # M2: the h=5 sphere refined once, then quadratized
+
+
+def _model_cases(root: str) -> list[dict]:
+    """M1's meshes and case files (no result file yet): name, path,
+    codename, the result's field names, and the iteration tolerance
+    against the CPU run."""
+    from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh, quadratize, rect_tria_mesh
+    from arcanefem_tpu_torch.tools.write_msh import rect_quad_mesh, write_arc, write_msh
+
+    os.makedirs(root, exist_ok=True)
+    n2, n3, p2, p3 = MODEL_2D_N, MODEL_3D_N, MODEL_P2_2D_N, MODEL_P2_3D_N
+    meshes = {"rect": rect_tria_mesh(n2, n2), "quad": rect_quad_mesh(n2, n2, regions=True),
+              "box": box_tetra_mesh(n3, n3, n3), "tria6": quadratize(rect_tria_mesh(p2, p2)),
+              "tetra10": quadratize(box_tetra_mesh(p3, p3, p3)),
+              "tiny": rect_tria_mesh(8, 8)}
+    for name, m in meshes.items():
+        write_msh(os.path.join(root, f"{name}.msh"), m)
+    faces = {"rect": ("left", "right", "bottom"), "quad": ("left", "right", "bottom"),
+             "tria6": ("left", "right", "bottom"), "tiny": ("left", "right", "bottom"),
+             "box": ("xmin", "xmax", "zmin"), "tetra10": ("xmin", "xmax", "zmin")}
+    es = dict(values={"rho": 1.0, "epsilon": 2.0})
+    fo = dict(values={"lambda": 1.5, "qdot": 1.0}, materials=[("west", 2.0), ("east", 0.5)])
+    rc = "RowColumnElimination"
+    specs = [  # name, mesh, codename, solver, write_arc fields, Dirichlet method
+        ("es_rect_hypre", "rect", "Electrostatics", "hypre",
+         dict(es, post_processing=["Phi", "E"]), None),
+        ("es_box_aleph", "box", "Electrostatics", "aleph", es, None),
+        ("es_rect_bicgstab2", "rect", "Electrostatics", "bicgstab2", es, rc),
+        ("fo_quad_hypre", "quad", "Fourier", "hypre", fo, None),
+        ("fo_quad_gmres", "quad", "Fourier", "gmres", fo, rc),
+        ("fo_rect_manufactured", "rect", "Fourier", "aleph",
+         dict(values={"lambda": 1.0}, manufactured={"dirichlet": "manufacturedDirichlet",
+                                                    "source": "manufacturedSource"}), "none"),
+        ("fo_tria6_hypre", "tria6", "Fourier", "hypre", dict(values={"lambda": 2.0}), None),
+        ("fo_tetra10_hypre", "tetra10", "Fourier", "hypre", dict(values={"lambda": 1.0}), None),
+        ("fo_tetra10_bicgstab", "tetra10", "Fourier", "bicgstab", dict(values={"lambda": 1.0}), rc),
+        ("ac_box", "box", "Acoustics", "aleph", dict(values={"kc2": 3.0}), "none"),
+        ("ac_tiny_dense", "tiny", "Acoustics", "dense", dict(values={"kc2": 3.0}), "none"),
+        ("ae_rect_gmres", "rect", "Aerodynamics", "gmres", {}, "none"),
+        ("ae_rect_bicgstab", "rect", "Aerodynamics", "bicgstab", {}, "none"),
+        ("ae_box_bicgstab2", "box", "Aerodynamics", "bicgstab2", {}, "none"),
+    ]
+    cases = []
+    for name, mesh, codename, solver, kw, method in specs:
+        left, right, other = faces[mesh]
+        kw = dict(kw)
+        if codename == "Acoustics":
+            kw["neumann"] = [(left, 1.0)]
+        if codename == "Aerodynamics":
+            kw.update(farfield=[(left, 0.1), (right, 0.1)], dirichlet_bc=[(other, 0.0)])
+        if method != "none":
+            # no Dirichlet 0: a 1e30 penalty row holds ~1e-30 there, which
+            # the golden file's relative test (FemUtils.cc:104-236, no
+            # floor) cannot hold between two solves
+            m = () if method is None else (method,)
+            kw["dirichlet"] = [(left, 0.25, *m), (right, 1.0, *m)]
+        path = os.path.join(root, f"{name}.arc")
+        write_arc(path, f"{mesh}.msh", codename=codename,
+                  linear_system=MODEL_SOLVERS[solver], **kw)
+        fields = {"Electrostatics": ("phi", "E"), "Aerodynamics": ("u", "psi")}.get(
+            codename, ("u",))
+        cases.append({"name": name, "path": path, "codename": codename, "fields": fields,
+                      # BiCGStab on 1e30 penalty rows and unpreconditioned on
+                      # the Helmholtz system: counts set by round-off
+                      # (ROADMAP Queue 3), held to 5%
+                      "roundoff_count": name in ("ae_rect_bicgstab", "ac_box")})
+    return cases
+
+
+def _field_scale_diff(got, want) -> float:
+    """max |got - want| / max |want| over an array or a dict of arrays."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        got = np.concatenate([np.ravel(got[k]) for k in sorted(want)])
+        want = np.concatenate([np.ravel(want[k]) for k in sorted(want)])
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+def _read_vtk_point_data(path: str, name: str):
+    """The SCALARS ``name`` block of a legacy VTK file's POINT_DATA."""
+    import numpy as np
+
+    lines = open(path).read().splitlines()
+    n = int(next(ln for ln in lines if ln.startswith("POINT_DATA")).split()[1])
+    k = lines.index(f"SCALARS {name} double 1")
+    return np.array([float(v) for v in lines[k + 2:k + 2 + n]])
+
+
+def models_cli_phase(dev) -> None:
+    """[models] M1: each case on the CPU (float64; its field becomes the
+    case's golden file where the codename checks one), in-process on the
+    card, and through the CLI in a subprocess, MODEL_OUTPUT_CASE with
+    --output-dir (its file read back and held to the card's field)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.fem.runner import run_case
+
+    root = os.path.join("build", "model_cases")
+    out_dir = os.path.join(root, "out")
+    cases = _model_cases(root)
+    for c in cases:
+        t0 = time.perf_counter()
+        cpu = run_case(c["path"], device="cpu")
+        c["cpu_s"] = time.perf_counter() - t0
+        c["cpu"] = {f: getattr(cpu, f) for f in c["fields"]}
+        c["cpu_iters"] = cpu.iterations
+        c["n_nodes"] = cpu.problem.mesh.n_nodes
+        if c["codename"] != "Aerodynamics":  # the one model without a golden check
+            golden = os.path.abspath(c["path"][:-4] + ".golden.txt")
+            np.savetxt(golden, np.column_stack([cpu.problem.mesh.node_uids,
+                                                c["cpu"][c["fields"][0]]]),
+                       fmt=["%d", "%.17g"])
+            with open(c["path"]) as f:
+                text = f.read().replace(
+                    "</fem>", f"  <result-file>{golden}</result-file>\n  </fem>")
+            with open(c["path"], "w") as f:
+                f.write(text)
+    with ThreadPoolExecutor(FEM_CLI_WORKERS) as pool:
+        clis = [pool.submit(_fem_cli, c["path"], False,
+                            ["--output-dir", out_dir] if c["name"] == MODEL_OUTPUT_CASE
+                            else []) for c in cases]
+        for c in cases:
+            _reset_all()
+            t0 = time.perf_counter()
+            card = run_case(c["path"], device=dev)  # checks the golden file too
+            c["card_s"] = time.perf_counter() - t0
+            c["launches"] = {k: v for k, v in _counts_all().items() if v}
+            c["card"] = {f: getattr(card, f) for f in c["fields"]}
+            c["card_iters"] = card.iterations
+        for c, fut in zip(cases, clis):
+            c["cli"] = fut.result()
+    for c in cases:
+        diffs = {f: _field_scale_diff(c["card"][f], c["cpu"][f]) for f in c["fields"]}
+        cli = c["cli"]
+        line = {"case": c["name"], "codename": c["codename"], "n_nodes": c["n_nodes"],
+                "iterations": {"cpu": c["cpu_iters"], "card": c["card_iters"],
+                               "cli": cli["info"] and cli["info"]["iterations"]},
+                "card_vs_cpu": diffs, "cpu_s": c["cpu_s"], "card_s": c["card_s"],
+                "cli_s": cli["s"], "cli_code": cli["code"], "launches": c["launches"]}
+        print(f"[models] M1 {json.dumps(line)}", flush=True)
+        _check(cli["code"] == 0 and cli["info"] is not None,
+               f"[models] M1 {c['name']}: the CLI exited {cli['code']}: {cli['stderr']}")
+        _check(max(diffs.values()) <= 1e-9,
+               f"[models] M1 {c['name']}: card fields {diffs} of max|.| from the CPU's")
+        its = (c["cpu_iters"], c["card_iters"], cli["info"]["iterations"])
+        tol = max(1, c["cpu_iters"] // 20) if c["roundoff_count"] else 1
+        _check(max(its) - min(its) <= tol, f"[models] M1 {c['name']}: iterations {its}")
+        _check(c["launches"].get("slot_reduce") == 1 and c["launches"].get("sell_spmv", 0) > 0,
+               f"[models] M1 {c['name']}: launches {c['launches']}")
+        if c["name"] == MODEL_OUTPUT_CASE:
+            phi = c["card"]["phi"]
+            hdf, vtk = (os.path.join(out_dir, f"{c['name']}.{e}") for e in ("hdf", "vtk"))
+            if os.path.exists(hdf):
+                import h5py
+
+                with h5py.File(hdf, "r") as f:
+                    back = f["VTKHDF/PointData/Phi"][()]
+                path = hdf
+            else:
+                back, path = _read_vtk_point_data(vtk, "Phi"), vtk
+            diff = float(np.abs(back - phi).max() / np.abs(phi).max())
+            print(f"[models] M1 --output-dir wrote {sorted(os.listdir(out_dir))}; Phi read "
+                  f"back from {os.path.basename(path)}: {diff:.2e} of max|phi| from the "
+                  "card's phi", flush=True)
+            # the legacy file keeps 10 significant digits
+            _check(diff <= (0.0 if path == hdf else 1e-9),
+                   f"[models] M1 --output-dir: Phi {diff:.2e} from the card's phi")
+    del cases
+    torch.cuda.empty_cache()
+
+
+def _model_line(tag: str, r, counts: dict, peak: float, wall: float, timer=None,
+                **extra) -> dict:
+    """One M2 line: iterations, monitored and true residuals, solve_s,
+    ms/iter, the launches of sell_spmv and slot_reduce, peak memory."""
+    line = {"run": tag, "iterations": r.iterations, "residual": r.residual,
+            "true_residual": r.info.get("true_residual"),
+            "free_residual": r.info.get("free_residual"),
+            "precond_setup_s": r.info.get("precond_setup_s"),
+            "solve_s": r.info.get("solve_s"),
+            "ms_per_iter": r.info["solve_s"] / max(r.iterations, 1) * 1e3,
+            "launches": {k: counts.get(k, 0) for k in ("sell_spmv", "slot_reduce")},
+            "peak_mem_gb": peak / 1e9, "wall_s": wall, **extra}
+    if timer is not None:
+        line["phases_s"] = timer.stats
+    print(f"[models] M2 {json.dumps(line)}", flush=True)
+    return line
+
+
+def _run_model(tag: str, solve, *args, **kw):
+    """solve(*args, **kw) on a fresh launch count and peak-memory mark;
+    (result, counts, peak bytes, wall seconds, timer)."""
+    import torch
+
+    from arcanefem_tpu_torch.fem.timer import PhaseTimer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timer = PhaseTimer(verbose=False)
+    _reset_all()
+    t0 = time.perf_counter()
+    r = solve(*args, timer=timer, **kw)
+    torch.cuda.synchronize()
+    return r, _counts_all(), torch.cuda.max_memory_allocated(), time.perf_counter() - t0, timer
+
+
+def _check_model(tag: str, r, counts: dict, rtol: float, n: int) -> None:
+    import numpy as np
+
+    u = getattr(r, "phi", None)
+    u = r.u if u is None else u
+    _check(r.residual <= rtol, f"[models] M2 {tag}: monitored residual {r.residual:.3e}")
+    _check(u.shape == (n,) and bool(np.isfinite(u).all()), f"[models] M2 {tag}: u")
+    _check(counts["slot_reduce"] == 1 and counts["sell_spmv"] > 0
+           and counts["tet_element"] == 0, f"[models] M2 {tag}: launches {counts}")
+
+
+def _aero_system(prob, config):
+    """The aerodynamics model's finalized system on ``prob``, its boundary
+    conditions set by models/aerodynamics.py: (A, b, x0)."""
+    from arcanefem_tpu_torch.models import aerodynamics
+    from arcanefem_tpu_torch.ops import elements
+
+    system = prob.new_system(prob.assemble_matrix(lambda ct, xyz: elements.stiffness(ct, xyz)))
+    aerodynamics.apply_boundary_conditions(prob, system, config)
+    A, b = system.finalized()
+    return A, b, system.initial_guess()
+
+
+def _krylov_line(tag, fn, A, b, M, x0, rtol, **kw) -> dict:
+    """One solve of a Krylov function of solver/iterative.py on a built
+    system and preconditioner: its M2 line."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    t0 = time.perf_counter()
+    x, k, rel = fn(A, b, M, x0, rtol, 0.0, 1000, **kw)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    counts = _counts_all()
+    b64 = b.double()
+    A64 = A.with_values(A.values.double())
+    true = float(torch.linalg.vector_norm(b64 - A64.spmv(x.double()))
+                 / torch.linalg.vector_norm(b64))
+    line = {"run": tag, "iterations": k, "residual": rel, "true_residual": true,
+            "solve_s": s, "ms_per_iter": s / max(k, 1) * 1e3,
+            "launches": {"sell_spmv": counts["sell_spmv"], "slot_reduce": counts["slot_reduce"]},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[models] M2 {json.dumps(line)}", flush=True)
+    _check(rel <= rtol and bool(torch.isfinite(x).all()),
+           f"[models] M2 {tag}: residual {rel:.3e}")
+    _check(counts["sell_spmv"] > 0, f"[models] M2 {tag}: launches {counts}")
+    return line
+
+
+def models_full_width_phase(dev, mesh) -> list[dict]:
+    """[models] M2 (the module docstring); returns the record of
+    slot_reduce at the tetra10 shapes."""
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.bench_unstructured import sphere_cut_system
+    from arcanefem_tpu_torch.fem.bcs import (
+        BoundaryConditions,
+        DirichletBC,
+        ManufacturedSolution,
+        NeumannBC,
+    )
+    from arcanefem_tpu_torch.mesh.generate import quadratize
+    from arcanefem_tpu_torch.models import acoustics, aerodynamics, electrostatics, fourier
+    from arcanefem_tpu_torch.solver import iterative as it
+    from arcanefem_tpu_torch.solver.linear_system import SolverOptions
+    from arcanefem_tpu_torch.tools.write_msh import rect_quad_mesh
+
+    n = mesh.n_nodes
+    dirichlet = [DirichletBC("Cut", 0.0), DirichletBC("sphere", 1.0)]
+    # (a) electrostatics, Hypre-mapped AMG-CG, E over every cell
+    for dtype in (torch.float32, torch.float64):
+        cfg = electrostatics.ElectrostaticsConfig(
+            rho=1.0, epsilon=1.0, bcs=BoundaryConditions(dirichlet=list(dirichlet)),
+            solver=SolverOptions(method="cg", preconditioner="amg", rtol=1e-8))
+        tag = f"electrostatics {str(dtype)[6:]}"
+        r, counts, peak, wall, timer = _run_model(tag, electrostatics.solve, mesh, cfg,
+                                                  dtype=dtype, device=dev)
+        E = r.E["tetra4"]
+        _model_line(tag, r, counts, peak, wall, timer, E_shape=list(E.shape))
+        _check_model(tag, r, counts, 1e-8, n)
+        _check(E.shape == (mesh.cells["tetra4"].shape[0], 3) and bool(np.isfinite(E).all()),
+               f"[models] M2 {tag}: E of shape {E.shape}")
+        prob64 = r.problem  # the last: float64, for (c)
+        del r, E
+    # (b) aerodynamics, GMRES(30) + AMG in float32 with the compensated dots
+    ae = dict(farfield=[aerodynamics.FarfieldBC("sphere", 0.1)],
+              bcs=BoundaryConditions(dirichlet=[DirichletBC("Cut", 0.0)]))
+    cfg = aerodynamics.AerodynamicsConfig(**ae, solver=SolverOptions(
+        method="gmres", gmres_restart=30, preconditioner="amg", rtol=1e-8))
+    r, counts, peak, wall, timer = _run_model("aerodynamics gmres float32", aerodynamics.solve,
+                                              mesh, cfg, dtype=torch.float32, device=dev)
+    _model_line("aerodynamics gmres float32", r, counts, peak, wall, timer)
+    _check_model("aerodynamics gmres float32", r, counts, 1e-8, n)
+    prob32 = r.problem
+    del r
+    # (c) the same system through bicgstab and bicgstab2 + AMG, float32 and
+    #     float64, and GMRES again: a profiled solve and its peak memory
+    for dtype in (torch.float32, torch.float64):
+        # each dtype's problem (topology, SELL layout) from an earlier run
+        prob = prob32 if dtype == torch.float32 else prob64
+        _reset_all()
+        A, b, x0 = _aero_system(prob, cfg)
+        t0 = time.perf_counter()
+        M = it.make_precond(A, "amg")
+        torch.cuda.synchronize()
+        print(f"[models] M2 aerodynamics {str(dtype)[6:]}: AMG set-up "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        precise = dtype == torch.float32
+        for name in ("bicgstab", "bicgstab2"):
+            _krylov_line(f"aerodynamics {name} {str(dtype)[6:]}", getattr(it, name), A, b, M,
+                         x0, 1e-8, use_precise_dot=precise)
+        if dtype == torch.float32:
+            gm = _krylov_line("aerodynamics gmres float32 (built system)", it.gmres, A, b, M,
+                              x0, 1e-8, restart=30, use_precise_dot=True)
+            _profile(lambda: it.gmres(A, b, M, x0, 1e-8, 0.0, 1000, restart=30,
+                                      use_precise_dot=True),
+                     os.path.join("build", "profile", "gmres.txt"), gm["solve_s"],
+                     groups=SPHERE_GROUPS)
+        del A, b, x0, M, prob
+    del prob32, prob64
+    torch.cuda.empty_cache()
+    # (d) Fourier on quad4 cells, two λ regions, the manufactured solution
+    qmesh = rect_quad_mesh(FOURIER_QUAD_N, FOURIER_QUAD_N, regions=True)
+    fns = fourier.make_standard_functions(1.0)
+    ms = ManufacturedSolution(dirichlet=fns["manufacturedDirichlet"],
+                              source=fns["manufacturedSource"])
+
+    def quad_fourier(m, device, **kw):
+        cfg = fourier.FourierConfig(
+            lam=1.0, materials=[("west", 1.0), ("east", 1.0)],
+            bcs=BoundaryConditions(manufactured=ms),
+            solver=SolverOptions(method="cg", preconditioner="amg", rtol=1e-8))
+        return fourier.solve(m, cfg, dtype=torch.float64, device=device, **kw)
+
+    small = rect_quad_mesh(64, 64, regions=True)
+    err_small = float(np.abs(quad_fourier(small, "cpu").u
+                             - np.sin(small.coords[:, 0]) - np.cos(small.coords[:, 1])).max())
+    r, counts, peak, wall, timer = _run_model("fourier quad4 float64", quad_fourier, qmesh,
+                                              device=dev)
+    err = float(np.abs(r.u - np.sin(qmesh.coords[:, 0]) - np.cos(qmesh.coords[:, 1])).max())
+    _model_line("fourier quad4 float64", r, counts, peak, wall, timer, n_nodes=qmesh.n_nodes,
+                max_err_vs_exact=err, max_err_vs_exact_64x64_cpu=err_small)
+    _check_model("fourier quad4 float64", r, counts, 1e-8, qmesh.n_nodes)
+    # the one-point quad4 element's own error (ROADMAP Queue 3), not the solve's
+    _check(abs(err - err_small) <= 0.01 * err_small,
+           f"[models] M2 fourier quad4: error {err:.4e} against the exact field, "
+           f"{err_small:.4e} at 64x64 on the CPU")
+    del r, qmesh
+    # (e) Fourier on the quadratized sphere (tetra10), AMG-CG, float32, and
+    #     slot_reduce at its shapes
+    t0 = time.perf_counter()
+    pmesh = quadratize(sphere_cut_system(5.0, P2_SPHERE_REFINE)[0])
+    host_s = time.perf_counter() - t0
+    cfg = fourier.FourierConfig(lam=1.0, bcs=BoundaryConditions(dirichlet=list(dirichlet)),
+                                solver=SolverOptions(method="cg", preconditioner="amg",
+                                                     rtol=1e-8))
+    r, counts, peak, wall, timer = _run_model("fourier tetra10 float32", fourier.solve, pmesh,
+                                              cfg, dtype=torch.float32, device=dev)
+    _model_line("fourier tetra10 float32", r, counts, peak, wall, timer,
+                n_nodes=pmesh.n_nodes, n_cells=int(pmesh.cells["tetra10"].shape[0]),
+                mesh_host_s=host_s)
+    _check_model("fourier tetra10 float32", r, counts, 1e-8, pmesh.n_nodes)
+    rec = _p2_slot_reduce_record(r.problem, counts["slot_reduce"])
+    del r, pmesh
+    torch.cuda.empty_cache()
+    # (f) acoustics, unpreconditioned BiCGStab (the model forces it), float64
+    cfg = acoustics.AcousticsConfig(
+        kc2=1e-4, bcs=BoundaryConditions(neumann=[NeumannBC("sphere", 1.0)]),
+        solver=SolverOptions(method="bicgstab", rtol=1e-8, max_iter=ACOUSTICS_MAX_ITER,
+                             fail_action="raise"))
+    r, counts, peak, wall, timer = _run_model("acoustics bicgstab float64", acoustics.solve,
+                                              mesh, cfg, dtype=torch.float64, device=dev)
+    _model_line("acoustics bicgstab float64", r, counts, peak, wall, timer,
+                n_nodes=mesh.n_nodes, kc2=1e-4, max_iter=ACOUSTICS_MAX_ITER)
+    _check_model("acoustics bicgstab float64", r, counts, 1e-8, mesh.n_nodes)
+    del r
+    torch.cuda.empty_cache()
+    return [rec]
+
+
+def _p2_slot_reduce_record(prob, launches: int) -> dict:
+    """slot_reduce at the tetra10 model's shapes: its f32 Laplace element
+    table (100 entries per cell), the slots and contributor lists of the
+    run's layout; held to slot_reduce_plain within 4 ulps and timed beside
+    one index_add_ of every entry (a kernels record)."""
+    import torch
+
+    from arcanefem_tpu_torch.ops import elements
+    from arcanefem_tpu_torch.sparse.bell import slot_contributors
+    from arcanefem_tpu_torch.sparse.slot_reduce import slot_reduce, slot_reduce_plain
+
+    table = elements.stiffness("tetra10", prob.cell_xyz("tetra10")).reshape(-1).contiguous()
+    ptr, ids = slot_contributors(prob.topo, ["tetra10"], prob.layout)
+    n_slots, E = ptr.numel() - 1, ids.numel()
+    nc = prob.mesh.cells["tetra10"].shape[0]
+    counts = (ptr[1:] - ptr[:-1]).long()
+    slot_of = torch.repeat_interleave(torch.arange(n_slots, device=ptr.device), counts,
+                                      output_size=E)
+    entries = table[ids.long()]
+    tiny = torch.finfo(torch.float32).tiny
+
+    def ulps(yk, yp):
+        e = float(((yk.double() - yp.double()).abs()
+                   / (torch.finfo(torch.float32).eps * yp.double().abs().clamp(min=tiny))).max())
+        _check(e <= 4, f"[models] M2 tetra10: slot_reduce {e:.2f} ulps from its twin")
+        return e
+
+    rec = _kernel_record(
+        "slot_reduce (tetra10)", "tet_assembly.cu", "sparse/pallas_spmv.py:444",
+        lambda: slot_reduce(ptr, ids, table), lambda: slot_reduce_plain(ptr, ids, table),
+        lambda: torch.zeros(n_slots, device=ptr.device).index_add_(0, slot_of, entries),
+        (8 * n_slots + 4 + 4 * E + 4 * table.numel(), E), launches, [n_slots, E], ulps)
+    rec["max_contributors"] = int(counts.max())
+    rec["cells"] = int(nc)
+    rec["ulps"] = ulps(slot_reduce(ptr, ids, table), slot_reduce_plain(ptr, ids, table))
+    print(f"[models] M2 tetra10 slot_reduce: {nc} cells, {E} contributors into {n_slots} "
+          f"slots, at most {rec['max_contributors']} per slot, {rec['ulps']:.2f} ulps from "
+          "its twin", flush=True)
+    return rec
+
+
+def models_phase(dev, mesh) -> list[dict]:
+    """[models]: M1 then M2, with the phase's wall time."""
+    t0 = time.perf_counter()
+    models_cli_phase(dev)
+    t1 = time.perf_counter()
+    recs = models_full_width_phase(dev, mesh)
+    print(f"[models] wall time: M1 {t1 - t0:.1f} s, M2 {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    return recs
 
 
 def structured_phases(dev, gen) -> list[dict]:

@@ -82,3 +82,40 @@ def test_fem_cases_cover_every_method_and_route(tmp_path, monkeypatch):
     assert routes == {("cg", "jacobi"), ("cg", "amg"), ("cg", "poly"), ("dense", "jacobi")}
     assert loaded["rect_neumann"].bcs.neumann and loaded["rect_neumann"].codename == "Poisson"
     assert all(c["exact"] == (c["name"] != "rect_neumann") for c in cases)
+
+
+def test_model_cases_cover_every_codename_mesh_and_method(tmp_path, monkeypatch):
+    """[models] M1's case files, written at a small size: the four
+    codenames, the quad4, tria6 and tetra10 meshes, every solver method,
+    one post-processing case; each runs on the CPU through run_case, and
+    its post-processing file's Phi reads back through the legacy reader
+    the card's machine (no h5py) uses."""
+    from arcanefem_tpu_torch.fem import vtkhdf
+    from arcanefem_tpu_torch.fem.arc import load_case
+    from arcanefem_tpu_torch.fem.runner import run_case
+
+    smoke = _smoke()
+    for name, size in (("MODEL_2D_N", 6), ("MODEL_3D_N", 3), ("MODEL_P2_2D_N", 3),
+                       ("MODEL_P2_3D_N", 2)):
+        monkeypatch.setattr(smoke, name, size)
+    cases = smoke._model_cases(str(tmp_path))
+    assert len({c["name"] for c in cases}) == len(cases)
+    assert {c["codename"] for c in cases} == {"Electrostatics", "Fourier", "Acoustics",
+                                              "Aerodynamics"}
+    loaded = {c["name"]: load_case(c["path"]) for c in cases}
+    assert {case.solver.method for case in loaded.values()} == {
+        "cg", "dense", "gmres", "bicgstab", "bicgstab2"}
+    assert {case.solver.preconditioner for case in loaded.values()} >= {"amg", "jacobi"}
+    kinds = set()
+    monkeypatch.setattr(vtkhdf, "HAVE_H5PY", False)
+    for c in cases:
+        res = run_case(c["path"], device="cpu", output_dir=str(tmp_path / "out"))
+        kinds |= set(res.problem.mesh.cells)
+        for f in c["fields"]:
+            assert getattr(res, f) is not None
+        if c["name"] == smoke.MODEL_OUTPUT_CASE:
+            back = smoke._read_vtk_point_data(str(tmp_path / "out" / f"{c['name']}.vtk"),
+                                              "Phi")
+            assert abs(back - res.phi).max() <= 1e-9 * abs(res.phi).max()
+    assert kinds == {"tria3", "quad4", "tetra4", "tria6", "tetra10"}
+    assert [p.name for p in (tmp_path / "out").iterdir()] == [f"{smoke.MODEL_OUTPUT_CASE}.vtk"]

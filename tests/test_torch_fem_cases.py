@@ -192,8 +192,10 @@ def test_result_file_validation_and_rcm(case_dir):
 
 def test_float32_and_deferred_features(case_dir):
     """float32 on the CPU (penalty clamped to 1e12, compensated dots)
-    returns float32 u within 1e-5 of the float64 run; the unported
-    features raise, naming the ROADMAP item."""
+    returns float32 u within 1e-5 of the float64 run; ``output_dir`` (ported
+    since) writes nothing for a case without an <arcane-post-processing>
+    block, as in JAX; an unported codename raises, naming its ROADMAP
+    item."""
     path = _write_case(case_dir, "f32_3d", "3d", solver="hypre", f=1.0,
                        codename="Poisson")
     u64 = run_case(path, device="cpu").u
@@ -201,12 +203,14 @@ def test_float32_and_deferred_features(case_dir):
     assert r32.u.dtype == np.float32
     assert np.abs(r32.u - u64).max() <= 1e-5 * np.abs(u64).max()
     assert r32.problem.layout.n_rows == len(u64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        run_case(path, device="cpu", output_dir=str(case_dir / "out"))
+    out = case_dir / "out_f32"
+    assert run_case(path, dtype=torch.float32, device="cpu",
+                    output_dir=str(out)).u.dtype == np.float32
+    assert not out.exists()
     other = str(case_dir / "elasticity.arc")
     with open(other, "w") as f:
         f.write(open(path).read().replace('codename="Poisson"', 'codename="Elasticity"'))
-    with pytest.raises(KeyError, match="not ported yet"):
+    with pytest.raises(KeyError, match=r"not ported yet \(block BELL.*Queue 1 item 9"):
         run_case(other, device="cpu")
 
 
@@ -253,8 +257,30 @@ def test_cli_on_cpu_prints_what_jax_prints(case_dir):
                                   ["run", "CASE", "--device", "cpu",
                                    "--output-dir", "OUT"]])
 def test_cli_deferred_features_raise(case_dir, args):
+    """testlab still raises, naming its ROADMAP item; --output-dir (ported
+    since) writes the case's post-processing file, u under "U"."""
     path = _write_case(case_dir, "cli_deferred", "2d")
-    args = [a.replace("CASE", path).replace("OUT", str(case_dir / "out")) for a in args]
+    with open(path) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write(text.replace("  <fem>", "  <arcane-post-processing><output>"
+                             "<variable>U</variable></output></arcane-post-processing>\n"
+                             "  <fem>"))
+    out = case_dir / "out_cli"
+    args = [a.replace("CASE", path).replace("OUT", str(out)) for a in args]
     proc = _cli("arcanefem_tpu_torch", *args)
-    assert proc.returncode == 1
-    assert "NotImplementedError" in proc.stderr and "not ported yet" in proc.stderr
+    if args[0] == "testlab":
+        assert proc.returncode == 1
+        assert "NotImplementedError" in proc.stderr and "not ported yet" in proc.stderr
+        assert "Queue 1 item 10" in proc.stderr
+        return
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    written = sorted(p.name for p in out.iterdir())
+    assert written == ["cli_deferred.hdf" if _have_h5py() else "cli_deferred.vtk"]
+    assert f"[post-processing] wrote {out / written[0]}" in proc.stdout
+
+
+def _have_h5py() -> bool:
+    from arcanefem_tpu_torch.fem import vtkhdf
+
+    return vtkhdf.HAVE_H5PY

@@ -105,13 +105,23 @@ def test_block_elements_match_jax(kind, ndof):
 
 
 def test_stiffness_iso_and_unknown_types_raise():
-    xyz = torch.zeros((2, 10, 3), dtype=torch.float64)
-    for ctype in el.ISO_TYPES:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            el.stiffness(ctype, xyz)
-    with pytest.raises(ValueError):
-        el.stiffness("line2", xyz)
+    """Every zoo type but the lines (and the three closed forms above) now
+    goes through stiffness_iso, equal to JAX's to 1e-13 on an affine image
+    of its reference cell (perturbed cells and every rule:
+    test_torch_quadrature.py); a line or an unknown type still raises."""
     from arcanefem_tpu.ops.quadrature import REF_DIM
+    from test_torch_quadrature import _ref_nodes
 
-    assert set(el.ISO_TYPES) == {t for t in REF_DIM if not t.startswith("line")} - {
-        "tria3", "tetra4", "quad4"}
+    rng = np.random.RandomState(3)
+    for ctype in sorted(t for t in REF_DIM if not t.startswith("line")):
+        if ctype in ("tria3", "tetra4", "quad4"):
+            continue
+        M = np.eye(3) + 0.1 * rng.uniform(-1, 1, (3, 3))
+        if REF_DIM[ctype] == 2:
+            M[2], M[:, 2] = 0.0, 0.0
+        xyz = np.stack([_ref_nodes(ctype) @ M.T + k for k in range(2)])
+        _close(el.stiffness(ctype, torch.as_tensor(xyz)), jel.stiffness(ctype, jnp.asarray(xyz)))
+    xyz = torch.zeros((2, 10, 3), dtype=torch.float64)
+    for ctype in ("line2", "line3", "prism9"):
+        with pytest.raises(ValueError):
+            el.stiffness(ctype, xyz)

@@ -384,3 +384,18 @@ def test_penalty_clamp_and_golden_check_equal(tmp_path):
         with pytest.raises(AssertionError, match="2 nodes differ"):
             fn(uids, bad, str(path), 1e-4)
         assert fn(uids, bad, str(path), 1e-4, min_value_rel=2.0) == 0
+
+
+@pytest.mark.parametrize("k,hi", [(2, 7), (3, 100), (3, 2 ** 22), (6, 50000)],
+                         ids=["pairs", "packed", "lexsort-wide-ids", "lexsort-six"])
+def test_row_ids_is_unique_inverse(k, hi):
+    """fem/problem.py::row_ids (packed int64 keys where the rows fit in 63
+    bits, a lexsort otherwise) equals np.unique(rows, axis=0)'s inverse."""
+    from arcanefem_tpu_torch.fem.problem import row_ids
+
+    rng = np.random.default_rng(k + hi)
+    rows = rng.integers(0, hi, (5000, k))
+    rows = np.concatenate([rows, rows[::7]])
+    _, inv = np.unique(rows, axis=0, return_inverse=True)
+    np.testing.assert_array_equal(row_ids(rows), inv.reshape(-1))
+    assert row_ids(rows[:0]).shape == (0,)

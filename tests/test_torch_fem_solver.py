@@ -179,9 +179,22 @@ def test_spmv_backends(finalized):
 
 @pytest.mark.parametrize("method", ["bicgstab", "bicgstab2", "gmres"])
 def test_unported_methods_raise(finalized, method):
-    A, b, x0 = finalized[:3]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        solve_finalized(A, b, SolverOptions(method=method), x0)
+    """The three Krylov methods that raised until they were ported now run:
+    solve_finalized with Jacobi to rtol 1e-12 gives JAX's x within 1e-9 of
+    max|x| and its iterations ± 1; an unknown method still raises.  On these
+    1e30 penalty rows BiCGStab's count is set by round-off in both packages
+    (105-108 on the rect, 41-43 on the box, ROADMAP Queue 3; without
+    penalty rows the two agree ± 1, test_torch_krylov.py): it is held to
+    5% of JAX's."""
+    A, b, x0, jA, jb, jx0 = finalized
+    opts = dict(method=method, rtol=1e-12, preconditioner="jacobi")
+    x, info = solve_finalized(A, b, SolverOptions(**opts), x0)
+    jx, jinfo = jax_solve(jA, jb, JaxOptions(**opts), jx0)
+    jx = np.asarray(jx)
+    assert np.abs(x.numpy() - jx).max() <= 1e-9 * np.abs(jx).max()
+    jits = int(jinfo["iterations"])
+    assert abs(info["iterations"] - jits) <= (jits // 20 if method == "bicgstab" else 1)
+    assert info["residual"] <= 1e-12
     with pytest.raises(ValueError):
         solve_finalized(A, b, SolverOptions(method="lu"), x0)
 
@@ -266,8 +279,6 @@ def test_fail_actions_match_jax(finalized, tmp_path, monkeypatch, action):
 
 
 def test_solver_options_defaults_match_jax():
-    """Every default of JAX's options but ``gmres_restart``, which comes
-    with gmres."""
-    want = dataclasses.asdict(JaxOptions())
-    del want["gmres_restart"]
-    assert dataclasses.asdict(SolverOptions()) == want
+    """Every default of JAX's options, ``gmres_restart`` included since
+    gmres is ported."""
+    assert dataclasses.asdict(SolverOptions()) == dataclasses.asdict(JaxOptions())

@@ -801,3 +801,35 @@ def test_every_k1_operator_launches_sell_on_cuda(cuda):
         want = sell_spmv_plain(A.values, A.layout, x)
         assert bool(((y - want).abs() <= 1e-5 * scale).all())
     assert cm["iterations"] == res["iterations"]
+
+
+def test_sell_spmv_float64_rounds_each_product_on_cuda(cuda):
+    """K1 in float64 rounds each product as its plain twin does: on 1e30
+    penalty rows with x at their Dirichlet values, b − A x is exactly 0 on
+    every penalty row (b = fl(P·g)), as on the CPU, not one ulp of 1e30·g
+    where a fused multiply-add rounded
+    P·g + the row's other terms once (which made GMRES, whose monitored
+    norm is that residual, stop after one step).  The batched kernel's
+    tables agree with it bit for bit."""
+    from arcanefem_tpu_torch.fem.problem import FemProblem
+    from arcanefem_tpu_torch.mesh.generate import rect_tria_mesh
+
+    mesh = rect_tria_mesh(96, 96)
+    prob = FemProblem(mesh, device=cuda)
+    system = prob.new_system(prob.stiffness_matrix())
+    nodes = mesh.group_nodes("left")
+    g = mesh.coords[nodes, 1] - 0.1 * mesh.coords[nodes, 0] + 0.37
+    prob.apply_dirichlet(system, prob.dof_ids(nodes), g, "Penalty", 1e30)
+    A, b = system.finalized()
+    x0 = system.initial_guess()
+    y = sell.sell_spmv(A.values, A.layout, x0)
+    yp = sell.sell_spmv_plain(A.values, A.layout, x0)
+    torch.cuda.synchronize()
+    assert float((y - yp).abs().max()) <= 1e-15 * float(yp.abs().max())
+    pen = torch.as_tensor(prob.dof_ids(nodes), device=cuda)
+    assert bool(((b - y)[pen] == 0).all())
+    gen = torch.Generator().manual_seed(5)
+    T = (torch.rand((4, mesh.n_nodes), generator=gen, dtype=torch.float64) * 2 - 1).to(cuda)
+    Y = sell_spmv_batched(A.values, A.layout, T)
+    for k in range(4):
+        assert torch.equal(Y[k], sell.sell_spmv(A.values, A.layout, T[k]))

@@ -200,3 +200,66 @@ def test_cli_runs_without_jax(tmp_path):
     out = json.loads(lines[-1])
     assert out["codes"] == [1, 0] and out["loaded"] == []
     assert sum(ln.startswith("done: PoissonResult {'iterations': ") for ln in lines) == 1
+
+
+_MODELS_SCRIPT = _PRELUDE + """
+import os, runpy
+from arcanefem_tpu_torch.mesh.generate import quadratize, rect_tria_mesh
+from arcanefem_tpu_torch.tools.write_msh import rect_quad_mesh, write_arc, write_msh
+d = sys.argv[1]
+write_msh(d + "/rect.msh", rect_tria_mesh(10, 8))
+write_msh(d + "/quad.msh", rect_quad_mesh(8, 6, regions=True))
+write_msh(d + "/tria6.msh", quadratize(rect_tria_mesh(5, 4)))
+aleph = lambda m: {"name": "AlephLinearSystem", "solver-method": m, "epsilon": "1e-10"}
+cases = {
+    "Fourier": ("quad.msh", dict(values={"lambda": 1.5, "qdot": 1.0},
+                                 materials=[("west", 2.0)],
+                                 dirichlet=[("left", 0.0), ("right", 1.0)],
+                                 linear_system={"name": "HypreLinearSystem"})),
+    "Electrostatics": ("rect.msh", dict(values={"rho": 1.0, "epsilon": 2.0},
+                                        dirichlet=[("left", 0.0), ("right", 1.0)],
+                                        linear_system=aleph("bicgstab2"),
+                                        post_processing=["Phi", "E"])),
+    "Acoustics": ("rect.msh", dict(values={"kc2": 2.0}, neumann=[("left", 1.0)])),
+    "Aerodynamics": ("rect.msh", dict(farfield=[("left", 0.1), ("right", 0.1)],
+                                      dirichlet_bc=[("bottom", 0.0)],
+                                      linear_system=aleph("gmres"))),
+    "Fourier_p2": ("tria6.msh", dict(values={"lambda": 2.0},
+                                     dirichlet=[("left", 0.0), ("right", 1.0)],
+                                     linear_system=aleph("bicgstab"))),
+}
+codes, done = {}, []
+for name, (mesh, kw) in cases.items():
+    write_arc(d + f"/{name}.arc", mesh, codename=name.split("_")[0], **kw)
+    extra = ["--output-dir", d + "/out"] if name == "Electrostatics" else []
+    sys.argv = ["arcanefem_tpu_torch", "run", d + f"/{name}.arc", "--device", "cpu", *extra]
+    try:
+        runpy.run_module("arcanefem_tpu_torch", run_name="__main__")
+        codes[name] = 0
+    except SystemExit as e:
+        codes[name] = e.code
+print(json.dumps({"codes": codes, "out": sorted(os.listdir(d + "/out")),
+                  "loaded": [m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "arcanefem_tpu", "bench")
+                             and sys.modules[m] is not None]}))
+"""
+
+
+def test_models_cli_runs_without_jax(tmp_path):
+    """python -m arcanefem_tpu_torch run --device cpu on one case of each
+    codename ported since the Poisson slice (Fourier on quads with a λ
+    region, Electrostatics with bicgstab2 and --output-dir, Acoustics,
+    Aerodynamics with gmres, Fourier on tria6 with bicgstab) in a process
+    where neither jax, arcanefem_tpu nor the root bench can be imported."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _MODELS_SCRIPT, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    assert out["loaded"] == [] and set(out["codes"].values()) == {0}
+    assert out["out"] in (["Electrostatics.hdf"], ["Electrostatics.vtk"])
+    for name in ("FourierResult", "ElectrostaticsResult", "AcousticsResult",
+                 "AerodynamicsResult"):
+        assert any(ln.startswith(f"done: {name} {{'iterations': ") for ln in lines), name
