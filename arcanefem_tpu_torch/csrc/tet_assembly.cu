@@ -7,6 +7,10 @@
 //   afem_slot_reduce_{f32,f64}:
 //                           out[s] = sum over k in [ptr[s], ptr[s+1]) of
 //                                    table[ids[k]], in stored order
+//   afem_block_slot_reduce_{f32,f64}:
+//                           for each node slot s and e < b*b (b = 2, 3):
+//                           out[dst[s*b*b + e]] = sum over k in
+//                           [ptr[s], ptr[s+1]) of table[ids[k]*b*b + e]
 //
 // What they replace.  The JAX package assembles the sphere in two Pallas
 // roles of the unit-weight window kernel
@@ -47,6 +51,19 @@
 // connectivity, gathered corners, both outputs) carry streaming cache
 // hints, so the L2 keeps the coordinates and table rows that are gathered
 // again.
+//
+// block_slot_reduce assembles the b x b node blocks of the vector
+// systems (elasticity, elastodynamics, the mixed bilaplacian), which the
+// JAX package sums with XLA segment_sum (arcanefem_tpu/sparse/bell.py:
+// 127-133).  The contributor lists stay those of the node-pair slots, so
+// the lists are b*b times shorter than lists of the expanded scalar slots
+// (at the 1.9M-node sphere: 175.7M contributors instead of 1.58G, which
+// would not fit int32 ids).  One thread per node slot keeps the b*b sums
+// in f64 registers, reads each contributor's b*b table entries (one
+// contiguous 16- or 36-byte run) in list order, rounds once and writes the
+// b*b values to their expanded SELL slots through dst (the output is
+// zeroed by the caller: SELL padding has no node slot).  No atomics, so
+// the result is the same bit for bit in every run.
 //
 // The kernels allocate nothing, launch on the caller's stream and never
 // synchronise; each C entry point returns cudaGetLastError().
@@ -151,6 +168,28 @@ slot_reduce_kernel(const int32_t* __restrict__ ptr, const int32_t* __restrict__ 
   __stcs(out + s, static_cast<V>(acc));
 }
 
+template <typename V, int B>
+__global__ void __launch_bounds__(kThreads)
+block_slot_reduce_kernel(const int32_t* __restrict__ ptr, const int32_t* __restrict__ ids,
+                         const V* __restrict__ table, const int32_t* __restrict__ dst,
+                         V* __restrict__ out, int64_t n) {
+  constexpr int kBB = B * B;
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (s >= n) return;
+  const int32_t begin = __ldg(ptr + s), end = __ldg(ptr + s + 1);
+  double acc[kBB];
+#pragma unroll
+  for (int e = 0; e < kBB; ++e) acc[e] = 0.0;
+  for (int32_t k = begin; k < end; ++k) {
+    const V* row = table + static_cast<int64_t>(__ldg(ids + k)) * kBB;
+#pragma unroll
+    for (int e = 0; e < kBB; ++e) acc[e] += static_cast<double>(__ldg(row + e));
+  }
+  const int32_t* d = dst + s * kBB;
+#pragma unroll
+  for (int e = 0; e < kBB; ++e) __stcs(out + __ldg(d + e), static_cast<V>(acc[e]));
+}
+
 inline bool grid_for(int64_t threads, dim3* grid) {
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return false;
@@ -165,6 +204,22 @@ int launch_reduce(const int32_t* ptr, const int32_t* ids, const V* table, V* out
   if (!grid_for(n, &grid)) return static_cast<int>(cudaErrorInvalidValue);
   slot_reduce_kernel<V><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       ptr, ids, table, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V>
+int launch_block_reduce(const int32_t* ptr, const int32_t* ids, const V* table,
+                        const int32_t* dst, V* out, int64_t n, int b, void* stream) {
+  dim3 grid;
+  if (!grid_for(n, &grid)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b == 2) {
+    block_slot_reduce_kernel<V, 2><<<grid, kThreads, 0, s>>>(ptr, ids, table, dst, out, n);
+  } else if (b == 3) {
+    block_slot_reduce_kernel<V, 3><<<grid, kThreads, 0, s>>>(ptr, ids, table, dst, out, n);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -195,6 +250,18 @@ int afem_slot_reduce_f32(const int32_t* ptr, const int32_t* ids, const float* ta
 int afem_slot_reduce_f64(const int32_t* ptr, const int32_t* ids, const double* table,
                          double* out, int64_t n, void* stream) {
   return launch_reduce<double>(ptr, ids, table, out, n, stream);
+}
+
+int afem_block_slot_reduce_f32(const int32_t* ptr, const int32_t* ids, const float* table,
+                               const int32_t* dst, float* out, int64_t n, int b,
+                               void* stream) {
+  return launch_block_reduce<float>(ptr, ids, table, dst, out, n, b, stream);
+}
+
+int afem_block_slot_reduce_f64(const int32_t* ptr, const int32_t* ids, const double* table,
+                               const int32_t* dst, double* out, int64_t n, int b,
+                               void* stream) {
+  return launch_block_reduce<double>(ptr, ids, table, dst, out, n, b, stream);
 }
 
 }  // extern "C"

@@ -6,16 +6,17 @@ the sparsity set-up; right-hand sides and boundary conditions,
 femutils/ArcaneFemFunctions.h:824-1222).
 
 Host numpy work happens once per problem: the topology, the SELL layout of
-the assembled operator (``sparse/bell.py::fine_layout``), boundary-face
+the assembled operator (``sparse/bell.py::fine_layout``, or for ``ndof`` b
+> 1 the scalar expansion of the b×b blocks with its node-level
+contributor lists, ``BlockAssembly``), boundary-face
 orientation and group index arrays.  Per solve, on ``device``: the element
 matrices (``ops/elements.py``, plain torch), their sum into the BELL matrix
-(``assemble_bell``: one ``slot_reduce`` launch on the card, no atomics),
-the RHS (``index_add`` of O(nodes) values, as the JAX package's
-``.at[].add``) and the Dirichlet conditions, deferred to
-``solver/linear_system.py``.
-
-Only scalar problems (``ndof`` 1) are ported: block BELL comes with the
-elasticity family (ROADMAP Queue 1 item 9).
+(``assemble_bell``: one ``slot_reduce`` or ``block_slot_reduce`` launch on
+the card, no atomics), the RHS (``index_add`` of O(nodes) values, as the
+JAX package's ``.at[].add``) and the Dirichlet conditions, deferred to
+``solver/linear_system.py``.  Every matrix of a problem shares its one
+layout, so ``with_values`` combines them (elastodynamics' c0·M + c1·D +
+c2·E).
 """
 
 from __future__ import annotations
@@ -30,9 +31,15 @@ import torch
 from ..mesh.core import _FACES_OF, Mesh
 from ..ops import elements, geometry
 from ..solver.linear_system import LinearSystem, SolverOptions
-from ..sparse.bell import BellMatrix, assemble_bell, fine_layout
+from ..sparse.bell import (
+    BellMatrix,
+    BlockAssembly,
+    assemble_bell,
+    expanded_slot,
+    fine_layout,
+)
 from ..sparse.sell import SellLayout
-from ..sparse.topology import Topology, build_topology
+from ..sparse.topology import Topology, build_topology, face_dof_slots
 
 _FACE_MEASURE = {
     "line2": geometry.edge2_length,
@@ -148,10 +155,9 @@ class FemProblem:
     coords: torch.Tensor = field(init=False)
 
     def __post_init__(self):
-        if self.ndof != 1:
-            raise NotImplementedError(
-                f"ndof={self.ndof}: block BELL comes with the elasticity "
-                "family, which is not ported yet (ROADMAP Queue 1 item 9)")
+        if self.ndof not in (1, 2, 3):
+            raise ValueError(f"ndof={self.ndof}: block BELL takes 1, 2 or 3 dofs "
+                             "per node")
         self.dtype = torch_dtype(self.dtype)
         self.device = torch.device(self.device)
         self.topo = build_topology(
@@ -163,7 +169,15 @@ class FemProblem:
     @functools.cached_property
     def layout(self) -> SellLayout:
         """The SELL layout of the assembled operator, built once."""
+        if self.ndof > 1:
+            return self.block_assembly.layout
         return fine_layout(self.topo, self.device)
+
+    @functools.cached_property
+    def block_assembly(self) -> BlockAssembly:
+        """The block operator's layout and node-level contributor lists,
+        built once, over the mesh's cell buckets."""
+        return BlockAssembly(self.topo, list(self.mesh.cells), self.ndof, self.device)
 
     # -- dof helpers --------------------------------------------------------
     @property
@@ -188,12 +202,16 @@ class FemProblem:
         self,
         element_fn: Callable[[str, torch.Tensor], torch.Tensor],
     ) -> BellMatrix:
-        """element_fn(cell_type, xyz) -> (nc, npc, npc) element matrices,
-        summed by ``assemble_bell`` (``slot_reduce``)."""
+        """element_fn(cell_type, xyz) -> (nc, npc, npc) element matrices
+        (ndof 1) or (nc, npc, npc, b, b) blocks, summed by ``assemble_bell``
+        (``slot_reduce`` or ``block_slot_reduce``)."""
         mats = {
             ctype: element_fn(ctype, self.cell_xyz(ctype))
             for ctype in self.mesh.cells
         }
+        if self.ndof > 1:
+            return assemble_bell(self.topo, mats, device=self.device, dtype=self.dtype,
+                                 block=self.ndof, block_asm=self.block_assembly)
         return assemble_bell(self.topo, mats, device=self.device,
                              dtype=self.dtype, layout=self.layout)
 
@@ -201,6 +219,38 @@ class FemProblem:
         return self.assemble_matrix(
             lambda ct, xyz: coef * elements.stiffness(ct, xyz)
         )
+
+    def add_face_matrix(
+        self,
+        A: BellMatrix,
+        group: str,
+        face_fn: Callable[[str, torch.Tensor], torch.Tensor],
+        comp: int = 0,
+    ) -> BellMatrix:
+        """Add boundary-element matrices (e.g. convection h·∫uv on EDGE2,
+        reference modules/heat/FemModule.cc:225-227; paraxial terms in
+        soildynamics) into the assembled matrix ``A`` (on this problem's
+        layout): face_fn(ftype, xyz) -> (nf, nfn, nfn) scalar blocks added
+        at component ``comp``, or (nf, nfn, nfn, b, b) full blocks
+        (``index_add`` into the SELL slots, as the JAX ``.at[].add``)."""
+        b = self.ndof
+        W = self.topo.width
+        e2s = self.layout.ell_to_sell
+        vals = A.values
+        for ftype, conn in self.mesh.face_groups[group].items():
+            ke = face_fn(ftype, self.face_xyz(conn))
+            nfn = conn.shape[1]
+            rows = np.repeat(conn, nfn, axis=1).reshape(-1)
+            cols = np.tile(conn, (1, nfn)).reshape(-1)
+            node, w = np.divmod(face_dof_slots(self.topo, rows, cols).astype(np.int64), W)
+            if ke.dim() == 3:
+                a = c = np.array([comp])
+            else:
+                a, c = np.divmod(np.arange(b * b), b)
+            flat = expanded_slot(node[:, None], w[:, None], a[None], c[None], b=b, width=W)
+            slots = self._index(e2s[flat.reshape(-1)])
+            vals = vals.index_add(0, slots, ke.reshape(-1).to(vals.dtype))
+        return A.with_values(vals)
 
     def new_system(self, matrix: BellMatrix,
                    options: SolverOptions | None = None) -> LinearSystem:
@@ -222,6 +272,52 @@ class FemProblem:
             rhs = rhs.index_add(0, self._index(self.dof_ids(conn.reshape(-1), comp)),
                                 contrib)
         return rhs
+
+    def vector_source_rhs(self, rhs: torch.Tensor, f: tuple) -> torch.Tensor:
+        """Body-force rhs[node*b+c] += f_c * measure / npc per cell
+        (reference modules/elasticity/FemModule.cc:230-241); None = skip."""
+        for ctype, conn in self.mesh.cells.items():
+            xyz = self.cell_xyz(ctype)
+            meas = elements.measure(ctype, xyz)
+            npc = conn.shape[1]
+            flat_nodes = conn.reshape(-1)
+            for c, fc in enumerate(f):
+                if fc is None or c >= self.ndof:
+                    continue
+                contrib = torch.repeat_interleave(fc * meas / npc, npc)
+                rhs = rhs.index_add(0, self._index(self.dof_ids(flat_nodes, c)), contrib)
+        return rhs
+
+    def traction_rhs(self, rhs: torch.Tensor, group: str, t: tuple) -> torch.Tensor:
+        """Traction rhs[node*b+c] += t_c * measure / n_face_nodes per face
+        (reference modules/elasticity/FemModule.cc:246-272)."""
+        for ftype, conn in self.mesh.face_groups[group].items():
+            xyz = self.face_xyz(conn)
+            meas = _FACE_MEASURE[ftype](xyz)
+            nfn = conn.shape[1]
+            flat_nodes = conn.reshape(-1)
+            for c, tc in enumerate(t):
+                if tc is None or c >= self.ndof:
+                    continue
+                contrib = torch.repeat_interleave(tc * meas / nfn, nfn)
+                rhs = rhs.index_add(0, self._index(self.dof_ids(flat_nodes, c)), contrib)
+        return rhs
+
+    def apply_dirichlet_vector(
+        self,
+        system: LinearSystem,
+        nodes: np.ndarray,
+        values: tuple,
+        method: str = "Penalty",
+        penalty: float = 1.0e30,
+    ) -> None:
+        """Per-component vector Dirichlet: component c is constrained only
+        when values[c] is not None (the reference's NULL components,
+        modules/elasticity/FemModule.cc:299-400)."""
+        for c, v in enumerate(values):
+            if v is None or c >= self.ndof:
+                continue
+            self.apply_dirichlet(system, self.dof_ids(nodes, c), v, method, penalty)
 
     def oriented_group(self, name: str) -> dict[str, np.ndarray]:
         """Outward-oriented face connectivity for a boundary group."""
@@ -277,7 +373,9 @@ class FemProblem:
         RowColumnElimination.
         """
         dofs = np.asarray(dofs)
-        vals = torch.as_tensor(value, device=self.device).to(self.dtype)
+        # straight to the problem's dtype: a Python float through float32
+        # (torch's default) would lose its low bits
+        vals = torch.as_tensor(value, dtype=self.dtype, device=self.device)
         vals = torch.broadcast_to(vals, dofs.shape)
         system.add_guess(dofs, vals)
         if method == "Penalty":
@@ -288,7 +386,7 @@ class FemProblem:
         elif method == "WeakPenalty":
             # matrixAddValue(diag, P) instead of set
             A = system.matrix
-            slots = A.diag_slot[self._index(dofs // self.ndof)]
+            slots = A.diag_slot[self._index(dofs)]
             add = torch.full(slots.shape, penalty, dtype=A.values.dtype,
                              device=self.device)
             system.matrix = A.with_values(A.values.index_add(0, slots, add))

@@ -1,22 +1,31 @@
 """Physics models (the reference's modules/*).
 
 Ported: ``poisson`` (the Poisson and Laplace codenames), ``fourier``,
-``electrostatics``, ``acoustics`` and ``aerodynamics``.  The other
-codenames of ``arcanefem_tpu/models`` raise, naming their ROADMAP item
+``electrostatics``, ``acoustics``, ``aerodynamics``, ``bilaplacian``,
+``elasticity`` and ``elastodynamics``.  The other codenames of
+``arcanefem_tpu/models`` raise, naming their ROADMAP item
 (:data:`NOT_PORTED`).
 """
 
-from . import acoustics, aerodynamics, electrostatics, fourier, poisson  # noqa: F401
+from . import (  # noqa: F401
+    acoustics,
+    aerodynamics,
+    bilaplacian,
+    elasticity,
+    elastodynamics,
+    electrostatics,
+    fourier,
+    poisson,
+)
 
-_ALL = ["poisson", "fourier", "electrostatics", "acoustics", "aerodynamics"]
+_ALL = ["poisson", "fourier", "electrostatics", "acoustics", "aerodynamics",
+        "bilaplacian", "elasticity", "elastodynamics"]
 
 # codename (lower case) -> what it waits for, in ROADMAP.md Queue 1
 NOT_PORTED = {
-    "bilaplacian": "block BELL, ROADMAP Queue 1 item 9",
-    "elasticity": "block BELL and the rigid-body-mode AMG, ROADMAP Queue 1 item 9",
-    "heat": "transient support, ROADMAP Queue 1 items 8 and 9",
-    "elastodynamics": "transient support and block BELL, ROADMAP Queue 1 items 8 and 9",
-    "soildynamics": "transient support and block BELL, ROADMAP Queue 1 items 8 and 9",
-    "passmo": "block BELL, ops/faces.py and ops/gauss_state.py, ROADMAP Queue 1 item 9",
+    "heat": "fem/checkpoint.py and the time-history output, ROADMAP Queue 1 items 5 and 9",
+    "soildynamics": "its paraxial and double-couple terms, ROADMAP Queue 1 item 9",
+    "passmo": "ops/faces.py, ops/gauss_state.py and the block quadrature integrals, "
+              "ROADMAP Queue 1 item 9",
     "testlab": "the testlab entry point, ROADMAP Queue 1 item 10",
 }

@@ -1,19 +1,29 @@
-"""Smoothed-aggregation AMG setup for scalar systems (host numpy/scipy).
+"""Smoothed-aggregation AMG setup (host numpy/scipy).
 
-A copy of the scalar path of ``arcanefem_tpu/solver/amg.py::build_amg``:
-that module imports jax at its top, and the machine that runs the port has
-no jax.  Per level: the native fused strength test and filtered operator,
-greedy Vanek aggregation, the native smoothed prolongator with row
-truncation, and the Galerkin product P^T A P; then the ELL layouts of
-every level operator and transfer and the dense inverse of the coarsest
-operator.  It calls the port's copies of the same native functions as the
-JAX setup (``utils/native.py``), so ties break the same way, and the
-CPU tests hold the result to ``build_amg``'s with exact equality.
+A copy of ``arcanefem_tpu/solver/amg.py::build_amg`` at its default
+options: that module imports jax at its top, and the machine that runs the
+port has no jax.  Per level of a scalar system: the native fused strength
+test and filtered operator, greedy Vanek aggregation, the native smoothed
+prolongator with row truncation, and the Galerkin product P^T A P; then
+the ELL layouts of every level operator and transfer and the dense inverse
+of the coarsest operator.  It calls the port's copies of the same native
+functions as the JAX setup (``utils/native.py``), so ties break the same
+way, and the CPU tests hold the result to ``build_amg``'s with exact
+equality.
+
+Block systems (b dofs per node, the scalar expansion dof = node·b + comp)
+take ``build_amg``'s scipy branch at every level, as JAX does: node-level
+strength on the blocks' Frobenius norms, aggregation of nodes, and either
+the component-preserving tentative prolongator (dof (i, a) -> (agg[i], a))
+or, with a near-nullspace B (:func:`rigid_body_modes`), the per-aggregate
+SVD of :func:`_rbm_tentative`, after which a coarse level has m dofs per
+aggregate and B becomes the R factors ``Bc``.  The levels stay scalar
+matrices, so the V-cycle needs no block code.
 
 The output is a dict of numpy arrays and scalars laid out like the fields
-of the JAX ``AMGPrecond``; ``solver/amg.py::amg_from_numpy`` moves it to a
-device.  The block, rigid-body-mode and sawtooth variants of ``build_amg``
-are not ported yet.
+of the JAX ``AMGPrecond`` (plus ``nullspaces``, each level's B, for the
+tests); ``solver/amg.py::amg_from_numpy`` moves it to a device.  The
+sawtooth variant of ``build_amg`` is not ported.
 """
 
 from __future__ import annotations
@@ -53,6 +63,124 @@ def _ell_from_csr(indptr: np.ndarray, cols: np.ndarray):
     rows = np.repeat(np.arange(n), deg)
     ell_cols[rows, slot] = cols.astype(np.int32)
     return ell_cols, (rows * W + slot).astype(np.int32)
+
+
+def rigid_body_modes(coords: np.ndarray, b: int) -> np.ndarray:
+    """Near-nullspace B (n·b, m) of linear elasticity: m=3 modes in 2D
+    (tx, ty, rotation), m=6 in 3D (3 translations + 3 rotations), on
+    centred coordinates (BoomerAMG's interp-vectors role; PyAMG's B)."""
+    c = np.asarray(coords, np.float64)
+    c = c - c.mean(axis=0, keepdims=True)
+    n = c.shape[0]
+    if b == 2:
+        B = np.zeros((n * 2, 3))
+        B[0::2, 0] = 1.0
+        B[1::2, 1] = 1.0
+        B[0::2, 2] = -c[:, 1]
+        B[1::2, 2] = c[:, 0]
+        return B
+    if b == 3:
+        B = np.zeros((n * 3, 6))
+        for a in range(3):
+            B[a::3, a] = 1.0
+        x, y, z = c[:, 0], c[:, 1], c[:, 2]
+        B[1::3, 3], B[2::3, 3] = -z, y  # rot about x
+        B[0::3, 4], B[2::3, 4] = z, -x  # rot about y
+        B[0::3, 5], B[1::3, 5] = -y, x  # rot about z
+        return B
+    raise ValueError(f"rigid body modes need b in (2, 3), got {b}")
+
+
+def _rbm_tentative(agg: np.ndarray, na: int, B: np.ndarray, bl: int):
+    """Tentative prolongator from a near-nullspace: per-aggregate SVD.
+
+    Returns (T (n, na*m) csr, Bc (na*m, m)) with T's aggregate column
+    blocks orthonormal (Q of Ba = Q·R) and Bc = R, so T @ Bc == B on
+    aggregated rows.  Rank-deficient aggregates get their surplus columns
+    zeroed; those coarse dofs have zero rows and are inert in the cycle.
+    """
+    nn = len(agg)
+    m = B.shape[1]
+    sel = np.flatnonzero(agg >= 0)
+    order = np.argsort(agg[sel], kind="stable")
+    nodes_sorted = sel[order]
+    aggs_sorted = agg[sel][order]
+    counts = np.bincount(aggs_sorted, minlength=na)
+    kmax = max(int(counts.max()), 1)
+    starts = np.cumsum(counts) - counts
+    slot = np.arange(len(nodes_sorted)) - starts[aggs_sorted]
+    pad = np.full((na, kmax), -1, np.int64)
+    pad[aggs_sorted, slot] = nodes_sorted
+    node_mask = pad >= 0  # (na, kmax)
+    dofrows = (
+        np.maximum(pad, 0)[:, :, None] * bl + np.arange(bl)[None, None, :]
+    ).reshape(na, kmax * bl)
+    dmask = np.repeat(node_mask, bl, axis=1)
+    Tcols_data = np.zeros((na, kmax * bl, m))
+    Bc = np.zeros((na, m, m))
+    # chunked batched SVD (memory: chunk * kmax*bl * m)
+    chunk = max(1, 50_000_000 // max(kmax * bl * m, 1))
+    for lo in range(0, na, chunk):
+        hi = min(lo + chunk, na)
+        Ba = np.where(
+            dmask[lo:hi, :, None], B[dofrows[lo:hi], :], 0.0
+        )  # (c, kbl, m)
+        U, S, Vt = np.linalg.svd(Ba, full_matrices=False)
+        keep = S > np.maximum(S[:, :1] * 1e-10, 1e-12)
+        Tcols_data[lo:hi] = U * (keep[:, None, :] * 1.0)
+        Bc[lo:hi] = S[:, :, None] * Vt
+    rows = np.broadcast_to(
+        dofrows[:, :, None], (na, kmax * bl, m)
+    ).reshape(-1)
+    cols = (
+        np.arange(na)[:, None, None] * m + np.arange(m)[None, None, :]
+    )
+    cols = np.broadcast_to(cols, (na, kmax * bl, m)).reshape(-1)
+    data = (Tcols_data * dmask[:, :, None]).reshape(-1)
+    nzsel = data != 0.0
+    T = sp.csr_matrix(
+        (data[nzsel], (rows[nzsel], cols[nzsel])),
+        shape=(nn * bl, na * m),
+    )
+    return T, Bc.reshape(na * m, m)
+
+
+def truncate_rows(P, kmax=8, rel=0.05, rescale=True):
+    """Cap P's row width: keep the kmax largest-|.| entries per row (and
+    drop entries below rel·rowmax), rescaling the survivors so each row
+    sum is preserved where the kept entries carry the row's mass (at most
+    4x).  ``rescale=False`` for rigid-body-mode prolongators, whose rows
+    mix translation and rotation columns."""
+    indptr, dat = P.indptr, P.data
+    deg = np.diff(indptr)
+    if len(dat) == 0 or int(deg.max(initial=0)) <= kmax and rel == 0:
+        return P
+    nr = P.shape[0]
+    rows = np.repeat(np.arange(nr), deg)
+    order = np.lexsort((-np.abs(dat), rows))
+    rank = np.arange(len(dat)) - np.repeat(indptr[:-1], deg)
+    keep = np.zeros(len(dat), bool)
+    keep[order] = rank < kmax
+    if rel > 0:
+        rowmax = np.zeros(nr)
+        np.maximum.at(rowmax, rows, np.abs(dat))
+        keep &= np.abs(dat) >= rel * rowmax[rows]
+    if not rescale:
+        Q = sp.csr_matrix((dat * keep, P.indices, indptr), shape=P.shape)
+        Q.eliminate_zeros()
+        return Q
+    full = np.zeros(nr)
+    kept = np.zeros(nr)
+    np.add.at(full, rows, dat)
+    np.add.at(kept, rows, dat * keep)
+    ok = np.abs(kept) > 0.1 * np.abs(full)
+    raw = full / np.where(ok, kept, 1.0)
+    scale = np.where(ok, np.clip(raw, -4.0, 4.0), 1.0)
+    Q = sp.csr_matrix(
+        (dat * keep * scale[rows], P.indices, indptr), shape=P.shape
+    )
+    Q.eliminate_zeros()
+    return Q
 
 
 def _aggregate(S, n: int) -> tuple[np.ndarray, int]:
@@ -242,14 +370,80 @@ def stored_graph(layout) -> SimpleNamespace:
         csr_cols=layout.ell_cols.reshape(-1)[csr_to_ell])
 
 
+def _block_level(cur, bl: int, theta_l: float, Bns):
+    """One level of ``build_amg``'s scipy branch for a block operator
+    ``cur`` (bl dofs per node): (P, next bl, next nullspace, rho of cur),
+    or None where aggregation makes no progress."""
+    n = cur.shape[0]
+    nn = n // bl
+    # node-level strength on block Frobenius norms: E^T |A|^2 E with
+    # E = I_nn (x) 1_bl collapses each bl x bl block to a scalar
+    E = sp.kron(sp.identity(nn, format="csr"), np.ones((bl, 1)), format="csr")
+    A2 = cur.copy()
+    A2.data = A2.data**2
+    nodeA = (E.T @ A2 @ E).tocsr()
+    nodeA.data = np.sqrt(nodeA.data)
+    d = np.asarray(nodeA.diagonal())
+    # strength: |a_ij| >= θ_l·sqrt(a_ii·a_jj), diagonal excluded
+    co = nodeA.tocoo()
+    scale = np.sqrt(np.abs(d[co.row] * d[co.col])) + 1e-300
+    keep = (np.abs(co.data) >= theta_l * scale) & (co.row != co.col)
+    S = sp.csr_matrix((co.data[keep], (co.row[keep], co.col[keep])), shape=nodeA.shape)
+    agg, na = _aggregate(S, nn)
+    if na == 0 or na >= nn:  # no coarsening progress
+        return None
+    sel = agg >= 0
+    bl_next, Bc = bl, None
+    if Bns is not None:
+        T, Bc = _rbm_tentative(agg, na, Bns, bl)
+        bl_next = Bns.shape[1]
+    else:
+        # component-preserving tentative: dof (i, a) -> (agg[i], a)
+        dsel = np.repeat(sel, bl)
+        drow = np.arange(n)[dsel]
+        dcol = np.repeat(agg[sel], bl) * bl + np.tile(np.arange(bl), int(sel.sum()))
+        T = sp.csr_matrix((np.ones(len(drow)), (drow, dcol)), shape=(n, na * bl))
+    # prolongator smoothing on the filtered operator: weak node connections
+    # dropped from A and lumped onto the diagonal
+    aco = cur.tocoo()
+    ni = aco.row // bl
+    nj = aco.col // bl
+    Sco = S.tocoo()
+    skey = np.sort(Sco.row.astype(np.int64) * nn + Sco.col)
+    akey = ni.astype(np.int64) * nn + nj
+    if len(skey):
+        pos = np.minimum(np.searchsorted(skey, akey), len(skey) - 1)
+        strong = (skey[pos] == akey) | (ni == nj)
+    else:
+        strong = ni == nj
+    af_data = np.where(strong, aco.data, 0.0)
+    drop_row = np.zeros(n)
+    np.add.at(drop_row, aco.row, aco.data - af_data)
+    Af = sp.csr_matrix((af_data, (aco.row, aco.col)), shape=cur.shape) + sp.diags(drop_row)
+    ddf = np.asarray(Af.diagonal())
+    Dinvf = sp.diags(1.0 / np.where(ddf == 0, 1.0, ddf))
+    DAf = (Dinvf @ Af).tocsr()
+    rho_f = rho_est(Af.tocsr(), ddf)
+    # the smoother's damping uses the true operator's spectral radius
+    rho = rho_est(cur.tocsr(), np.asarray(cur.diagonal()))
+    P = (sp.identity(n, format="csr") - (4.0 / 3.0 / rho_f) * DAf) @ T
+    P = truncate_rows(P.tocsr(), kmax=TRUNC_KMAX, rel=TRUNC_REL,
+                      rescale=Bns is None)
+    return P, bl_next, Bc, rho
+
+
 def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
-              cheb_deg: int, dtype=np.float64) -> dict:
-    """Hierarchy of the scalar BELL operator with (N, W) host ``values``
-    on ``topo`` (a ``sparse.topology.Topology``), Dirichlet
-    rows already penalised: ``build_amg(A, theta=theta, smoother=smoother,
-    cheb_deg=cheb_deg)`` with its other defaults.  ``dtype`` is the type
-    the device will hold.  Returns the dict that ``amg_from_numpy`` takes,
-    for a V-cycle."""
+              cheb_deg: int, dtype=np.float64, block: int = 1,
+              nullspace: np.ndarray | None = None) -> dict:
+    """Hierarchy of the BELL operator with (N, W) host ``values`` on
+    ``topo`` (a ``sparse.topology.Topology``, or :func:`stored_graph` of a
+    SELL layout), Dirichlet rows already penalised: ``build_amg(A,
+    theta=theta, smoother=smoother, cheb_deg=cheb_deg, nullspace=nullspace)``
+    with its other defaults.  ``block`` b: the operator is the scalar
+    expansion of b×b blocks (dof = node·b + comp); ``nullspace`` (n_dofs,
+    m) is used for b > 1 only, as in JAX.  ``dtype`` is the type the device
+    will hold.  Returns the dict that ``amg_from_numpy`` takes, for a
+    V-cycle."""
     dtype = np.dtype(dtype)
     vals = np.asarray(values).reshape(topo.n_nodes, topo.width)
     data = vals.reshape(-1)[topo.csr_to_ell]
@@ -258,34 +452,46 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
         shape=(topo.n_nodes, topo.n_nodes),
     )
     mats, Ps, rhos = [], [], []
-    while cur.shape[0] > COARSE_SIZE and len(mats) < MAX_LEVELS:
+    bl = block
+    Bns = (np.asarray(nullspace, np.float64)
+           if nullspace is not None and block > 1 else None)
+    used_rbm = Bns is not None
+    nullspaces = [Bns]
+    while cur.shape[0] > COARSE_SIZE * bl and len(mats) < MAX_LEVELS:
         n = cur.shape[0]
         # Vanek's per-level strength decay
         theta_l = theta * (0.5 ** len(mats))
-        cur_csr = cur.tocsr()
-        nat_sf = amg_strength_filter_native(
-            cur_csr.indptr, cur_csr.indices, cur_csr.data, theta_l)
-        if nat_sf is None:
-            raise RuntimeError(
-                "native AMG strength filter unavailable (the port's native/ library not "
-                "built, or a row without a diagonal entry)")
-        s_indptr, s_cols, af_data, ddf = nat_sf
-        S = sp.csr_matrix((np.ones(len(s_cols)), s_cols, s_indptr),
-                          shape=cur.shape)
-        agg, na = _aggregate(S, n)
-        if na == 0 or na >= n:  # no coarsening progress
-            break
-        # smoothing on the filtered operator Af (A's pattern, weak entries
-        # zeroed and lumped onto the diagonal); the smoother's damping uses
-        # the true operator's spectral radius
-        Af = sp.csr_matrix((af_data, cur_csr.indices, cur_csr.indptr),
-                           shape=cur.shape)
-        rho_f = rho_est(Af, ddf)
-        rhos.append(rho_est(cur_csr, np.asarray(cur.diagonal())))
-        p_indptr, p_cols, p_data = amg_smooth_p_native(
-            cur_csr.indptr, cur_csr.indices, af_data, ddf,
-            4.0 / 3.0 / rho_f, agg, na, TRUNC_KMAX, TRUNC_REL, rescale=True)
-        P = sp.csr_matrix((p_data, p_cols, p_indptr), shape=(n, na))
+        if bl > 1:
+            level = _block_level(cur, bl, theta_l, Bns)
+            if level is None:
+                break
+            P, bl, Bns, rho = level
+            rhos.append(rho)
+        else:
+            cur_csr = cur.tocsr()
+            nat_sf = amg_strength_filter_native(
+                cur_csr.indptr, cur_csr.indices, cur_csr.data, theta_l)
+            if nat_sf is None:
+                raise RuntimeError(
+                    "native AMG strength filter unavailable (the port's native/ "
+                    "library not built, or a row without a diagonal entry)")
+            s_indptr, s_cols, af_data, ddf = nat_sf
+            S = sp.csr_matrix((np.ones(len(s_cols)), s_cols, s_indptr),
+                              shape=cur.shape)
+            agg, na = _aggregate(S, n)
+            if na == 0 or na >= n:  # no coarsening progress
+                break
+            # smoothing on the filtered operator Af (A's pattern, weak
+            # entries zeroed and lumped onto the diagonal); the smoother's
+            # damping uses the true operator's spectral radius
+            Af = sp.csr_matrix((af_data, cur_csr.indices, cur_csr.indptr),
+                               shape=cur.shape)
+            rho_f = rho_est(Af, ddf)
+            rhos.append(rho_est(cur_csr, np.asarray(cur.diagonal())))
+            p_indptr, p_cols, p_data = amg_smooth_p_native(
+                cur_csr.indptr, cur_csr.indices, af_data, ddf,
+                4.0 / 3.0 / rho_f, agg, na, TRUNC_KMAX, TRUNC_REL, rescale=True)
+            P = sp.csr_matrix((p_data, p_cols, p_indptr), shape=(n, na))
         nxt = (P.T @ cur @ P).tocsr()
         nxt.sum_duplicates()
         if not np.isfinite(nxt.data).all():
@@ -294,12 +500,13 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
                 f"({int((~np.isfinite(nxt.data)).sum())} bad entries)")
         mats.append(cur)
         Ps.append(P)
+        nullspaces.append(Bns)
         cur = nxt
 
-    if cur.shape[0] > 8 * COARSE_SIZE:
+    if cur.shape[0] > 8 * COARSE_SIZE * bl:
         raise RuntimeError(
             f"AMG coarsening stalled at {cur.shape[0]} dofs (target coarse "
-            f"size {COARSE_SIZE}, {len(mats)} levels); loosen theta")
+            f"size {COARSE_SIZE * bl}, {len(mats)} levels); loosen theta")
 
     out = {k: [] for k in ("mats", "inv_diags", "pcols", "pvals", "ptcols",
                            "ptvals")}
@@ -322,10 +529,21 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
         out["pvals"].append(pv)
         out["ptcols"].append(tc)
         out["ptvals"].append(tv)
-    out["coarse_inv"] = _coarse_inverse(cur.toarray()).astype(dtype)
+    coarse_dense = cur.toarray()
+    if used_rbm:
+        # aggregates that cannot carry every mode leave zero rows and
+        # columns in the coarsest operator: identity rows there, so the
+        # exact inverse exists (their residual is zero, and so stays the
+        # correction)
+        zero_rows = ~np.any(coarse_dense != 0.0, axis=1)
+        if zero_rows.any():
+            idx = np.flatnonzero(zero_rows)
+            coarse_dense[idx, idx] = 1.0
+    out["coarse_inv"] = _coarse_inverse(coarse_dense).astype(dtype)
     out.update(
         omegas=tuple(OMEGA / r for r in rhos),
         rhos=tuple(float(r) for r in rhos),
         smoother=smoother, cheb_deg=cheb_deg, nu=NU, cycle="V",
+        nullspaces=nullspaces, block=block,
     )
     return out

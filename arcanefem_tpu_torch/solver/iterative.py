@@ -47,18 +47,22 @@ class Precond:
 
     @classmethod
     def block_jacobi(cls, A) -> "Precond":
-        """Inverses of the (1, 1) diagonal blocks of the scalar BellMatrix
-        ``A``, as the JAX ``jnp.linalg.inv(A.diag_blocks())`` (no guard:
-        a zero diagonal gives inf)."""
-        return cls("block-jacobi", torch.linalg.inv(A.diagonal()[:, None, None]))
+        """Inverses of the (N, b, b) diagonal blocks of the BellMatrix
+        ``A`` ((N, 1, 1) for a scalar one), as the JAX
+        ``jnp.linalg.inv(A.diag_blocks())`` (no guard: a zero diagonal gives
+        inf)."""
+        return cls("block-jacobi", torch.linalg.inv(A.diag_blocks()))
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         if self.kind == "none":
             return r
         if self.kind == "jacobi":
             return self.inv_diag * r
+        # one broadcast product and one sum over the row: an einsum becomes
+        # a batched gemv that cuBLAS cuts into 65,535-block launches (29 per
+        # apply at 1.9M nodes)
         n, b, _ = self.inv_diag.shape
-        return torch.einsum("nab,nb->na", self.inv_diag, r.reshape(n, b)).reshape(-1)
+        return (self.inv_diag * r.reshape(n, 1, b)).sum(dim=2).reshape(-1)
 
 
 # build_amg's defaults, with which the JAX make_precond builds its AMG
@@ -68,14 +72,16 @@ AMG_CHEB_DEG = 2
 
 
 def make_precond(A, name: str | None, nullspace=None):
-    """The preconditioner ``name`` of the scalar BellMatrix ``A``, as the
-    JAX ``make_precond``: "none", "jacobi", "block-jacobi", "amg" (the
+    """The preconditioner ``name`` of the BellMatrix ``A``, as the JAX
+    ``make_precond``: "none", "jacobi", "block-jacobi", "amg" (the
     smoothed-aggregation set-up of ``solver/amg_setup.py`` at
     ``build_amg``'s defaults, theta 0.08 and the Jacobi smoother, on ``A``'s
     values and stored pattern, moved to ``A``'s device as an
     ``AMGPrecond``; with ``A.plain`` its levels run the plain twin) or
-    "poly" (``solver/poly.py``).  A near-nullspace (the elasticity
-    family's rigid body modes) is not ported yet."""
+    "poly" (``solver/poly.py``).  For a block matrix (``A.block`` b > 1)
+    the AMG aggregates nodes, and ``nullspace`` (n_dofs, m), the
+    elasticity family's rigid body modes, gives its tentative
+    prolongator; a scalar matrix ignores ``nullspace``, as in JAX."""
     if name in (None, "none"):
         return Precond("none")
     if name == "jacobi":
@@ -83,17 +89,13 @@ def make_precond(A, name: str | None, nullspace=None):
     if name == "block-jacobi":
         return Precond.block_jacobi(A)
     if name == "amg":
-        if nullspace is not None:
-            raise NotImplementedError(
-                "AMG with a near-nullspace belongs to the elasticity family, "
-                "which is not ported yet (ROADMAP Queue 1 item 9)")
         from .amg import amg_from_numpy
         from .amg_setup import amg_setup, stored_graph
 
         host = A.ell_values().cpu().numpy()  # in A's dtype, the hierarchy's
         d = amg_setup(host, stored_graph(A.layout), theta=AMG_THETA,
                       smoother=AMG_SMOOTHER, cheb_deg=AMG_CHEB_DEG,
-                      dtype=host.dtype)
+                      dtype=host.dtype, block=A.block, nullspace=nullspace)
         return amg_from_numpy(d, A.values.device, A.values.dtype, plain=A.plain)
     if name == "poly":
         from .poly import build_chebyshev

@@ -2,8 +2,12 @@
 
 The counterpart of ``arcanefem_tpu/solver/linear_system.py`` (the
 reference's ``DoFLinearSystem``, femutils/DoFLinearSystem.h:126-286) for
-the port's scalar ``BellMatrix`` in SELL storage.  The deferred semantics
-are the same:
+the port's ``BellMatrix`` in SELL storage.  A block matrix is stored as
+its scalar expansion on dof rows (``sparse/bell.py``), so every operation
+below works on dofs whatever the block size, and gives what the JAX
+block masks give: an eliminated dof's row and column cleared and its
+diagonal entry 1, a forced dof's diagonal entry set.  The deferred
+semantics are the same:
 
 * ``set_forced_diag(dofs, values)`` == matrixSetValue on the diagonal: it
   overrides any accumulated adds at solve time (the penalty method); it
@@ -72,7 +76,7 @@ def apply_bcs(A: BellMatrix, rhs: torch.Tensor,
     the forced diagonal values.  The rhs of a forced op is the caller's
     (the reference writes rhs = P·g when it applies the condition).  New
     tensors; A and rhs are left as they are."""
-    n = A.n_nodes
+    n = A.n_dofs
     dev = A.values.device
     vals = A.values
     dtype = vals.dtype
@@ -131,8 +135,10 @@ class SolverOptions:
     # twin (BellMatrix(plain=True)) on any device.  The CPU runs the plain
     # twin either way.
     spmv: str = "pallas"
-    # optional (n_dofs, m) near-nullspace for the AMG set-up (elasticity's
-    # rigid body modes): not ported yet
+    # optional (n_dofs, m) near-nullspace handed to the AMG set-up (the
+    # elasticity family's rigid body modes, solver/amg_setup.py::
+    # rigid_body_modes); ignored by the other preconditioners and by
+    # scalar systems
     amg_nullspace: object = None
     # what to do when the iterative solve exhausts max_iter above rtol
     # (the Aleph stop_error_strategy role, AlephDoFLinearSystem.cc:360-362):
@@ -209,8 +215,10 @@ def _float64(A: BellMatrix) -> BellMatrix:
 
 
 def solve_finalized(A: BellMatrix, b: torch.Tensor, options: SolverOptions,
-                    x0: torch.Tensor | None = None):
-    """Dispatch on the back end; returns (x, info).
+                    x0: torch.Tensor | None = None, precond=None):
+    """Dispatch on the back end; returns (x, info).  ``precond``: a
+    preconditioner built earlier (a transient loop's, frozen with its
+    matrix) in place of ``make_precond``'s; its set-up time is then 0.
 
     "dense": x in b's dtype and info {"iterations": 1, "residual": 0.0},
     as in JAX.  The Krylov methods: x (in float64 from "cg", whose ``pcg``
@@ -219,11 +227,13 @@ def solve_finalized(A: BellMatrix, b: torch.Tensor, options: SolverOptions,
     (the monitored residual), ``true_residual`` (||b − A x|| / ||b|| over
     all rows, in float64), ``precond_setup_s`` and ``solve_s`` (host
     clock of the preconditioner's set-up and of the iterations, the card
-    synchronised).  ``use_precise_dot`` is on in float32 only; the
+    synchronised), and with an AMG preconditioner ``amg_rows``, the rows
+    of each level and of the coarse solve.  ``use_precise_dot`` is on in
+    float32 only; the
     failure rule (``fail_action``) is JAX's max-iteration rule, and also
     takes a non-finite residual or x as a failure."""
     if options.spmv == "xla":
-        A = BellMatrix(A.values, A.layout, A.diag_slot, plain=True)
+        A = A.with_values(A.values, plain=True)
     elif options.spmv != "pallas":
         raise ValueError(f"unknown spmv backend '{options.spmv}' "
                          "(pallas: the kernel, xla: its plain twin)")
@@ -241,7 +251,8 @@ def solve_finalized(A: BellMatrix, b: torch.Tensor, options: SolverOptions,
         return time.perf_counter()
 
     t0 = clock()
-    M = make_precond(A, options.preconditioner, nullspace=options.amg_nullspace)
+    M = precond if precond is not None else make_precond(
+        A, options.preconditioner, nullspace=options.amg_nullspace)
     t1 = clock()
     # No operator swap: the JAX package solves f32 AMG systems with the
     # hierarchy's level-0 window-kernel operator in place of A (a TPU
@@ -264,6 +275,8 @@ def solve_finalized(A: BellMatrix, b: torch.Tensor, options: SolverOptions,
                      / (bn if bn > 0 else 1.0))
     info = {"iterations": iters, "residual": res, "true_residual": true_res,
             "precond_setup_s": t1 - t0, "solve_s": t2 - t1}
+    if hasattr(M, "coarse_inv"):  # an AMG hierarchy: the rows of each level
+        info["amg_rows"] = [m.n_nodes for m in M.mats] + [int(M.coarse_inv.shape[0])]
 
     if options.fail_action != "ignore":
         # JAX's rule (max_iter spent above rtol), and a non-finite residual
@@ -290,11 +303,11 @@ def solve_finalized(A: BellMatrix, b: torch.Tensor, options: SolverOptions,
 
 
 def _dump_solve_failure(A, b, x0, options, info) -> str | None:
-    """Write the failed system as an npz artifact (BELL values (N, W, 1, 1)
-    and columns, rhs, guess), as the JAX package does, mirroring Aleph's
-    SolveErrorAlephMatrix.dbg dump, into ``$AFEM_SOLVE_DEBUG_DIR``
-    (default: the working directory).  Best effort: a failed write gives
-    None."""
+    """Write the failed system as an npz artifact (BELL values (N, W, b, b)
+    and node columns (N, W), rhs, guess), as the JAX package does,
+    mirroring Aleph's SolveErrorAlephMatrix.dbg dump, into
+    ``$AFEM_SOLVE_DEBUG_DIR`` (default: the working directory).  Best
+    effort: a failed write gives None."""
     path = os.path.join(os.environ.get("AFEM_SOLVE_DEBUG_DIR", "."),
                         "SolveErrorMatrix.npz")
     payload = {
@@ -305,9 +318,8 @@ def _dump_solve_failure(A, b, x0, options, info) -> str | None:
         "rtol": np.float64(options.rtol),
         "iterations": np.int64(int(info["iterations"])),
         "residual": np.float64(float(info["residual"])),
-        "bell_values": A.ell_values().cpu().numpy()[:, :, None, None],
-        "ell_cols": A.layout.ell_cols,
     }
+    payload["bell_values"], payload["ell_cols"] = A.block_ell()
     try:
         np.savez_compressed(path, **payload)
     except OSError:

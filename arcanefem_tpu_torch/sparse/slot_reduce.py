@@ -22,6 +22,14 @@ On a CUDA tensor :func:`slot_reduce` launches the hand-written kernel of
 below, which sums in the kernel's order and type (float64, in stored
 order, rounded once to the table's type), so the two agree bit for bit on
 the same table.  ``launch_counts()`` counts the kernel launches.
+
+:func:`block_slot_reduce` is the block form for the b×b node blocks of the
+vector systems (b = 2, 3): the contributor lists stay node-level (one per
+node-pair slot, over the element entries ``c·npc² + i·npc + j``), each
+contributor adds its b² table entries ``ids[k]·b² + a·b + c`` in list
+order, and the b² sums of node slot s land in the expanded slots
+``dst[s·b² + a·b + c]`` of a zeroed output.  Its kernel lies beside the
+scalar one, and its plain twin sums in the same order and type.
 """
 
 from __future__ import annotations
@@ -31,11 +39,15 @@ import torch
 from ..utils import kernels
 
 _ENTRY = {torch.float32: "afem_slot_reduce_f32", torch.float64: "afem_slot_reduce_f64"}
-_LAUNCHES = {"slot_reduce": 0}
+_BLOCK_ENTRY = {torch.float32: "afem_block_slot_reduce_f32",
+                torch.float64: "afem_block_slot_reduce_f64"}
+BLOCKS = (2, 3)  # the block sizes the block kernel is built for
+_LAUNCHES = {"slot_reduce": 0, "block_slot_reduce": 0}
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES["slot_reduce"] = 0
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -114,4 +126,63 @@ def slot_reduce(ptr: torch.Tensor, ids: torch.Tensor,
         kernels.launch(entry, table.device, ptr.data_ptr(), ids.data_ptr(),
                        table.data_ptr(), out.data_ptr(), n)
         _LAUNCHES["slot_reduce"] += 1
+    return out
+
+
+def block_slot_reduce_plain(ptr: torch.Tensor, ids: torch.Tensor, table: torch.Tensor,
+                            dst: torch.Tensor, n_out: int, b: int) -> torch.Tensor:
+    """Plain twin of :func:`block_slot_reduce`: one masked gather-add of
+    (n, b²) rows in float64 per contributor position k, then one scatter
+    into the expanded slots."""
+    n = ptr.numel() - 1
+    bb = b * b
+    p = ptr.long()
+    start, count = p[:-1], p[1:] - p[:-1]
+    rows = table.view(-1, bb)
+    acc = torch.zeros((n, bb), dtype=torch.float64, device=table.device)
+    for k in range(int(count.max()) if n else 0):
+        live = count > k
+        g = rows[ids[torch.where(live, start + k, 0)].long()].double()
+        acc += torch.where(live[:, None], g, 0.0)
+    out = torch.zeros(n_out, dtype=table.dtype, device=table.device)
+    out[dst.long().view(-1)] = acc.view(-1).to(table.dtype)
+    return out
+
+
+def block_slot_reduce(ptr: torch.Tensor, ids: torch.Tensor, table: torch.Tensor,
+                      dst: torch.Tensor, n_out: int, b: int) -> torch.Tensor:
+    """out[dst[s·b² + e]] = sum_{k in [ptr[s], ptr[s+1])} table[ids[k]·b² + e]
+    for e < b², summed in float64 in stored order, into a new zeroed
+    (n_out,) tensor of the table's type; ``dst`` (n·b²,) int32 holds
+    distinct slots in [0, n_out)."""
+    entry = _BLOCK_ENTRY.get(table.dtype)
+    if entry is None:
+        raise TypeError(f"block_slot_reduce: table must be float32 or float64, got "
+                        f"{table.dtype}")
+    if b not in BLOCKS:
+        raise ValueError(f"block_slot_reduce: block size {b} not in {BLOCKS}")
+    if ptr.dtype != torch.int32 or ids.dtype != torch.int32 or dst.dtype != torch.int32:
+        raise TypeError("block_slot_reduce: ptr, ids and dst must be int32")
+    if (ptr.dim() != 1 or ids.dim() != 1 or table.dim() != 1 or dst.dim() != 1
+            or ptr.numel() < 1):
+        raise ValueError("block_slot_reduce: ptr, ids, table and dst must be 1-D, "
+                         "ptr non-empty")
+    n = ptr.numel() - 1
+    if dst.numel() != n * b * b or table.numel() % (b * b):
+        raise ValueError(f"block_slot_reduce: dst of {dst.numel()} slots for {n} "
+                         f"node slots of {b}x{b}, table of {table.numel()} entries")
+    dev = table.get_device()
+    if ptr.get_device() != dev or ids.get_device() != dev or dst.get_device() != dev:
+        raise ValueError("block_slot_reduce: operands lie on different devices")
+    if not table.is_cuda:
+        if table.device.type != "cpu":
+            raise ValueError(f"block_slot_reduce: no kernel for device {table.device}")
+        return block_slot_reduce_plain(ptr, ids, table, dst, n_out, b)
+    if not all(t.is_contiguous() for t in (ptr, ids, table, dst)):
+        raise ValueError("block_slot_reduce: the CUDA kernel takes contiguous operands")
+    out = torch.zeros(n_out, dtype=table.dtype, device=table.device)
+    if n:
+        kernels.launch(entry, table.device, ptr.data_ptr(), ids.data_ptr(),
+                       table.data_ptr(), dst.data_ptr(), out.data_ptr(), n, b)
+        _LAUNCHES["block_slot_reduce"] += 1
     return out

@@ -117,9 +117,11 @@ def write_arc(path: str, mesh_file: str, *, codename: str = "Laplace",
               linear_system: dict | None = None,
               result_file: str | None = None, values: dict | None = None,
               materials=(), manufactured: dict | None = None, farfield=(),
-              dirichlet_bc=(), post_processing=()) -> None:
-    """A reference case file for the scalar modules (Poisson, Laplace,
-    Fourier, Electrostatics, Acoustics, Aerodynamics).
+              dirichlet_bc=(), post_processing=(), dirichlet_vector=(),
+              dirichlet_point=(), traction=(), component_tags: bool = False) -> None:
+    """A reference case file: the scalar modules (Poisson, Laplace,
+    Fourier, Electrostatics, Acoustics, Aerodynamics) and the vector ones
+    (Bilaplacian, Elasticity, Elastodynamics).
 
     ``dirichlet``: (surface, value[, method]) tuples; ``neumann``: (surface,
     value) tuples, both in ``<boundary-conditions>``; ``linear_system``:
@@ -135,7 +137,20 @@ def write_arc(path: str, mesh_file: str, *, codename: str = "Laplace",
     (surface, angle) pairs as ``<farfield-boundary-condition>``;
     ``dirichlet_bc``, (surface, value) pairs as aerodynamics'
     ``<dirichlet-boundary-condition>``; ``post_processing``, the variable
-    names of an ``<arcane-post-processing>`` block."""
+    names of an ``<arcane-post-processing>`` block.
+
+    The vector modules' fields: ``f`` as a tuple (elasticity's body force,
+    None written as NULL); ``values`` also takes text (``E``, ``nu``,
+    ``rho``, ``tmax``, ``dt``, ``etam``, ``etak``, ``alpm``, ``alpf``,
+    ``time-discretization``, ``enforce-Dirichlet-method``, ...);
+    ``dirichlet_vector``, (surface, components) pairs as
+    ``<dirichlet-boundary-condition>``; ``dirichlet_point``, (node group,
+    components) pairs as ``<dirichlet-point-condition>``; ``traction``,
+    (surface, components) or (surface, None, input file) as
+    ``<traction-boundary-condition>``, the file as
+    ``<traction-input-file>``.  Components are written as elasticity reads
+    them (``<u>0.0 NULL</u>``, ``<t>..</t>``), or with ``component_tags``
+    as elastodynamics reads them (``<u1>0.0</u1>``, a None left out)."""
     bcs = []
     for d in dirichlet:
         surface, value = d[0], d[1]
@@ -154,10 +169,30 @@ def write_arc(path: str, mesh_file: str, *, codename: str = "Laplace",
                       "</enforce-Dirichlet-method>")
         inner += "".join(f"<{k}>{v!r}</{k}>" for k, v in ms.items())
         bcs.append(f"      <manufactured-solution>{inner}</manufactured-solution>\n")
+    def comps(tag, vals):
+        if component_tags:
+            return "".join(f"<{tag}{i}>{v!r}</{tag}{i}>" for i, v in enumerate(vals, 1)
+                           if v is not None)
+        return f"<{tag}>" + " ".join("NULL" if v is None else repr(v) for v in vals) + f"</{tag}>"
+
     fem = []
-    if f is not None:
+    if isinstance(f, tuple):
+        fem.append("    <f>" + " ".join("NULL" if v is None else repr(v) for v in f)
+                   + "</f>\n")
+    elif f is not None:
         fem.append(f"    <f>{f!r}</f>\n")
-    fem += [f"    <{k}>{v!r}</{k}>\n" for k, v in (values or {}).items()]
+    fem += [f"    <{k}>{v if isinstance(v, str) else repr(v)}</{k}>\n"
+            for k, v in (values or {}).items()]
+    fem += [f"    <dirichlet-boundary-condition><surface>{s}</surface>{comps('u', v)}"
+            "</dirichlet-boundary-condition>\n" for s, v in dirichlet_vector]
+    fem += [f"    <dirichlet-point-condition><node>{s}</node>{comps('u', v)}"
+            "</dirichlet-point-condition>\n" for s, v in dirichlet_point]
+    for tr in traction:
+        s, v = tr[0], tr[1]
+        inner = (f"<traction-input-file>{tr[2]}</traction-input-file>" if len(tr) > 2
+                 else comps("t", v))
+        fem.append(f"    <traction-boundary-condition><surface>{s}</surface>{inner}"
+                   "</traction-boundary-condition>\n")
     fem += [f"    <material-property><volume>{vol}</volume><lambda>{lam!r}</lambda>"
             "</material-property>\n" for vol, lam in materials]
     fem += [f"    <farfield-boundary-condition><surface>{s}</surface><angle>{a!r}"

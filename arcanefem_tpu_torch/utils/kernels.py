@@ -59,6 +59,8 @@ _BAND_GATHER = [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I64, _I64, _I64, _I64,
 # lo, c0, scnt, lcols, vals, x, y, n, W, qn, stream
 _DIAG_SPMV = [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P]
 _SLOT_REDUCE = [_P, _P, _P, _P, _I64, _P]  # ptr, ids, table, out, n_slots, stream
+# ptr, ids, table, dst, out, n_node_slots, b, stream
+_BLOCK_SLOT_REDUCE = [_P, _P, _P, _P, _P, _I64, _I, _P]
 _BSR8_SPMV = [_P, _P, _P, _P, _P, _I64, _I64, _P]  # blocks, bcol, bptr, x, y, n, n_sup, stream
 # (name, argtypes) of every C entry point in csrc/; all return an int
 # cudaError_t from cudaGetLastError() after the launch
@@ -89,6 +91,8 @@ _SIGNATURES = {
     "afem_tet_element_f32": [_P, _P, _P, _P, _I64, _P, _I64, _P],
     "afem_slot_reduce_f32": _SLOT_REDUCE,
     "afem_slot_reduce_f64": _SLOT_REDUCE,
+    "afem_block_slot_reduce_f32": _BLOCK_SLOT_REDUCE,
+    "afem_block_slot_reduce_f64": _BLOCK_SLOT_REDUCE,
     "afem_bsr8_spmv_f32": _BSR8_SPMV,
     "afem_bsr8_spmv_f64": _BSR8_SPMV,
     "afem_bsr8_spmv_bf16_f32": _BSR8_SPMV,

@@ -98,10 +98,37 @@ g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    share); (d) Fourier on a 1414^2 quad4 rect (two λ regions, the
    manufactured solution), its error against the exact field held to the
    CPU's at 64^2 (the one-point quad4 element's own); (e) Fourier on the
-   quadratized h=5 refine=1 sphere (tetra10), AMG-CG in float32, with
-   ``slot_reduce`` at its shapes held to its twin within 4 ulps and timed
-   (a ``kernels`` record); (f) acoustics (unpreconditioned BiCGStab, the
-   model's forcing) in float64 on phase 4's sphere;
+   quadratized h=5 sphere (tetra10; refine=1 until PR 12, cut in depth to
+   refine=0 in PR 13 to make room for ``[blocks]``), AMG-CG in float32,
+   with ``slot_reduce`` at its shapes held to its twin within 4 ulps and
+   timed (a ``kernels`` record); (f) acoustics (unpreconditioned BiCGStab,
+   the model's forcing) in float64 on the h=5 refine=1 sphere (phase 4's
+   until PR 12);
+``[blocks]`` (run after ``[models]``, on phase 4's mesh): the Bilaplacian,
+   Elasticity and Elastodynamics models (block BELL, the scalar expansion
+   of b×b blocks assembled by ``block_slot_reduce``).  B1: 14 cases written
+   into ``build/block_cases/`` (a tria3 rect with a point group, a tetra4
+   box, a tria3 square; every Dirichlet method, body force and traction;
+   the Aleph default (Jacobi-CG, bicgstab under RowElimination), gmres with
+   AMG, Hypre (AMG with the rigid body modes) and dense routes; Newmark-β
+   and Generalized-α, Rayleigh damping, a CaseTable traction; and, in
+   process only, block-Jacobi and the consistent initial acceleration),
+   each on the CPU (float64, the golden file), in-process on the card and
+   through the CLI: the card's fields within 1e-12 of the CPU's largest
+   (1e-10 for the dense bilaplacian, cuSOLVER's LU against LAPACK's, and
+   for BiCGStab on the RowElimination system, whose count round-off sets
+   and which is held to 10%), iterations ± 1 otherwise, one
+   ``block_slot_reduce`` per assembled operator.  B2: (a) elasticity on phase 4's sphere (5,678,067
+   DoF, f32, body force, Penalty u = 0 on Cut, block-Jacobi-CG to 1e-7,
+   ``fail_action="raise"``): iterations, ms/iter, the true free-row
+   residual, phases, peak memory; ``block_slot_reduce`` at its shapes (0
+   ulps from its twin, bit-equal from run to run, beside ``index_add_``)
+   and K1 on its operator (beside CSR ``torch.mv``) as ``kernels``
+   records; one profiled solve (busy share); (b) elasticity with AMG and
+   the rigid body modes on the h=5 refine=1 sphere (732,549 DoF): set-up
+   seconds and level sizes; (c) elastodynamics there, 10 Newmark steps
+   with a CaseTable traction on the sphere, Jacobi-CG; (d) the dense
+   bilaplacian on a 100x100 rect (20,402 DoF);
 j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
    then ``--spmv diag`` (K10) on the same system, ``[diag]`` lines; K10
    held to its twin and timed there and on the 80^3 RCM box, beside K1 and
@@ -397,6 +424,7 @@ def main() -> int:
     fem_phase(dev, mesh, res)
     del res
     records += models_phase(dev, mesh)
+    records += blocks_phase(dev, mesh)
     del mesh, topo
     torch.cuda.empty_cache()
     records += diag_phase(dev, gen)
@@ -1393,7 +1421,8 @@ SPHERE_GROUPS = {
     "K1 sell_spmv": "sell_spmv_kernel<float, float>",
     "K1 sell_spmv, bf16 weights": "sell_spmv_kernel<__nv_bfloat16",
     "K2 ell_gather_sum": "ell_gather_kernel", "K9a band_gather": "band_gather_kernel",
-    "tet_element": "tet_element_kernel", "slot_reduce": "slot_reduce_kernel",
+    "tet_element": "tet_element_kernel", "block_slot_reduce": "block_slot_reduce_kernel",
+    "slot_reduce": "slot_reduce_kernel",
     "K10 diag_spmv": "diag_spmv_kernel", "cat/stack copies": "CatArrayBatchedCopy",
     "bsr8_spmv": "bsr8_spmv_kernel", "reductions": "reduce_kernel"}
 
@@ -1816,11 +1845,12 @@ MODEL_SOLVERS = {
 }
 # the M1 case whose CLI run also writes the post-processing file
 MODEL_OUTPUT_CASE = "es_rect_hypre"
-# M2: acoustics runs on phase 4's sphere (h=5 refined twice, 1.9M nodes), with
+# M2: acoustics runs on the h=5 sphere refined ACOUSTICS_REFINE times, with
 # unpreconditioned BiCGStab (the model's forcing) allowed this many iterations
+ACOUSTICS_REFINE = 1
 ACOUSTICS_MAX_ITER = 20000
 FOURIER_QUAD_N = 1414  # M2: 1414^2 quad4 cells, 2,002,225 nodes
-P2_SPHERE_REFINE = 1  # M2: the h=5 sphere refined once, then quadratized
+P2_SPHERE_REFINE = 0  # M2: the h=5 sphere, quadratized
 
 
 def _model_cases(root: str) -> list[dict]:
@@ -2204,12 +2234,13 @@ def models_full_width_phase(dev, mesh) -> list[dict]:
         kc2=1e-4, bcs=BoundaryConditions(neumann=[NeumannBC("sphere", 1.0)]),
         solver=SolverOptions(method="bicgstab", rtol=1e-8, max_iter=ACOUSTICS_MAX_ITER,
                              fail_action="raise"))
+    amesh = sphere_cut_system(5.0, ACOUSTICS_REFINE)[0]
     r, counts, peak, wall, timer = _run_model("acoustics bicgstab float64", acoustics.solve,
-                                              mesh, cfg, dtype=torch.float64, device=dev)
+                                              amesh, cfg, dtype=torch.float64, device=dev)
     _model_line("acoustics bicgstab float64", r, counts, peak, wall, timer,
-                n_nodes=mesh.n_nodes, kc2=1e-4, max_iter=ACOUSTICS_MAX_ITER)
-    _check_model("acoustics bicgstab float64", r, counts, 1e-8, mesh.n_nodes)
-    del r
+                n_nodes=amesh.n_nodes, kc2=1e-4, max_iter=ACOUSTICS_MAX_ITER)
+    _check_model("acoustics bicgstab float64", r, counts, 1e-8, amesh.n_nodes)
+    del r, amesh
     torch.cuda.empty_cache()
     return [rec]
 
@@ -2262,6 +2293,464 @@ def models_phase(dev, mesh) -> list[dict]:
     t1 = time.perf_counter()
     recs = models_full_width_phase(dev, mesh)
     print(f"[models] wall time: M1 {t1 - t0:.1f} s, M2 {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# [blocks]: the Bilaplacian, Elasticity and Elastodynamics models (block BELL)
+
+BLOCK_RECT, BLOCK_BOX = (48, 24), (12, 6, 6)  # B1 meshes (tria3 rect, tetra4 box)
+BLOCK_DENSE_N = 100  # B2 (d): a 100x100 tria3 rect, 20,402 dofs
+BLOCK_MAX_ITER = 40000  # B2 (a): block-Jacobi-CG's iteration cap at 5.68M dofs
+# B2 (c): elastodynamics steps on the h=5 refine=1 sphere
+BLOCK_ED_STEPS, BLOCK_ED_DT = 10, 0.01
+BLOCK_HYPRE = {"name": "HypreLinearSystem", "rtol": "1e-11"}
+# B1's dense bilaplacian and round-off-count BiCGStab case: the card's
+# fields against the CPU's (LU rounding; different stopping iterates)
+BLOCK_DENSE_TOL = 1e-10
+BLOCK_GMRES_AMG = {"name": "AlephLinearSystem", "solver-method": "gmres",
+                   "preconditioner": "amg", "epsilon": "1e-11"}
+# the traction series of B1's and B2 (c)'s CaseTable cases: time, t1, t2, t3
+BLOCK_TABLE = [[0.0, 0.0, 0.0, 0.0], [0.02, 0.0, -1.0, 0.2], [0.05, 0.5, -0.5, 0.0],
+               [1.0, 0.0, 0.0, 0.0]]
+
+
+def _block_cases(root: str) -> list[dict]:
+    """B1's meshes, traction table and case files (no result file yet):
+    name, path (None for the in-process cases), codename, fields, and the
+    in-process solve of the cases no .arc field selects."""
+    import numpy as np
+
+    from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh, rect_tria_mesh
+    from arcanefem_tpu_torch.tools.write_msh import write_arc, write_msh
+
+    inputs = os.path.join(root, "inputs")
+    os.makedirs(inputs, exist_ok=True)
+    rect = rect_tria_mesh(*BLOCK_RECT, lx=4.0, ly=2.0)
+    rect.node_groups["corner"] = np.array(
+        [int(np.argmax(rect.coords[:, 0] + rect.coords[:, 1]))])
+    write_msh(os.path.join(inputs, "rect.msh"), rect)
+    write_msh(os.path.join(inputs, "box.msh"), box_tetra_mesh(*BLOCK_BOX, lx=2.0))
+    write_msh(os.path.join(inputs, "square.msh"), rect_tria_mesh(40, 40))
+    np.savetxt(os.path.join(root, "traction.txt"), np.array(BLOCK_TABLE))
+    el2 = dict(f=(None, -1.0), dirichlet_vector=[("left", (0.0, 0.0))],
+               dirichlet_point=[("corner", (None, -0.01))], traction=[("right", (0.5, None))])
+    el3 = dict(f=(0.0, 0.0, -1.0), dirichlet_vector=[("xmin", (0.0, 0.0, 0.0))],
+               traction=[("xmax", (None, 0.25, None))])
+    mat = {"E": 21.0, "nu": 0.28}
+    ed = {"E": 100.0, "nu": 0.25, "rho": 1.0, "tmax": 0.1, "dt": 0.01}
+    rc = "RowColumnElimination"
+    specs = [  # name, mesh, codename, write_arc fields
+        ("bl_square_dense", "square.msh", "Bilaplacian",
+         dict(f=-1.0, dirichlet_bc=[("left", 0.0), ("right", 0.0), ("top", 0.0)],
+              linear_system={"name": "SequentialBasicLinearSystem"})),
+        ("el_tria_penalty", "rect.msh", "Elasticity", dict(el2, values=mat)),
+        ("el_tria_weak", "rect.msh", "Elasticity",
+         dict(el2, values={**mat, "enforce-Dirichlet-method": "WeakPenalty"})),
+        ("el_tria_rowelim", "rect.msh", "Elasticity",
+         dict(el2, values={**mat, "enforce-Dirichlet-method": "RowElimination"})),
+        ("el_tria_rowcol_hypre", "rect.msh", "Elasticity",
+         dict(el2, values={**mat, "enforce-Dirichlet-method": rc}, linear_system=BLOCK_HYPRE)),
+        ("el_tetra_hypre", "box.msh", "Elasticity",
+         dict(el3, values=mat, linear_system=BLOCK_HYPRE)),
+        ("el_tetra_rowcol", "box.msh", "Elasticity",
+         dict(el3, values={**mat, "enforce-Dirichlet-method": rc})),
+        ("el_tetra_gmres_amg", "box.msh", "Elasticity",
+         dict(el3, values=mat, linear_system=BLOCK_GMRES_AMG)),
+        ("ed_rect_newmark_table", "rect.msh", "Elastodynamics",
+         dict(values={**ed, "time-discretization": "Newmark-beta"},
+              dirichlet_vector=[("left", (0.0, 0.0))],
+              traction=[("right", None, "traction.txt")])),
+        ("ed_rect_genalpha_rayleigh", "rect.msh", "Elastodynamics",
+         dict(values={**ed, "time-discretization": "Generalized-alpha", "alpm": 0.2,
+                      "alpf": 0.4, "etam": 0.01, "etak": 0.001,
+                      "enforce-Dirichlet-method": rc},
+              dirichlet_vector=[("left", (0.0, 0.0))], traction=[("right", (0.0, -0.5))])),
+        ("ed_box_newmark_hypre", "box.msh", "Elastodynamics",
+         dict(values={**ed, "f1": 0.0, "f2": -1.0, "etak": 0.002},
+              dirichlet_vector=[("xmin", (0.0, 0.0, 0.0))],
+              traction=[("xmax", None, "traction.txt")], linear_system=BLOCK_HYPRE)),
+        ("ed_box_genalpha_table", "box.msh", "Elastodynamics",
+         dict(values={**ed, "time-discretization": "Generalized-alpha", "alpm": 0.1,
+                      "alpf": 0.3, "etam": 0.02},
+              dirichlet_vector=[("xmin", (0.0, 0.0, 0.0))],
+              traction=[("xmax", None, "traction.txt")])),
+    ]
+    cases = []
+    for name, mesh, codename, kw in specs:
+        path = os.path.join(inputs, f"{name}.arc")
+        write_arc(path, mesh, codename=codename,
+                  component_tags=codename == "Elastodynamics", **kw)
+        fields = {"Bilaplacian": ("u1", "u2"), "Elastodynamics": ("u", "v", "a")}.get(
+            codename, ("u",))
+        cases.append({"name": name, "path": path, "codename": codename, "fields": fields,
+                      "roundoff_count": "rowelim" in name})
+    # the two routes no .arc field selects, in-process on the same files
+    cases.append({"name": "el_tetra_block_jacobi", "path": None, "codename": "Elasticity",
+                  "fields": ("u",), "roundoff_count": False,
+                  "solve": _block_jacobi_solve(os.path.join(inputs, "el_tetra_rowcol.arc"))})
+    cases.append({"name": "ed_rect_consistent", "path": None, "codename": "Elastodynamics",
+                  "fields": ("u", "v", "a"), "roundoff_count": False,
+                  "solve": _consistent_solve(os.path.join(inputs, "ed_rect_newmark_table.arc"))})
+    return cases
+
+
+def _block_jacobi_solve(path: str):
+    """A solve(device) of elasticity with the block-Jacobi preconditioner
+    (3x3 inverse diagonal blocks) on the case ``path``."""
+    def solve(device):
+        import dataclasses
+
+        from arcanefem_tpu_torch.fem.arc import load_case, parse_bcs_vector, parse_null_vector
+        from arcanefem_tpu_torch.mesh.core import read_msh
+        from arcanefem_tpu_torch.models import elasticity
+
+        case = load_case(path)
+        cfg = elasticity.ElasticityConfig(
+            E=21.0, nu=0.28, f=parse_null_vector(case.fem.findtext("f")),
+            bcs=parse_bcs_vector(case.fem),
+            solver=dataclasses.replace(case.solver, preconditioner="block-jacobi"))
+        return elasticity.solve(read_msh(case.mesh_file), cfg, device=device)
+    return solve
+
+
+def _consistent_solve(path: str):
+    """A solve(device) of elastodynamics with the consistent initial
+    acceleration on the case ``path``."""
+    def solve(device):
+        from arcanefem_tpu_torch.fem.arc import load_case
+        from arcanefem_tpu_torch.mesh.core import read_msh
+        from arcanefem_tpu_torch.models import elastodynamics
+
+        case = load_case(path)
+        cfg = elastodynamics.parse_config(case, case.base_dir)
+        cfg.initial_acceleration = "consistent"
+        cfg.f = (0.0, -1.0)
+        cfg.result_file = None  # the golden file is the Newmark case's
+        return elastodynamics.solve(read_msh(case.mesh_file), cfg, device=device)
+    return solve
+
+
+def blocks_cli_phase(dev) -> None:
+    """[blocks] B1: each case on the CPU (float64; its u, u1 or final u
+    becomes the case's golden file where the model checks one), in-process
+    on the card, and through the CLI in a subprocess (the .arc cases): the
+    card's fields within 1e-12 of the CPU's largest, iterations equal (5%
+    for BiCGStab, whose counts round-off sets), one block_slot_reduce
+    launch per assembled operator, sell_spmv."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.fem.runner import run_case
+
+    cases = _block_cases(os.path.join("build", "block_cases"))
+
+    def run(c, device):
+        return c["solve"](device) if c["path"] is None else run_case(c["path"], device=device)
+
+    for c in cases:
+        t0 = time.perf_counter()
+        cpu = run(c, "cpu")
+        c["cpu_s"] = time.perf_counter() - t0
+        c["cpu"] = {f: getattr(cpu, f) for f in c["fields"]}
+        c["cpu_iters"] = getattr(cpu, "iterations", None)
+        c["n_nodes"] = cpu.problem.mesh.n_nodes
+        if c["path"] is not None and c["codename"] != "Bilaplacian":
+            golden = os.path.abspath(c["path"][:-4] + ".golden.txt")
+            u = c["cpu"]["u"]
+            np.savetxt(golden, np.column_stack([cpu.problem.mesh.node_uids, u]),
+                       fmt=["%d"] + ["%.17g"] * u.shape[1])
+            with open(c["path"]) as f:
+                text = f.read().replace(
+                    "</fem>", f"  <result-file>{golden}</result-file>\n  </fem>")
+            with open(c["path"], "w") as f:
+                f.write(text)
+    with ThreadPoolExecutor(FEM_CLI_WORKERS) as pool:
+        clis = [pool.submit(_fem_cli, c["path"]) if c["path"] else None for c in cases]
+        for c in cases:
+            _reset_all()
+            t0 = time.perf_counter()
+            card = run(c, dev)  # checks the golden file too
+            c["card_s"] = time.perf_counter() - t0
+            c["launches"] = {k: v for k, v in _counts_all().items() if v}
+            c["card"] = {f: getattr(card, f) for f in c["fields"]}
+            c["card_iters"] = getattr(card, "iterations", None)
+        for c, fut in zip(cases, clis):
+            c["cli"] = fut.result() if fut else None
+    failed = []
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+
+    for c in cases:
+        scale = max(float(np.abs(v).max()) for v in c["cpu"].values())
+        diff = max(float(np.abs(c["card"][f] - c["cpu"][f]).max()) for f in c["fields"]) / scale
+        cli = c["cli"]
+        line = {"case": c["name"], "codename": c["codename"], "n_nodes": c["n_nodes"],
+                "iterations": {"cpu": c["cpu_iters"], "card": c["card_iters"],
+                               "cli": cli and cli["info"] and cli["info"].get("iterations")},
+                "card_vs_cpu": diff, "cpu_s": c["cpu_s"], "card_s": c["card_s"],
+                "cli_s": cli and cli["s"], "cli_code": cli and cli["code"],
+                "launches": c["launches"]}
+        print(f"[blocks] B1 {json.dumps(line)}", flush=True)
+        if cli is not None:
+            check(cli["code"] == 0 and cli["info"] is not None,
+                  f"{c['name']}: the CLI exited {cli['code']}: {cli['stderr']}")
+        # a dense solve is LU's, cuSOLVER's on the card and LAPACK's on the
+        # CPU, which pivot and round differently; BiCGStab's round-off-set
+        # count stops the two runs at different iterates
+        tol = (BLOCK_DENSE_TOL if c["codename"] == "Bilaplacian" or c["roundoff_count"]
+               else 1e-12)
+        check(diff <= tol, f"{c['name']}: card fields {diff:.3e} of the CPU's largest "
+              f"from the CPU's (tolerance {tol:g})")
+        its = [c["cpu_iters"], c["card_iters"]]
+        if cli is not None and cli["info"] is not None:
+            its.append(cli["info"]["iterations"])
+        # BiCGStab on the nonsymmetric RowElimination system: its count is
+        # set by round-off (ROADMAP Queue 3), held to 10%; the others move
+        # by one between runs on the card
+        tol = max(1, c["cpu_iters"] // 10) if c["roundoff_count"] else 1
+        check(max(its) - min(its) <= tol, f"{c['name']}: iterations {its}")
+        n_ops = 3 if c["codename"] == "Elastodynamics" else 1
+        check(c["launches"].get("block_slot_reduce") == n_ops
+              and not c["launches"].get("slot_reduce")
+              and (c["codename"] == "Bilaplacian" or c["launches"].get("sell_spmv", 0) > 0),
+              f"{c['name']}: launches {c['launches']}")
+    _check(not failed, "[blocks] B1: " + "; ".join(failed))
+    del cases
+    torch.cuda.empty_cache()
+
+
+def _block_line(tag: str, r, counts: dict, peak: float, wall: float, timer, **extra) -> dict:
+    """One B2 line: iterations, residuals, set-up and solve seconds,
+    ms/iter, launches, peak memory, phases."""
+    info = getattr(r, "info", {}) or {}
+    iters = r.iterations
+    line = {"run": tag, "n_nodes": int(r.problem.mesh.n_nodes), "n_dofs": int(r.problem.n_dofs),
+            "iterations": iters, "residual": getattr(r, "residual", None),
+            "true_residual": info.get("true_residual"),
+            "free_residual": info.get("free_residual"),
+            "precond_setup_s": info.get("precond_setup_s"), "solve_s": info.get("solve_s"),
+            "ms_per_iter": (info["solve_s"] / max(iters, 1) * 1e3) if "solve_s" in info
+            else None,
+            "launches": {k: counts.get(k, 0) for k in ("sell_spmv", "block_slot_reduce",
+                                                       "slot_reduce")},
+            "peak_mem_gb": peak / 1e9, "wall_s": wall, "phases_s": timer.stats, **extra}
+    print(f"[blocks] B2 {json.dumps(line)}", flush=True)
+    return line
+
+
+def blocks_full_width_phase(dev, mesh) -> list[dict]:
+    """[blocks] B2: (a) elasticity on phase 4's sphere (block-Jacobi-CG,
+    float32), with the block slot_reduce and K1 records at its shapes and a
+    profiled solve; (b) elasticity with AMG and the rigid body modes and
+    (c) elastodynamics on the h=5 refine=1 sphere; (d) the dense
+    bilaplacian on a 100x100 rect."""
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.bench_unstructured import sphere_cut_system
+    from arcanefem_tpu_torch.fem.bcs import BoundaryConditions, DirichletBC
+    from arcanefem_tpu_torch.fem.casetable import CaseTable
+    from arcanefem_tpu_torch.mesh.generate import rect_tria_mesh
+    from arcanefem_tpu_torch.models import bilaplacian, elastodynamics, elasticity
+    from arcanefem_tpu_torch.solver.linear_system import SolverOptions, solve_finalized
+
+    fixed = BoundaryConditions(dirichlet=[DirichletBC("Cut", values=(0.0, 0.0, 0.0))])
+    # (a) elasticity at 5.68M dofs, block-Jacobi-CG, float32
+    cfg = elasticity.ElasticityConfig(
+        E=1.0, nu=0.3, f=(0.0, 0.0, -1.0), bcs=fixed,
+        solver=SolverOptions(method="cg", preconditioner="block-jacobi", rtol=1e-7,
+                             max_iter=BLOCK_MAX_ITER, fail_action="raise"))
+    r, counts, peak, wall, timer = _run_model("elasticity", elasticity.solve, mesh, cfg,
+                                              dtype=torch.float32, device=dev)
+    line = _block_line("elasticity block-jacobi float32", r, counts, peak, wall, timer,
+                       max_iter=BLOCK_MAX_ITER)
+    n = mesh.n_nodes
+    # the true free-row limit of PERF.md §2 (float32)
+    _check(r.residual <= 1e-7 and r.info["free_residual"] <= 1e-4,
+           f"[blocks] B2 (a): residual {r.residual:.3e}, free-row {r.info['free_residual']:.3e}")
+    _check(r.u.shape == (n, 3) and bool(np.isfinite(r.u).all()), "[blocks] B2 (a): u")
+    _check(counts["block_slot_reduce"] == 1 and counts["slot_reduce"] == 0
+           and counts["sell_spmv"] >= r.iterations, f"[blocks] B2 (a): launches {counts}")
+    prob = r.problem
+    records = _block_records(prob, counts, cfg)
+    # one profiled solve of the finalized system (its true residual included)
+    system = prob.new_system(prob.assemble_matrix(
+        lambda ct, xyz: elasticity.element_blocks(ct, xyz, *elasticity.lame(cfg.E, cfg.nu))),
+        cfg.solver)
+    system.rhs = prob.vector_source_rhs(system.rhs, cfg.f)
+    prob.apply_dirichlet_vector(system, mesh.group_nodes("Cut"), (0.0, 0.0, 0.0),
+                                "Penalty", 1e12)
+    A, b = system.finalized()
+    x0 = system.initial_guess()
+    del system
+    _profile(lambda: solve_finalized(A, b, cfg.solver, x0),
+             os.path.join("build", "profile", "elasticity.txt"), line["solve_s"],
+             groups=SPHERE_GROUPS)
+    del A, b, x0, prob, r
+    torch.cuda.empty_cache()
+    # (b) and (c) on the h=5 refine=1 sphere
+    t0 = time.perf_counter()
+    smesh = sphere_cut_system(5.0, 1)[0]
+    host_s = time.perf_counter() - t0
+    cfg = elasticity.ElasticityConfig(
+        E=1.0, nu=0.3, f=(0.0, 0.0, -1.0), bcs=fixed,
+        solver=SolverOptions(method="cg", preconditioner="amg", rtol=1e-7,
+                             fail_action="raise"))
+    r, counts, peak, wall, timer = _run_model("elasticity amg", elasticity.solve, smesh, cfg,
+                                              dtype=torch.float32, device=dev)
+    _block_line("elasticity amg+rbm float32", r, counts, peak, wall, timer,
+                mesh_host_s=host_s, amg_setup_s=r.info["precond_setup_s"],
+                amg_rows=r.info["amg_rows"])
+    _check(r.residual <= 1e-7 and bool(np.isfinite(r.u).all()), "[blocks] B2 (b): residual")
+    del r
+    table = CaseTable(np.array(BLOCK_TABLE)[:, 0], np.array(BLOCK_TABLE)[:, 1:])
+    ecfg = elastodynamics.ElastodynamicsConfig(
+        tmax=BLOCK_ED_STEPS * BLOCK_ED_DT, dt=BLOCK_ED_DT, rho=1.0, E=100.0, nu=0.3,
+        bcs=fixed, tractions=[elastodynamics.TractionTBC("sphere", table=table)],
+        solver=SolverOptions(method="cg", preconditioner="jacobi", rtol=1e-7,
+                             max_iter=BLOCK_MAX_ITER, fail_action="raise"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    from arcanefem_tpu_torch.fem.timer import PhaseTimer
+
+    timer = PhaseTimer(verbose=False)
+    _reset_all()
+    t0 = time.perf_counter()
+    r = elastodynamics.solve(smesh, ecfg, dtype=torch.float32, timer=timer, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts_all()
+    eline = {"run": "elastodynamics newmark jacobi float32", "n_nodes": int(smesh.n_nodes),
+             "n_dofs": int(r.problem.n_dofs), "steps": r.steps, "iterations": r.iterations,
+             "launches": {k: counts.get(k, 0) for k in ("sell_spmv", "block_slot_reduce")},
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "wall_s": wall,
+             "phases_s": timer.stats,
+             "max_abs_u": float(np.abs(r.u).max()), "max_abs_v": float(np.abs(r.v).max())}
+    print(f"[blocks] B2 {json.dumps(eline)}", flush=True)
+    _check(r.steps == BLOCK_ED_STEPS and all(bool(np.isfinite(a).all()) for a in (r.u, r.v, r.a))
+           and float(np.abs(r.u).max()) > 0, "[blocks] B2 (c): the state")
+    _check(counts["block_slot_reduce"] == 3, f"[blocks] B2 (c): launches {counts}")
+    del r, smesh
+    torch.cuda.empty_cache()
+    # (d) the dense bilaplacian
+    dmesh = rect_tria_mesh(BLOCK_DENSE_N, BLOCK_DENSE_N)
+    bcfg = bilaplacian.BilaplacianConfig(
+        f=-1.0, bcs=BoundaryConditions(dirichlet=[DirichletBC(g, 0.0) for g in
+                                                  ("left", "right", "top", "bottom")]))
+    r, counts, peak, wall, timer = _run_model("bilaplacian", bilaplacian.solve, dmesh, bcfg,
+                                              dtype=torch.float64, device=dev)
+    bline = {"run": "bilaplacian dense float64", "n_dofs": int(r.problem.n_dofs),
+             "peak_mem_gb": peak / 1e9, "wall_s": wall, "phases_s": timer.stats,
+             "launches": {k: counts.get(k, 0) for k in ("block_slot_reduce",)},
+             "min_u1": float(r.u1.min()), "max_u1": float(r.u1.max())}
+    print(f"[blocks] B2 {json.dumps(bline)}", flush=True)
+    _check(r.problem.n_dofs == 2 * (BLOCK_DENSE_N + 1) ** 2
+           and bool(np.isfinite(r.u1).all() and np.isfinite(r.u2).all()),
+           "[blocks] B2 (d): u1, u2")
+    del r, dmesh
+    torch.cuda.empty_cache()
+    return records
+
+
+def _block_records(prob, counts: dict, cfg) -> list[dict]:
+    """The block slot_reduce and K1 records at B2 (a)'s shapes: the f32
+    elasticity table of phase 4's sphere into its expanded SELL slots
+    (0 ulps from the twin, bit-equal from run to run, beside one
+    index_add_ of every contributor's 9 entries), and K1 on the assembled
+    5.68M-row operator (beside CSR torch.mv)."""
+    import torch
+
+    from arcanefem_tpu_torch.models import elasticity
+    from arcanefem_tpu_torch.sparse.sell import sell_spmv, sell_spmv_plain
+    from arcanefem_tpu_torch.sparse.slot_reduce import block_slot_reduce, block_slot_reduce_plain
+
+    asm = prob.block_assembly
+    lam, mu2 = elasticity.lame(cfg.E, cfg.nu)
+    table = elasticity.element_blocks("tetra4", prob.cell_xyz("tetra4"), lam, mu2)
+    table = table.reshape(-1).contiguous()
+    ptr, ids, dst, n_out = asm.ptr, asm.ids, asm.dst, asm.n_out
+    n_ns, E = ptr.numel() - 1, ids.numel()
+
+    def fk():
+        return block_slot_reduce(ptr, ids, table, dst, n_out, 3)
+
+    def fp():
+        return block_slot_reduce_plain(ptr, ids, table, dst, n_out, 3)
+
+    def exact(yk, yp):
+        _check(torch.equal(yk, yp), "[blocks] block_slot_reduce differs from its twin")
+        _check(torch.equal(yk, fk()), "[blocks] block_slot_reduce differs from run to run")
+        return 0.0
+
+    node_slot = torch.repeat_interleave(torch.arange(n_ns, device=ptr.device),
+                                        (ptr[1:] - ptr[:-1]).long(), output_size=E)
+    entries = table.view(-1, 9)[ids.long()]
+
+    def lib():
+        return torch.zeros((n_ns, 9), device=ptr.device).index_add_(0, node_slot, entries)
+
+    rec = _kernel_record(
+        "block_slot_reduce (elasticity b=3)", "tet_assembly.cu",
+        "sparse/pallas_spmv.py:444", fk, fp, lib,
+        (36 * n_ns + 4 * (n_ns + 1) + 4 * E + 4 * table.numel(), 9 * E),
+        counts["block_slot_reduce"], [n_ns, E, 9], exact)
+    rec.update(node_slots=n_ns, contributors=E, out_slots=n_out, ulps=0.0,
+               max_contributors=int((ptr[1:] - ptr[:-1]).max()),
+               replaces_note="JAX sums the blocks with XLA segment_sum "
+                             "(arcanefem_tpu/sparse/bell.py:127-133); K2's "
+                             "window-reducer role is this kernel's")
+    del entries, node_slot, table
+    torch.cuda.empty_cache()
+    # K1 on the assembled block operator
+    A = prob.assemble_matrix(lambda ct, xyz: elasticity.element_blocks(ct, xyz, lam, mu2))
+    lay = A.layout
+    rows = lay.n_rows
+    gen = torch.Generator(device=A.values.device).manual_seed(13)
+    x = torch.rand(rows, generator=gen, device=A.values.device) * 2 - 1
+    topo = prob.topo
+    ell = A.ell_values()
+    real = torch.as_tensor(lay.ell_to_sell >= 0, device=x.device).view(rows, -1)
+    crow = torch.zeros(rows + 1, dtype=torch.int64, device=x.device)
+    torch.cumsum(real.sum(1), 0, out=crow[1:])
+    ccols = torch.as_tensor(lay.ell_cols, device=x.device)[real].long()
+    csr = torch.sparse_csr_tensor(crow, ccols, ell[real], size=(rows, rows))
+    del ell, real, ccols
+    nnz = lay.nnz
+
+    def k1_check(yk, yp):
+        scale = sell_spmv_plain(A.values.abs(), lay, x.abs())
+        e = float(((yk.double() - yp.double()).abs()
+                   / scale.double().clamp(min=1e-300)).max())
+        _check(e <= 1e-5, f"[blocks] K1 on the block operator: {e:.2e}")
+        return e
+
+    k1 = _kernel_record(
+        "sell_spmv (elasticity b=3)", "sell_spmv.cu", "sparse/pallas_spmv.py:398",
+        lambda: sell_spmv(A.values, lay, x), lambda: sell_spmv_plain(A.values, lay, x),
+        lambda: torch.mv(csr, x), (8 * nnz + 12 * rows, 2 * nnz),
+        counts["sell_spmv"], [rows, lay.width], k1_check)
+    k1.update(nnz=nnz, slots=lay.n_slots, sigma=lay.sigma, node_nnz=topo.nnz,
+              library="CSR torch.mv")
+    print(f"[blocks] K1 on the block operator: {rows} rows, {nnz} nonzeros, {lay.n_slots} "
+          f"SELL slots ({lay.n_slots / nnz:.4f} per nonzero, sigma {lay.sigma})", flush=True)
+    del A, csr, x
+    torch.cuda.empty_cache()
+    return [rec, k1]
+
+
+def blocks_phase(dev, mesh) -> list[dict]:
+    """[blocks]: B1 then B2, with the phase's wall time."""
+    t0 = time.perf_counter()
+    blocks_cli_phase(dev)
+    t1 = time.perf_counter()
+    recs = blocks_full_width_phase(dev, mesh)
+    print(f"[blocks] wall time: B1 {t1 - t0:.1f} s, B2 {time.perf_counter() - t1:.1f} s",
           flush=True)
     return recs
 

@@ -119,3 +119,41 @@ def test_model_cases_cover_every_codename_mesh_and_method(tmp_path, monkeypatch)
             assert abs(back - res.phi).max() <= 1e-9 * abs(res.phi).max()
     assert kinds == {"tria3", "quad4", "tetra4", "tria6", "tetra10"}
     assert [p.name for p in (tmp_path / "out").iterdir()] == [f"{smoke.MODEL_OUTPUT_CASE}.vtk"]
+
+
+def test_block_cases_cover_every_codename_method_and_route(tmp_path, monkeypatch):
+    """[blocks] B1's case files, written at a small size: the three
+    codenames; every Dirichlet method, point Dirichlet, body force and
+    traction; the Aleph default (Jacobi-CG, bicgstab under
+    RowElimination), gmres with AMG, Hypre (AMG with the rigid body
+    modes), dense, and the in-process block-Jacobi and consistent-start
+    routes; Newmark-β and Generalized-α, Rayleigh damping and a CaseTable
+    traction.  Each runs on the CPU (u, u1/u2 or u/v/a finite)."""
+    import numpy as np
+
+    from arcanefem_tpu_torch.fem.arc import load_case
+    from arcanefem_tpu_torch.fem.runner import run_case
+
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "BLOCK_RECT", (8, 4))
+    monkeypatch.setattr(smoke, "BLOCK_BOX", (4, 2, 2))
+    cases = smoke._block_cases(str(tmp_path))
+    assert 12 <= len(cases) <= 16 and len({c["name"] for c in cases}) == len(cases)
+    assert {c["codename"] for c in cases} == {"Bilaplacian", "Elasticity", "Elastodynamics"}
+    loaded = {c["name"]: load_case(c["path"]) for c in cases if c["path"]}
+    fem = {n: case.fem for n, case in loaded.items()}
+    methods = {v.findtext("enforce-Dirichlet-method") for v in fem.values()}
+    assert {"WeakPenalty", "RowElimination", "RowColumnElimination"} <= methods
+    assert {(case.solver.method, case.solver.preconditioner) for case in loaded.values()} == {
+        ("dense", "jacobi"), ("cg", "jacobi"), ("cg", "amg"), ("gmres", "amg")}
+    assert any(f.find("dirichlet-point-condition") is not None for f in fem.values())
+    assert any(f.findtext("traction-boundary-condition/traction-input-file")
+               for f in fem.values())
+    assert {f.findtext("time-discretization") for f in fem.values()} >= {
+        "Newmark-beta", "Generalized-alpha"}
+    assert any(f.findtext("etak") for f in fem.values())
+    assert sum(c["path"] is None for c in cases) == 2
+    for c in cases:
+        res = c["solve"]("cpu") if c["path"] is None else run_case(c["path"], device="cpu")
+        for f in c["fields"]:
+            assert np.isfinite(getattr(res, f)).all(), (c["name"], f)

@@ -207,10 +207,10 @@ def test_float32_and_deferred_features(case_dir):
     assert run_case(path, dtype=torch.float32, device="cpu",
                     output_dir=str(out)).u.dtype == np.float32
     assert not out.exists()
-    other = str(case_dir / "elasticity.arc")
+    other = str(case_dir / "heat.arc")
     with open(other, "w") as f:
-        f.write(open(path).read().replace('codename="Poisson"', 'codename="Elasticity"'))
-    with pytest.raises(KeyError, match=r"not ported yet \(block BELL.*Queue 1 item 9"):
+        f.write(open(path).read().replace('codename="Poisson"', 'codename="Heat"'))
+    with pytest.raises(KeyError, match=r"not ported yet \(fem/checkpoint.py.*Queue 1 items 5 and 9"):
         run_case(other, device="cpu")
 
 

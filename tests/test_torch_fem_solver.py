@@ -213,7 +213,8 @@ def test_chebyshev_matches_jax(finalized):
 def test_make_precond_matches_jax(finalized):
     """The AMG hierarchy of make_precond("amg") (theta 0.08, Jacobi) equals
     the JAX build_amg defaults' level for level, and one cycle agrees to
-    1e-10; block-Jacobi equals Jacobi for b = 1; a near-nullspace raises."""
+    1e-10; block-Jacobi equals Jacobi for b = 1; a near-nullspace is ignored, as
+    on any scalar system."""
     A, b, x0, jA, jb, jx0 = finalized
     M, jM = make_precond(A, "amg"), jax_make_precond(jA, "amg")
     assert [m.n_nodes for m in M.mats] == [m.topo.n_nodes for m in jM.mats]
@@ -231,8 +232,10 @@ def test_make_precond_matches_jax(finalized):
     assert isinstance(bj, Precond) and bj.kind == "block-jacobi"
     np.testing.assert_allclose(bj.apply(torch.as_tensor(r)).numpy(),
                                j.apply(torch.as_tensor(r)).numpy(), rtol=1e-15)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        make_precond(A, "amg", nullspace=np.ones((b.shape[0], 1)))
+    # a near-nullspace is for block systems: this scalar one ignores it,
+    # as JAX's build_amg does
+    Mn = make_precond(A, "amg", nullspace=np.ones((b.shape[0], 1)))
+    assert Mn.rhos == M.rhos and torch.equal(Mn.coarse_inv, M.coarse_inv)
     with pytest.raises(ValueError):
         make_precond(A, "ilu")
 

@@ -413,10 +413,39 @@ def test_slot_reduce_matches_plain_on_cuda(cuda, dtype):
     sr.reset_launch_counts()
     y = sr.slot_reduce(asm.ptr, asm.ids, table.to(cuda))
     torch.cuda.synchronize()
-    assert sr.launch_counts() == {"slot_reduce": 1} and y.dtype == dtype
+    assert sr.launch_counts() == {"slot_reduce": 1, "block_slot_reduce": 0}
+    assert y.dtype == dtype
     assert torch.equal(y, sr.slot_reduce_plain(asm.ptr, asm.ids, table.to(cuda)))
     assert torch.equal(y.cpu(), sr.slot_reduce(asm.ptr.cpu(), asm.ids.cpu(), table))
     assert not y[torch.as_tensor(~asm.layout.real, device=cuda)].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", [2, 3])
+def test_block_slot_reduce_matches_plain_on_cuda(cuda, dtype, b):
+    """block_slot_reduce == its plain twin bit for bit on the same table,
+    on the card and on the CPU, and from run to run; one launch each; the
+    expanded layout's padding exactly 0."""
+    from arcanefem_tpu_torch.fem.problem import FemProblem
+    from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh, rect_tria_mesh
+
+    mesh = rect_tria_mesh(40, 30) if b == 2 else box_tetra_mesh(14, 11, 9)
+    prob = FemProblem(mesh, ndof=b, device=cuda, dtype=dtype)
+    asm = prob.block_assembly
+    gen = torch.Generator().manual_seed(b)
+    table = (torch.rand(asm.ids.numel() * b * b, generator=gen, dtype=torch.float64)
+             - 0.5).to(dtype)
+    sr.reset_launch_counts()
+    y = asm.reduce(table.to(cuda))
+    y2 = asm.reduce(table.to(cuda))
+    torch.cuda.synchronize()
+    assert sr.launch_counts() == {"slot_reduce": 0, "block_slot_reduce": 2}
+    assert y.dtype == dtype and torch.equal(y, y2)
+    args = (asm.ptr, asm.ids, table.to(cuda), asm.dst, asm.n_out, b)
+    assert torch.equal(y, sr.block_slot_reduce_plain(*args))
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    assert torch.equal(y.cpu(), sr.block_slot_reduce(*cpu))
+    assert not y[torch.as_tensor(~prob.layout.real, device=cuda)].any()
 
 
 def test_tet_assembly_deterministic_on_cuda(cuda):
@@ -432,7 +461,8 @@ def test_tet_assembly_deterministic_on_cuda(cuda):
     ref = asm(coords)
     torch.cuda.synchronize()
     assert _counts() == {**NO_LAUNCHES, **NO_SELL}
-    assert la.launch_counts() == {"tet_element": 1} and sr.launch_counts() == {"slot_reduce": 1}
+    assert la.launch_counts() == {"tet_element": 1}
+    assert sr.launch_counts() == {"slot_reduce": 1, "block_slot_reduce": 0}
     for kw in ({}, dict(coords_batched=True), dict(coords_compact=True),
                dict(coords_compact=True, coords_batched=True, band_pre=True)):
         other = TetraAssembler(topo, mesh.cells["tetra4"], device=cuda,

@@ -263,3 +263,57 @@ def test_models_cli_runs_without_jax(tmp_path):
     for name in ("FourierResult", "ElectrostaticsResult", "AcousticsResult",
                  "AerodynamicsResult"):
         assert any(ln.startswith(f"done: {name} {{'iterations': ") for ln in lines), name
+
+
+_BLOCKS_SCRIPT = _PRELUDE + """
+import os, runpy
+import numpy as np
+from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh, rect_tria_mesh
+from arcanefem_tpu_torch.tools.write_msh import write_arc, write_msh
+d = sys.argv[1]
+os.makedirs(d + "/inputs")
+write_msh(d + "/inputs/rect.msh", rect_tria_mesh(12, 4, lx=3.0))
+write_msh(d + "/inputs/box.msh", box_tetra_mesh(9, 6, 6))
+np.savetxt(d + "/traction.txt", [[0.0, 0.0, 0.0, 0.0], [0.2, 0.0, -1.0, 0.0]])
+cases = {
+    "Elasticity": ("box.msh", dict(f=(0.0, 0.0, -1.0), values={"E": 10.0, "nu": 0.3},
+                                   dirichlet_vector=[("xmin", (0.0, 0.0, 0.0))],
+                                   linear_system={"name": "HypreLinearSystem"})),
+    "Bilaplacian": ("rect.msh", dict(f=-1.0, dirichlet_bc=[("left", 0.0), ("right", 0.0)])),
+    "Elastodynamics": ("rect.msh", dict(component_tags=True,
+                                        values={"tmax": 0.2, "dt": 0.05, "E": 50.0},
+                                        dirichlet_vector=[("left", (0.0, 0.0))],
+                                        traction=[("right", None, "traction.txt")])),
+}
+codes = {}
+for name, (mesh, kw) in cases.items():
+    write_arc(d + f"/inputs/{name}.arc", mesh, codename=name, **kw)
+    sys.argv = ["arcanefem_tpu_torch", "run", d + f"/inputs/{name}.arc", "--device", "cpu"]
+    try:
+        runpy.run_module("arcanefem_tpu_torch", run_name="__main__")
+        codes[name] = 0
+    except SystemExit as e:
+        codes[name] = e.code
+print(json.dumps({"codes": codes,
+                  "loaded": [m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "arcanefem_tpu", "bench")
+                             and sys.modules[m] is not None]}))
+"""
+
+
+def test_block_models_cli_runs_without_jax(tmp_path):
+    """python -m arcanefem_tpu_torch run --device cpu on an Elasticity case
+    (tetra4, the Hypre route: AMG with the rigid body modes), a Bilaplacian
+    case and an Elastodynamics case with a CaseTable traction, in a process
+    where neither jax, arcanefem_tpu nor the root bench can be imported."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _BLOCKS_SCRIPT, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    assert out["loaded"] == [] and set(out["codes"].values()) == {0}
+    for name in ("ElasticityResult", "BilaplacianResult"):
+        assert any(ln.startswith(f"done: {name} {{'iterations': ") for ln in lines), name
+    assert any(ln.startswith("done: ElastodynamicsResult {'steps': 4") for ln in lines)

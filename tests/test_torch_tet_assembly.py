@@ -155,7 +155,7 @@ def test_routes_bit_equal(sphere):
         assert torch.equal(other(coords), ref), name
         assert torch.equal(other(coords.double()), ref), name
     assert la.launch_counts() == {"tet_element": 0}
-    assert sr.launch_counts() == {"slot_reduce": 0}
+    assert sr.launch_counts() == {"slot_reduce": 0, "block_slot_reduce": 0}
 
 
 @pytest.mark.parametrize("per_cell", [None, [2, 0, 1]])
