@@ -11,8 +11,9 @@ The case runs on ``--device`` (default ``cuda``, the card).  Nothing falls
 back: without a CUDA device the command exits 1 unless ``--device cpu``
 asks for the CPU.  ``--output-dir`` writes the case's
 ``<arcane-post-processing>`` variables there: a VTKHDF file where h5py can
-be imported, legacy VTK where it cannot.  The ``testlab`` sub-command is
-not ported yet and raises ``NotImplementedError``.
+be imported, legacy VTK where it cannot; a transient heat case writes one
+temporal VTKHDF file, one step per time step.  The ``testlab``
+sub-command is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

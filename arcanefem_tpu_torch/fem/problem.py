@@ -12,9 +12,18 @@ contributor lists, ``BlockAssembly``), boundary-face
 orientation and group index arrays.  Per solve, on ``device``: the element
 matrices (``ops/elements.py``, plain torch), their sum into the BELL matrix
 (``assemble_bell``: one ``slot_reduce`` or ``block_slot_reduce`` launch on
-the card, no atomics), the RHS (``index_add`` of O(nodes) values, as the
-JAX package's ``.at[].add``) and the Dirichlet conditions, deferred to
-``solver/linear_system.py``.  Every matrix of a problem shares its one
+the card), the RHS and the boundary-face matrices, and the Dirichlet
+conditions, deferred to ``solver/linear_system.py``.  Every sum of
+contributions that meet in one dof or one matrix slot runs in a fixed
+order: the RHS sums (``constant_source_rhs``, ``vector_source_rhs``,
+``traction_rhs``, ``neumann_rhs``, and the models' per-step sums through
+:meth:`FemProblem.dof_sum` / :meth:`FemProblem.node_sum`) and the face
+matrices (``add_face_matrix``, ``add_face_blocks``) go through a
+``SlotSum`` whose contributor lists are built once per (cell buckets or
+face group, component) and cached on the problem, then one ``slot_reduce``
+per call, so a run gives the same bits every time, on the card as on the
+CPU (an ``index_add`` on the card sums through atomics, in an order that
+changes from run to run).  Every matrix of a problem shares its one
 layout, so ``with_values`` combines them (elastodynamics' c0·M + c1·D +
 c2·E).
 """
@@ -39,6 +48,7 @@ from ..sparse.bell import (
     fine_layout,
 )
 from ..sparse.sell import SellLayout
+from ..sparse.slot_reduce import SlotSum
 from ..sparse.topology import Topology, build_topology, face_dof_slots
 
 _FACE_MEASURE = {
@@ -165,6 +175,7 @@ class FemProblem:
         )
         self.coords = torch.as_tensor(self.mesh.coords, device=self.device).to(self.dtype)
         self._oriented_faces: dict[str, dict[str, np.ndarray]] = {}
+        self._sums: dict = {}  # key -> SlotSum, built once
 
     @functools.cached_property
     def layout(self) -> SellLayout:
@@ -231,26 +242,74 @@ class FemProblem:
         reference modules/heat/FemModule.cc:225-227; paraxial terms in
         soildynamics) into the assembled matrix ``A`` (on this problem's
         layout): face_fn(ftype, xyz) -> (nf, nfn, nfn) scalar blocks added
-        at component ``comp``, or (nf, nfn, nfn, b, b) full blocks
-        (``index_add`` into the SELL slots, as the JAX ``.at[].add``)."""
-        b = self.ndof
-        W = self.topo.width
-        e2s = self.layout.ell_to_sell
-        vals = A.values
+        at component ``comp``, or (nf, nfn, nfn, b, b) full blocks, summed
+        into the SELL slots in a fixed order (:meth:`add_face_blocks`)."""
         for ftype, conn in self.mesh.face_groups[group].items():
-            ke = face_fn(ftype, self.face_xyz(conn))
+            A = self.add_face_blocks(A, conn, face_fn(ftype, self.face_xyz(conn)),
+                                     key=(group, ftype), comp=comp)
+        return A
+
+    def add_face_blocks(self, A: BellMatrix, conn: np.ndarray, ke: torch.Tensor,
+                        key, comp: int = 0) -> BellMatrix:
+        """``A`` plus the (nf, nfn, nfn) face matrices ``ke`` at component
+        ``comp``, or the (nf, nfn, nfn, b, b) full blocks, of the faces
+        ``conn``: the SELL slot of each entry (``face_dof_slots``, then
+        ``expanded_slot`` and ``ell_to_sell``) is the slot of a
+        ``SlotSum`` cached under ``key``, one ``slot_reduce`` over the
+        layout's slots added to ``A.values``.  The JAX ``.at[].add`` sums
+        the same entries."""
+        full = ke.dim() == 5
+        b = self.ndof
+
+        def slots():
+            W = self.topo.width
             nfn = conn.shape[1]
             rows = np.repeat(conn, nfn, axis=1).reshape(-1)
             cols = np.tile(conn, (1, nfn)).reshape(-1)
             node, w = np.divmod(face_dof_slots(self.topo, rows, cols).astype(np.int64), W)
-            if ke.dim() == 3:
-                a = c = np.array([comp])
-            else:
+            if full:
                 a, c = np.divmod(np.arange(b * b), b)
+            else:
+                a = c = np.array([comp])
             flat = expanded_slot(node[:, None], w[:, None], a[None], c[None], b=b, width=W)
-            slots = self._index(e2s[flat.reshape(-1)])
-            vals = vals.index_add(0, slots, ke.reshape(-1).to(vals.dtype))
-        return A.with_values(vals)
+            return self.layout.ell_to_sell[flat.reshape(-1)]
+
+        s = self._sum(("face-matrix", key, "full" if full else comp),
+                      self.layout.n_slots, slots)
+        vals = A.values
+        return A.with_values(vals + s(ke.reshape(-1).to(vals.dtype)))
+
+    def _sum(self, key, n: int, slots: Callable[[], np.ndarray]) -> SlotSum:
+        """The ``SlotSum`` of ``key``, built from ``slots()`` the first time."""
+        s = self._sums.get(key)
+        if s is None:
+            s = self._sums[key] = SlotSum(slots(), n, self.device)
+        return s
+
+    def dof_sum(self, key, dofs: Callable[[], np.ndarray]) -> SlotSum:
+        """A fixed-order scatter-add into the (n_dofs,) vector: the entries'
+        dofs ``dofs()``, grouped once and cached under ``key``."""
+        return self._sum(("dofs", key), self.n_dofs, dofs)
+
+    def cell_sum(self, comp: int = 0) -> SlotSum:
+        """The ``SlotSum`` of per-(cell, node) entries over every cell bucket
+        in the mesh's order, into the dofs of component ``comp``."""
+        return self.dof_sum(("cells", comp), lambda: np.concatenate(
+            [self.dof_ids(c.reshape(-1), comp) for c in self.mesh.cells.values()]))
+
+    def face_sum(self, key, conn: np.ndarray, comp: int = 0) -> SlotSum:
+        """The ``SlotSum`` of per-(face, node) entries of the faces
+        ``conn`` into the dofs of component ``comp``."""
+        return self.dof_sum(("faces", key, comp),
+                            lambda: self.dof_ids(conn.reshape(-1), comp))
+
+    def node_sum(self, key, conn: np.ndarray) -> SlotSum:
+        """The ``SlotSum`` of (…, b) per-node vectors at the nodes ``conn``
+        (any shape), entry (…, a) into dof node·b + a: the JAX
+        ``rhs.reshape(-1, b).at[conn].add(contrib)``."""
+        b = self.ndof
+        return self.dof_sum(("nodes", key), lambda: (
+            np.asarray(conn, np.int64).reshape(-1, 1) * b + np.arange(b)).reshape(-1))
 
     def new_system(self, matrix: BellMatrix,
                    options: SolverOptions | None = None) -> LinearSystem:
@@ -263,44 +322,37 @@ class FemProblem:
     def constant_source_rhs(self, qdot, comp: int = 0) -> torch.Tensor:
         """rhs[node] += qdot * measure / npc over all cells
         (applyConstantSourceToRhs, ArcaneFemFunctions.h:845-855/1010-1021)."""
-        rhs = torch.zeros(self.n_dofs, dtype=self.dtype, device=self.device)
-        for ctype, conn in self.mesh.cells.items():
-            xyz = self.cell_xyz(ctype)
-            meas = elements.measure(ctype, xyz)  # (nc,)
-            npc = conn.shape[1]
-            contrib = torch.repeat_interleave(qdot * meas / npc, npc)
-            rhs = rhs.index_add(0, self._index(self.dof_ids(conn.reshape(-1), comp)),
-                                contrib)
-        return rhs
+        return self.cell_sum(comp)(torch.cat([
+            torch.repeat_interleave(qdot * meas / npc, npc)
+            for meas, npc in self._cell_measures()]))
+
+    def _cell_measures(self) -> list[tuple[torch.Tensor, int]]:
+        """(measure (nc,), npc) of each cell bucket, in the mesh's order."""
+        return [(elements.measure(ctype, self.cell_xyz(ctype)), conn.shape[1])
+                for ctype, conn in self.mesh.cells.items()]
 
     def vector_source_rhs(self, rhs: torch.Tensor, f: tuple) -> torch.Tensor:
         """Body-force rhs[node*b+c] += f_c * measure / npc per cell
         (reference modules/elasticity/FemModule.cc:230-241); None = skip."""
-        for ctype, conn in self.mesh.cells.items():
-            xyz = self.cell_xyz(ctype)
-            meas = elements.measure(ctype, xyz)
-            npc = conn.shape[1]
-            flat_nodes = conn.reshape(-1)
-            for c, fc in enumerate(f):
-                if fc is None or c >= self.ndof:
-                    continue
-                contrib = torch.repeat_interleave(fc * meas / npc, npc)
-                rhs = rhs.index_add(0, self._index(self.dof_ids(flat_nodes, c)), contrib)
+        measures = self._cell_measures()
+        for c, fc in enumerate(f):
+            if fc is None or c >= self.ndof:
+                continue
+            rhs = rhs + self.cell_sum(c)(torch.cat(
+                [torch.repeat_interleave(fc * meas / npc, npc) for meas, npc in measures]))
         return rhs
 
     def traction_rhs(self, rhs: torch.Tensor, group: str, t: tuple) -> torch.Tensor:
         """Traction rhs[node*b+c] += t_c * measure / n_face_nodes per face
         (reference modules/elasticity/FemModule.cc:246-272)."""
         for ftype, conn in self.mesh.face_groups[group].items():
-            xyz = self.face_xyz(conn)
-            meas = _FACE_MEASURE[ftype](xyz)
+            meas = _FACE_MEASURE[ftype](self.face_xyz(conn))
             nfn = conn.shape[1]
-            flat_nodes = conn.reshape(-1)
             for c, tc in enumerate(t):
                 if tc is None or c >= self.ndof:
                     continue
                 contrib = torch.repeat_interleave(tc * meas / nfn, nfn)
-                rhs = rhs.index_add(0, self._index(self.dof_ids(flat_nodes, c)), contrib)
+                rhs = rhs + self.face_sum((group, ftype), conn, c)(contrib)
         return rhs
 
     def apply_dirichlet_vector(
@@ -351,8 +403,7 @@ class FemProblem:
                 per_face = (normal @ v) * meas
             nfn = conn.shape[1]
             contrib = torch.repeat_interleave(per_face / nfn, nfn)
-            rhs = rhs.index_add(0, self._index(self.dof_ids(conn.reshape(-1), comp)),
-                                contrib)
+            rhs = rhs + self.face_sum((group, ftype, "outward"), conn, comp)(contrib)
         return rhs
 
     # -- Dirichlet methods ------------------------------------------------------
@@ -384,7 +435,9 @@ class FemProblem:
                                  device=self.device))
             system.set_rhs(dofs, penalty * vals)
         elif method == "WeakPenalty":
-            # matrixAddValue(diag, P) instead of set
+            # matrixAddValue(diag, P) instead of set; the dofs are
+            # distinct, so each slot takes one addend and the index_add
+            # is the same in any order
             A = system.matrix
             slots = A.diag_slot[self._index(dofs)]
             add = torch.full(slots.shape, penalty, dtype=A.values.dtype,

@@ -6,11 +6,18 @@ the role of the reference's ArcaneLauncher, on one device (the card by
 default).  ``output_dir`` writes the case's ``<arcane-post-processing>``
 variables after the run: VTKHDF (``fem/vtkhdf.py``) where h5py can be
 imported, legacy VTK (``fem/vtk.py``) where it cannot, as in the JAX
-package.
+package.  A declared variable is looked up on the result under the
+reference's names (``_VAR_ALIASES``: NodeTemperature is heat's ``T``,
+Displ passmo's ``u``, StrainVol/StrainDev/StressVol/StressDev its
+recovered cell fields).  A result with a non-empty ``history`` of (t,
+field) snapshots (heat's ``keep_history``) becomes one temporal VTKHDF
+file, one ``add_step`` per snapshot; without h5py the legacy VTK file
+holds the final fields.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable
 
 import numpy as np
@@ -31,6 +38,21 @@ def register(codename: str):
     return deco
 
 
+# declared .arc output-variable name (lower case) -> result attributes to
+# try, the JAX runner's table (U/V/A displacement-velocity-acceleration,
+# NodeTemperature for heat, Displ for passmo, Phi/E electrostatics, psi
+# aerodynamics, u1/u2 bilaplacian, passmo's recovered cell variables,
+# Elastodynamic.axl:41-52)
+_VAR_ALIASES = {
+    "u": ("u",), "v": ("v",), "a": ("a",),
+    "nodetemperature": ("T", "u"), "displ": ("u",),
+    "phi": ("phi",), "e": ("E",), "psi": ("psi",), "flux": ("flux",),
+    "u1": ("u1",), "u2": ("u2",),
+    "strainvol": ("strain_vol",), "straindev": ("strain_dev",),
+    "stressvol": ("stress_vol",), "stressdev": ("stress_dev",),
+}
+
+
 def _write_post_processing(case, mesh, res, output_dir: str) -> str:
     """Write the case's `<arcane-post-processing>` variables as a VTKHDF
     file (the reference's VtkHdfV2PostProcessor output), or as legacy
@@ -39,9 +61,7 @@ def _write_post_processing(case, mesh, res, output_dir: str) -> str:
 
     point_data, cell_data = {}, {}
     for name in case.post_processing.variables:
-        # the declared name, then its lower case: the ported modules'
-        # fields (U -> u, Phi -> phi, E, psi) need no alias table
-        attrs = (name, name.lower())
+        attrs = _VAR_ALIASES.get(name.lower(), (name, name.lower()))
         val = next(
             (getattr(res, a) for a in attrs if getattr(res, a, None)
              is not None),
@@ -60,9 +80,18 @@ def _write_post_processing(case, mesh, res, output_dir: str) -> str:
     stem = os.path.splitext(os.path.basename(case.path))[0]
     from . import vtkhdf
 
+    history = getattr(res, "history", None)
     if vtkhdf.HAVE_H5PY:
         out = os.path.join(output_dir, stem + ".hdf")
-        vtkhdf.write_vtkhdf(out, mesh, point_data=point_data, cell_data=cell_data)
+        if history:
+            # transient snapshots [(t, field)] -> one temporal VTKHDF file,
+            # the field under the first declared point variable's name
+            name = next(iter(point_data), "U")
+            with vtkhdf.VtkHdfWriter(out, mesh) as w:
+                for t, snap in history:
+                    w.add_step(float(t), point_data={name: snap})
+        else:
+            vtkhdf.write_vtkhdf(out, mesh, point_data=point_data, cell_data=cell_data)
     else:
         from .vtk import write_vtk
 
@@ -90,7 +119,9 @@ def run_case(
     verbose: print `[ArcaneFem-Timer]` phase lines (the reference's
     per-phase wall-clock instrumentation, modules/poisson/FemModule.cc:28-39).
     output_dir: write the case's `<arcane-post-processing>` variables
-    there after the run (VTKHDF with h5py, legacy VTK without).
+    there after the run (VTKHDF with h5py, legacy VTK without); a model
+    that takes ``keep_history`` (heat) then keeps its per-step snapshots
+    for a temporal file unless ``keep_history`` is given.
     """
     case = load_case(path, mesh_root=mesh_root)
     key = (case.codename or "").lower()
@@ -119,7 +150,11 @@ def run_case(
         from .timer import PhaseTimer
 
         kw["timer"] = PhaseTimer(verbose=True)
-    res = _REGISTRY[key](case, mesh, dtype=dtype or np.float64, device=device, **kw)
+    fn = _REGISTRY[key]
+    if output_dir and "keep_history" in inspect.signature(fn).parameters:
+        # a transient model's snapshots become the temporal output file
+        kw.setdefault("keep_history", True)
+    res = fn(case, mesh, dtype=dtype or np.float64, device=device, **kw)
     if output_dir and case.post_processing is not None:
         out = _write_post_processing(case, mesh, res, output_dir)
         if verbose:

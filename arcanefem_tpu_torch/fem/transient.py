@@ -91,3 +91,16 @@ def freeze_bcs(system: LinearSystem) -> FrozenBC:
         elim_rhs=torch.where(elim, rhs_bc0, 0.0),
         rhs_corr=torch.where(elim | pen, 0.0, rhs_bc0),
     )
+
+
+def free_residual(A: BellMatrix, rhs: torch.Tensor, x: torch.Tensor,
+                  constrained: torch.Tensor) -> float:
+    """||(rhs − A x)_free|| / ||rhs_free|| in float64 over the rows the
+    boolean mask ``constrained`` leaves free (absolute where rhs_free is
+    0): a step's true free-row residual, as ``LinearSystem.solve`` reports
+    it."""
+    vals = A.values if A.values.dtype == torch.float64 else A.values.double()
+    r = rhs.double() - A.with_values(vals).spmv(x.double())
+    free = ~constrained
+    bn = torch.linalg.vector_norm(rhs.double()[free])
+    return float(torch.linalg.vector_norm(r[free]) / (bn if bn > 0 else 1.0))

@@ -131,17 +131,43 @@ def _rows_in_bucket(bucket: np.ndarray, sel: np.ndarray) -> np.ndarray:
 
     The JAX loop builds a dict from each bucket row to its index (the last
     one where rows repeat) and looks every ``sel`` row up in it, raising
-    KeyError for a row the bucket lacks.  Here the same in numpy: one
-    ``row_ids`` over both sets of rows, the last bucket index per id."""
+    KeyError for a row the bucket lacks.  Here the same in numpy: the last
+    bucket index per row id, for ids from one sort of 64-bit row hashes
+    (a tetrahedron's four node numbers do not pack into one int64 key at
+    the sphere's sizes, and ``row_ids``' lexsort of 22M such rows is about
+    six times slower).  Every row is compared with the row its id maps to;
+    where two different rows share a hash, the ids come from ``row_ids``."""
     sel = np.asarray(sel, dtype=bucket.dtype).reshape(-1, bucket.shape[1])
     nb = len(bucket)
-    inv = row_ids(np.concatenate([bucket, sel]))
-    last = np.full(int(inv.max(initial=-1)) + 1, -1, np.int64)
-    np.maximum.at(last, inv[:nb], np.arange(nb))
-    idx = last[inv[nb:]]
+    both = np.concatenate([bucket, sel])
+    last = _last_bucket_index(np.unique(_row_hash(both), return_inverse=True)[1], nb)
+    idx = last[nb:]
+    found = idx >= 0
+    if not ((bucket[last[:nb]] == bucket).all()
+            and (bucket[idx[found]] == sel[found]).all()):
+        idx = _last_bucket_index(row_ids(both), nb)[nb:]
     if (idx < 0).any():
         raise KeyError(f"{int((idx < 0).sum())} group rows are not cells of the bucket")
     return idx
+
+
+def _row_hash(rows: np.ndarray) -> np.ndarray:
+    """A 64-bit FNV-1a-style hash of each integer row (uint64, wrapping)."""
+    h = np.full(len(rows), 0xCBF29CE484222325, np.uint64)
+    for c in range(rows.shape[1]):
+        h ^= rows[:, c].astype(np.uint64)
+        h *= np.uint64(0x100000001B3)
+        h ^= h >> np.uint64(29)
+    return h
+
+
+def _last_bucket_index(inv: np.ndarray, nb: int) -> np.ndarray:
+    """For every row of ids ``inv`` (the bucket's nb rows first), the last
+    bucket index whose row has the same id, else -1."""
+    inv = inv.reshape(-1)
+    last = np.full(int(inv.max(initial=-1)) + 1, -1, np.int64)
+    np.maximum.at(last, inv[:nb], np.arange(nb))
+    return last[inv]
 
 
 def _run_arc(case, mesh, dtype=np.float64, check: bool = True, timer=None,

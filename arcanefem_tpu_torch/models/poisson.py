@@ -127,16 +127,15 @@ def solve(
 def _manufactured_source_rhs(prob: FemProblem, source_fn) -> torch.Tensor:
     """applyManufacturedSourceToRhs (ArcaneFemFunctions.h:1030-1053):
     rhs[node] += f(barycenter) * measure / npc."""
-    rhs = torch.zeros(prob.n_dofs, dtype=prob.dtype, device=prob.device)
+    parts = []
     for ctype, conn in prob.mesh.cells.items():
         xyz = prob.cell_xyz(ctype)
         meas = elements.measure(ctype, xyz)
         bc = torch.mean(xyz, dim=1)
         f = source_fn(bc[:, 0], bc[:, 1], bc[:, 2])
         npc = conn.shape[1]
-        contrib = torch.repeat_interleave(f * meas / npc, npc)
-        rhs = rhs.index_add(0, prob._index(prob.dof_ids(conn.reshape(-1))), contrib)
-    return rhs
+        parts.append(torch.repeat_interleave(f * meas / npc, npc))
+    return prob.cell_sum(0)(torch.cat(parts))  # a fixed-order sum (fem/problem.py)
 
 
 def _all_boundary_nodes(prob: FemProblem) -> np.ndarray:

@@ -16,8 +16,11 @@ square-base pyramid (base (±1,±1,0), apex (0,0,1)) with a conical-product
 rule: Gauss-Legendre² in the collapsed coordinates × Gauss-Jacobi(2,0)
 along the axis.
 
-The elasticity blocks of the JAX module (``stiffness_blocks_iso``,
-``mass_blocks_iso``) come with block BELL (ROADMAP Queue 1).
+The elasticity blocks of the JAX module, :func:`stiffness_blocks_iso`
+and :func:`mass_blocks_iso` (passmo's general-element operators), are the
+same Gauss-point contractions, plain torch ``einsum`` as the JAX module's
+``jnp.einsum``; ``ops/gauss_state.py`` runs them on stored Gauss data,
+in chunks of cells.
 """
 
 from __future__ import annotations
@@ -412,3 +415,50 @@ def iso_geometry(cell_type: str, xyz: torch.Tensor, dim: int, ninteg: int = 2):
     grads = torch.einsum("gcdr,gnr->gcnd", invJ, dNj)
     wdet = detJ.abs() * torch.as_tensor(w, dtype=xyz.dtype, device=xyz.device)[:, None]
     return N, grads, wdet
+
+
+def _per_cell(v, like: torch.Tensor) -> torch.Tensor:
+    """A scalar or a (nc,)/(1, nc) per-cell value as a tensor that
+    broadcasts against (ng, nc) Gauss weights ``like``."""
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
+def elastic_blocks(grads: torch.Tensor, wdet: torch.Tensor, lam, mu) -> torch.Tensor:
+    """Σ_g w·detJ·(λ divdiv + 2μ ε:ε) -> (nc, npc, npc, d, d) from the
+    Gauss gradients (ng, nc, npc, d) and weights (ng, nc); ``lam``/``mu``
+    scalars or per-cell (broadcasting against (ng, nc))."""
+    lamc = _per_cell(lam, wdet) * wdet  # (g, c)
+    muc = _per_cell(mu, wdet) * wdet
+    t_div = torch.einsum("gc,gcia,gcjb->cijab", lamc, grads, grads)
+    t_eps1 = torch.einsum("gc,gcib,gcja->cijab", muc, grads, grads)
+    dot = torch.einsum("gc,gcik,gcjk->gcij", muc, grads, grads)
+    eye = torch.eye(grads.shape[-1], dtype=grads.dtype, device=grads.device)
+    t_eps2 = torch.einsum("gcij,ab->cijab", dot, eye)
+    return t_div + t_eps1 + t_eps2
+
+
+def mass_blocks_from(N, wdet: torch.Tensor, rho, dim: int) -> torch.Tensor:
+    """Σ_g w·detJ·ρ·N_i N_j · I_d -> (nc, npc, npc, d, d) from the shape
+    values N (ng, npc) and the Gauss weights (ng, nc)."""
+    Nj = torch.as_tensor(N, dtype=wdet.dtype, device=wdet.device)
+    rhoc = _per_cell(rho, wdet) * wdet
+    m = torch.einsum("gc,gi,gj->cij", rhoc, Nj, Nj)
+    eye = torch.eye(dim, dtype=wdet.dtype, device=wdet.device)
+    return m[:, :, :, None, None] * eye[None, None, None]
+
+
+def stiffness_blocks_iso(cell_type: str, xyz: torch.Tensor, lam, mu, dim: int,
+                         ninteg: int = 2) -> torch.Tensor:
+    """Elasticity blocks Σ_g w·detJ·(λ divdiv + 2μ ε:ε) -> (nc,npc,npc,d,d).
+
+    lam/mu: scalars or (nc,) per-cell values (passmo's per-cell material
+    variables, modules/passmo ElastodynamicModule.cc m_lambda/m_mu)."""
+    _, grads, wdet = iso_geometry(cell_type, xyz, dim, ninteg)
+    return elastic_blocks(grads, wdet, lam, mu)
+
+
+def mass_blocks_iso(cell_type: str, xyz: torch.Tensor, rho, dim: int,
+                    ninteg: int = 2) -> torch.Tensor:
+    """Consistent mass blocks Σ_g w·detJ·ρ·N_i N_j · I_d."""
+    N, _, wdet = iso_geometry(cell_type, xyz, dim, ninteg)
+    return mass_blocks_from(N, wdet, rho, dim)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .sell import SellLayout, sell_spmv, sell_spmv_plain
-from .slot_reduce import block_slot_reduce, group_by_slot, slot_reduce
+from .slot_reduce import SlotSum, block_slot_reduce, group_by_slot, slot_reduce
 
 
 def expanded_slot(node, w, a, c, *, b: int, width: int):
@@ -143,16 +143,20 @@ class BellMatrix:
 
     def todense(self) -> torch.Tensor:
         """The dense (N, n_cols) matrix on the values' device (for a block
-        matrix, (n_dofs, n_dofs)): each (N, W) slot added at (row,
-        ell_cols), as the JAX ``todense`` (small systems and the dense
-        direct solve only)."""
+        matrix, (n_dofs, n_dofs)): each stored SELL slot added at (row,
+        column), as the JAX ``todense`` (small systems and the dense direct
+        solve only).  Slots that meet in one entry are summed in slot
+        order by a ``SlotSum`` (its lists built here), so the matrix is
+        the same in every run."""
         lay = self.layout
-        ev = self.ell_values()
-        dev = ev.device
-        rows = torch.arange(lay.n_rows, device=dev).repeat_interleave(lay.width)
-        cols = torch.as_tensor(lay.ell_cols.reshape(-1), device=dev, dtype=torch.int64)
-        dense = torch.zeros((lay.n_rows, lay.n_cols), dtype=ev.dtype, device=dev)
-        return dense.index_put_((rows, cols), ev.reshape(-1), accumulate=True)
+        dev = self.values.device
+        real = torch.as_tensor(lay.real, device=dev)
+        rows = lay.slot_rows(dev).long()[real]
+        cols = lay.cols.to(dev).long()[real]
+        flat, inv = torch.unique(rows * lay.n_cols + cols, return_inverse=True)
+        dense = torch.zeros(lay.n_rows * lay.n_cols, dtype=self.values.dtype, device=dev)
+        dense[flat] = SlotSum(inv, flat.numel(), dev)(self.values[real])
+        return dense.view(lay.n_rows, lay.n_cols)
 
 
 def fine_layout(topo, device: torch.device | str) -> SellLayout:

@@ -21,7 +21,12 @@ On a CUDA tensor :func:`slot_reduce` launches the hand-written kernel of
 ``csrc/tet_assembly.cu`` or raises; on a CPU tensor it runs the plain twin
 below, which sums in the kernel's order and type (float64, in stored
 order, rounded once to the table's type), so the two agree bit for bit on
-the same table.  ``launch_counts()`` counts the kernel launches.
+the same table.  ``launch_counts()`` counts the kernel launches, and
+``sum_launch_counts()`` the part of them that :class:`SlotSum` made.
+
+:class:`SlotSum` is the same reduction as a fixed-order scatter-add into a
+vector (the RHS sums, the boundary-face matrices, the dense form of a
+matrix): its lists are built once, each call is one ``slot_reduce``.
 
 :func:`block_slot_reduce` is the block form for the b×b node blocks of the
 vector systems (b = 2, 3): the contributor lists stay node-level (one per
@@ -43,15 +48,25 @@ _BLOCK_ENTRY = {torch.float32: "afem_block_slot_reduce_f32",
                 torch.float64: "afem_block_slot_reduce_f64"}
 BLOCKS = (2, 3)  # the block sizes the block kernel is built for
 _LAUNCHES = {"slot_reduce": 0, "block_slot_reduce": 0}
+# the launches of slot_reduce made by SlotSum (the fixed-order RHS and
+# face-matrix sums), a part of the "slot_reduce" count
+_SUM_LAUNCHES = {"slot_sum": 0}
 
 
 def reset_launch_counts() -> None:
     for k in _LAUNCHES:
         _LAUNCHES[k] = 0
+    _SUM_LAUNCHES["slot_sum"] = 0
 
 
 def launch_counts() -> dict[str, int]:
     return dict(_LAUNCHES)
+
+
+def sum_launch_counts() -> dict[str, int]:
+    """{"slot_sum": the slot_reduce launches that SlotSum made}, zeroed by
+    :func:`reset_launch_counts`."""
+    return dict(_SUM_LAUNCHES)
 
 
 def group_by_slot(slots: torch.Tensor, n_slots: int,
@@ -99,10 +114,11 @@ def slot_reduce_plain(ptr: torch.Tensor, ids: torch.Tensor,
 
 
 def slot_reduce(ptr: torch.Tensor, ids: torch.Tensor,
-                table: torch.Tensor) -> torch.Tensor:
+                table: torch.Tensor, role: str | None = None) -> torch.Tensor:
     """out[s] = sum_{k in [ptr[s], ptr[s+1])} table[ids[k]], summed in
     float64 in stored order, a new (len(ptr) - 1,) tensor of the table's
-    type (float32 or float64)."""
+    type (float32 or float64).  ``role="sum"`` (:class:`SlotSum`) also
+    counts the launch under ``sum_launch_counts()["slot_sum"]``."""
     entry = _ENTRY.get(table.dtype)
     if entry is None:
         raise TypeError(f"slot_reduce: table must be float32 or float64, got {table.dtype}")
@@ -126,6 +142,8 @@ def slot_reduce(ptr: torch.Tensor, ids: torch.Tensor,
         kernels.launch(entry, table.device, ptr.data_ptr(), ids.data_ptr(),
                        table.data_ptr(), out.data_ptr(), n)
         _LAUNCHES["slot_reduce"] += 1
+        if role == "sum":
+            _SUM_LAUNCHES["slot_sum"] += 1
     return out
 
 
@@ -186,3 +204,26 @@ def block_slot_reduce(ptr: torch.Tensor, ids: torch.Tensor, table: torch.Tensor,
                        table.data_ptr(), dst.data_ptr(), out.data_ptr(), n, b)
         _LAUNCHES["block_slot_reduce"] += 1
     return out
+
+
+class SlotSum:
+    """A scatter-add in a fixed order: ``SlotSum(slots, n)(table)`` is the
+    (n,) vector whose entry s sums ``table[e]`` over the entries e with
+    ``slots[e] == s``, in ascending e and in float64, rounded once to the
+    table's type.  The lists are built once (:func:`group_by_slot` on
+    ``device``); each call is one :func:`slot_reduce`, so the sum is the
+    same in every run and on the card and the CPU alike, where an
+    ``index_add`` on the card sums through atomics in a varying order."""
+
+    def __init__(self, slots, n: int, device: torch.device | str):
+        slots = torch.as_tensor(slots, device=device).to(torch.int64)
+        self.n = int(n)
+        self.n_entries = slots.numel()
+        self.ptr, self.ids = group_by_slot(slots, self.n)
+
+    def __call__(self, table: torch.Tensor) -> torch.Tensor:
+        table = table.reshape(-1)
+        if table.numel() != self.n_entries:
+            raise ValueError(f"SlotSum: a table of {table.numel()} entries for lists "
+                             f"of {self.n_entries}")
+        return slot_reduce(self.ptr, self.ids, table.contiguous(), role="sum")

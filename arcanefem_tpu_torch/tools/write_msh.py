@@ -118,7 +118,8 @@ def write_arc(path: str, mesh_file: str, *, codename: str = "Laplace",
               result_file: str | None = None, values: dict | None = None,
               materials=(), manufactured: dict | None = None, farfield=(),
               dirichlet_bc=(), post_processing=(), dirichlet_vector=(),
-              dirichlet_point=(), traction=(), component_tags: bool = False) -> None:
+              dirichlet_point=(), traction=(), component_tags: bool = False,
+              blocks=(), mesh_init=()) -> None:
     """A reference case file: the scalar modules (Poisson, Laplace,
     Fourier, Electrostatics, Acoustics, Aerodynamics) and the vector ones
     (Bilaplacian, Elasticity, Elastodynamics).
@@ -150,7 +151,15 @@ def write_arc(path: str, mesh_file: str, *, codename: str = "Laplace",
     ``<traction-boundary-condition>``, the file as
     ``<traction-input-file>``.  Components are written as elasticity reads
     them (``<u>0.0 NULL</u>``, ``<t>..</t>``), or with ``component_tags``
-    as elastodynamics reads them (``<u1>0.0</u1>``, a None left out)."""
+    as elastodynamics reads them (``<u1>0.0</u1>``, a None left out).
+
+    The transient modules' blocks: ``blocks``, (tag, {child tag: text})
+    pairs written as ``<tag><child>text</child>...</tag>`` inside
+    ``<fem>`` (heat's ``convection-boundary-condition``, soildynamics'
+    ``paraxial-boundary-condition`` and ``double-couple``, passmo's
+    ``dirichlet-surface-condition``, ``init-elast-properties``, ...);
+    ``mesh_init``, (variable, cell group, value) triples as the mesh's
+    ``<initialization>`` (passmo's Rho, Lambda, Mu)."""
     bcs = []
     for d in dirichlet:
         surface, value = d[0], d[1]
@@ -199,6 +208,9 @@ def write_arc(path: str, mesh_file: str, *, codename: str = "Laplace",
             "</angle></farfield-boundary-condition>\n" for s, a in farfield]
     fem += [f"    <dirichlet-boundary-condition><surface>{s}</surface><value>{v!r}"
             "</value></dirichlet-boundary-condition>\n" for s, v in dirichlet_bc]
+    fem += [f"    <{tag}>" + "".join(f"<{k}>{v if isinstance(v, str) else repr(v)}</{k}>"
+                               for k, v in kids.items()) + f"</{tag}>\n"
+            for tag, kids in blocks]
     fem.append("    <boundary-conditions>\n" + "".join(bcs)
                + "    </boundary-conditions>\n")
     if linear_system is not None:
@@ -215,10 +227,15 @@ def write_arc(path: str, mesh_file: str, *, codename: str = "Laplace",
                 '<format name="VtkHdfV2PostProcessor"/><output>'
                 + "".join(f"<variable>{v}</variable>" for v in post_processing)
                 + "</output></arcane-post-processing>\n")
+    init = ""
+    if mesh_init:
+        init = ("<initialization>" + "".join(
+            f"<variable><name>{n}</name><value>{v!r}</value><group>{g}</group></variable>"
+            for n, g, v in mesh_init) + "</initialization>")
     text = (f'<?xml version="1.0"?>\n<case codename="{codename}" xml:lang="en" '
             'codeversion="1.0">\n'
             f"  <arcane><title>{codename}</title></arcane>\n"
-            f"  <meshes><mesh><filename>{mesh_file}</filename></mesh></meshes>\n"
+            f"  <meshes><mesh><filename>{mesh_file}</filename>{init}</mesh></meshes>\n"
             + post + "  <fem>\n" + "".join(fem) + "  </fem>\n</case>\n")
     with open(path, "w") as fh:
         fh.write(text)
@@ -261,3 +278,105 @@ def rect_quad_mesh(nx: int, ny: int, lx: float = 1.0, ly: float = 1.0,
         cg = {"west": {"quad4": quads[west]}, "east": {"quad4": quads[~west]}}
     return Mesh(coords=coords, node_uids=np.arange(1, len(coords) + 1, dtype=np.int64),
                 cells={"quad4": quads}, dim=2, face_groups=fg, cell_groups=cg)
+
+
+# local faces of the cells mixed_box_mesh makes, as (node indices) in
+# cyclic order (gmsh orderings: pyramid5 base 0-3 then apex 4; penta6
+# triangles 0-2 and 3-5)
+_MIXED_FACES = {
+    "hexa8": [(0, 1, 2, 3), (4, 5, 6, 7), (0, 1, 5, 4), (1, 2, 6, 5), (2, 3, 7, 6),
+              (3, 0, 4, 7)],
+    "pyramid5": [(0, 1, 2, 3), (0, 1, 4), (1, 2, 4), (2, 3, 4), (3, 0, 4)],
+    "penta6": [(0, 1, 2), (3, 4, 5), (0, 1, 4, 3), (1, 2, 5, 4), (2, 0, 3, 5)],
+    "tetra4": [(0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3)],
+}
+
+
+def mixed_box_mesh(nx: int = 3, ny: int = 2, lx: float = 1.5, ly: float = 1.0,
+                   lz: float = 1.5):
+    """A conforming (lx × ly × lz) box of three layers of nx × ny cubes with
+    every 3D cell type of passmo's P1 zoo: layer 0 hexa8, its first cube
+    split into 6 pyramid5 around a centre node; layer 1 penta6, each cube
+    cut into two prisms along a yz diagonal (quad faces below and above);
+    layer 2 one pyramid5 on each cube's bottom quad and tetra4 on its top
+    and sides (each quad cut along the diagonal through its lowest node id,
+    so neighbours agree) around a centre node.  Face groups xmin, xmax,
+    ymin, ymax, zmin, zmax (quad4 and tria3 faces); cell groups "lower"
+    (layers 0 and 1) and "upper" (layer 2); node groups "all" and
+    "top_corner" (the node at (lx, ly, lz))."""
+    from ..mesh.core import Mesh
+
+    nz = 3
+    xs, ys, zs = (np.linspace(0.0, n_l, n + 1) for n, n_l in ((nx, lx), (ny, ly), (nz, lz)))
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    coords = [np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)]
+    n_grid = len(coords[0])
+
+    def v(i, j, k):
+        return (i * (ny + 1) + j) * (nz + 1) + k
+
+    cells = {"hexa8": [], "pyramid5": [], "penta6": [], "tetra4": []}
+    layer = {t: [] for t in cells}
+
+    def centre(corners):
+        coords.append(coords[0][corners].mean(axis=0)[None])
+        return n_grid + len(coords) - 2
+
+    def add(t, nodes, lay):
+        cells[t].append(nodes)
+        layer[t].append(lay)
+
+    for i in range(nx):
+        for j in range(ny):
+            for k in range(nz):
+                c = [v(i, j, k), v(i + 1, j, k), v(i + 1, j + 1, k), v(i, j + 1, k),
+                     v(i, j, k + 1), v(i + 1, j, k + 1), v(i + 1, j + 1, k + 1),
+                     v(i, j + 1, k + 1)]
+                if k == 0 and (i, j) != (0, 0):
+                    add("hexa8", c, 0)
+                elif k == 0:
+                    m = centre(c)
+                    for f in _MIXED_FACES["hexa8"]:
+                        add("pyramid5", [c[q] for q in f] + [m], 0)
+                elif k == 1:
+                    # triangles in the yz plane extruded along x
+                    add("penta6", [c[0], c[3], c[7], c[1], c[2], c[6]], 1)
+                    add("penta6", [c[0], c[7], c[4], c[1], c[6], c[5]], 1)
+                else:
+                    m = centre(c)
+                    add("pyramid5", [c[0], c[1], c[2], c[3], m], 2)
+                    for f in _MIXED_FACES["hexa8"][1:]:
+                        q = [c[p] for p in f]
+                        s = int(np.argmin(q))
+                        q = q[s:] + q[:s]
+                        add("tetra4", [q[0], q[1], q[2], m], 2)
+                        add("tetra4", [q[0], q[2], q[3], m], 2)
+    coords = np.concatenate(coords)
+    conn = {t: np.asarray(c, np.int32) for t, c in cells.items()}
+    # boundary faces: the faces of one cell only
+    faces = [conn[t][:, list(f)] for t in conn for f in _MIXED_FACES[t]]
+    by_len = {}
+    for f in faces:
+        by_len.setdefault(f.shape[1], []).append(f)
+    face_groups: dict = {}
+    for n, parts in by_len.items():
+        allf = np.concatenate(parts)
+        inv = row_ids(np.sort(allf, axis=1))
+        once = np.bincount(inv)[inv] == 1
+        bnd = allf[once]
+        fx = coords[bnd]
+        for name, axis, val in (("xmin", 0, 0.0), ("xmax", 0, lx), ("ymin", 1, 0.0),
+                                ("ymax", 1, ly), ("zmin", 2, 0.0), ("zmax", 2, lz)):
+            sel = np.all(np.isclose(fx[:, :, axis], val), axis=1)
+            if sel.any():
+                face_groups.setdefault(name, {})["tria3" if n == 3 else "quad4"] = (
+                    bnd[sel].astype(np.int32))
+    lay = {t: np.asarray(layer[t]) for t in conn}
+    cell_groups = {
+        "lower": {t: conn[t][lay[t] < 2] for t in conn if (lay[t] < 2).any()},
+        "upper": {t: conn[t][lay[t] == 2] for t in conn if (lay[t] == 2).any()}}
+    node_groups = {"all": np.arange(len(coords)),
+                   "top_corner": np.array([v(nx, ny, nz)])}
+    return Mesh(coords=coords, node_uids=np.arange(1, len(coords) + 1, dtype=np.int64),
+                cells=conn, dim=3, face_groups=face_groups, cell_groups=cell_groups,
+                node_groups=node_groups)

@@ -75,7 +75,7 @@ g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    memory and true free-row residual (<= 1e-6); u within 1e-4 of max|u|
    of phase 4's x on the free nodes; the assembly's ``slot_reduce`` held
    to ``slot_reduce_plain`` within 4 ulps at the mesh's shapes;
-``[models]`` (run after ``[fem]``, on phase 4's mesh): the Fourier,
+``[models]`` (run after ``[fem]``): the Fourier,
    Electrostatics, Acoustics and Aerodynamics models.  M1: 14 cases
    written into ``build/model_cases/`` (a 96x96 tria3 rect, a 96x96 quad4
    rect with λ regions, a 16^3 tetra4 box, quadratized 48x48 tria6 and 8^3
@@ -90,8 +90,10 @@ g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    and held to the card's φ.  M2, at full width, each with its
    iterations, monitored and true residuals, solve_s, ms/iter, the
    launches of ``sell_spmv`` and ``slot_reduce`` and peak memory: (a)
-   electrostatics on phase 4's mesh, AMG-CG to 1e-8, float32 and float64,
-   E over every cell; (b) aerodynamics there (farfield penalty on the
+   electrostatics on the h=5 refine=1 sphere (phase 4's before the
+   ``[transient]`` phase, cut in depth to make room for it), AMG-CG to
+   1e-8, float32 and float64, E over every
+   cell; (b) aerodynamics there (farfield penalty on the
    sphere, 0 on Cut), GMRES(30) + AMG in float32 with the compensated
    dots to 1e-8; (c) the same system through bicgstab and bicgstab2 + AMG
    in float32 and float64, GMRES once more under torch.profiler (busy
@@ -104,7 +106,7 @@ g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    timed (a ``kernels`` record); (f) acoustics (unpreconditioned BiCGStab,
    the model's forcing) in float64 on the h=5 refine=1 sphere (phase 4's
    until PR 12);
-``[blocks]`` (run after ``[models]``, on phase 4's mesh): the Bilaplacian,
+``[blocks]`` (run after ``[models]``): the Bilaplacian,
    Elasticity and Elastodynamics models (block BELL, the scalar expansion
    of b×b blocks assembled by ``block_slot_reduce``).  B1: 14 cases written
    into ``build/block_cases/`` (a tria3 rect with a point group, a tetra4
@@ -118,17 +120,49 @@ g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    (1e-10 for the dense bilaplacian, cuSOLVER's LU against LAPACK's, and
    for BiCGStab on the RowElimination system, whose count round-off sets
    and which is held to 10%), iterations ± 1 otherwise, one
-   ``block_slot_reduce`` per assembled operator.  B2: (a) elasticity on phase 4's sphere (5,678,067
-   DoF, f32, body force, Penalty u = 0 on Cut, block-Jacobi-CG to 1e-7,
+   ``block_slot_reduce`` per assembled operator.  B2: (a) elasticity on the h=5 refine=1 sphere
+   (732,549 DoF; phase 4's, 5,678,067 DoF, before the ``[transient]``
+   phase, cut in depth to make room for it), f32, body force, Penalty u = 0 on Cut, block-Jacobi-CG to 1e-7,
    ``fail_action="raise"``): iterations, ms/iter, the true free-row
-   residual, phases, peak memory; ``block_slot_reduce`` at its shapes (0
-   ulps from its twin, bit-equal from run to run, beside ``index_add_``)
-   and K1 on its operator (beside CSR ``torch.mv``) as ``kernels``
-   records; one profiled solve (busy share); (b) elasticity with AMG and
-   the rigid body modes on the h=5 refine=1 sphere (732,549 DoF): set-up
-   seconds and level sizes; (c) elastodynamics there, 10 Newmark steps
+   residual, phases, peak memory; ``block_slot_reduce`` at phase 4's
+   5.68M-DoF block shapes (0 ulps from its twin, bit-equal from run to
+   run, beside ``index_add_``) and K1 on that operator (beside CSR
+   ``torch.mv``) as ``kernels`` records (taken in ``[transient]`` T2 (c)
+   on passmo's layout of the same mesh); one profiled
+   solve (busy share); (b) elasticity with AMG and
+   the rigid body modes on the h=5 refine=0 sphere (refine=1, 732,549
+   DoF, before the ``[transient]`` phase): set-up seconds and level
+   sizes; (c) elastodynamics on the refine=1 sphere, 10 Newmark steps
    with a CaseTable traction on the sphere, Jacobi-CG; (d) the dense
    bilaplacian on a 100x100 rect (20,402 DoF);
+``[transient]`` (run after ``[blocks]``, on phase 4's mesh): the Heat,
+   Soildynamics and Passmo models and the fixed-order RHS and face-matrix
+   sums.  T1: 8 cases in ``build/transient_cases/`` (heat on a tria3 rect
+   by Penalty and RowElimination, convection, a constant qdot, one with
+   ``--output-dir`` whose temporal file is read back, and an in-process
+   resume through ``fem/checkpoint.py``; soildynamics with paraxial on
+   three sides, a CaseTable traction and a double couple; passmo on a
+   tetra4 box and on a hexa8/pyramid5/penta6/tetra4 box with imposed
+   U/V/A curves, a Ricker incident wave, Generalized-α, initial node
+   conditions and the recovered fields written), each on the CPU (float64,
+   the golden file), twice in process on the card and through the CLI:
+   the card's fields within 1e-12 of the CPU's largest, the two card runs
+   bit-equal, the iterations of every step equal ± 1, the fixed-order
+   sums (``slot_sum``) launched and no atomic scatter-add called on a CUDA
+   tensor.  T2, 10 steps each: (a) heat on a 1414² tria3 rect (2,002,225
+   DoF, f32, AMG-CG to 1e-6, convection, a constant qdot; then the same
+   options in f64: each last step's free-row residual under its dtype's
+   limit, the f32 T held to the f64 T), (b)
+   soildynamics there (4,004,450 DoF, f64, Jacobi-CG, paraxial on three
+   sides, a CaseTable traction, the double couple at the centre), (c)
+   passmo on phase 4's sphere (5,678,067 DoF, f32, Newmark, Jacobi-CG,
+   paraxial on the sphere with the inner cells' ρ, cp, cs, an imposed
+   velocity on Cut, the recovery): iterations per step, the last step's
+   monitored and free-row residuals, solve seconds, ms/iter, phases, peak
+   memory, launches; ``block_slot_reduce`` at (b)'s b = 2 shapes and
+   ``slot_reduce`` as the RHS reducer at (c)'s paraxial faces held to
+   their twins (0 ulps, bit-equal reruns) and timed beside one
+   ``index_add_`` (``kernels`` records);
 j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
    then ``--spmv diag`` (K10) on the same system, ``[diag]`` lines; K10
    held to its twin and timed there and on the 80^3 RCM box, beside K1 and
@@ -200,6 +234,21 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
+_T0 = time.perf_counter()  # the run's start, for the [elapsed] lines
+
+
+def _elapsed(done: str) -> None:
+    """An [elapsed] line: the seconds since the run started, after ``done``
+    (the script's time limit is the whole run's)."""
+    print(f"[elapsed] {time.perf_counter() - _T0:.1f} s after {done}", flush=True)
+
+
+def _assemblies(counts: dict) -> int:
+    """The slot_reduce launches of scalar assemblies: all of them less the
+    fixed-order RHS and face-matrix sums (``slot_sum``)."""
+    return counts.get("slot_reduce", 0) - counts.get("slot_sum", 0)
+
+
 def _check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
@@ -252,6 +301,7 @@ def main() -> int:
     print(f"[build] {kernels.library_path()} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    _elapsed("device and build")
     # 3. kernel parity on random ELL inputs; K1 on the SELL layout of the
     #    real slots (built on the host), held to its SELL twin and to the
     #    (n, W) definition
@@ -298,6 +348,7 @@ def main() -> int:
     for rec in measure_all(2000):
         print(f"[launch] {json.dumps(rec)}", flush=True)
 
+    _elapsed("3: parity and launch costs")
     # 4. main path at 1.9M DoF
     t0 = time.perf_counter()
     mesh, topo = sphere_cut_system(5.0, 2)
@@ -417,18 +468,27 @@ def main() -> int:
              time.perf_counter() - t0, groups=SPHERE_GROUPS)
     torch.cuda.empty_cache()
     cache_phase(dev, mesh, topo, res)
+    _elapsed("4: main path, records, profile, [cache]")
 
     records += supernode_phase(dev, gen, mesh, topo, res)
+    _elapsed("9: supernode routes")
     res["system"].pop("sn", None)  # 1.35 GB of blocks no later phase reads
     records += compact_phase(dev, gen, mesh, topo, res)
+    _elapsed("g-i: compact routes")
     fem_phase(dev, mesh, res)
+    _elapsed("[fem]")
     del res
-    records += models_phase(dev, mesh)
-    records += blocks_phase(dev, mesh)
+    records += models_phase(dev)
+    _elapsed("[models]")
+    blocks_phase(dev)
+    _elapsed("[blocks]")
+    records += transient_phase(dev, mesh)
+    _elapsed("[transient]")
     del mesh, topo
     torch.cuda.empty_cache()
     records += diag_phase(dev, gen)
     records += probe_phase(dev)
+    _elapsed("j: [diag], [probe]")
     torch.cuda.empty_cache()
 
     # 5. the kernel path against the plain path, and against float64 on
@@ -465,7 +525,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     records += structured_phases(dev, gen)
+    _elapsed("5, 9b, 9c, 6-8: h=8 comparisons and the structured path")
     bench_phase()
+    _elapsed("[bench]")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
@@ -929,9 +991,12 @@ def _reset_all() -> None:
 
 
 def _counts_all() -> dict:
+    """Every kernel's launch count, and ``slot_sum``: the slot_reduce
+    launches of the fixed-order RHS and face-matrix sums."""
     from arcanefem_tpu_torch.bench_unstructured import launch_counts
+    from arcanefem_tpu_torch.sparse.slot_reduce import sum_launch_counts
 
-    return launch_counts()
+    return {**launch_counts(), **sum_launch_counts()}
 
 
 def _route_run(tag, mesh, topo, dev, system, ell_iters, **opts):
@@ -1737,7 +1802,7 @@ def fem_cli_phase(dev) -> None:
                    f"{alone['stderr']}")
             its += (alone["info"]["iterations"],)
         _check(max(its) - min(its) <= 1, f"[fem] F1 {c['name']}: iterations {its}")
-        _check(c["launches"].get("slot_reduce") == 1 and c["launches"].get("sell_spmv", 0) > 0,
+        _check(_assemblies(c["launches"]) == 1 and c["launches"].get("sell_spmv", 0) > 0,
                f"[fem] F1 {c['name']}: launches {c['launches']}")
     del cases
     torch.cuda.empty_cache()
@@ -1793,7 +1858,7 @@ def fem_full_width_phase(dev, mesh, res4) -> None:
             "vs_phase4": vs4,
             "launches": {k: v for k, v in counts.items() if v}}
     print(f"[fem] F2 {json.dumps(line)}", flush=True)
-    _check(counts["slot_reduce"] == 1 and counts["tet_element"] == 0
+    _check(_assemblies(counts) == 1 and counts["tet_element"] == 0
            and counts["sell_spmv"] > 0, f"[fem] F2: launches {counts}")
     _check(r.residual <= 1e-8, f"[fem] F2: monitored residual {r.residual:.3e}")
     _check(r.info["free_residual"] <= 1e-6,
@@ -1851,6 +1916,10 @@ ACOUSTICS_REFINE = 1
 ACOUSTICS_MAX_ITER = 20000
 FOURIER_QUAD_N = 1414  # M2: 1414^2 quad4 cells, 2,002,225 nodes
 P2_SPHERE_REFINE = 0  # M2: the h=5 sphere, quadratized
+# M2: electrostatics, aerodynamics and (c)'s Krylov runs on the h=5 sphere at
+# this refine (phase 4's, refine=2, before [transient]; cut in depth to make
+# room for it)
+M2_REFINE = 1
 
 
 def _model_cases(root: str) -> list[dict]:
@@ -2002,7 +2071,7 @@ def models_cli_phase(dev) -> None:
         its = (c["cpu_iters"], c["card_iters"], cli["info"]["iterations"])
         tol = max(1, c["cpu_iters"] // 20) if c["roundoff_count"] else 1
         _check(max(its) - min(its) <= tol, f"[models] M1 {c['name']}: iterations {its}")
-        _check(c["launches"].get("slot_reduce") == 1 and c["launches"].get("sell_spmv", 0) > 0,
+        _check(_assemblies(c["launches"]) == 1 and c["launches"].get("sell_spmv", 0) > 0,
                f"[models] M1 {c['name']}: launches {c['launches']}")
         if c["name"] == MODEL_OUTPUT_CASE:
             phi = c["card"]["phi"]
@@ -2068,7 +2137,7 @@ def _check_model(tag: str, r, counts: dict, rtol: float, n: int) -> None:
     u = r.u if u is None else u
     _check(r.residual <= rtol, f"[models] M2 {tag}: monitored residual {r.residual:.3e}")
     _check(u.shape == (n,) and bool(np.isfinite(u).all()), f"[models] M2 {tag}: u")
-    _check(counts["slot_reduce"] == 1 and counts["sell_spmv"] > 0
+    _check(_assemblies(counts) == 1 and counts["sell_spmv"] > 0
            and counts["tet_element"] == 0, f"[models] M2 {tag}: launches {counts}")
 
 
@@ -2112,7 +2181,7 @@ def _krylov_line(tag, fn, A, b, M, x0, rtol, **kw) -> dict:
     return line
 
 
-def models_full_width_phase(dev, mesh) -> list[dict]:
+def models_full_width_phase(dev) -> list[dict]:
     """[models] M2 (the module docstring); returns the record of
     slot_reduce at the tetra10 shapes."""
     import numpy as np
@@ -2131,20 +2200,22 @@ def models_full_width_phase(dev, mesh) -> list[dict]:
     from arcanefem_tpu_torch.solver.linear_system import SolverOptions
     from arcanefem_tpu_torch.tools.write_msh import rect_quad_mesh
 
-    n = mesh.n_nodes
     dirichlet = [DirichletBC("Cut", 0.0), DirichletBC("sphere", 1.0)]
-    # (a) electrostatics, Hypre-mapped AMG-CG, E over every cell
-    for dtype in (torch.float32, torch.float64):
+    # (a) electrostatics, Hypre-mapped AMG-CG, E over every cell, on the h=5
+    #     refine=M2_REFINE sphere
+    emesh = sphere_cut_system(5.0, M2_REFINE)[0]
+    for dtype, m in ((torch.float32, emesh), (torch.float64, emesh)):
         cfg = electrostatics.ElectrostaticsConfig(
             rho=1.0, epsilon=1.0, bcs=BoundaryConditions(dirichlet=list(dirichlet)),
             solver=SolverOptions(method="cg", preconditioner="amg", rtol=1e-8))
         tag = f"electrostatics {str(dtype)[6:]}"
-        r, counts, peak, wall, timer = _run_model(tag, electrostatics.solve, mesh, cfg,
+        r, counts, peak, wall, timer = _run_model(tag, electrostatics.solve, m, cfg,
                                                   dtype=dtype, device=dev)
         E = r.E["tetra4"]
-        _model_line(tag, r, counts, peak, wall, timer, E_shape=list(E.shape))
-        _check_model(tag, r, counts, 1e-8, n)
-        _check(E.shape == (mesh.cells["tetra4"].shape[0], 3) and bool(np.isfinite(E).all()),
+        _model_line(tag, r, counts, peak, wall, timer, E_shape=list(E.shape),
+                    n_nodes=m.n_nodes)
+        _check_model(tag, r, counts, 1e-8, m.n_nodes)
+        _check(E.shape == (m.cells["tetra4"].shape[0], 3) and bool(np.isfinite(E).all()),
                f"[models] M2 {tag}: E of shape {E.shape}")
         prob64 = r.problem  # the last: float64, for (c)
         del r, E
@@ -2154,11 +2225,12 @@ def models_full_width_phase(dev, mesh) -> list[dict]:
     cfg = aerodynamics.AerodynamicsConfig(**ae, solver=SolverOptions(
         method="gmres", gmres_restart=30, preconditioner="amg", rtol=1e-8))
     r, counts, peak, wall, timer = _run_model("aerodynamics gmres float32", aerodynamics.solve,
-                                              mesh, cfg, dtype=torch.float32, device=dev)
-    _model_line("aerodynamics gmres float32", r, counts, peak, wall, timer)
-    _check_model("aerodynamics gmres float32", r, counts, 1e-8, n)
+                                              emesh, cfg, dtype=torch.float32, device=dev)
+    _model_line("aerodynamics gmres float32", r, counts, peak, wall, timer,
+                n_nodes=emesh.n_nodes)
+    _check_model("aerodynamics gmres float32", r, counts, 1e-8, emesh.n_nodes)
     prob32 = r.problem
-    del r
+    del r, emesh
     # (c) the same system through bicgstab and bicgstab2 + AMG, float32 and
     #     float64, and GMRES again: a profiled solve and its peak memory
     for dtype in (torch.float32, torch.float64):
@@ -2286,12 +2358,12 @@ def _p2_slot_reduce_record(prob, launches: int) -> dict:
     return rec
 
 
-def models_phase(dev, mesh) -> list[dict]:
+def models_phase(dev) -> list[dict]:
     """[models]: M1 then M2, with the phase's wall time."""
     t0 = time.perf_counter()
     models_cli_phase(dev)
     t1 = time.perf_counter()
-    recs = models_full_width_phase(dev, mesh)
+    recs = models_full_width_phase(dev)
     print(f"[models] wall time: M1 {t1 - t0:.1f} s, M2 {time.perf_counter() - t1:.1f} s",
           flush=True)
     return recs
@@ -2303,6 +2375,11 @@ def models_phase(dev, mesh) -> list[dict]:
 BLOCK_RECT, BLOCK_BOX = (48, 24), (12, 6, 6)  # B1 meshes (tria3 rect, tetra4 box)
 BLOCK_DENSE_N = 100  # B2 (d): a 100x100 tria3 rect, 20,402 dofs
 BLOCK_MAX_ITER = 40000  # B2 (a): block-Jacobi-CG's iteration cap at 5.68M dofs
+# B2 (a), (b): elasticity (block-Jacobi; the rigid-body-mode AMG) on the h=5
+# sphere at these refines (2, phase 4's, and 1 before [transient]; cut in
+# depth to make room for it)
+BLOCK_ELASTICITY_REFINE = 1
+BLOCK_AMG_REFINE = 0
 # B2 (c): elastodynamics steps on the h=5 refine=1 sphere
 BLOCK_ED_STEPS, BLOCK_ED_DT = 10, 0.01
 BLOCK_HYPRE = {"name": "HypreLinearSystem", "rtol": "1e-11"}
@@ -2517,7 +2594,7 @@ def blocks_cli_phase(dev) -> None:
         check(max(its) - min(its) <= tol, f"{c['name']}: iterations {its}")
         n_ops = 3 if c["codename"] == "Elastodynamics" else 1
         check(c["launches"].get("block_slot_reduce") == n_ops
-              and not c["launches"].get("slot_reduce")
+              and _assemblies(c["launches"]) == 0
               and (c["codename"] == "Bilaplacian" or c["launches"].get("sell_spmv", 0) > 0),
               f"{c['name']}: launches {c['launches']}")
     _check(not failed, "[blocks] B1: " + "; ".join(failed))
@@ -2544,12 +2621,14 @@ def _block_line(tag: str, r, counts: dict, peak: float, wall: float, timer, **ex
     return line
 
 
-def blocks_full_width_phase(dev, mesh) -> list[dict]:
-    """[blocks] B2: (a) elasticity on phase 4's sphere (block-Jacobi-CG,
-    float32), with the block slot_reduce and K1 records at its shapes and a
-    profiled solve; (b) elasticity with AMG and the rigid body modes and
-    (c) elastodynamics on the h=5 refine=1 sphere; (d) the dense
-    bilaplacian on a 100x100 rect."""
+def blocks_full_width_phase(dev) -> None:
+    """[blocks] B2: (a) elasticity on the h=5 refine=BLOCK_ELASTICITY_REFINE
+    sphere (block-Jacobi-CG, float32) and a profiled solve; (b) elasticity
+    with AMG and the rigid body modes on the refine=BLOCK_AMG_REFINE
+    sphere and (c) elastodynamics on the refine=1 sphere; (d) the dense
+    bilaplacian on a 100x100 rect.  The block slot_reduce and K1 records at
+    phase 4's 5.68M-DoF block shapes are taken in [transient] T2 (c), on
+    passmo's operator of the same mesh and layout."""
     import numpy as np
     import torch
 
@@ -2561,7 +2640,10 @@ def blocks_full_width_phase(dev, mesh) -> list[dict]:
     from arcanefem_tpu_torch.solver.linear_system import SolverOptions, solve_finalized
 
     fixed = BoundaryConditions(dirichlet=[DirichletBC("Cut", values=(0.0, 0.0, 0.0))])
-    # (a) elasticity at 5.68M dofs, block-Jacobi-CG, float32
+    # (a) elasticity, block-Jacobi-CG, float32
+    smesh = sphere_cut_system(5.0, 1)[0]
+    mesh = smesh if BLOCK_ELASTICITY_REFINE == 1 else sphere_cut_system(
+        5.0, BLOCK_ELASTICITY_REFINE)[0]
     cfg = elasticity.ElasticityConfig(
         E=1.0, nu=0.3, f=(0.0, 0.0, -1.0), bcs=fixed,
         solver=SolverOptions(method="cg", preconditioner="block-jacobi", rtol=1e-7,
@@ -2575,10 +2657,9 @@ def blocks_full_width_phase(dev, mesh) -> list[dict]:
     _check(r.residual <= 1e-7 and r.info["free_residual"] <= 1e-4,
            f"[blocks] B2 (a): residual {r.residual:.3e}, free-row {r.info['free_residual']:.3e}")
     _check(r.u.shape == (n, 3) and bool(np.isfinite(r.u).all()), "[blocks] B2 (a): u")
-    _check(counts["block_slot_reduce"] == 1 and counts["slot_reduce"] == 0
+    _check(counts["block_slot_reduce"] == 1 and _assemblies(counts) == 0
            and counts["sell_spmv"] >= r.iterations, f"[blocks] B2 (a): launches {counts}")
     prob = r.problem
-    records = _block_records(prob, counts, cfg)
     # one profiled solve of the finalized system (its true residual included)
     system = prob.new_system(prob.assemble_matrix(
         lambda ct, xyz: elasticity.element_blocks(ct, xyz, *elasticity.lame(cfg.E, cfg.nu))),
@@ -2592,23 +2673,24 @@ def blocks_full_width_phase(dev, mesh) -> list[dict]:
     _profile(lambda: solve_finalized(A, b, cfg.solver, x0),
              os.path.join("build", "profile", "elasticity.txt"), line["solve_s"],
              groups=SPHERE_GROUPS)
-    del A, b, x0, prob, r
+    del A, b, x0, prob, r, mesh
     torch.cuda.empty_cache()
-    # (b) and (c) on the h=5 refine=1 sphere
+    # (b) on the h=5 refine=BLOCK_AMG_REFINE sphere, (c) on the refine=1
+    #     sphere
     t0 = time.perf_counter()
-    smesh = sphere_cut_system(5.0, 1)[0]
+    amesh = sphere_cut_system(5.0, BLOCK_AMG_REFINE)[0]
     host_s = time.perf_counter() - t0
     cfg = elasticity.ElasticityConfig(
         E=1.0, nu=0.3, f=(0.0, 0.0, -1.0), bcs=fixed,
         solver=SolverOptions(method="cg", preconditioner="amg", rtol=1e-7,
                              fail_action="raise"))
-    r, counts, peak, wall, timer = _run_model("elasticity amg", elasticity.solve, smesh, cfg,
+    r, counts, peak, wall, timer = _run_model("elasticity amg", elasticity.solve, amesh, cfg,
                                               dtype=torch.float32, device=dev)
     _block_line("elasticity amg+rbm float32", r, counts, peak, wall, timer,
                 mesh_host_s=host_s, amg_setup_s=r.info["precond_setup_s"],
                 amg_rows=r.info["amg_rows"])
     _check(r.residual <= 1e-7 and bool(np.isfinite(r.u).all()), "[blocks] B2 (b): residual")
-    del r
+    del r, amesh
     table = CaseTable(np.array(BLOCK_TABLE)[:, 0], np.array(BLOCK_TABLE)[:, 1:])
     ecfg = elastodynamics.ElastodynamicsConfig(
         tmax=BLOCK_ED_STEPS * BLOCK_ED_DT, dt=BLOCK_ED_DT, rho=1.0, E=100.0, nu=0.3,
@@ -2655,12 +2737,12 @@ def blocks_full_width_phase(dev, mesh) -> list[dict]:
            "[blocks] B2 (d): u1, u2")
     del r, dmesh
     torch.cuda.empty_cache()
-    return records
 
 
 def _block_records(prob, counts: dict, cfg) -> list[dict]:
-    """The block slot_reduce and K1 records at B2 (a)'s shapes: the f32
-    elasticity table of phase 4's sphere into its expanded SELL slots
+    """The block slot_reduce and K1 records at phase 4's 5.68M-DoF block
+    shapes (``prob``: T2 (c)'s passmo problem): the
+    f32 elasticity table of the sphere into its expanded SELL slots
     (0 ulps from the twin, bit-equal from run to run, beside one
     index_add_ of every contributor's 9 entries), and K1 on the assembled
     5.68M-row operator (beside CSR torch.mv)."""
@@ -2744,13 +2826,575 @@ def _block_records(prob, counts: dict, cfg) -> list[dict]:
     return [rec, k1]
 
 
-def blocks_phase(dev, mesh) -> list[dict]:
+def blocks_phase(dev) -> None:
     """[blocks]: B1 then B2, with the phase's wall time."""
     t0 = time.perf_counter()
     blocks_cli_phase(dev)
     t1 = time.perf_counter()
-    recs = blocks_full_width_phase(dev, mesh)
+    blocks_full_width_phase(dev)
     print(f"[blocks] wall time: B1 {t1 - t0:.1f} s, B2 {time.perf_counter() - t1:.1f} s",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# [transient]: the Heat, Soildynamics and Passmo models, the fixed-order
+# RHS and face-matrix sums
+
+TRANS_RECT = (32, 16)  # T1's tria3 rect (heat, soildynamics)
+TRANS_BOX = (6, 4, 4)  # T1's tetra4 box (passmo)
+TRANS_MIXED = (3, 2)  # T1's mixed hexa8/pyramid5/penta6/tetra4 box (passmo)
+TRANS_HEAT_N = 1414  # T2 (a), (b): a 1414x1414 tria3 rect, 2,002,225 nodes
+TRANS_STEPS = 10  # T2's steps
+# T1's and T2 (b)'s traction series (time, t1, t2, t3) and double-couple
+# force series (time, f)
+TRANS_TABLE = [[0.0, 0.0, 0.0, 0.0], [0.02, 0.0, -1.0, 0.2], [0.05, 0.5, -0.5, 0.0],
+               [1.0, 0.0, 0.0, 0.0]]
+TRANS_SOURCE = [[0.0, 0.0], [0.02, 1.0], [0.05, -0.5], [1.0, 0.0]]
+# T1 passmo curves (time, x, y, z)
+TRANS_CURVE = [[0.0, 0.0, 0.0, 0.0], [0.05, 1e-3, -2e-3, 0.0], [1.0, 0.0, 1e-3, 5e-4]]
+TRANS_CARD_TOL = 1e-12  # T1: the card's fields from the CPU's, of the CPU's largest
+# T2 (a): the last step's free-row residual, float32 and float64, and the
+# float32 T from the float64 T (of its largest).  float32 holds the mass
+# term M/dt, ~h²/dt of the stiffness at h = 1/1414, to few digits (PERF.md
+# §5 has the readings these limits were set from)
+HEAT_FREE_F32 = 1e-2
+HEAT_FREE_F64 = 1e-4
+HEAT_FIELD_F32 = 1e-1
+TRANS_ATOMICS = ("index_add", "index_add_", "scatter_add", "scatter_add_")
+
+
+def _nearest_nodes(mesh, points) -> dict:
+    """Node groups of one node each: the mesh node nearest each (x, y)."""
+    import numpy as np
+
+    return {name: np.array([int(np.argmin(np.hypot(mesh.coords[:, 0] - x,
+                                                    mesh.coords[:, 1] - y)))])
+            for name, (x, y) in points.items()}
+
+
+def _transient_cases(root: str) -> list[dict]:
+    """T1's meshes, tables and case files (no result file yet): name, path
+    (None for the in-process resume), codename, the fields held, dt."""
+    import numpy as np
+
+    from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh, rect_tria_mesh
+    from arcanefem_tpu_torch.tools.write_msh import mixed_box_mesh, write_arc, write_msh
+
+    inputs = os.path.join(root, "inputs")
+    os.makedirs(inputs, exist_ok=True)
+    rect = rect_tria_mesh(*TRANS_RECT, lx=2.0, ly=1.0)
+    rect.node_groups.update(_nearest_nodes(rect, {"N": (1.0, 0.5625), "S": (1.0, 0.4375),
+                                                  "E": (1.0625, 0.5), "W": (0.9375, 0.5)}))
+    write_msh(os.path.join(inputs, "rect.msh"), rect)
+    box = box_tetra_mesh(*TRANS_BOX, lx=1.5)
+    box.cell_groups["vol"] = {"tetra4": box.cells["tetra4"]}
+    write_msh(os.path.join(inputs, "box.msh"), box)
+    write_msh(os.path.join(inputs, "mixed.msh"), mixed_box_mesh(*TRANS_MIXED))
+    np.savetxt(os.path.join(root, "traction.txt"), np.array(TRANS_TABLE))
+    np.savetxt(os.path.join(root, "source.txt"), np.array(TRANS_SOURCE))
+    np.savetxt(os.path.join(root, "curve.txt"), np.array(TRANS_CURVE))
+    # tmax between two step times: the loop runs while t < tmax, and t sums dt
+    heat = {"lambda": 1.5, "dt": 0.05, "tmax": 0.475, "Tinit": 0.25}
+    soil = {"tmax": 0.1, "dt": 0.01, "rho": 2.0, "E": 50.0, "nu": 0.25}
+    parax = [("paraxial-boundary-condition", {"surface": s}) for s in ("left", "right", "bottom")]
+    dc = ("double-couple", {"north-node-name": "N", "south-node-name": "S",
+                            "east-node-name": "E", "west-node-name": "W",
+                            "double-couple-input-file": "source.txt"})
+    conv = ("convection-boundary-condition", {"surface": "right", "h": 3.0, "Text": 0.5})
+    rinf = 0.5
+    am, af = (2 * rinf - 1) / (rinf + 1), rinf / (rinf + 1)
+    mixed_blocks = [
+        ("dirichlet-surface-condition", {"surface": "zmin", "Ux": 0.0, "Uy": 0.0, "Uz": 0.0}),
+        ("dirichlet-surface-condition", {"surface": "xmax", "U-curve": "curve.txt",
+                                         "x-axis": "true"}),
+        ("dirichlet-surface-condition", {"surface": "ymax", "V-curve": "curve.txt",
+                                         "y-axis": "true", "z-axis": "true"}),
+        ("dirichlet-point-condition", {"node": "top_corner", "A-curve": "curve.txt",
+                                       "x-axis": "true"}),
+        ("paraxial-boundary-condition", {"surface": "ymin", "rhopar": 2.0, "cp": 3.0,
+                                         "cs": 1.7, "input-motion-type": 2, "tp": 0.05,
+                                         "ts": 0.04, "amplit": 1e-3, "normal-angle": 30.0}),
+        ("initial-node-condition", {"node-group": "all", "V": "0.0 0.0 -1e-3"}),
+        ("init-cell-condition", {"cell-group": "upper", "vol-stress": "1.0 2.0 3.0"}),
+    ]
+    specs = [  # name, mesh, codename, dt, write_arc fields
+        ("heat_penalty_qdot", "rect.msh", "Heat", 0.05,
+         dict(values={**heat, "qdot": 2.0}, dirichlet_bc=[("left", 1.0)])),
+        ("heat_rowelim_convection", "rect.msh", "Heat", 0.05,
+         dict(values={**heat, "enforce-Dirichlet-method": "RowElimination"},
+              dirichlet_bc=[("left", 1.0)], blocks=[conv])),
+        ("heat_convection_output", "rect.msh", "Heat", 0.05,
+         dict(values={**heat, "qdot": -1.0}, dirichlet_bc=[("bottom", 0.0)], blocks=[conv],
+              post_processing=["NodeTemperature"])),
+        ("soil_paraxial_table", "rect.msh", "Soildynamics", 0.01,
+         dict(values=soil, traction=[("top", None, "traction.txt")], blocks=parax,
+              component_tags=True)),
+        ("soil_double_couple", "rect.msh", "Soildynamics", 0.01,
+         dict(values=soil, traction=[("top", (0.0, -0.5))], blocks=parax + [dc],
+              component_tags=True)),
+        ("passmo_tetra_box", "box.msh", "Passmo", 0.01,
+         dict(values={"analysis-type": "3D", "final-time": 0.1, "deltat": 0.01, "gz": -9.81},
+              mesh_init=[("Rho", "vol", 2.0), ("Lambda", "vol", 30.0), ("Mu", "vol", 20.0)],
+              blocks=[("dirichlet-surface-condition",
+                       {"surface": "xmin", "Ux": 0.0, "Uy": 0.0, "Uz": 0.0}),
+                      ("paraxial-boundary-condition", {"surface": "xmax"}),
+                      ("neumann-condition", {"surface": "zmax", "curve": "curve.txt"})])),
+        ("passmo_mixed_output", "mixed.msh", "Passmo", 0.01,
+         dict(values={"analysis-type": "3D", "final-time": 0.1, "deltat": 0.01,
+                      "alfa_method": "true", "alfam": am, "alfaf": af,
+                      "beta": 0.25 * (1 - am + af) ** 2, "gamma": 0.5 - am + af},
+              mesh_init=[("Rho", "lower", 2.0), ("Lambda", "lower", 30.0),
+                         ("Mu", "lower", 20.0), ("Rho", "upper", 1.5),
+                         ("Lambda", "upper", 50.0), ("Mu", "upper", 25.0)],
+              blocks=mixed_blocks, post_processing=["U", "StrainVol", "StressDev"])),
+    ]
+    fields = {"Heat": ("T",), "Soildynamics": ("u", "v", "a"), "Passmo": ("u", "v", "a")}
+    cases = []
+    for name, mesh, codename, dt, kw in specs:
+        path = os.path.join(inputs, f"{name}.arc")
+        write_arc(path, mesh, codename=codename, **kw)
+        cases.append({"name": name, "path": path, "codename": codename, "dt": dt,
+                      "fields": fields[codename], "output": "output" in name,
+                      "assemblies": int(codename == "Heat")})
+    cases.append({"name": "heat_resume", "path": None, "codename": "Heat", "dt": 0.05,
+                  "fields": ("T",), "output": False, "assemblies": 3,
+                  "solve": _heat_resume(os.path.join(inputs, "heat_penalty_qdot.arc"),
+                                        os.path.join(root, "checkpoint"))})
+    return cases
+
+
+def _heat_resume(path: str, ck: str):
+    """A solve(device) of the heat case ``path`` in two halves, through
+    fem/checkpoint.py's save and restore, and its continuous run: the
+    resumed result with ``continuous`` set to the other."""
+    def solve(device):
+        import dataclasses
+
+        from arcanefem_tpu_torch.fem import checkpoint
+        from arcanefem_tpu_torch.fem.arc import load_case
+        from arcanefem_tpu_torch.mesh.core import read_msh
+        from arcanefem_tpu_torch.models import heat
+
+        case = load_case(path)
+        mesh = read_msh(case.mesh_file)
+        cfg = dataclasses.replace(heat.parse_config(case, check=False), solver=dataclasses.replace(
+            case.solver, rtol=1e-12))
+        full = heat.solve(mesh, cfg, device=device)
+        half = heat.solve(mesh, dataclasses.replace(cfg, tmax=cfg.tmax / 2), device=device)
+        checkpoint.save(ck, half.steps * cfg.dt, half.steps, {"T": half.T})
+        t0, _step, state = checkpoint.restore(ck)
+        res = heat.solve(mesh, dataclasses.replace(cfg, tmax=cfg.tmax - t0), T0=state["T"],
+                         device=device)
+        res.continuous = full
+        return res
+    return solve
+
+
+def _state_diff(got: dict, want: dict, dt: float) -> float:
+    """max |got − want| of the fields, u, v·dt, a·dt² (a Newmark state in
+    displacement units) or T, over the largest of them in ``want``."""
+    import numpy as np
+
+    w = {"T": 1.0, "u": 1.0, "v": dt, "a": dt * dt}
+    scale = max(float(np.abs(want[f]).max()) * w[f] for f in want)
+    return max(float(np.abs(got[f] - want[f]).max()) * w[f] for f in want) / max(scale, 1e-300)
+
+
+class _NoAtomics:
+    """Counts the calls of the atomic scatter-adds (index_add, scatter_add,
+    accumulating index_put) on a CUDA tensor while it is entered."""
+
+    def __enter__(self):
+        import torch
+
+        self.calls: dict = {}
+        self._saved = []
+        for name in (*TRANS_ATOMICS, "index_put", "index_put_"):
+            real = getattr(torch.Tensor, name)
+
+            def wrapped(t, *a, _name=name, _real=real, **kw):
+                accumulating = kw.get("accumulate", len(a) > 2 and a[2])
+                if t.is_cuda and (_name in TRANS_ATOMICS or accumulating):
+                    self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _real(t, *a, **kw)
+
+            self._saved.append((name, real))
+            setattr(torch.Tensor, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        for name, real in self._saved:
+            setattr(torch.Tensor, name, real)
+
+
+def transient_cli_phase(dev) -> None:
+    """[transient] T1: each case on the CPU (float64; its T or u becomes the
+    case's golden file), twice in process on the card (float64) and through
+    the CLI: the card's fields within 1e-12 of the CPU's largest, the two
+    card runs bit-equal, each step's iterations equal ± 1, the fixed-order
+    sums launched and no atomic scatter-add called on a CUDA tensor; the
+    output case's temporal file read back; the resumed heat run equal to
+    the continuous one."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.fem.runner import run_case
+
+    root = os.path.join("build", "transient_cases")
+    cases = _transient_cases(root)
+
+    def run(c, device, out=None):
+        if c["path"] is None:
+            return c["solve"](device)
+        return run_case(c["path"], device=device, output_dir=out)
+
+    def fields(r, c):
+        return {f: np.asarray(getattr(r, f)) for f in c["fields"]}
+
+    for c in cases:
+        t0 = time.perf_counter()
+        cpu = run(c, "cpu")
+        c["cpu_s"] = time.perf_counter() - t0
+        c["cpu"], c["cpu_iters"] = fields(cpu, c), cpu.step_iterations
+        c["n_nodes"] = cpu.problem.mesh.n_nodes
+        if c["path"] is not None:
+            golden = os.path.abspath(c["path"][:-4] + ".golden.txt")
+            u = c["cpu"][c["fields"][0]].reshape(c["n_nodes"], -1)
+            np.savetxt(golden, np.column_stack([cpu.problem.mesh.node_uids, u]),
+                       fmt=["%d"] + ["%.17g"] * u.shape[1])
+            with open(c["path"]) as f:
+                text = f.read().replace(
+                    "</fem>", f"  <result-file>{golden}</result-file>\n  </fem>")
+            with open(c["path"], "w") as f:
+                f.write(text)
+    with ThreadPoolExecutor(FEM_CLI_WORKERS) as pool:
+        out_dir = os.path.join(root, "out")
+        clis = [pool.submit(_fem_cli, c["path"],
+                            extra=["--output-dir", os.path.join(out_dir, "cli")]
+                            if c["output"] else None) if c["path"] else None for c in cases]
+        for c in cases:
+            runs = []
+            for k in range(2):
+                _reset_all()
+                t0 = time.perf_counter()
+                with _NoAtomics() as guard:  # checks the golden file too
+                    card = run(c, dev, os.path.join(out_dir, "card") if c["output"] else None)
+                c[f"card_s{k}"] = time.perf_counter() - t0
+                c["launches"] = {k2: v for k2, v in _counts_all().items() if v}
+                c["atomics"] = guard.calls
+                runs.append(card)
+            c["card"], c["card2"] = fields(runs[0], c), fields(runs[1], c)
+            c["card_iters"] = runs[0].step_iterations
+            c["history"] = [t for t, _ in getattr(runs[1], "history", [])]
+            if c["path"] is None:
+                c["resume_diff"] = float(np.abs(runs[0].T - runs[0].continuous.T).max()
+                                         / np.abs(runs[0].continuous.T).max())
+            del runs, card
+        for c, fut in zip(cases, clis):
+            c["cli"] = fut.result() if fut else None
+    failed = []
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+
+    for c in cases:
+        diff = _state_diff(c["card"], c["cpu"], c["dt"])
+        equal = all(np.array_equal(c["card"][f], c["card2"][f]) for f in c["fields"])
+        cli = c["cli"]
+        line = {"case": c["name"], "codename": c["codename"], "n_nodes": c["n_nodes"],
+                "steps": len(c["cpu_iters"]),
+                "iterations": {"cpu": c["cpu_iters"], "card": c["card_iters"],
+                               "cli": cli and cli["info"] and cli["info"].get("iterations")},
+                "card_vs_cpu": diff, "card_runs_bit_equal": equal,
+                "cpu_s": c["cpu_s"], "card_s": [c["card_s0"], c["card_s1"]],
+                "cli_s": cli and cli["s"], "cli_code": cli and cli["code"],
+                "launches": c["launches"], "atomics_on_card": c["atomics"]}
+        if "resume_diff" in c:
+            line["resume_vs_continuous"] = c["resume_diff"]
+        print(f"[transient] T1 {json.dumps(line)}", flush=True)
+        if cli is not None:
+            check(cli["code"] == 0 and cli["info"] is not None,
+                  f"{c['name']}: the CLI exited {cli['code']}: {cli['stderr']}")
+            if cli["code"] == 0 and cli["info"] is not None:
+                check(abs(cli["info"]["iterations"] - sum(c["cpu_iters"])) <= len(c["cpu_iters"]),
+                      f"{c['name']}: CLI iterations {cli['info']['iterations']}")
+        check(diff <= TRANS_CARD_TOL, f"{c['name']}: card fields {diff:.3e} of the CPU's "
+              f"largest from the CPU's (tolerance {TRANS_CARD_TOL:g})")
+        check(equal, f"{c['name']}: two card runs differ")
+        check(len(c["cpu_iters"]) == len(c["card_iters"]) and all(
+            abs(a - b) <= 1 for a, b in zip(c["cpu_iters"], c["card_iters"])),
+            f"{c['name']}: iterations per step {c['cpu_iters']} {c['card_iters']}")
+        check(not c["atomics"], f"{c['name']}: atomic scatter-adds on the card {c['atomics']}")
+        blocks = {"Heat": 0, "Soildynamics": 3, "Passmo": 2}[c["codename"]]
+        check(c["launches"].get("slot_sum", 0) > 0 and c["launches"].get("sell_spmv", 0) > 0
+              and c["launches"].get("block_slot_reduce", 0) == blocks
+              and _assemblies(c["launches"]) == c["assemblies"],
+              f"{c['name']}: launches {c['launches']}")
+        if "resume_diff" in c:
+            check(c["resume_diff"] <= 1e-9, f"heat_resume: {c['resume_diff']:.3e} from the "
+                  "continuous run")
+        if c["output"]:
+            check(_temporal_output_ok(c, out_dir), f"{c['name']}: the output file")
+    _check(not failed, "[transient] T1: " + "; ".join(failed))
+    del cases
+    torch.cuda.empty_cache()
+
+
+def _temporal_output_ok(c: dict, out_dir: str) -> bool:
+    """The output case's files, the card's and the CLI's: heat's temporal
+    VTKHDF (NSteps == len(history), the last slab the final T) or passmo's
+    U and recovered cell fields; the legacy .vtk where h5py is missing."""
+    import numpy as np
+
+    from arcanefem_tpu_torch.fem import vtkhdf
+
+    stem = os.path.basename(c["path"])[:-4]
+    ok = True
+    for who in ("card", "cli"):
+        d = os.path.join(out_dir, who)
+        if not vtkhdf.HAVE_H5PY:
+            vtk = os.path.join(d, stem + ".vtk")
+            print(f"[transient] T1 {c['name']} {who}: {vtk} (no h5py)", flush=True)
+            ok &= os.path.exists(vtk)
+            continue
+        import h5py
+
+        with h5py.File(os.path.join(d, stem + ".hdf")) as f:
+            g = f["VTKHDF"]
+            n = int(g["NumberOfPoints"][0])
+            if c["codename"] == "Heat":
+                steps = int(g["Steps"].attrs["NSteps"])
+                last = g["PointData/NodeTemperature"][-n:]
+                good = (steps == len(c["history"]) == len(c["cpu_iters"])
+                        and np.array_equal(last, c["card"]["T"]))
+                print(f"[transient] T1 {c['name']} {who}: NSteps {steps}, history "
+                      f"{len(c['history'])}, last slab == T: {good}", flush=True)
+            else:
+                u = g["PointData/U"][()]
+                good = (u.shape == c["card"]["u"].shape and "StrainVol" in g["CellData"]
+                        and np.abs(u - c["card"]["u"]).max()
+                        <= TRANS_CARD_TOL * np.abs(c["card"]["u"]).max())
+                print(f"[transient] T1 {c['name']} {who}: U {u.shape}, cell fields "
+                      f"{sorted(g['CellData'])}: {good}", flush=True)
+            ok &= bool(good)
+    return ok
+
+
+def _transient_line(tag: str, r, counts: dict, peak: float, wall: float, timer,
+                    **extra) -> dict:
+    """One T2 line: iterations per step, the last step's monitored and true
+    free-row residual, solve_s, ms/iter, phases, peak memory, launches."""
+    iters = r.iterations
+    line = {"run": tag, "n_nodes": int(r.problem.mesh.n_nodes),
+            "n_dofs": int(r.problem.n_dofs), "steps": r.steps,
+            "step_iterations": r.step_iterations, "iterations": iters,
+            "residual": r.residual, "free_residual": r.info.get("free_residual"),
+            "solve_s": r.solve_s, "ms_per_iter": r.solve_s / max(iters, 1) * 1e3,
+            "phases_s": timer.stats, "peak_mem_gb": peak / 1e9, "wall_s": wall,
+            "launches": {k: counts.get(k, 0) for k in ("sell_spmv", "slot_reduce",
+                                                       "block_slot_reduce", "slot_sum")},
+            **extra}
+    print(f"[transient] T2 {json.dumps(line)}", flush=True)
+    return line
+
+
+def transient_full_width_phase(dev, mesh) -> list[dict]:
+    """[transient] T2: (a) heat and (b) soildynamics on a 1414x1414 tria3
+    rect, (c) passmo on phase 4's sphere, each 10 steps; the
+    block_slot_reduce record at (b)'s b = 2 shapes and the slot_reduce RHS
+    record at (c)'s paraxial faces."""
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.fem.casetable import CaseTable
+    from arcanefem_tpu_torch.mesh.generate import rect_tria_mesh
+    from arcanefem_tpu_torch.models import elasticity, heat, passmo, soildynamics
+    from arcanefem_tpu_torch.models.elastodynamics import TractionTBC
+    from arcanefem_tpu_torch.solver.linear_system import SolverOptions
+    from arcanefem_tpu_torch.tools import heat_floor
+
+    t0 = time.perf_counter()
+    n = TRANS_HEAT_N
+    rect = rect_tria_mesh(n, n)
+    host_s = time.perf_counter() - t0
+    # (a) heat, AMG-CG to 1e-6, 10 steps of dt 0.1 (tools/heat_floor.py)
+    hcfg = heat_floor.config()
+    # each step converges to its anchored tolerance (fail_action="raise");
+    # the last step's free-row residual is held to its dtype's limit, and
+    # the float32 T to the float64 run's with the same options
+    T = {}
+    for dtype, free_limit in ((torch.float32, HEAT_FREE_F32), (torch.float64, HEAT_FREE_F64)):
+        name = str(dtype).split(".")[1]
+        r, counts, peak, wall, timer = _run_model("heat", heat.solve, rect, hcfg,
+                                                  dtype=dtype, device=dev)
+        _transient_line(f"heat amg {name}", r, counts, peak, wall, timer,
+                        mesh_host_s=host_s, amg_setup_s=r.info.get("precond_setup_s"),
+                        amg_rows=r.info.get("amg_rows"),
+                        n_cells=int(rect.cells["tria3"].shape[0]))
+        _check(r.steps == TRANS_STEPS and r.T.shape == (rect.n_nodes,)
+               and bool(np.isfinite(r.T).all()) and float(np.abs(r.T).max()) > 0,
+               f"[transient] T2 (a) {name}: T")
+        _check(r.info["free_residual"] <= free_limit,
+               f"[transient] T2 (a) {name}: free-row residual {r.info['free_residual']:.3e}")
+        _check(_assemblies(counts) == 1 and counts["slot_sum"] > 0,
+               f"[transient] T2 (a) {name}: launches {counts}")
+        T[name] = r.T.astype(np.float64)
+        del r
+    field = float(np.abs(T["float32"] - T["float64"]).max() / np.abs(T["float64"]).max())
+    print(f"[transient] T2 (a) float32 T from float64 T: {field!r} of its largest",
+          flush=True)
+    _check(field <= HEAT_FIELD_F32, f"[transient] T2 (a): float32 T {field:.3e} from float64")
+    # (b) soildynamics, float64, Jacobi-CG, 10 steps
+    rect.node_groups.update(_nearest_nodes(rect, {"N": (0.5, 0.5 + 1.0 / n),
+                                                  "S": (0.5, 0.5 - 1.0 / n),
+                                                  "E": (0.5 + 1.0 / n, 0.5),
+                                                  "W": (0.5 - 1.0 / n, 0.5)}))
+    sdt = 1e-3
+    table = CaseTable(np.array(TRANS_TABLE)[:, 0] / 20, np.array(TRANS_TABLE)[:, 1:])
+    source = CaseTable(np.array(TRANS_SOURCE)[:, 0] / 20, np.array(TRANS_SOURCE)[:, 1:])
+    scfg = soildynamics.SoildynamicsConfig(
+        tmax=TRANS_STEPS * sdt, dt=sdt, rho=2.0, E=50.0, nu=0.25,
+        tractions=[TractionTBC("top", table=table)], paraxial=["left", "right", "bottom"],
+        double_couple=soildynamics.DoubleCouple("N", "S", "E", "W", source),
+        solver=SolverOptions(method="cg", preconditioner="jacobi", rtol=1e-8,
+                             fail_action="raise"))
+    r, counts, peak, wall, timer = _run_model("soildynamics", soildynamics.solve, rect, scfg,
+                                              dtype=torch.float64, device=dev)
+    _transient_line("soildynamics jacobi float64", r, counts, peak, wall, timer,
+                    max_abs_u=float(np.abs(r.u).max()))
+    _check(r.steps == TRANS_STEPS and all(bool(np.isfinite(a).all()) for a in (r.u, r.v, r.a))
+           and float(np.abs(r.u).max()) > 0, "[transient] T2 (b): the state")
+    _check(counts["block_slot_reduce"] == 3 and counts["slot_sum"] > 0,
+           f"[transient] T2 (b): launches {counts}")
+    records = [_block_slot_record(r.problem, counts["block_slot_reduce"])]
+    del r, rect
+    torch.cuda.empty_cache()
+    # (c) passmo on phase 4's sphere, float32, Newmark, Jacobi-CG, 10 steps
+    mesh.cell_groups["vol"] = {"tetra4": mesh.cells["tetra4"]}
+    pcfg = passmo.PassmoConfig(
+        analysis_type="3d", tmax=TRANS_STEPS * 1e-3, dt=1e-3,
+        rho={"vol": 2.0}, lam={"vol": 30.0}, mu={"vol": 20.0},
+        conditions=[passmo.ImposedCond("Cut", is_surface=True, V=(0.0, 0.0, -1e-2))],
+        paraxial=[passmo.ParaxialCond("sphere")],
+        solver=SolverOptions(method="cg", preconditioner="jacobi", rtol=1e-6,
+                             max_iter=BLOCK_MAX_ITER, fail_action="raise"))
+    r, counts, peak, wall, timer = _run_model("passmo", passmo.solve, mesh, pcfg,
+                                              dtype=torch.float32, device=dev)
+    _transient_line("passmo newmark jacobi float32", r, counts, peak, wall, timer,
+                    n_cells=int(mesh.cells["tetra4"].shape[0]),
+                    max_abs_u=float(np.abs(r.u).max()),
+                    max_abs_stress_vol=float(np.abs(r.stress_vol["tetra4"]).max()))
+    _check(r.steps == TRANS_STEPS and all(bool(np.isfinite(a).all()) for a in (r.u, r.v, r.a))
+           and float(np.abs(r.u).max()) > 0, "[transient] T2 (c): the state")
+    _check(bool(np.isfinite(r.stress_vol["tetra4"]).all())
+           and r.strain_dev["tetra4"].shape == (mesh.cells["tetra4"].shape[0], 3),
+           "[transient] T2 (c): the recovered fields")
+    _check(counts["block_slot_reduce"] == 2 and counts["slot_sum"] > 0
+           and _assemblies(counts) == 0, f"[transient] T2 (c): launches {counts}")
+    records.append(_rhs_slot_record(r.problem, counts["slot_reduce"]))
+    # the b = 3 block_slot_reduce and K1 records at these 5.68M-DoF shapes:
+    # elasticity's blocks (E = 1, ν = 0.3) on passmo's layout of the sphere
+    records += _block_records(r.problem, counts, elasticity.ElasticityConfig(E=1.0, nu=0.3))
+    del r
+    mesh.cell_groups.pop("vol")
+    torch.cuda.empty_cache()
+    return records
+
+
+def _block_slot_record(prob, launches: int) -> dict:
+    """block_slot_reduce at T2 (b)'s b = 2 shapes: the float64 mass blocks
+    of the 1414² rect into their expanded SELL slots, 0 ulps from the twin,
+    bit-equal from run to run, beside one index_add_ of every
+    contributor's 4 entries."""
+    import torch
+
+    from arcanefem_tpu_torch.ops import elements
+    from arcanefem_tpu_torch.sparse.slot_reduce import block_slot_reduce, block_slot_reduce_plain
+
+    asm = prob.block_assembly
+    table = elements.mass_blocks("tria3", prob.cell_xyz("tria3"), 2).reshape(-1).contiguous()
+    ptr, ids, dst, n_out = asm.ptr, asm.ids, asm.dst, asm.n_out
+    n_ns, E = ptr.numel() - 1, ids.numel()
+
+    def fk():
+        return block_slot_reduce(ptr, ids, table, dst, n_out, 2)
+
+    def exact(yk, yp):
+        _check(torch.equal(yk, yp), "[transient] block_slot_reduce differs from its twin")
+        _check(torch.equal(yk, fk()), "[transient] block_slot_reduce differs from run to run")
+        return 0.0
+
+    node_slot = torch.repeat_interleave(torch.arange(n_ns, device=ptr.device),
+                                        (ptr[1:] - ptr[:-1]).long(), output_size=E)
+    entries = table.view(-1, 4)[ids.long()]
+    rec = _kernel_record(
+        "block_slot_reduce (soildynamics b=2)", "tet_assembly.cu",
+        "sparse/pallas_spmv.py:444", fk,
+        lambda: block_slot_reduce_plain(ptr, ids, table, dst, n_out, 2),
+        lambda: torch.zeros((n_ns, 4), dtype=table.dtype, device=ptr.device).index_add_(
+            0, node_slot, entries),
+        (32 * n_ns + 4 * (n_ns + 1) + 4 * E + 8 * table.numel(), 4 * E),
+        launches, [n_ns, E, 4], exact, dtype="float64")
+    rec.update(node_slots=n_ns, contributors=E, out_slots=n_out, ulps=0.0,
+               max_contributors=int((ptr[1:] - ptr[:-1]).max()))
+    del entries, node_slot, table
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _rhs_slot_record(prob, launches: int) -> dict:
+    """slot_reduce as the RHS reducer at T2 (c)'s shapes: the paraxial
+    faces' (nf, 3, 3) float32 contributions into the sphere's 5.68M dofs
+    through their SlotSum, 0 ulps from the twin, bit-equal from run to run,
+    beside one index_add_ of the same contributions."""
+    import torch
+
+    from arcanefem_tpu_torch.sparse.slot_reduce import slot_reduce, slot_reduce_plain
+
+    (key, s), = [(k, v) for k, v in prob._sums.items() if k[0] == "dofs"
+                 and k[1][0] == "nodes" and k[1][1][0] == "paraxial"]
+    gen = torch.Generator(device=s.ptr.device).manual_seed(17)
+    table = torch.rand(s.n_entries, generator=gen, device=s.ptr.device) * 2 - 1
+    dofs = torch.empty(s.n_entries, dtype=torch.int64, device=s.ptr.device)
+    dofs[s.ids.long()] = torch.repeat_interleave(
+        torch.arange(s.n, device=s.ptr.device), (s.ptr[1:] - s.ptr[:-1]).long(),
+        output_size=s.n_entries)
+
+    def fk():
+        return slot_reduce(s.ptr, s.ids, table)
+
+    def exact(yk, yp):
+        _check(torch.equal(yk, yp), "[transient] slot_reduce (RHS) differs from its twin")
+        _check(torch.equal(yk, fk()), "[transient] slot_reduce (RHS) differs from run to run")
+        return 0.0
+
+    rec = _kernel_record(
+        "slot_reduce (RHS, passmo paraxial)", "tet_assembly.cu", "sparse/pallas_spmv.py:444",
+        fk, lambda: slot_reduce_plain(s.ptr, s.ids, table),
+        lambda: torch.zeros(s.n, device=table.device).index_add_(0, dofs, table),
+        (4 * s.n + 4 * (s.n + 1) + 8 * s.n_entries, s.n_entries), launches,
+        [s.n, s.n_entries], exact)
+    rec.update(dofs=s.n, contributors=s.n_entries, ulps=0.0,
+               max_contributors=int((s.ptr[1:] - s.ptr[:-1]).max()),
+               replaces_note="JAX sums the RHS with XLA scatter-add (.at[].add, "
+                             "arcanefem_tpu/models/passmo.py:591); this kernel "
+                             "is K2's window-reducer role")
+    del table, dofs
+    return rec
+
+
+def transient_phase(dev, mesh) -> list[dict]:
+    """[transient]: T1 then T2, with the phase's wall time."""
+    t0 = time.perf_counter()
+    transient_cli_phase(dev)
+    t1 = time.perf_counter()
+    recs = transient_full_width_phase(dev, mesh)
+    print(f"[transient] wall time: T1 {t1 - t0:.1f} s, T2 {time.perf_counter() - t1:.1f} s",
           flush=True)
     return recs
 

@@ -157,3 +157,58 @@ def test_block_cases_cover_every_codename_method_and_route(tmp_path, monkeypatch
         res = c["solve"]("cpu") if c["path"] is None else run_case(c["path"], device="cpu")
         for f in c["fields"]:
             assert np.isfinite(getattr(res, f)).all(), (c["name"], f)
+
+
+def test_transient_cases_cover_every_codename_method_and_route(tmp_path, monkeypatch):
+    """[transient] T1's case files, written at a small size: heat with
+    Penalty and RowElimination, convection, a constant qdot and the output
+    case (NodeTemperature, a temporal file); the in-process resume through
+    a checkpoint (equal to the continuous run); soildynamics with paraxial
+    on three sides, a CaseTable traction and the double couple at four
+    node groups; passmo on a tetra4 box (inner-cell paraxial, gravity, a
+    traction curve) and on the mixed hexa8/pyramid5/penta6/tetra4 box
+    (imposed U/V/A curves, a Ricker incident wave, Generalized-α, initial
+    node conditions, the recovered fields in the output).  Each runs on
+    the CPU with finite fields."""
+    import numpy as np
+
+    from arcanefem_tpu_torch.fem.arc import load_case
+    from arcanefem_tpu_torch.fem.runner import run_case
+
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "TRANS_RECT", (8, 4))
+    monkeypatch.setattr(smoke, "TRANS_BOX", (3, 2, 2))
+    cases = smoke._transient_cases(str(tmp_path))
+    assert {c["codename"] for c in cases} == {"Heat", "Soildynamics", "Passmo"}
+    assert len({c["name"] for c in cases}) == len(cases) == 8
+    fem = {c["name"]: load_case(c["path"]).fem for c in cases if c["path"]}
+    heat = [f for n, f in fem.items() if n.startswith("heat")]
+    assert {f.findtext("enforce-Dirichlet-method") for f in heat} == {None, "RowElimination"}
+    assert any(f.find("convection-boundary-condition") is not None for f in heat)
+    assert any(f.findtext("qdot") for f in heat)
+    soil = [f for n, f in fem.items() if n.startswith("soil")]
+    assert all(len(f.findall("paraxial-boundary-condition")) == 3 for f in soil)
+    assert any(f.find("double-couple") is not None for f in soil)
+    assert any(f.findtext("traction-boundary-condition/traction-input-file") for f in soil)
+    mixed = fem["passmo_mixed_output"]
+    assert mixed.findtext("alfa_method") == "true"
+    assert {e.findtext(k) for e in mixed.findall("dirichlet-surface-condition")
+            + mixed.findall("dirichlet-point-condition")
+            for k in ("U-curve", "V-curve", "A-curve")} >= {"curve.txt"}
+    assert mixed.find("paraxial-boundary-condition").findtext("input-motion-type") == "2"
+    assert mixed.find("initial-node-condition") is not None
+    assert [c["name"] for c in cases if c["output"]] == ["heat_convection_output",
+                                                         "passmo_mixed_output"]
+    for c in cases:
+        if c["path"] is None:
+            res = c["solve"]("cpu")
+            assert np.abs(res.T - res.continuous.T).max() <= 1e-9 * np.abs(res.T).max()
+        else:
+            res = run_case(c["path"], device="cpu", output_dir=str(tmp_path / "out"))
+        for f in c["fields"]:
+            assert np.isfinite(getattr(res, f)).all() and np.abs(getattr(res, f)).max() > 0, (
+                c["name"], f)
+        if c["name"] == "passmo_mixed_output":
+            assert set(res.problem.mesh.cells) == {"hexa8", "pyramid5", "penta6", "tetra4"}
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == [
+        "heat_convection_output.hdf", "passmo_mixed_output.hdf"]

@@ -207,10 +207,10 @@ def test_float32_and_deferred_features(case_dir):
     assert run_case(path, dtype=torch.float32, device="cpu",
                     output_dir=str(out)).u.dtype == np.float32
     assert not out.exists()
-    other = str(case_dir / "heat.arc")
+    other = str(case_dir / "testlab.arc")
     with open(other, "w") as f:
-        f.write(open(path).read().replace('codename="Poisson"', 'codename="Heat"'))
-    with pytest.raises(KeyError, match=r"not ported yet \(fem/checkpoint.py.*Queue 1 items 5 and 9"):
+        f.write(open(path).read().replace('codename="Poisson"', 'codename="Testlab"'))
+    with pytest.raises(KeyError, match=r"not ported yet \(the testlab entry point.*Queue 1 item 10"):
         run_case(other, device="cpu")
 
 

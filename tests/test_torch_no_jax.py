@@ -317,3 +317,69 @@ def test_block_models_cli_runs_without_jax(tmp_path):
     for name in ("ElasticityResult", "BilaplacianResult"):
         assert any(ln.startswith(f"done: {name} {{'iterations': ") for ln in lines), name
     assert any(ln.startswith("done: ElastodynamicsResult {'steps': 4") for ln in lines)
+
+
+_TRANSIENT_SCRIPT = _PRELUDE + """
+import os, runpy
+from arcanefem_tpu_torch.mesh.generate import rect_tria_mesh
+from arcanefem_tpu_torch.tools.write_msh import mixed_box_mesh, write_arc, write_msh
+d = sys.argv[1]
+write_msh(d + "/rect.msh", rect_tria_mesh(10, 6))
+write_msh(d + "/mixed.msh", mixed_box_mesh(2, 2))
+write_arc(d + "/heat.arc", "rect.msh", codename="Heat",
+          values={"lambda": 1.0, "qdot": 1.0, "dt": 0.1, "tmax": 0.3},
+          dirichlet_bc=[("left", 0.0)],
+          blocks=[("convection-boundary-condition", {"surface": "right", "h": 2.0, "Text": 1.0})],
+          post_processing=["NodeTemperature"])
+write_arc(d + "/passmo.arc", "mixed.msh", codename="Passmo",
+          values={"analysis-type": "3D", "final-time": 0.03, "deltat": 0.01},
+          mesh_init=[("Rho", g, 2.0) for g in ("lower", "upper")]
+          + [("Lambda", g, 30.0) for g in ("lower", "upper")]
+          + [("Mu", g, 20.0) for g in ("lower", "upper")],
+          blocks=[("dirichlet-surface-condition", {"surface": "zmin", "Ux": 0.0, "Uy": 0.0,
+                                                   "Uz": 0.0}),
+                  ("paraxial-boundary-condition", {"surface": "xmax", "rhopar": 2.0,
+                                                   "cp": 3.0, "cs": 1.5}),
+                  ("initial-node-condition", {"node-group": "all", "V": "0.0 1e-3 0.0"})],
+          post_processing=["U", "StressVol"])
+codes = {}
+for name in ("heat", "passmo"):
+    sys.argv = ["arcanefem_tpu_torch", "run", d + f"/{name}.arc", "--device", "cpu",
+                "--output-dir", d + "/out"]
+    try:
+        runpy.run_module("arcanefem_tpu_torch", run_name="__main__")
+        codes[name] = 0
+    except SystemExit as e:
+        codes[name] = e.code
+print(json.dumps({"codes": codes, "out": sorted(os.listdir(d + "/out")),
+                  "loaded": [m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "arcanefem_tpu", "bench")
+                             and sys.modules[m] is not None]}))
+"""
+
+
+def test_transient_cli_runs_without_jax(tmp_path):
+    """python -m arcanefem_tpu_torch run --device cpu --output-dir on a heat
+    case (convection, a temporal output file) and a passmo case on the
+    mixed hexa8/pyramid5/penta6/tetra4 box (paraxial, initial velocity,
+    the recovered stress) in a process where neither jax, arcanefem_tpu nor
+    the root bench can be imported."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _TRANSIENT_SCRIPT, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    assert out["codes"] == {"heat": 0, "passmo": 0} and out["loaded"] == []
+    assert sum(ln.startswith("done: HeatResult {") for ln in lines) == 1
+    assert sum(ln.startswith("done: PassmoResult {") for ln in lines) == 1
+    assert len(out["out"]) == 2
+
+
+def test_scan_covers_the_transient_modules():
+    """The source scan above reads the modules of the transient slice."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("fem/checkpoint.py", "models/heat.py", "models/soildynamics.py",
+                "models/passmo.py", "ops/faces.py", "ops/gauss_state.py"):
+        assert os.path.join("arcanefem_tpu_torch", mod) in scanned, mod
