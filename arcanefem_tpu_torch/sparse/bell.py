@@ -256,15 +256,25 @@ class BlockAssembly:
     ``diag_slot`` and ``dblock_slot`` (:func:`block_layout`); the
     node-level contributor lists ``ptr``, ``ids`` (:func:`group_by_slot`
     over the node-pair slots, in CSR order, of the entries ``c·npc² +
-    i·npc + j`` of the buckets ``names``, concatenated); and ``dst``
-    (nnz·b²,) int32, the expanded SELL slot of entry (a, c) of each node
-    slot."""
+    i·npc + j`` of the buckets ``names``, concatenated); and the node CSR's
+    ``row_ptr`` (N + 1,) int32, from which ``block_slot_reduce`` finds
+    each node slot's expanded SELL slots.  That needs the topology's CSR
+    entries to be the leading ELL slots of their rows, in order (both
+    topology builders make them so); a topology that breaks it is
+    refused."""
 
     def __init__(self, topo, names, b: int, device: torch.device | str):
+        N, W = topo.n_nodes, topo.width
+        row_ptr = np.asarray(topo.row_ptr, np.int64)
+        csr_to_ell = np.asarray(topo.csr_to_ell, np.int64)
+        lead = np.arange(len(csr_to_ell), dtype=np.int64) + np.repeat(
+            np.arange(N, dtype=np.int64) * W - row_ptr[:-1], np.diff(row_ptr))
+        if not np.array_equal(csr_to_ell, lead):
+            raise ValueError("BlockAssembly: the topology's CSR entries are not the "
+                             "leading ELL slots of their rows, in order")
+        del lead
         self.layout, self.diag_slot, self.dblock_slot = block_layout(topo, b, device)
         layout = self.layout
-        N, W = topo.n_nodes, topo.width
-        csr_to_ell = np.asarray(topo.csr_to_ell, np.int64)
         ell_to_csr = np.full(N * W, -1, np.int64)
         ell_to_csr[csr_to_ell] = np.arange(len(csr_to_ell))
         slots = np.concatenate([ell_to_csr[np.asarray(topo.slot_maps[name],
@@ -275,16 +285,10 @@ class BlockAssembly:
         self.ptr, self.ids = group_by_slot(torch.as_tensor(slots, device=layout.device),
                                            len(csr_to_ell))
         del slots
-        node, w = np.divmod(csr_to_ell, W)
-        a = np.arange(b, dtype=np.int64)[None, :, None]
-        c = np.arange(b, dtype=np.int64)[None, None, :]
-        flat = expanded_slot(node[:, None, None], w[:, None, None], a, c, b=b, width=W)
-        self.dst = torch.as_tensor(layout.ell_to_sell[flat.reshape(-1)].astype(np.int32),
-                                   device=layout.device)
-        self.n_out = layout.n_slots
+        self.row_ptr = torch.as_tensor(row_ptr.astype(np.int32), device=layout.device)
 
     def reduce(self, table: torch.Tensor) -> torch.Tensor:
         """The (n_slots,) SELL values of the (E·b²,) table of element
         blocks (``block_slot_reduce``, one launch)."""
-        return block_slot_reduce(self.ptr, self.ids, table, self.dst, self.n_out,
+        return block_slot_reduce(self.ptr, self.ids, table, self.row_ptr, self.layout,
                                  self.block)

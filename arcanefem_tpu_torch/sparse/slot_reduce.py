@@ -30,18 +30,24 @@ matrix): its lists are built once, each call is one ``slot_reduce``.
 
 :func:`block_slot_reduce` is the block form for the b×b node blocks of the
 vector systems (b = 2, 3): the contributor lists stay node-level (one per
-node-pair slot, over the element entries ``c·npc² + i·npc + j``), each
-contributor adds its b² table entries ``ids[k]·b² + a·b + c`` in list
-order, and the b² sums of node slot s land in the expanded slots
-``dst[s·b² + a·b + c]`` of a zeroed output.  Its kernel lies beside the
-scalar one, and its plain twin sums in the same order and type.
+node-pair slot, in CSR order, over the element entries ``c·npc² + i·npc +
+j``), each contributor adds its b² table entries ``ids[k]·b² + a·b + c`` in
+list order, and the b² sums of node slot s land in the SELL layout of the
+scalar expansion (``sparse/bell.py::block_layout``) by slice arithmetic
+alone: SELL entry j of expanded row n·b + a is entry ``a·b + j % b`` of
+node slot ``row_ptr[n] + j // b``, where ``row_ptr`` is the node CSR's.
+Every slot of the layout is written, padding as 0.  Its kernel lies beside
+the scalar one, and its plain twin sums in the same order and type and
+places the sums by the same arithmetic.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils import kernels
+from .sell import C, SellLayout
 
 _ENTRY = {torch.float32: "afem_slot_reduce_f32", torch.float64: "afem_slot_reduce_f64"}
 _BLOCK_ENTRY = {torch.float32: "afem_block_slot_reduce_f32",
@@ -51,6 +57,7 @@ _LAUNCHES = {"slot_reduce": 0, "block_slot_reduce": 0}
 # the launches of slot_reduce made by SlotSum (the fixed-order RHS and
 # face-matrix sums), a part of the "slot_reduce" count
 _SUM_LAUNCHES = {"slot_sum": 0}
+_PLACE_CHUNK = 1 << 24  # SELL slots per step of the plain twin's placement
 
 
 def reset_launch_counts() -> None:
@@ -147,11 +154,36 @@ def slot_reduce(ptr: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+def _block_sources(row_ptr: torch.Tensor, layout: SellLayout, b: int,
+                   first: int, last: int) -> torch.Tensor:
+    """For the SELL slots of slices [first, last) of ``layout``, the flat
+    index ``s·b² + a·b + c`` of the (node slot s, entry (a, c)) each holds,
+    or -1 for padding, on ``row_ptr``'s device: slot ``slice_ptr[t] + 32·j
+    + l`` is entry j of the row at sorted position ``32·t + l``."""
+    dev = row_ptr.device
+    sp = layout.slice_ptr.to(dev)[first:last + 1]
+    q0, q1 = int(sp[0]), int(sp[-1])
+    sl = torch.repeat_interleave(torch.arange(first, last, device=dev),
+                                 sp[1:] - sp[:-1], output_size=q1 - q0)
+    off = torch.arange(q0, q1, device=dev) - sp[sl - first]
+    pos = sl * C + off % C
+    inside = pos < layout.n_rows
+    row = pos.clamp(max=layout.n_rows - 1)
+    if layout.perm is not None:
+        row = layout.perm.to(dev)[row].long()
+    node, a = row // b, row % b
+    rp = row_ptr.long()
+    start = rp[node]
+    j = off // C
+    real = inside & (j // b < rp[node + 1] - start)
+    return torch.where(real, (start + j // b) * (b * b) + a * b + j % b, -1)
+
+
 def block_slot_reduce_plain(ptr: torch.Tensor, ids: torch.Tensor, table: torch.Tensor,
-                            dst: torch.Tensor, n_out: int, b: int) -> torch.Tensor:
+                            row_ptr: torch.Tensor, layout: SellLayout, b: int) -> torch.Tensor:
     """Plain twin of :func:`block_slot_reduce`: one masked gather-add of
-    (n, b²) rows in float64 per contributor position k, then one scatter
-    into the expanded slots."""
+    (n, b²) rows in float64 per contributor position k, a cast, then each
+    step of slices gathers its slots' sums (:func:`_block_sources`)."""
     n = ptr.numel() - 1
     bb = b * b
     p = ptr.long()
@@ -162,46 +194,63 @@ def block_slot_reduce_plain(ptr: torch.Tensor, ids: torch.Tensor, table: torch.T
         live = count > k
         g = rows[ids[torch.where(live, start + k, 0)].long()].double()
         acc += torch.where(live[:, None], g, 0.0)
-    out = torch.zeros(n_out, dtype=table.dtype, device=table.device)
-    out[dst.long().view(-1)] = acc.view(-1).to(table.dtype)
+    sums = acc.view(-1).to(table.dtype)
+    del acc
+    out = table.new_empty(layout.n_slots)
+    ends = np.cumsum(layout.slice_width.astype(np.int64) * C)
+    first = 0
+    while first < layout.n_slices:
+        q0 = int(ends[first - 1]) if first else 0
+        last = int(np.searchsorted(ends, q0 + _PLACE_CHUNK, side="right"))
+        last = min(max(last, first + 1), layout.n_slices)
+        src = _block_sources(row_ptr, layout, b, first, last)
+        out[q0:q0 + src.numel()] = torch.where(src >= 0, sums[src.clamp(min=0)], 0)
+        first = last
     return out
 
 
 def block_slot_reduce(ptr: torch.Tensor, ids: torch.Tensor, table: torch.Tensor,
-                      dst: torch.Tensor, n_out: int, b: int) -> torch.Tensor:
-    """out[dst[s·b² + e]] = sum_{k in [ptr[s], ptr[s+1])} table[ids[k]·b² + e]
-    for e < b², summed in float64 in stored order, into a new zeroed
-    (n_out,) tensor of the table's type; ``dst`` (n·b²,) int32 holds
-    distinct slots in [0, n_out)."""
+                      row_ptr: torch.Tensor, layout: SellLayout, b: int) -> torch.Tensor:
+    """The (layout.n_slots,) SELL values, of the table's type, of the b×b
+    node blocks ``sum_{k in [ptr[s], ptr[s+1])} table[ids[k]·b² + e]``,
+    summed in float64 in stored order, at the slots of ``layout`` (the
+    scalar expansion's, rows n·b + a) that the node CSR ``row_ptr`` (N + 1,
+    int32) gives them; padding 0."""
     entry = _BLOCK_ENTRY.get(table.dtype)
     if entry is None:
         raise TypeError(f"block_slot_reduce: table must be float32 or float64, got "
                         f"{table.dtype}")
     if b not in BLOCKS:
         raise ValueError(f"block_slot_reduce: block size {b} not in {BLOCKS}")
-    if ptr.dtype != torch.int32 or ids.dtype != torch.int32 or dst.dtype != torch.int32:
-        raise TypeError("block_slot_reduce: ptr, ids and dst must be int32")
-    if (ptr.dim() != 1 or ids.dim() != 1 or table.dim() != 1 or dst.dim() != 1
+    if (ptr.dtype != torch.int32 or ids.dtype != torch.int32
+            or row_ptr.dtype != torch.int32):
+        raise TypeError("block_slot_reduce: ptr, ids and row_ptr must be int32")
+    if (ptr.dim() != 1 or ids.dim() != 1 or table.dim() != 1 or row_ptr.dim() != 1
             or ptr.numel() < 1):
-        raise ValueError("block_slot_reduce: ptr, ids, table and dst must be 1-D, "
+        raise ValueError("block_slot_reduce: ptr, ids, table and row_ptr must be 1-D, "
                          "ptr non-empty")
-    n = ptr.numel() - 1
-    if dst.numel() != n * b * b or table.numel() % (b * b):
-        raise ValueError(f"block_slot_reduce: dst of {dst.numel()} slots for {n} "
-                         f"node slots of {b}x{b}, table of {table.numel()} entries")
+    if (row_ptr.numel() - 1) * b != layout.n_rows or table.numel() % (b * b):
+        raise ValueError(f"block_slot_reduce: {row_ptr.numel() - 1} nodes of {b}x{b} "
+                         f"blocks for a layout of {layout.n_rows} rows, table of "
+                         f"{table.numel()} entries")
     dev = table.get_device()
-    if ptr.get_device() != dev or ids.get_device() != dev or dst.get_device() != dev:
+    if (ptr.get_device() != dev or ids.get_device() != dev or row_ptr.get_device() != dev
+            or layout.device_index != dev):
         raise ValueError("block_slot_reduce: operands lie on different devices")
     if not table.is_cuda:
         if table.device.type != "cpu":
             raise ValueError(f"block_slot_reduce: no kernel for device {table.device}")
-        return block_slot_reduce_plain(ptr, ids, table, dst, n_out, b)
-    if not all(t.is_contiguous() for t in (ptr, ids, table, dst)):
+        return block_slot_reduce_plain(ptr, ids, table, row_ptr, layout, b)
+    if not all(t.is_contiguous() for t in (ptr, ids, table, row_ptr)):
         raise ValueError("block_slot_reduce: the CUDA kernel takes contiguous operands")
-    out = torch.zeros(n_out, dtype=table.dtype, device=table.device)
-    if n:
+    if table.data_ptr() % 16:
+        table = table.clone()  # the kernel reads the table in 16-byte loads
+    out = table.new_empty(layout.n_slots)
+    if layout.n_slices:
         kernels.launch(entry, table.device, ptr.data_ptr(), ids.data_ptr(),
-                       table.data_ptr(), dst.data_ptr(), out.data_ptr(), n, b)
+                       table.data_ptr(), row_ptr.data_ptr(), layout.slice_ptr_ptr,
+                       layout.perm_ptr, out.data_ptr(), layout.n_rows, layout.n_slices,
+                       int(layout.slice_width.max()) // b, b)
         _LAUNCHES["block_slot_reduce"] += 1
     return out
 

@@ -59,8 +59,9 @@ _BAND_GATHER = [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I64, _I64, _I64, _I64,
 # lo, c0, scnt, lcols, vals, x, y, n, W, qn, stream
 _DIAG_SPMV = [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P]
 _SLOT_REDUCE = [_P, _P, _P, _P, _I64, _P]  # ptr, ids, table, out, n_slots, stream
-# ptr, ids, table, dst, out, n_node_slots, b, stream
-_BLOCK_SLOT_REDUCE = [_P, _P, _P, _P, _P, _I64, _I, _P]
+# ptr, ids, table, row_ptr, slice_ptr, perm, out, n_rows, n_slices,
+# max_slots, b, stream
+_BLOCK_SLOT_REDUCE = [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P]
 _BSR8_SPMV = [_P, _P, _P, _P, _P, _I64, _I64, _P]  # blocks, bcol, bptr, x, y, n, n_sup, stream
 # (name, argtypes) of every C entry point in csrc/; all return an int
 # cudaError_t from cudaGetLastError() after the launch

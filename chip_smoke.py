@@ -126,7 +126,9 @@ g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    ``fail_action="raise"``): iterations, ms/iter, the true free-row
    residual, phases, peak memory; ``block_slot_reduce`` at phase 4's
    5.68M-DoF block shapes (0 ulps from its twin, bit-equal from run to
-   run, beside ``index_add_``) and K1 on that operator (beside CSR
+   run, beside ``index_add_``; a ``[kernel] ... was`` line sets the earlier
+   slot-map kernel's times from PERF.md beside them) and K1 on that
+   operator (beside CSR
    ``torch.mv``) as ``kernels`` records (taken in ``[transient]`` T2 (c)
    on passmo's layout of the same mesh); one profiled
    solve (busy share); (b) elasticity with AMG and
@@ -162,7 +164,8 @@ g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    memory, launches; ``block_slot_reduce`` at (b)'s b = 2 shapes and
    ``slot_reduce`` as the RHS reducer at (c)'s paraxial faces held to
    their twins (0 ulps, bit-equal reruns) and timed beside one
-   ``index_add_`` (``kernels`` records);
+   ``index_add_`` (``kernels`` records; the b = 2 one with its ``was``
+   line);
 j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
    then ``--spmv diag`` (K10) on the same system, ``[diag]`` lines; K10
    held to its twin and timed there and on the 80^3 RCM box, beside K1 and
@@ -2739,6 +2742,34 @@ def blocks_full_width_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# block_slot_reduce before its redesign (the slot-map kernel), the ranges
+# in PERF.md's kernel table: chip_smoke on NVIDIA H100 80GB HBM3, 700 W
+BLOCK_SLOT_WAS_B3 = {"ms": [6.5238, 6.5693], "device_ms": [6.2363, 6.3327],
+                     "plain_ms": [287.4, 289.7], "library_ms": [12.22, 12.28]}
+BLOCK_SLOT_WAS_B2 = {"ms": [0.8779, 0.8963], "device_ms": [0.7384, 0.7515],
+                     "plain_ms": [58.98, 59.36], "library_ms": [1.4616, 1.4682]}
+
+
+def _block_was(was: dict, rec: dict, table) -> None:
+    """Print the slot-map kernel's times (ranges from PERF.md) beside this
+    run's, and one streaming read of the table (``table.sum()``, CUDA
+    events) as the yardstick of the kernel's table reads.  They stay out of
+    the ``kernels`` record, which holds only this run's measurements and
+    bounds."""
+    from arcanefem_tpu_torch.utils.timing import time_op
+
+    read_ms = time_op(lambda: table.sum(), reps=20, outer=3) * 1e3
+    print(f"[kernel] {rec['name']} was (slot-map kernel, PERF.md): "
+          f"{was['ms'][0]}-{was['ms'][1]} ms, device {was['device_ms'][0]}-"
+          f"{was['device_ms'][1]}; now {rec['ms']:.4f} ms, device "
+          f"{_fmt_ms(rec['device_ms'])}, {rec['bound_ms'] / rec['ms']:.3f} of its "
+          f"{rec['bound_ms']:.4f} ms bound by events"
+          + ("" if rec["device_ms"] is None else
+             f", {rec['bound_ms'] / rec['device_ms']:.3f} by device time")
+          + f"; one read of its {table.numel() * table.element_size() / 1e9:.3f} GB "
+          f"table (table.sum()) {read_ms:.4f} ms", flush=True)
+
+
 def _block_records(prob, counts: dict, cfg) -> list[dict]:
     """The block slot_reduce and K1 records at phase 4's 5.68M-DoF block
     shapes (``prob``: T2 (c)'s passmo problem): the
@@ -2756,14 +2787,14 @@ def _block_records(prob, counts: dict, cfg) -> list[dict]:
     lam, mu2 = elasticity.lame(cfg.E, cfg.nu)
     table = elasticity.element_blocks("tetra4", prob.cell_xyz("tetra4"), lam, mu2)
     table = table.reshape(-1).contiguous()
-    ptr, ids, dst, n_out = asm.ptr, asm.ids, asm.dst, asm.n_out
+    ptr, ids, row_ptr, lay = asm.ptr, asm.ids, asm.row_ptr, asm.layout
     n_ns, E = ptr.numel() - 1, ids.numel()
 
     def fk():
-        return block_slot_reduce(ptr, ids, table, dst, n_out, 3)
+        return block_slot_reduce(ptr, ids, table, row_ptr, lay, 3)
 
     def fp():
-        return block_slot_reduce_plain(ptr, ids, table, dst, n_out, 3)
+        return block_slot_reduce_plain(ptr, ids, table, row_ptr, lay, 3)
 
     def exact(yk, yp):
         _check(torch.equal(yk, yp), "[blocks] block_slot_reduce differs from its twin")
@@ -2782,11 +2813,12 @@ def _block_records(prob, counts: dict, cfg) -> list[dict]:
         "sparse/pallas_spmv.py:444", fk, fp, lib,
         (36 * n_ns + 4 * (n_ns + 1) + 4 * E + 4 * table.numel(), 9 * E),
         counts["block_slot_reduce"], [n_ns, E, 9], exact)
-    rec.update(node_slots=n_ns, contributors=E, out_slots=n_out, ulps=0.0,
+    rec.update(node_slots=n_ns, contributors=E, out_slots=lay.n_slots, ulps=0.0,
                max_contributors=int((ptr[1:] - ptr[:-1]).max()),
                replaces_note="JAX sums the blocks with XLA segment_sum "
-                             "(arcanefem_tpu/sparse/bell.py:127-133); K2's "
+                             "(arcanefem_tpu/sparse/bell.py:124-136); K2's "
                              "window-reducer role is this kernel's")
+    _block_was(BLOCK_SLOT_WAS_B3, rec, table)
     del entries, node_slot, table
     torch.cuda.empty_cache()
     # K1 on the assembled block operator
@@ -3318,11 +3350,11 @@ def _block_slot_record(prob, launches: int) -> dict:
 
     asm = prob.block_assembly
     table = elements.mass_blocks("tria3", prob.cell_xyz("tria3"), 2).reshape(-1).contiguous()
-    ptr, ids, dst, n_out = asm.ptr, asm.ids, asm.dst, asm.n_out
+    ptr, ids, row_ptr, lay = asm.ptr, asm.ids, asm.row_ptr, asm.layout
     n_ns, E = ptr.numel() - 1, ids.numel()
 
     def fk():
-        return block_slot_reduce(ptr, ids, table, dst, n_out, 2)
+        return block_slot_reduce(ptr, ids, table, row_ptr, lay, 2)
 
     def exact(yk, yp):
         _check(torch.equal(yk, yp), "[transient] block_slot_reduce differs from its twin")
@@ -3335,13 +3367,14 @@ def _block_slot_record(prob, launches: int) -> dict:
     rec = _kernel_record(
         "block_slot_reduce (soildynamics b=2)", "tet_assembly.cu",
         "sparse/pallas_spmv.py:444", fk,
-        lambda: block_slot_reduce_plain(ptr, ids, table, dst, n_out, 2),
+        lambda: block_slot_reduce_plain(ptr, ids, table, row_ptr, lay, 2),
         lambda: torch.zeros((n_ns, 4), dtype=table.dtype, device=ptr.device).index_add_(
             0, node_slot, entries),
         (32 * n_ns + 4 * (n_ns + 1) + 4 * E + 8 * table.numel(), 4 * E),
         launches, [n_ns, E, 4], exact, dtype="float64")
-    rec.update(node_slots=n_ns, contributors=E, out_slots=n_out, ulps=0.0,
+    rec.update(node_slots=n_ns, contributors=E, out_slots=lay.n_slots, ulps=0.0,
                max_contributors=int((ptr[1:] - ptr[:-1]).max()))
+    _block_was(BLOCK_SLOT_WAS_B2, rec, table)
     del entries, node_slot, table
     torch.cuda.empty_cache()
     return rec

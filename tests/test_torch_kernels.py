@@ -80,6 +80,17 @@ def _sell_case(gen, n, W, dtype, device, sigma=None):
     return lay, lay.from_ell(v).to(device), v.to(device), cols.to(device)
 
 
+def _sigma_layout(topo, b, device, sigma):
+    """block_layout's SELL layout of the scalar expansion, built with the
+    given σ instead of the one SellLayout.build chooses."""
+    N, W = topo.n_nodes, topo.width
+    cols = (topo.ell_cols.astype(np.int32)[:, None, :, None] * b
+            + np.arange(b, dtype=np.int32)[None, None, None, :])
+    cols = np.broadcast_to(cols, (N, b, W, b)).reshape(N * b, W * b)
+    real = np.broadcast_to(topo.ell_valid[:, None, :, None], (N, b, W, b))
+    return SellLayout.build(cols, real.reshape(N * b, W * b), device=device, sigma=sigma)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -425,7 +436,7 @@ def test_slot_reduce_matches_plain_on_cuda(cuda, dtype):
 def test_block_slot_reduce_matches_plain_on_cuda(cuda, dtype, b):
     """block_slot_reduce == its plain twin bit for bit on the same table,
     on the card and on the CPU, and from run to run; one launch each; the
-    expanded layout's padding exactly 0."""
+    expanded layout's padding exactly 0, with no memset."""
     from arcanefem_tpu_torch.fem.problem import FemProblem
     from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh, rect_tria_mesh
 
@@ -441,11 +452,81 @@ def test_block_slot_reduce_matches_plain_on_cuda(cuda, dtype, b):
     torch.cuda.synchronize()
     assert sr.launch_counts() == {"slot_reduce": 0, "block_slot_reduce": 2}
     assert y.dtype == dtype and torch.equal(y, y2)
-    args = (asm.ptr, asm.ids, table.to(cuda), asm.dst, asm.n_out, b)
-    assert torch.equal(y, sr.block_slot_reduce_plain(*args))
-    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
-    assert torch.equal(y.cpu(), sr.block_slot_reduce(*cpu))
+    assert torch.equal(y, sr.block_slot_reduce_plain(asm.ptr, asm.ids, table.to(cuda),
+                                                     asm.row_ptr, asm.layout, b))
+    cpu_layout = SellLayout.from_arrays(asm.layout.to_arrays(), device="cpu")
+    assert torch.equal(y.cpu(), sr.block_slot_reduce(asm.ptr.cpu(), asm.ids.cpu(), table,
+                                                     asm.row_ptr.cpu(), cpu_layout, b))
     assert not y[torch.as_tensor(~prob.layout.real, device=cuda)].any()
+
+
+@pytest.mark.parametrize("sigma", [None, 1, 7], ids=["default", "sigma1", "sigma7"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mesh_name", ["rect", "box", "mixed"])
+def test_block_slot_reduce_layouts_on_cuda(cuda, mesh_name, dtype, sigma):
+    """The kernel on the layout cases of the CPU tests (σ = 1024, σ = 1,
+    σ = 7 with node rows across windows and slices; b = 2 in f64; the
+    mixed passmo mesh, lists across buckets): equal to its twin and to
+    itself from run to run, bit for bit, into an output that held NaN
+    before, so that every slot, padding included, is written."""
+    from arcanefem_tpu_torch.fem.problem import FemProblem
+    from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh, rect_tria_mesh
+    from arcanefem_tpu_torch.tools.write_msh import mixed_box_mesh
+
+    mesh, b = {"rect": (rect_tria_mesh(9, 7), 2), "box": (box_tetra_mesh(4, 3, 3), 3),
+               "mixed": (mixed_box_mesh(), 3)}[mesh_name]
+    prob = FemProblem(mesh, ndof=b, device=cuda, dtype=dtype)
+    asm = prob.block_assembly
+    lay = asm.layout if sigma is None else _sigma_layout(prob.topo, b, cuda, sigma)
+    gen = torch.Generator().manual_seed(5)
+    table = ((torch.rand(asm.ids.numel() * b * b, generator=gen, dtype=torch.float64)
+              - 0.5).to(dtype).to(cuda))
+    # fill the caching allocator's next block of this size with NaN
+    torch.full((lay.n_slots,), float("nan"), dtype=dtype, device=cuda)
+    sr.reset_launch_counts()
+    y = sr.block_slot_reduce(asm.ptr, asm.ids, table, asm.row_ptr, lay, b)
+    y2 = sr.block_slot_reduce(asm.ptr, asm.ids, table, asm.row_ptr, lay, b)
+    torch.cuda.synchronize()
+    assert sr.launch_counts() == {"slot_reduce": 0, "block_slot_reduce": 2}
+    assert torch.equal(y, y2)
+    assert torch.equal(y, sr.block_slot_reduce_plain(asm.ptr, asm.ids, table, asm.row_ptr,
+                                                     lay, b))
+
+
+def _star_topology(m):
+    """The topology of 2m tetrahedra around node 0 (a ring of m nodes and
+    two apexes): node 0 has m + 3 node slots, wider than the block kernel's
+    shared-memory stage holds at b = 3 in float64 when m >= 60."""
+    from arcanefem_tpu_torch.sparse.topology import build_topology
+
+    ring = 1 + np.arange(m)
+    nxt = 1 + (np.arange(m) + 1) % m
+    top, bottom = m + 1, m + 2
+    conn = np.concatenate([np.stack([np.zeros(m, int), ring, nxt, np.full(m, top)], 1),
+                           np.stack([np.zeros(m, int), nxt, ring, np.full(m, bottom)], 1)])
+    return build_topology(m + 3, {"tetra4": conn.astype(np.int32)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_slot_reduce_wide_slice_and_offset_table_on_cuda(cuda, dtype):
+    """A slice wider than the stage (node 0 of an 80-tet star has 83 node
+    slots) is written in chunks, and a table that does not start on 16
+    bytes is taken too: equal to the twin bit for bit."""
+    from arcanefem_tpu_torch.sparse.bell import BlockAssembly
+
+    topo = _star_topology(80)
+    asm = BlockAssembly(topo, ["tetra4"], 3, cuda)
+    assert int(asm.layout.slice_width.max()) // 3 == 83
+    gen = torch.Generator().manual_seed(11)
+    big = (torch.rand(asm.ids.numel() * 9 + 1, generator=gen, dtype=torch.float64)
+           - 0.5).to(dtype).to(cuda)
+    for table in (big[:-1], big[1:]):
+        sr.reset_launch_counts()
+        y = sr.block_slot_reduce(asm.ptr, asm.ids, table, asm.row_ptr, asm.layout, 3)
+        torch.cuda.synchronize()
+        assert sr.launch_counts()["block_slot_reduce"] == 1
+        assert torch.equal(y, sr.block_slot_reduce_plain(asm.ptr, asm.ids, table, asm.row_ptr,
+                                                         asm.layout, 3))
 
 
 def test_tet_assembly_deterministic_on_cuda(cuda):
