@@ -12,19 +12,22 @@ back: without a CUDA device the command exits 1 unless ``--device cpu``
 asks for the CPU.  ``--output-dir`` writes the case's
 ``<arcane-post-processing>`` variables there: a VTKHDF file where h5py can
 be imported, legacy VTK where it cannot; a transient heat case writes one
-temporal VTKHDF file, one step per time step.  The ``testlab``
-sub-command is not ported yet and raises ``NotImplementedError``.
+temporal VTKHDF file, one step per time step.
+
+    python -m arcanefem_tpu_torch testlab [--mesh F | --box N | --rect N]
+                                     [--formats a,b] [--cache-warming K]
+                                     [--json PATH] [--cross-validate]
+                                     [--f64] [--device cuda|cpu]
+
+runs the assembly-format laboratory (``testlab.py::main``) under the same
+rule: ``--device`` defaults to ``cuda``, without CUDA it exits 1 unless
+``--device cpu``, and ``--f64`` picks the dtype alone.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-
-TESTLAB_NOT_PORTED = ("the testlab sub-command (testlab.py, sparse/coo.py, "
-                      "models/testlab_model.py) is not ported yet "
-                      "(ROADMAP Queue 1 item 10)")
-
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -43,10 +46,13 @@ def main(argv=None) -> int:
                       help="write the case's post-processing variables here "
                            "(VTKHDF, or legacy VTK without h5py)")
 
-    sub.add_parser("testlab", add_help=False)
+    sub.add_parser("testlab", add_help=False,
+                   help="the assembly-format laboratory (testlab --help)")
 
     if argv and argv[0] == "testlab":
-        raise NotImplementedError(TESTLAB_NOT_PORTED)
+        from .testlab import main as testlab_main
+
+        return testlab_main(argv[1:])
 
     args = p.parse_args(argv)
 

@@ -64,7 +64,6 @@ NO_COUNTERPART = {
     "AFEM_PRE_ROWS": "1024",  # rows per compact pre-gather tile
     "AFEM_ASM_MAX_GB": "6",  # the window-assembly plan's HBM cap
     "BENCH_SN_MAX_GB": "5",  # the supernode blocks' HBM cap
-    "AFEM_UNSTR_ASM": "window",  # one reduction: the slot-sorted one
     "BENCH_SUBPROC": "1",  # the port runs each metric in its own child
     "BENCH_CPU": "0",  # no CPU path
 }
@@ -173,6 +172,7 @@ def primary_args(env) -> tuple[float, int, float, dict]:
             "asm_coords": env.get("AFEM_ASM_COORDS", "split"),
             "asm_compact": _flag(env, "AFEM_ASM_COMPACT", "0"),
             "band_pre": _flag(env, "AFEM_BAND_PRE", "0"),
+            "asm_reduce": env.get("AFEM_UNSTR_ASM", "window"),
             "order": env.get("BENCH_UNSTR_ORDER", "sn"),
             "smoother": env.get("BENCH_AMG_SMOOTHER", "chebyshev"),
             "cheb_deg": _cheb_deg(env.get("BENCH_AMG_CHEB_DEG", "2")),

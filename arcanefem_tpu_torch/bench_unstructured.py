@@ -38,7 +38,7 @@ import torch
 
 from .mesh.core import Mesh
 from .mesh.unstructured import refine_tetra, sphere_cut_tetra_mesh
-from .ops.lane_assembly import TetraAssembler
+from .ops.lane_assembly import REDUCES, TetraAssembler
 from .solver.amg import (
     amg_cached,
     with_bf16_vcycle,
@@ -221,7 +221,8 @@ ASM_COORDS = ("split", "batched")
 
 
 def _check_options(spmv, sn_block, sn_bf16, vcycle_bf16, asm_coords,
-                   asm_compact, band_pre, order, smoother, cycle) -> None:
+                   asm_compact, band_pre, order, smoother, cycle,
+                   asm_reduce="window") -> None:
     """Raise for unknown values and for combinations the JAX bench never
     runs."""
     if spmv not in SPMV_PATHS:
@@ -240,9 +241,8 @@ def _check_options(spmv, sn_block, sn_bf16, vcycle_bf16, asm_coords,
     if band_pre and not (spmv == "compact" or asm_compact):
         raise ValueError("band_pre bands the compact pre-gathers: it needs "
                          "spmv='compact' or asm_compact")
-    if spmv == "compact" and vcycle_bf16:
-        raise ValueError("the compact V-cycle and the bf16 V-cycle do not "
-                         "combine")
+    if asm_reduce not in REDUCES:
+        raise ValueError(f"asm_reduce must be one of {REDUCES}, got {asm_reduce!r}")
     if asm_coords not in ASM_COORDS:
         raise ValueError(f"asm_coords must be one of {ASM_COORDS}, got "
                          f"{asm_coords!r}")
@@ -271,8 +271,8 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
                      spmv: str = "ell", sn_block: bool = False,
                      sn_bf16: bool = False, vcycle_bf16: bool = False,
                      asm_coords: str = "split", asm_compact: bool = False,
-                     band_pre: bool = False, order: str = "sn",
-                     smoother: str = "chebyshev",
+                     band_pre: bool = False, asm_reduce: str = "window",
+                     order: str = "sn", smoother: str = "chebyshev",
                      cheb_deg: int | tuple = CHEB_DEG, cycle: str = "V",
                      theta: float = THETA, cheb_apply: int | tuple | None = None,
                      rtol: float = RTOL, cache: str | None = None,
@@ -311,7 +311,9 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
     ``asm_coords`` the assembly's coordinate gather (``AFEM_ASM_COORDS``);
     ``asm_compact`` that gather through the compact two-stage gather
     (``AFEM_ASM_COMPACT=1``); ``band_pre`` the banded pre-gather of every
-    compact gather (``AFEM_BAND_PRE=1``); ``order`` the node order ``mesh``
+    compact gather (``AFEM_BAND_PRE=1``); ``asm_reduce`` the order of the
+    assembly's contributor lists (``AFEM_UNSTR_ASM``: "window", "segsum" or
+    "reorder", ``TetraAssembler``'s ``reduce``); ``order`` the node order ``mesh``
     and ``topo`` come in ("sn" or "rcm", ``BENCH_UNSTR_ORDER``: only
     checked against the other options here); ``smoother``, ``cheb_deg``
     (an int or per-level tuple) and ``cycle`` (``BENCH_AMG_SMOOTHER``,
@@ -336,14 +338,14 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
     gathers of its column structure once built (``sn_setup_s`` then times
     the smoother alone, ``compact_setup_s`` the self-check alone)."""
     _check_options(spmv, sn_block, sn_bf16, vcycle_bf16, asm_coords,
-                   asm_compact, band_pre, order, smoother, cycle)
+                   asm_compact, band_pre, order, smoother, cycle, asm_reduce)
     out = {}
     if system is not None and (system["device"], system["dtype"], system["plain"],
                                system["theta"]) \
             != (torch.device(device), dtype, plain, theta):
         raise ValueError("system was built for another device, dtype, plain "
                          "or theta")
-    asm_key = (asm_coords, asm_compact, band_pre and asm_compact)
+    asm_key = (asm_coords, asm_compact, band_pre and asm_compact, asm_reduce)
     if system is None or asm_key != system["asm_key"]:
         # one SELL layout per column structure: the assembly writes into it
         layout = (cached_fine_layout(topo, device, cache) if system is None
@@ -352,7 +354,8 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
                              plain=plain,
                              coords_batched=asm_coords == "batched",
                              coords_compact=asm_compact,
-                             band_pre=band_pre and asm_compact, layout=layout)
+                             band_pre=band_pre and asm_compact, layout=layout,
+                             reduce=asm_reduce)
         coords = torch.as_tensor(mesh.coords, device=device).to(torch.float32)
         vals = asm(coords)
         if timed:
@@ -524,9 +527,18 @@ SPMV_KERNELS = {"ell": "sell_spmv", "supernode": "bsr8_spmv",
 
 def _counted_modules():
     from .ops import lane_assembly
-    from .sparse import band_gather, diag_spmv, ell_gather, sell, slot_reduce, supernode
+    from .sparse import (
+        band_gather,
+        blocked,
+        diag_spmv,
+        ell_gather,
+        sell,
+        slot_reduce,
+        supernode,
+    )
 
-    return ell_gather, sell, band_gather, diag_spmv, lane_assembly, slot_reduce, supernode
+    return (ell_gather, sell, band_gather, diag_spmv, lane_assembly, slot_reduce,
+            supernode, blocked)
 
 
 def reset_launch_counts() -> None:
@@ -576,8 +588,9 @@ def bench_unstructured(h: float = 6, refine: int = 3, rtol: float = RTOL,
     name, power = (s.strip() for s in gpu_name_and_power().split(",", 1))
     opt = {"spmv": "ell", "sn_block": False, "sn_bf16": False,
            "vcycle_bf16": False, "asm_coords": "split", "asm_compact": False,
-           "band_pre": False, "order": "sn", "smoother": "chebyshev",
-           "cheb_deg": CHEB_DEG, "cycle": "V", "cheb_apply": None, **options}
+           "band_pre": False, "asm_reduce": "window", "order": "sn",
+           "smoother": "chebyshev", "cheb_deg": CHEB_DEG, "cycle": "V",
+           "cheb_apply": None, **options}
     spmv_kernel = SPMV_KERNELS[opt["spmv"]]
     if opt["spmv"] == "compact":
         spmv_kernel = ("band_gather+sell_spmv" if opt["band_pre"]
@@ -618,7 +631,7 @@ def bench_unstructured(h: float = 6, refine: int = 3, rtol: float = RTOL,
         "vcycle_band": res.get("vcycle_band"),
         "compact_setup_s": (round(res["compact_setup_s"], 1)
                             if "compact_setup_s" in res else None),
-        "asm_mode": "window",  # the JAX name of the slot-sorted reducer
+        "asm_mode": opt["asm_reduce"],  # the JAX names of the list orders
         "asm_compact": opt["asm_compact"],
         "asm_coords": opt["asm_coords"],
         "amg_smoother": opt["smoother"],
@@ -680,6 +693,8 @@ def main(argv=None) -> None:
                     help="compact two-stage coordinate gather (AFEM_ASM_COMPACT=1)")
     ap.add_argument("--band-pre", action="store_true",
                     help="banded pre-gather of the compact gathers (AFEM_BAND_PRE=1)")
+    ap.add_argument("--asm-reduce", choices=REDUCES, default="window",
+                    help="order of the assembly's contributor lists (AFEM_UNSTR_ASM)")
     ap.add_argument("--order", choices=ORDERS, default="sn",
                     help="node order: supernode bricks or plain RCM "
                          "(BENCH_UNSTR_ORDER)")
@@ -701,7 +716,8 @@ def main(argv=None) -> None:
         args.h, args.refine, spmv=args.spmv, sn_block=args.sn_block,
         sn_bf16=args.sn_bf16, vcycle_bf16=args.vcycle_bf16,
         asm_coords=args.asm_coords, asm_compact=args.asm_compact,
-        band_pre=args.band_pre, order=args.order, smoother=args.smoother,
+        band_pre=args.band_pre, asm_reduce=args.asm_reduce, order=args.order,
+        smoother=args.smoother,
         cheb_deg=args.cheb_deg, cycle=args.cycle)), flush=True)
 
 

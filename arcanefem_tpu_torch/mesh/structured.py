@@ -96,6 +96,17 @@ class StructuredBox:
             m[sel[p]] = True
         return m.reshape(-1)
 
+    def to_mesh(self, coords3d: np.ndarray | None = None):
+        """Equivalent unstructured Mesh (``mesh/generate.py::box_tetra_mesh``,
+        the same nodes and tets), with ``coords3d`` as its coordinates if
+        given."""
+        from .generate import box_tetra_mesh
+
+        mesh = box_tetra_mesh(self.nx, self.ny, self.nz, self.lx, self.ly, self.lz)
+        if coords3d is not None:
+            mesh.coords = np.asarray(coords3d, np.float64).reshape(-1, 3)
+        return mesh
+
     def coarsened(self) -> "StructuredBox":
         """The box with every axis halved (the next multigrid level)."""
         return StructuredBox(self.nx // 2, self.ny // 2, self.nz // 2,

@@ -2,9 +2,9 @@
 
 Ported: ``poisson`` (the Poisson and Laplace codenames), ``fourier``,
 ``electrostatics``, ``acoustics``, ``aerodynamics``, ``bilaplacian``,
-``elasticity``, ``elastodynamics`` and the transient families ``heat``,
-``soildynamics`` and ``passmo``.  The ``testlab`` codename raises, naming
-its ROADMAP item (:data:`NOT_PORTED`).
+``elasticity``, ``elastodynamics``, the transient families ``heat``,
+``soildynamics`` and ``passmo``, and ``testlab_model`` (the Testlab
+codename).  :data:`NOT_PORTED` is empty: every codename runs.
 """
 
 from . import (  # noqa: F401
@@ -19,12 +19,12 @@ from . import (  # noqa: F401
     passmo,
     poisson,
     soildynamics,
+    testlab_model,
 )
 
 _ALL = ["poisson", "fourier", "electrostatics", "acoustics", "aerodynamics",
-        "bilaplacian", "elasticity", "elastodynamics", "heat", "soildynamics", "passmo"]
+        "bilaplacian", "elasticity", "elastodynamics", "heat", "soildynamics", "passmo",
+        "testlab_model"]
 
 # codename (lower case) -> what it waits for, in ROADMAP.md Queue 1
-NOT_PORTED = {
-    "testlab": "the testlab entry point, ROADMAP Queue 1 item 10",
-}
+NOT_PORTED: dict[str, str] = {}

@@ -22,12 +22,18 @@ with the JAX TPU default reducer (``AFEM_UNSTR_ASM=window``,
    then K3a.  Every form
    fetches the same values, so every route computes the same table.
 2. ``slot_reduce`` (``sparse/slot_reduce.py``): each SELL slot sums its
-   contributors ``c*10 + Q2P16[q]`` in ascending (cell, q) order, in
-   float64, rounded once.  The lists are built once, on the assembler's
-   device.
+   contributors ``c*10 + Q2P16[q]`` in float64, rounded once.  The lists
+   are built once, on the assembler's device, in the order ``reduce``
+   (the JAX package's ``AFEM_UNSTR_ASM``) names: ``window`` ascending
+   (cell, q), the JAX window reducer's order and the default; ``segsum``
+   ascending (q, cell), the lane-major entry order of the JAX
+   ``segment_sum``; ``reorder`` the 16 per-pair streams of
+   ``sparse/pallas_assembly.py::ReorderedAssembler``.  The three differ
+   only in list order, so each slot's sum of the same float32 entries
+   differs between them by at most the float64 sum's round-off.
 
 So the assembled values are the same bit for bit from run to run and
-across the routes.  The element arithmetic runs in float32 whatever the
+across the coordinate routes.  The element arithmetic runs in float32 whatever the
 caller's dtype, as the JAX package does.  On a CUDA tensor each wrapper
 launches its kernel or raises; on a CPU tensor it runs the plain twin
 below (``plain=True`` takes the twins on any device).
@@ -42,15 +48,13 @@ from ..sparse.bell import check_cols, fine_layout
 from ..sparse.compact import CompactGather
 from ..sparse.sell import SellLayout
 from ..sparse.ell_gather import ell_gather_sum_batched, ell_gather_sum_batched_plain
+# the element table's columns: TRI10 (upper-triangle pair -> 0..9) and
+# Q2P16 (ordered pair q = i*4 + j -> its column)
+from ..sparse.pallas_assembly import Q2P16, TRI10, reordered_lists  # noqa: F401
 from ..sparse.slot_reduce import group_by_slot, slot_reduce, slot_reduce_plain
 from ..utils import kernels
 
-# upper-triangle (i <= j) local pair -> table column 0..9, row-major;
-# Q2P16 maps each ordered pair q = i*4 + j onto it (ke is symmetric)
-TRI10 = {(i, j): k for k, (i, j) in
-         enumerate((i, j) for i in range(4) for j in range(i, 4))}
-Q2P16 = np.array([TRI10[min(i, j), max(i, j)] for i in range(4) for j in range(4)],
-                 np.int64)
+REDUCES = ("window", "segsum", "reorder")  # the orders of the contributor lists
 
 _LAUNCHES = {"tet_element": 0}
 
@@ -170,14 +174,17 @@ class TetraAssembler:
     there once (``ptr``, ``ids``: int32, 4 bytes per slot and 16 per
     cell).  ``coords_batched`` fetches the corners with one batched
     gather first; ``coords_compact`` through the compact two-stage gather,
-    its pre-gather banded when ``band_pre``; ``plain=True`` runs every
-    kernel's plain twin instead.
+    its pre-gather banded when ``band_pre``; ``reduce`` the order of the
+    contributor lists (:data:`REDUCES`, module docstring); ``plain=True``
+    runs every kernel's plain twin instead.
     """
 
     def __init__(self, topo, conn: np.ndarray, *, device: torch.device | str,
                  plain: bool = False, coords_batched: bool = False,
                  coords_compact: bool = False, band_pre: bool = False,
-                 layout: SellLayout | None = None):
+                 layout: SellLayout | None = None, reduce: str = "window"):
+        if reduce not in REDUCES:
+            raise ValueError(f"reduce must be one of {REDUCES}, got {reduce!r}")
         if band_pre and not coords_compact:
             raise ValueError("band_pre bands the compact pre-gather: it needs "
                              "coords_compact=True")
@@ -198,14 +205,28 @@ class TetraAssembler:
             self.compact = CompactGather.build(
                 corner, np.ones(corner.shape, bool), band_pre=band_pre,
                 device=device, plain=plain)
+        self.reduce = reduce
+        if reduce == "reorder":
+            self.ptr, self.ids = reordered_lists(topo, conn, self.layout)
+            return
         # the SELL slot of entry q = i*4 + j of cell c, cell-major (int32:
         # the slots of any mesh one card holds are < 2^31), grouped by slot
         e2s = torch.as_tensor(self.layout.ell_to_sell, device=device)
         sm = torch.as_tensor(np.asarray(topo.slot_maps["tetra4"]).reshape(-1),
                              device=device)
-        self.ptr, self.ids = group_by_slot(
-            e2s[sm.long()].to(torch.int32), self.layout.n_slots,
-            per_cell=torch.as_tensor(Q2P16))
+        slots = e2s[sm.long()].to(torch.int32)
+        del sm
+        if reduce == "window":
+            self.ptr, self.ids = group_by_slot(slots, self.layout.n_slots,
+                                               per_cell=torch.as_tensor(Q2P16))
+            return
+        # segsum: lane-major entries e = q*nc + c
+        self.ptr, order = group_by_slot(slots.view(nc, 16).T.reshape(-1),
+                                        self.layout.n_slots)
+        del slots
+        q = torch.div(order, nc, rounding_mode="floor")
+        self.ids = ((order - q * nc) * 10
+                    + torch.as_tensor(Q2P16, device=device)[q.long()]).to(torch.int32)
 
     def gather_corners(self, coords: torch.Tensor):
         """Axis k of every corner, float32: entry i*nc + c of the k-th row is

@@ -364,19 +364,34 @@ def with_bf16_vcycle(M: AMGPrecond) -> AMGPrecond:
     keeps its own blocks).  ``mats`` stays as it is (the V-cycle reads the
     cast copies from ``vmats``); the transfers are replaced by their casts,
     since nothing but the cycle reads them.  Each cast keeps its operator's
-    SELL layout; K1 promotes the bf16 weights and sums in float64."""
+    SELL layout; K1 promotes the bf16 weights and sums in float64.
+
+    On a compact V-cycle (:func:`with_compact_vcycle` first, as the JAX
+    bench combines ``AFEM_SPMV=compact`` with ``BENCH_UNSTR_BF16=1``) the
+    compact levels and transfers are cast the same way: their
+    pre-gathers stay, and their second stage, K1 on the remap, takes the
+    bf16 weights (the JAX ``ChainedGather.with_weights_dtype``)."""
     def cast(m):
         return m.with_values(m.values.to(torch.bfloat16))
 
-    if any(op is not None for op in M.p_apply + M.pt_apply):
-        raise ValueError("with_bf16_vcycle: M has compact transfers; a bf16 "
-                         "V-cycle is not combined with a compact one")
+    def cast_compact(c):
+        return None if c is None else c.with_values(c.op.values.to(torch.bfloat16))
+
+    def level(m, v):
+        if isinstance(v, CompactMatrix):
+            return cast_compact(v)
+        if isinstance(m, BellMatrix) and m.n_nodes >= BF16_MIN_ROWS:
+            return cast(m)
+        return None
+
     big = [p.n_nodes >= BF16_MIN_ROWS for p in M.P]
     return M.replace(
-        vmats=tuple(cast(m) if isinstance(m, BellMatrix)
-                    and m.n_nodes >= BF16_MIN_ROWS else None for m in M.mats),
+        vmats=tuple(level(m, v) for m, v in
+                    zip(M.mats, M.vmats or (None,) * len(M.mats))),
         P=tuple(cast(p) if b else p for p, b in zip(M.P, big)),
         Pt=tuple(cast(p) if b else p for p, b in zip(M.Pt, big)),
+        p_apply=tuple(cast_compact(c) for c in M.p_apply),
+        pt_apply=tuple(cast_compact(c) for c in M.pt_apply),
     )
 
 
@@ -391,11 +406,12 @@ def with_compact_vcycle(M: AMGPrecond, band_pre: bool,
     (amg.py:921 and :958); a level's real entries are its non-zero values.
     ``l0``, the CG operator's CompactMatrix of the same operator as
     ``mats[0]``, is reused as the fine level, so its host build runs once.
-    A bf16 V-cycle is not combined with this one: the call raises when M
-    already has ``vmats``."""
+    A bf16 V-cycle comes after this one (:func:`with_bf16_vcycle` casts
+    the compact operators): the call raises when M already has
+    ``vmats``."""
     if any(v is not None for v in M.vmats):
         raise ValueError("with_compact_vcycle: M already has V-cycle "
-                         "operators (a bf16 V-cycle); the two do not combine")
+                         "operators (a bf16 V-cycle); compact it first, then cast")
 
     def level(l, m):
         if l == 0 and l0 is not None:

@@ -165,29 +165,43 @@ def fine_layout(topo, device: torch.device | str) -> SellLayout:
     return SellLayout.build(topo.ell_cols, topo.ell_valid, device=device)
 
 
+def sell_slots(topo, names, layout: SellLayout) -> torch.Tensor:
+    """The (E,) int32 SELL slot of ``layout`` (:func:`fine_layout` of
+    ``topo``) of every entry ``base + c·npc² + i·npc + j`` of the buckets
+    ``names``, in that order, on ``layout``'s device (the slot maps remapped
+    there)."""
+    dev = layout.device
+    e2s = torch.as_tensor(layout.ell_to_sell.astype(np.int32), device=dev)
+    parts = [e2s[torch.as_tensor(topo.slot_maps[name], device=dev).reshape(-1)]
+             for name in names]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def slot_contributors(topo, names, layout: SellLayout) -> tuple[torch.Tensor, torch.Tensor]:
     """(ptr, ids) of ``group_by_slot`` on ``layout``'s device: the entries
     ``base + c·npc² + i·npc + j`` of the buckets ``names`` (in that order,
     their element matrices concatenated) that sum into each SELL slot of
     ``layout`` (:func:`fine_layout` of ``topo``), in entry order."""
-    e2s = layout.ell_to_sell
-    slots = np.concatenate([e2s[np.asarray(topo.slot_maps[name], np.int64).reshape(-1)]
-                            for name in names])
-    return group_by_slot(torch.as_tensor(slots, device=layout.device), layout.n_slots)
+    return group_by_slot(sell_slots(topo, names, layout), layout.n_slots)
 
 
 def assemble_bell(topo, element_matrices: dict[str, torch.Tensor], *,
                   device: torch.device | str,
                   dtype: torch.dtype | None = None,
                   layout: SellLayout | None = None, block: int = 1,
-                  block_asm: BlockAssembly | None = None) -> BellMatrix:
+                  block_asm: BlockAssembly | None = None,
+                  contributors: tuple[torch.Tensor, torch.Tensor] | None = None,
+                  diag_slot: torch.Tensor | None = None) -> BellMatrix:
     """Sum per-cell (nc, npc, npc) element matrices into the BELL matrix
     of ``topo`` (a ``sparse.topology.Topology``), the counterpart of the
-    JAX package's segment-sum: the buckets' slot maps, remapped on the host
-    into the SELL slots of ``layout`` (default: :func:`fine_layout`, built
-    here), are grouped by slot (:func:`slot_contributors`), and each slot
+    JAX package's segment-sum: the buckets' slot maps, remapped on the
+    layout's device into the SELL slots of ``layout`` (default:
+    :func:`fine_layout`, built here), are grouped by slot (:func:`slot_contributors`), and each slot
     sums its entries of the concatenated matrices in entry order
-    (``slot_reduce``, one launch; no atomics).
+    (``slot_reduce``, one launch; no atomics).  ``contributors``, the
+    (ptr, ids) of :func:`slot_contributors` for these buckets and
+    ``layout``, and ``diag_slot``, the SELL slots of the diagonal, save
+    building them again.
 
     ``block`` b > 1: (nc, npc, npc, b, b) element blocks summed into the
     expanded layout of ``block_asm`` (a :class:`BlockAssembly` of these
@@ -211,15 +225,16 @@ def assemble_bell(topo, element_matrices: dict[str, torch.Tensor], *,
                           dblock_slot=block_asm.dblock_slot)
     if layout is None:
         layout = fine_layout(topo, device)
-    ptr, ids = slot_contributors(topo, list(element_matrices), layout)
+    ptr, ids = contributors or slot_contributors(topo, list(element_matrices), layout)
     table = torch.cat([ke.reshape(-1) for ke in element_matrices.values()])
     acc = slot_reduce(ptr, ids, table.to(device).contiguous())
     del ptr, ids
     if dtype is not None:
         acc = acc.to(dtype)
-    diag = torch.as_tensor(layout.ell_to_sell[np.asarray(topo.diag_slot, np.int64)],
-                           device=device)
-    return BellMatrix(acc, layout, diag)
+    if diag_slot is None:
+        diag_slot = torch.as_tensor(
+            layout.ell_to_sell[np.asarray(topo.diag_slot, np.int64)], device=device)
+    return BellMatrix(acc, layout, diag_slot)
 
 
 def block_layout(topo, b: int, device: torch.device | str

@@ -2,6 +2,7 @@
 
     python arcanefem_tpu_torch/tools/launch_cost.py [--tree DIR] [--calls N]
     python arcanefem_tpu_torch/tools/launch_cost.py [--tree DIR] --k4-box N
+    python arcanefem_tpu_torch/tools/launch_cost.py [--tree DIR] --bsr8-digest N
 
 Each wrapper (K1-K10, P1, the assembly's two kernels and the BSR-8
 supernode SpMV) is called N times back to back (default 2000, after a
@@ -37,6 +38,13 @@ back-to-back calls on CUDA events, which at this size is the kernel's
 device time.  One JSON line; with ``--tree`` run once per tree in one
 call (parent, this tree, this tree, parent) it is the A/B of two K4
 sources on one card.
+
+``--bsr8-digest N`` runs the BSR-8 supernode SpMV instead, through the
+tree's ``SupernodeSpmv``, on a seeded operator of N block rows of 0 to 44
+random blocks (the 1.9M sphere's degrees, within 64 block columns of the
+diagonal) with float32, float64 and
+bfloat16 blocks, and prints the SHA-256 of each y: two trees whose
+digests agree compute the same bits.
 """
 
 from __future__ import annotations
@@ -187,6 +195,38 @@ def k4_ms(n: int) -> dict:
             "gpu": torch.cuda.get_device_name(0)}
 
 
+def bsr8_digest(n_sup: int) -> dict:
+    """SHA-256 of the BSR-8 SpMV's y on a seeded operator of ``n_sup``
+    block rows, per block type (see the module docstring)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.sparse.supernode import SupernodeSpmv
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.RandomState(7)
+    deg = rng.randint(0, 45, n_sup)
+    # each row's distinct columns within 64 block columns of its own, sorted
+    bcol = np.concatenate([np.sort((i + rng.choice(128, d, replace=False) - 64) % n_sup)
+                           for i, d in enumerate(deg)])
+    blocks = rng.rand(len(bcol), 8, 8) * 2 - 1
+    bptr = np.concatenate([[0], np.cumsum(deg)])
+    n = 8 * n_sup - 3
+    x = rng.rand(n) * 2 - 1
+    out = {"launch": "bsr8_spmv digest", "n_sup": n_sup, "blocks": len(bcol)}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64),
+                        ("bf16", torch.bfloat16)):
+        sn = SupernodeSpmv.from_numpy(blocks, bcol, bptr, np.repeat(np.arange(n_sup), deg),
+                                      n, device=dev, dtype=dtype)
+        xd = torch.as_tensor(x, device=dev).to(torch.float32 if name == "bf16" else dtype)
+        y = sn(xd).cpu().numpy()
+        out[name] = hashlib.sha256(y.tobytes()).hexdigest()
+    out["gpu"] = torch.cuda.get_device_name(0)
+    return out
+
+
 def measure_all(calls: int = 2000) -> list[dict]:
     """host_us of every wrapper and torch_us of a torch.gather of its
     output's size, on the current card."""
@@ -211,6 +251,8 @@ def main(argv=None) -> None:
     ap.add_argument("--calls", type=int, default=2000)
     ap.add_argument("--k4-box", type=int, default=None, metavar="N",
                     help="time K4 at the bench's N^3-hex box instead")
+    ap.add_argument("--bsr8-digest", type=int, default=None, metavar="N",
+                    help="digest the BSR-8 SpMV's y on N seeded block rows instead")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     tree = os.path.abspath(args.tree or here)
@@ -224,7 +266,12 @@ def main(argv=None) -> None:
     pkg = os.path.dirname(arcanefem_tpu_torch.__file__)
     if os.path.dirname(pkg) != tree:
         raise RuntimeError(f"imported {pkg}, not the tree {tree}")
-    recs = [k4_ms(args.k4_box)] if args.k4_box else measure_all(args.calls)
+    if args.bsr8_digest:
+        recs = [bsr8_digest(args.bsr8_digest)]
+    elif args.k4_box:
+        recs = [k4_ms(args.k4_box)]
+    else:
+        recs = measure_all(args.calls)
     for rec in recs:
         print(json.dumps({**rec, "tree": tree}), flush=True)
 

@@ -28,7 +28,27 @@ script then exits non-zero without the final line:
    a fresh directory, cold (set-up, saved) and warm (loaded, no SELL
    layout build): every array equal bit for bit, the same iterations and
    x as phase 4, bit for bit, with both ``amg_setup_s``;
-9. (run right after 4, on its mesh, operator and AMG hierarchy) the
+``[testlab]`` (run right after 4, on its mesh, topology and operator): the
+   assembly-format laboratory.  L1: ``testlab.run_lab`` on the 1.9M sphere
+   in float32, each of the six formats in its own call (cache_warming 5):
+   ``lhs-matrix-assembly``, MDoF/s, the plan's build seconds, the kernel
+   launches of one value-path call by kind (``slot_reduce``, PyTorch's
+   ``index_add`` and elementwise kernels, from torch.profiler) and peak
+   memory; the five fixed-order formats bit-equal with each other and
+   from run to run, bell-scatter (atomics) within ``LAB_SCATTER_RTOL`` of
+   their largest value.  L2: dia-stencil (K4 stiffness-only) through
+   ``run_lab`` at 225^3 nodes, held to the plain bands by SpMV.  L3: a
+   Testlab case per ``_FLAG_TO_FORMAT`` flag on a 49x49-node rect and a
+   13^3-node tetra box (``build/testlab_cases/``), on the CPU (float64, the
+   golden file), in process on the card and, one mesh per flag, through
+   the CLI: the card's u within 1e-9 of the CPU's, every flag within 1e-9
+   of the Poisson codename's u, iterations ± 1; ``testlab --box 16
+   --json`` through the CLI on the card.  L4: ``TetraAssembler`` with
+   ``reduce`` window, segsum and reorder on the sphere, within 1 float32
+   ulp per slot of the window route.  L5: ``BlockedGather`` (the BSR-b
+   kernel, b = 2 and 4) on phase 4's fine operator, held to its twin and
+   to K1, ``kernels`` records beside cuSPARSE BSR at the same b;
+9. (run right after ``[testlab]``, on phase 4's mesh, operator and AMG hierarchy) the
    supernode route and the other bench knobs of the sphere: (a) the
    supernode operator, (b) with the block-Jacobi fine smoother, (c) with
    bf16 fine-level blocks too, (d) the ELL operator with the block-Jacobi
@@ -472,6 +492,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cache_phase(dev, mesh, topo, res)
     _elapsed("4: main path, records, profile, [cache]")
+    records += testlab_phase(dev, mesh, topo, res, counts)
+    _elapsed("[testlab]")
 
     records += supernode_phase(dev, gen, mesh, topo, res)
     _elapsed("9: supernode routes")
@@ -1898,6 +1920,405 @@ def fem_phase(dev, mesh, res4) -> None:
     fem_full_width_phase(dev, mesh, res4)
     print(f"[fem] wall time: F1 {t1 - t0:.1f} s, F2 {time.perf_counter() - t1:.1f} s",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# [testlab]: the assembly-format laboratory (testlab.py, the Testlab
+# codename), TetraAssembler's reduce orders and the blocked SpMV (BSR-b)
+
+LAB_WARMING = 5  # L1, L2: run_lab's cache_warming
+# L1: bell-scatter (index_add_, float32 atomics in a varying order) against
+# the fixed-order values, of their largest |value|: a slot sums at most ~44
+# float32 entries, each rounding ≤ 2^-24 of the running sum, so ~3e-6
+# bounds it; the fixed-order formats are held bit-equal
+LAB_SCATTER_RTOL = 1e-5
+LAB_BOX = 224  # L2: dia-stencil (K4 stiffness-only) at 225^3 nodes
+LAB_2D_N, LAB_3D_N = 48, 12  # L3: the written cases' rect and box
+LAB_CLI_WORKERS = 6  # L3: CLI subprocesses at a time
+LAB_BLOCKS = (2, 4)  # L5: BSR-b block sizes
+
+
+def _lab_launches(fn) -> dict:
+    """Kernel launches of one fn() call by kind, from torch.profiler:
+    slot_reduce, index_add (PyTorch's indexFunc kernels), elementwise
+    (PyTorch's elementwise kernels, the indexing gathers among them) and
+    other, with the call's summed device ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"slot_reduce": 0, "index_add": 0, "elementwise": 0, "other": 0}
+    busy = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        busy += e.device_time_total
+        kind = ("slot_reduce" if "slot_reduce" in e.name else
+                "index_add" if "indexFunc" in e.name else
+                "elementwise" if "elementwise" in e.name else "other")
+        out[kind] += 1
+    out["device_ms"] = busy / 1e3
+    return out
+
+
+def _lab_formats(dev, mesh, topo) -> None:
+    """[testlab] L1: run_lab on phase 4's mesh and topology, float32, each
+    format in its own call (its plan built once, cache_warming 5): its
+    lhs-matrix-assembly, MDoF/s, plan seconds, launches of one value-path
+    call, peak memory; the five fixed-order formats bit-equal with each
+    other and from run to run, bell-scatter within LAB_SCATTER_RTOL."""
+    import torch
+
+    from arcanefem_tpu_torch import testlab
+
+    f32 = torch.float32
+    report, values = {}, {}
+    for name in testlab.FORMATS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stats = testlab.run_lab(mesh, formats=[name], cache_warming=LAB_WARMING,
+                                dtype=f32, device=dev, topo=topo)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        report.update(stats["formats"])
+        layout = testlab.lab_layout(topo, dev)
+        coords, conns = testlab._device_arrays(mesh, f32, dev)
+
+        def value_path(name=name, layout=layout, coords=coords, conns=conns):
+            return testlab.FORMATS[name](topo, testlab._mats(coords, conns), f32,
+                                         layout).values
+
+        launches = _lab_launches(value_path)
+        values[name] = (value_path(), value_path())
+        del coords, conns
+        line = {"format": name, **stats["formats"][name],
+                "plan_s": stats["time_stats"][f"plan:{name}"], "launches": launches,
+                "peak_gb": peak, "nbNode": stats["nbNode"], "nbElement": stats["nbElement"],
+                "nnz": stats["nnz"], "ell_width": stats["ell_width"]}
+        print(f"[testlab] L1 {json.dumps(line)}", flush=True)
+        _check(launches["slot_reduce"] == (0 if name == "bell-scatter" else
+                                           2 if name == "coo-sorted" else 1),
+               f"[testlab] L1 {name}: slot_reduce launches {launches}")
+        _check((launches["index_add"] > 0) == (name == "bell-scatter"),
+               f"[testlab] L1 {name}: index_add launches {launches}")
+    ref = values["bell-segsum"][0]
+    for name, (a, b) in values.items():
+        _check(a.dtype == f32 and a.shape == ref.shape and bool(torch.isfinite(a).all()),
+               f"[testlab] L1 {name}: values {a.dtype} {tuple(a.shape)}")
+        if name != "bell-scatter":
+            _check(torch.equal(a, ref) and torch.equal(b, ref),
+                   f"[testlab] L1 {name}: not bit-equal to bell-segsum, run to run")
+    scale = float(ref.abs().max())
+    a, b = values["bell-scatter"]
+    dist = float((a - ref).abs().max()) / scale
+    rerun = float((a - b).abs().max()) / scale
+    print(f"[testlab] L1 bit-equal: {', '.join(n for n in values if n != 'bell-scatter')} "
+          f"(twice each); bell-scatter {dist:.3e} of max|value| from them (tol "
+          f"{LAB_SCATTER_RTOL:g}), {rerun:.3e} between its two runs, "
+          f"{int((a != ref).sum())} of {ref.numel()} slots differ", flush=True)
+    _check(dist <= LAB_SCATTER_RTOL, f"[testlab] L1 bell-scatter {dist:.3e}")
+    for attr in ("_testlab_plans", "_testlab_layouts"):
+        topo.__dict__.pop(attr, None)
+    del values, ref, a, b
+
+
+def _lab_box(dev) -> None:
+    """[testlab] L2: dia-stencil (K4 stiffness-only) through run_lab at
+    LAB_BOX^3 hexes, float32, no topology; K4 held to
+    assemble_stiffness_plain by SpMV in float64 (1e-12 of max|y|), as
+    cross_validate holds it to BELL."""
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch import testlab
+    from arcanefem_tpu_torch.mesh import stencil_assembly as sa
+    from arcanefem_tpu_torch.mesh.structured import StructuredBox
+
+    t0 = time.perf_counter()
+    box = StructuredBox(LAB_BOX, LAB_BOX, LAB_BOX)
+    mesh = box.to_mesh()
+    mesh_s = time.perf_counter() - t0
+    sa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stats = testlab.run_lab(mesh, formats=["dia-stencil"], cache_warming=LAB_WARMING,
+                            box=box, device=dev)
+    launches = sa.launch_counts()["stencil_assembly"]
+    c3d = torch.as_tensor(mesh.coords, device=dev).reshape(box.shape + (3,))
+    del mesh
+    Ad, Ap = sa.assemble_stiffness_kernel(box, c3d), sa.assemble_stiffness_plain(box, c3d)
+    x = torch.as_tensor(np.random.RandomState(0).rand(box.n_nodes), device=dev)
+    yd, yp = Ad.spmv(x), Ap.spmv(x)
+    err = float((yd - yp).abs().max() / yp.abs().max())
+    line = {"format": "dia-stencil", **stats["formats"]["dia-stencil"],
+            "nbNode": stats["nbNode"], "nbElement": stats["nbElement"],
+            "nnz": stats["nnz"], "ell_width": stats["ell_width"],
+            "stencil_assembly_launches": launches, "spmv_vs_plain": err,
+            "mesh_s": mesh_s, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "time_stats": stats["time_stats"]}
+    print(f"[testlab] L2 {json.dumps(line)}", flush=True)
+    _check(launches == LAB_WARMING + 1, f"[testlab] L2 K4 launches {launches}")
+    _check("build-topology" not in stats["time_stats"], "[testlab] L2 built a topology")
+    _check(err <= 1e-12, f"[testlab] L2 dia-stencil SpMV {err:.3e} from the plain bands")
+    del Ad, Ap, c3d, x, yd, yp
+
+
+def _lab_cases(root: str) -> list[dict]:
+    """L3's case files: a Poisson problem (f = 1.5, u = 0 and 1 on two
+    opposite faces by penalty) for each flag of _FLAG_TO_FORMAT on the rect
+    and on the box, and the Poisson codename's case of each mesh."""
+    from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh, rect_tria_mesh
+    from arcanefem_tpu_torch.models.testlab_model import _FLAG_TO_FORMAT
+    from arcanefem_tpu_torch.tools.write_msh import write_arc, write_msh
+
+    os.makedirs(root, exist_ok=True)
+    meshes = {"rect": (rect_tria_mesh(LAB_2D_N, LAB_2D_N), "left", "right"),
+              "box": (box_tetra_mesh(LAB_3D_N, LAB_3D_N, LAB_3D_N), "xmin", "xmax")}
+    cases = []
+    for mesh, (m, left, right) in meshes.items():
+        write_msh(os.path.join(root, f"{mesh}.msh"), m)
+        bcs = [(left, 0.0), (right, 1.0)]
+        poisson = os.path.join(root, f"{mesh}_poisson.arc")
+        write_arc(poisson, f"{mesh}.msh", codename="Poisson", f=1.5, dirichlet=bcs)
+        for flag in _FLAG_TO_FORMAT:
+            path = os.path.join(root, f"{mesh}_{flag}.arc")
+            write_arc(path, f"{mesh}.msh", codename="Testlab", f=1.5,
+                      values={flag: "true"}, dirichlet_bc=bcs)
+            cases.append({"name": f"{mesh}_{flag}", "flag": flag, "path": path,
+                          "poisson": poisson})
+    return cases
+
+
+def _lab_cli(args: list) -> dict:
+    """``python -m arcanefem_tpu_torch *args`` (the card by default), one of
+    LAB_CLI_WORKERS: exit code, wall seconds, stdout's last line."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "arcanefem_tpu_torch", *args],
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                          timeout=600, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    lines = proc.stdout.strip().splitlines()
+    return {"code": proc.returncode, "s": time.perf_counter() - t0,
+            "last": lines[-1] if lines else "", "stdout": proc.stdout,
+            "stderr": proc.stderr[-2000:]}
+
+
+def _lab_written(dev) -> None:
+    """[testlab] L3: each Testlab case on the CPU (float64; its u becomes
+    the golden file), in process on the card and, one flag each (the rect
+    for the even flags, the box for the odd ones), through ``python -m
+    arcanefem_tpu_torch run`` beside the in-process runs; the card's u
+    within 1e-9 of the CPU's largest, every flag within 1e-9 of the
+    Poisson codename's u of its mesh, iterations ± 1, the launches of the
+    format; and ``testlab --box 16 --json`` through the CLI on the card."""
+    import ast
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch import testlab
+    from arcanefem_tpu_torch.fem.runner import run_case
+    from arcanefem_tpu_torch.models.testlab_model import _FLAG_TO_FORMAT
+
+    root = os.path.join("build", "testlab_cases")
+    cases = _lab_cases(root)
+    poisson = {}
+    for c in cases:
+        if c["poisson"] not in poisson:
+            poisson[c["poisson"]] = run_case(c["poisson"], device="cpu").u
+        cpu = run_case(c["path"], device="cpu")
+        c["cpu_u"], c["cpu_iters"] = cpu.u, cpu.iterations
+        golden = os.path.abspath(c["path"][:-4] + ".golden.txt")
+        np.savetxt(golden, np.column_stack([cpu.problem.mesh.node_uids, cpu.u]),
+                   fmt=["%d", "%.17g"])
+        with open(c["path"]) as f:
+            text = f.read().replace("</fem>", f"  <result-file>{golden}</result-file>\n  </fem>")
+        with open(c["path"], "w") as f:
+            f.write(text)
+    flags = list(_FLAG_TO_FORMAT)
+    cli_cases = [c for c in cases
+                 if c["name"].startswith("rect" if flags.index(c["flag"]) % 2 == 0 else "box")]
+    lab_json = os.path.join(root, "lab.json")
+    with ThreadPoolExecutor(LAB_CLI_WORKERS) as pool:
+        clis = {c["name"]: pool.submit(_lab_cli, ["run", c["path"]]) for c in cli_cases}
+        lab = pool.submit(_lab_cli, ["testlab", "--box", "16", "--cache-warming", "2",
+                                     "--json", lab_json])
+        for c in cases:
+            _reset_all()
+            card = run_case(c["path"], device=dev)  # checks the golden file too
+            c["launches"] = {k: v for k, v in _counts_all().items() if v}
+            c["card_u"], c["card_iters"] = card.u, card.iterations
+        for c in cli_cases:
+            c["cli"] = clis[c["name"]].result()
+        lab = lab.result()
+    for c in cases:
+        scale = float(np.abs(c["cpu_u"]).max())
+        diff = float(np.abs(c["card_u"] - c["cpu_u"]).max()) / scale
+        pu = poisson[c["poisson"]]
+        vs_poisson = max(float(np.abs(u - pu).max()) for u in (c["card_u"], c["cpu_u"])) \
+            / float(np.abs(pu).max())
+        its = [c["cpu_iters"], c["card_iters"]]
+        cli = c.get("cli")
+        if cli is not None:
+            m = re.match(r"done: \w+Result (\{.*\})$", cli["last"])
+            _check(cli["code"] == 0 and m is not None,
+                   f"[testlab] L3 {c['name']}: the CLI exited {cli['code']}: {cli['stderr']}")
+            its.append(ast.literal_eval(m.group(1))["iterations"])
+        line = {"case": c["name"], "format": _FLAG_TO_FORMAT[c["flag"]],
+                "n_nodes": len(c["cpu_u"]), "iterations": its, "card_vs_cpu": diff,
+                "vs_poisson": vs_poisson, "cli_s": cli and cli["s"],
+                "launches": c["launches"]}
+        print(f"[testlab] L3 {json.dumps(line)}", flush=True)
+        _check(diff <= 1e-9, f"[testlab] L3 {c['name']}: card u {diff:.3e} from the CPU's")
+        _check(vs_poisson <= 1e-9, f"[testlab] L3 {c['name']}: u {vs_poisson:.3e} from "
+               "the Poisson codename's")
+        _check(max(its) - min(its) <= 1, f"[testlab] L3 {c['name']}: iterations {its}")
+        scatter = _FLAG_TO_FORMAT[c["flag"]] == "bell-scatter"
+        _check(_assemblies(c["launches"]) == (0 if scatter else 1)
+               and c["launches"].get("sell_spmv", 0) > 0,
+               f"[testlab] L3 {c['name']}: launches {c['launches']}")
+    _check(lab["code"] == 0, f"[testlab] L3 testlab --box 16: exit {lab['code']}: "
+           f"{lab['stderr']}")
+    with open(lab_json) as f:
+        stats = json.load(f)
+    print(f"[testlab] L3 CLI testlab --box 16 (the card): {lab['s']:.1f} s, formats "
+          f"{ {k: round(v['lhs-matrix-assembly'] * 1e3, 3) for k, v in stats['formats'].items()} } "
+          "ms", flush=True)
+    _check(list(stats["formats"]) == [*testlab.FORMATS, "dia-stencil"],
+           f"[testlab] L3 testlab --box 16 formats {list(stats['formats'])}")
+    del cases
+    torch.cuda.empty_cache()
+
+
+def _lab_reduces(dev, mesh, topo, res4) -> None:
+    """[testlab] L4: TetraAssembler with reduce window, segsum and reorder
+    on phase 4's sphere and layout: each one slot_reduce over its own list
+    order, within 1 float32 ulp per slot of the window route, the
+    differing slots counted; each list build and assembly timed."""
+    import torch
+
+    from arcanefem_tpu_torch.ops.lane_assembly import REDUCES, TetraAssembler
+    from arcanefem_tpu_torch.utils.timing import time_op
+
+    coords = torch.as_tensor(mesh.coords, device=dev).to(torch.float32)
+    layout = res4["A"].layout
+    ref = None
+    for reduce in REDUCES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        asm = TetraAssembler(topo, mesh.cells["tetra4"], device=dev, layout=layout,
+                             reduce=reduce)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        _reset_all()
+        v = asm(coords)
+        torch.cuda.synchronize()
+        counts = _counts_all()
+        ms = time_op(asm, coords, reps=5, outer=2) * 1e3
+        if ref is None:
+            ref = v
+        ulp = torch.nextafter(ref.abs(), torch.full_like(ref, float("inf"))) - ref.abs()
+        worst = float(((v - ref).abs() / ulp).max())
+        line = {"reduce": reduce, "lists_s": build_s, "assembly_ms": ms,
+                "differing_slots": int((v != ref).sum()), "slots": ref.numel(),
+                "max_ulps": worst, "launches": {k: c for k, c in counts.items() if c}}
+        print(f"[testlab] L4 {json.dumps(line)}", flush=True)
+        _check(counts["tet_element"] == 1 and counts["slot_reduce"] == 1,
+               f"[testlab] L4 {reduce}: launches {counts}")
+        _check(worst <= 1, f"[testlab] L4 {reduce}: {worst} ulps from the window route")
+        del asm, v
+    torch.cuda.empty_cache()
+
+
+def _lab_blocked(dev, topo, res4, counts4) -> list[dict]:
+    """[testlab] L5: BlockedGather (BSR-b, b in LAB_BLOCKS) on phase 4's
+    fine operator, float32: held to its twin (1e-6 of each row's sum
+    |a·x|) and to K1 (1e-5), a ``kernels`` record each beside cuSPARSE BSR
+    (``torch.sparse_bsr_tensor`` of the same blocks at the same b, times
+    x padded to whole blocks) as the library call."""
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.sparse import blocked as blk
+    from arcanefem_tpu_torch.sparse.sell import sell_spmv, sell_spmv_plain
+
+    A = res4["A"]
+    n = topo.n_nodes
+    ell = A.ell_values().reshape(-1)
+    data = ell[torch.as_tensor(topo.csr_to_ell, device=dev).long()]
+    x = torch.as_tensor(np.random.RandomState(5).rand(n) * 2 - 1, device=dev).float()
+    k1 = sell_spmv(A.values, A.layout, x)
+    k1_scale = sell_spmv_plain(A.values.abs(), A.layout, x.abs())
+    records = []
+    for b in LAB_BLOCKS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = blk.BlockedGather.build_csr(topo.csr_cols, topo.row_ptr, data, n, b=b,
+                                        device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        nnzb, nb = g.blocks.shape[0], g.bptr.numel() - 1
+        scale = blk.bsr_spmv_plain(g.blocks.abs(), g.bcol, g.bptr, x.abs(), n)
+
+        def held(yk, yp, scale=scale, b=b):
+            e = _rel_err(yk, yp, scale)
+            _check(e <= 1e-6, f"bsr_spmv b={b} vs its twin: {e:.2e}")
+            e1 = _rel_err(yk, k1, k1_scale)
+            print(f"[testlab] L5 bsr_spmv b={b} vs K1 sell_spmv: {e1:.2e} of each row's "
+                  "sum |a x| (tol 1e-5)", flush=True)
+            _check(e1 <= 1e-5, f"bsr_spmv b={b} vs K1: {e1:.2e}")
+            return e
+
+        lib, note = None, None
+        xp = torch.nn.functional.pad(x, (0, nb * b - n))
+        try:
+            bsr = torch.sparse_bsr_tensor(g.bptr.long(), g.bcol.long(), g.blocks,
+                                          size=(nb * b, nb * b))
+            yl = torch.mv(bsr, xp)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            note = f"refused: {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        else:
+            lib = lambda bsr=bsr, xp=xp: torch.mv(bsr, xp)  # noqa: E731
+            note = f"{_rel_err(yl[:n], g(x), scale):.2e} of each row's sum |a x| from the kernel"
+            del yl
+        print(f"[testlab] L5 cuSPARSE BSR b={b} (torch.sparse_bsr_tensor @ x): {note}",
+              flush=True)
+        nbytes = nnzb * (4 * b * b + 4) + 4 * (nb + 1) + 8 * n
+        rec = _kernel_record(
+            f"bsr_spmv (b={b})", "bsr8_spmv.cu", "sparse/pallas_spmv.py:478",
+            lambda g=g: g(x), lambda g=g: blk.bsr_spmv_plain(g.blocks, g.bcol, g.bptr, x, n),
+            lib, (nbytes, 2 * b * b * nnzb), counts4.get("bsr_spmv", 0), [nb, nnzb, b, b],
+            held)
+        rec.update(library="cuSPARSE BSR (torch.sparse_bsr_tensor @ x)", library_note=note,
+                   fill=g.fill, blocks=nnzb, build_s=build_s,
+                   replaces_role="K3a's blocked role, arcanefem_tpu/sparse/blocked.py:184")
+        print(f"[testlab] L5 bsr_spmv b={b}: {nnzb} blocks, fill {g.fill:.3f}, "
+              f"{g.nbytes / 1e9:.3f} GB, build {build_s:.2f} s", flush=True)
+        records.append(rec)
+        del g, scale, xp
+        torch.cuda.empty_cache()
+    return records
+
+
+def testlab_phase(dev, mesh, topo, res4, counts4) -> list[dict]:
+    """[testlab] L1-L5 (run right after phase 4, on its mesh, topology and
+    operator); ``counts4`` the launch counts of phase 4's main path."""
+    t0 = time.perf_counter()
+    split = {}
+    for part, fn, args in (("L1", _lab_formats, (dev, mesh, topo)), ("L2", _lab_box, (dev,)),
+                           ("L3", _lab_written, (dev,)),
+                           ("L4", _lab_reduces, (dev, mesh, topo, res4)),
+                           ("L5", _lab_blocked, (dev, topo, res4, counts4))):
+        t1 = time.perf_counter()
+        records = fn(*args)
+        split[part] = round(time.perf_counter() - t1, 1)
+    print(f"[testlab] phase {time.perf_counter() - t0:.1f} s: {split}", flush=True)
+    return records
 
 
 # ---------------------------------------------------------------------------

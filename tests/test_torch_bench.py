@@ -92,7 +92,8 @@ def test_primary_knobs_map_to_the_port_routes():
     assert (h, refine, rtol) == (6.0, 3, 1e-8)
     assert opts == {"spmv": "ell", "sn_block": False, "sn_bf16": False,
                     "vcycle_bf16": False, "asm_coords": "split",
-                    "asm_compact": False, "band_pre": False, "order": "sn",
+                    "asm_compact": False, "band_pre": False,
+                    "asm_reduce": "window", "order": "sn",
                     "smoother": "chebyshev", "cheb_deg": 2, "cycle": "V",
                     "theta": 0.03, "cheb_apply": None}
     env = {"BENCH_UNSTR_H": "5", "BENCH_UNSTR_REFINE": "2", "BENCH_RTOL": "1e-6",
@@ -111,6 +112,14 @@ def test_primary_knobs_map_to_the_port_routes():
     opts = bench.primary_args({"AFEM_SPMV": "compact", "AFEM_BAND_PRE": "1",
                                "AFEM_ASM_COMPACT": "1", "BENCH_UNSTR_BF16": "0"})[3]
     assert (opts["spmv"], opts["band_pre"], opts["asm_compact"]) == ("compact", True, True)
+    # AFEM_UNSTR_ASM (refused until the reorder and segsum orders were
+    # ported) picks the assembly's list order; the compact V-cycle takes
+    # the bf16 weights as the JAX bench combines them
+    for order in ("window", "segsum", "reorder"):
+        assert "AFEM_UNSTR_ASM" not in bench.NO_COUNTERPART
+        assert bench.primary_args({"AFEM_UNSTR_ASM": order})[3]["asm_reduce"] == order
+    opts = bench.primary_args({"AFEM_SPMV": "compact", "BENCH_UNSTR_BF16": "1"})[3]
+    assert (opts["spmv"], opts["vcycle_bf16"]) == ("compact", True)
 
 
 @pytest.mark.parametrize("env", [
@@ -121,6 +130,7 @@ def test_primary_knobs_map_to_the_port_routes():
     {"BENCH_SN_BF16": "1"},  # needs the supernode operator
     {"BENCH_UNSTR_ORDER": "rcm", "BENCH_UNSTR_SPMV": "supernode"},
     {"BENCH_AMG_SMOOTHER": "gauss-seidel"},
+    {"AFEM_UNSTR_ASM": "atomic"},
 ])
 def test_bad_primary_knobs_raise(env):
     with pytest.raises(ValueError):

@@ -23,7 +23,11 @@ from arcanefem_tpu_torch.bench_unstructured import (
     solve_sphere_cut,
     sphere_cut_system,
 )
-from arcanefem_tpu_torch.solver.amg import BF16_MIN_ROWS, with_bf16_vcycle
+from arcanefem_tpu_torch.solver.amg import (
+    BF16_MIN_ROWS,
+    with_bf16_vcycle,
+    with_compact_vcycle,
+)
 from arcanefem_tpu_torch.sparse.compact import CompactMatrix
 from arcanefem_tpu_torch.sparse.diag_spmv import DiagEllMatrix
 
@@ -78,7 +82,8 @@ def test_diag_route_rcm_matches_ell_and_jax(h):
 def test_compact_vcycle_equals_ell_cycle():
     """with_compact_vcycle: the levels and transfers of >= 1500 rows are
     compact, level 0 is the CG operator's CompactMatrix, and one cycle
-    equals the ELL cycle bit for bit (the same products, the same order)."""
+    equals the ELL cycle bit for bit (the same products, the same order);
+    with_bf16_vcycle on it likewise equals the ELL bf16 cycle."""
     mesh, topo = sphere_cut_system(8.0, 0, cache=False)
     ell = solve_sphere_cut(mesh, topo, **KW)
     res = solve_sphere_cut(mesh, topo, system=ell["system"], spmv="compact",
@@ -94,8 +99,33 @@ def test_compact_vcycle_equals_ell_cycle():
     assert all(isinstance(v, CompactMatrix) for v in Mc.vmats if v is not None)
     r = torch.as_tensor(np.random.RandomState(0).rand(topo.n_nodes))
     assert torch.equal(Mc.apply(r), M.apply(r))
+    # the bf16 V-cycle on top of the compact one (the JAX bench combines
+    # AFEM_SPMV=compact and BENCH_UNSTR_BF16=1): the compact levels and
+    # transfers take bf16 weights, and the cycle equals the ELL bf16 cycle
+    # bit for bit; the CG operator keeps its float weights
+    # (in float32, as the bench runs bf16 weights: K1 takes them with f32 x)
+    kw32 = dict(device="cpu", dtype=torch.float32, penalty=1e12)
+    ell32 = solve_sphere_cut(mesh, topo, **kw32)
+    res32 = solve_sphere_cut(mesh, topo, system=ell32["system"], spmv="compact",
+                             band_pre=True, **kw32)
+    cg32, Mc32 = res32["system"][("compact", True)]
+    M32 = res32["system"]["M"]
+    Mb = with_bf16_vcycle(Mc32)
+    assert [v is not None for v in Mb.vmats] == big
+    for v in Mb.vmats + Mb.p_apply + Mb.pt_apply:
+        assert v is None or (isinstance(v, CompactMatrix)
+                             and v.op.values.dtype == torch.bfloat16)
+    assert cg32.op.values.dtype == torch.float32
+    r32 = r.float()
+    assert torch.equal(Mb.apply(r32), with_bf16_vcycle(M32).apply(r32))
     with pytest.raises(ValueError):
-        with_bf16_vcycle(Mc)
+        with_compact_vcycle(with_bf16_vcycle(M32), band_pre=True)
+    # and the solve: the same iterations as the ELL route's bf16 V-cycle
+    both = solve_sphere_cut(mesh, topo, system=ell32["system"], spmv="compact",
+                            vcycle_bf16=True, **kw32)
+    ref = solve_sphere_cut(mesh, topo, system=ell32["system"], vcycle_bf16=True, **kw32)
+    assert both["iterations"] == ref["iterations"]
+    assert torch.equal(both["x"], ref["x"])
 
 
 def test_route_options_raise():
@@ -107,12 +137,15 @@ def test_route_options_raise():
     for bad in (dict(band_pre=True), dict(spmv="diag", sn_block=True),
                 dict(spmv="compact", sn_block=True),
                 dict(order="rcm", spmv="supernode"), dict(order="rcm", sn_block=True),
-                dict(spmv="compact", vcycle_bf16=True), dict(order="nd"),
+                dict(asm_reduce="atomic"), dict(order="nd"),
                 dict(spmv="window")):
         with pytest.raises(ValueError):
             _check_options(**{**base, **bad})
     _check_options(**{**base, "band_pre": True, "asm_compact": True})
     _check_options(**{**base, "spmv": "diag", "order": "rcm", "vcycle_bf16": True})
+    _check_options(**{**base, "spmv": "compact", "vcycle_bf16": True})
+    for order in ("segsum", "reorder"):
+        _check_options(**base, asm_reduce=order)
     with pytest.raises(ValueError):
         sphere_cut_system(14.0, 0, cache=False, order="nd")
     # no fallback: a column structure the diagonal plan declines raises

@@ -13,6 +13,7 @@ and a Neumann group.  u agrees with JAX's to 1e-9 of max|u|, iterations
 ``check_node_results``."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -194,8 +195,8 @@ def test_float32_and_deferred_features(case_dir):
     """float32 on the CPU (penalty clamped to 1e12, compensated dots)
     returns float32 u within 1e-5 of the float64 run; ``output_dir`` (ported
     since) writes nothing for a case without an <arcane-post-processing>
-    block, as in JAX; an unported codename raises, naming its ROADMAP
-    item."""
+    block, as in JAX; the Testlab codename (ported since) solves the same
+    case, Poisson with its default format, to the float64 run's u."""
     path = _write_case(case_dir, "f32_3d", "3d", solver="hypre", f=1.0,
                        codename="Poisson")
     u64 = run_case(path, device="cpu").u
@@ -209,9 +210,15 @@ def test_float32_and_deferred_features(case_dir):
     assert not out.exists()
     other = str(case_dir / "testlab.arc")
     with open(other, "w") as f:
-        f.write(open(path).read().replace('codename="Poisson"', 'codename="Testlab"'))
-    with pytest.raises(KeyError, match=r"not ported yet \(the testlab entry point.*Queue 1 item 10"):
-        run_case(other, device="cpu")
+        f.write(open(path).read().replace('codename="Poisson"', 'codename="Testlab"')
+                .replace("<boundary-conditions>", "<dirichlet-boundary-condition>"
+                         "<surface>xmin</surface><value>0.0</value>"
+                         "</dirichlet-boundary-condition><dirichlet-boundary-condition>"
+                         "<surface>xmax</surface><value>1.0</value>"
+                         "</dirichlet-boundary-condition><boundary-conditions>"))
+    lab = run_case(other, device="cpu")
+    assert type(lab).__name__ == "PoissonResult" and lab.iterations > 0
+    assert np.abs(lab.u - u64).max() <= 1e-9 * np.abs(u64).max()
 
 
 def _cli(module, *args):
@@ -253,12 +260,13 @@ def test_cli_on_cpu_prints_what_jax_prints(case_dir):
     assert labels == jlabels and "solve-linear-system" in labels
 
 
-@pytest.mark.parametrize("args", [["testlab", "--rect", "8"],
+@pytest.mark.parametrize("args", [["testlab", "--rect", "8", "--device", "cpu"],
                                   ["run", "CASE", "--device", "cpu",
                                    "--output-dir", "OUT"]])
 def test_cli_deferred_features_raise(case_dir, args):
-    """testlab still raises, naming its ROADMAP item; --output-dir (ported
-    since) writes the case's post-processing file, u under "U"."""
+    """The once-deferred features run: testlab (ported since) prints the
+    lab's JSON; --output-dir (ported since) writes the case's
+    post-processing file, u under "U"."""
     path = _write_case(case_dir, "cli_deferred", "2d")
     with open(path) as f:
         text = f.read()
@@ -270,9 +278,11 @@ def test_cli_deferred_features_raise(case_dir, args):
     args = [a.replace("CASE", path).replace("OUT", str(out)) for a in args]
     proc = _cli("arcanefem_tpu_torch", *args)
     if args[0] == "testlab":
-        assert proc.returncode == 1
-        assert "NotImplementedError" in proc.stderr and "not ported yet" in proc.stderr
-        assert "Queue 1 item 10" in proc.stderr
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        stats = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert stats["nbNode"] == 81 and stats["cache_warming"] == 5
+        assert list(stats["formats"]) == ["bell-segsum", "bell-sorted", "bell-scatter",
+                                          "csr-segsum", "coo", "coo-sorted"]
         return
     assert proc.returncode == 0, proc.stderr[-2000:]
     written = sorted(p.name for p in out.iterdir())

@@ -50,6 +50,7 @@ from arcanefem_tpu_torch.sparse import band_gather as band
 from arcanefem_tpu_torch.sparse import diag_spmv as dsp
 from arcanefem_tpu_torch.sparse.band_gather import BandedGather
 from arcanefem_tpu_torch.sparse.diag_spmv import DiagEllMatrix
+from arcanefem_tpu_torch.sparse import blocked as blk
 from arcanefem_tpu_torch.sparse import supernode as snm
 from arcanefem_tpu_torch.sparse.supernode import SupernodeSpmv, bsr8_spmv, bsr8_spmv_plain
 from arcanefem_tpu_torch.tools import probe_gather as pg
@@ -319,6 +320,41 @@ def test_bsr8_spmv_matches_plain_on_cuda(cuda, dtype, rtol):
     bf16 = dtype == torch.bfloat16
     assert snm.launch_counts() == {"bsr8_spmv": 0 if bf16 else 4,
                                    "bsr8_spmv_bf16": 4 if bf16 else 0}
+
+
+@pytest.mark.parametrize("b", [2, 4])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6), (torch.float64, 1e-12),
+                                        (torch.bfloat16, 1e-6)])
+def test_bsr_spmv_matches_plain_on_cuda(cuda, b, dtype, rtol):
+    """The BSR-b kernel (b = 2, 4; BlockedGather) == its plain twin on the
+    card, to rtol of each row's sum |a·x|, on a random rectangular CSR
+    (n_rows and n_cols not multiples of b, an empty row band), x 16-byte
+    aligned and not; one launch per call."""
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(12)
+    A = sp.random(4099, 3001, density=0.004, random_state=rng, format="csr")
+    A[8:16] = 0
+    A.eliminate_zeros()
+    g = blk.BlockedGather.build_csr(A.indices, A.indptr, A.data, A.shape[1], b=b,
+                                    device=cuda, dtype=torch.float32
+                                    if dtype == torch.bfloat16 else dtype)
+    if dtype == torch.bfloat16:
+        g = g.with_weights_dtype(torch.bfloat16)
+    xd = torch.float32 if dtype == torch.bfloat16 else dtype
+    base = torch.as_tensor(rng.rand(A.shape[1] + 1) * 2 - 1, dtype=xd, device=cuda)
+    blk.reset_launch_counts()
+    for x in (base[:-1], base[1:]):
+        y = g(x)
+        torch.cuda.synchronize()
+        assert y.dtype == xd and y.shape == (A.shape[0],)
+        want = blk.bsr_spmv_plain(g.blocks, g.bcol, g.bptr, x, g.n_rows)
+        scale = blk.bsr_spmv_plain(g.blocks.abs(), g.bcol, g.bptr, x.abs(), g.n_rows)
+        assert bool(((y.double() - want.double()).abs() <= rtol * scale.double()).all())
+        assert not bool(y[8:16].any())
+    bf16 = dtype == torch.bfloat16
+    assert blk.launch_counts() == {"bsr_spmv": 0 if bf16 else 2,
+                                   "bsr_spmv_bf16": 2 if bf16 else 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -172,8 +172,11 @@ write_arc(d + "/case.arc", "box.msh", codename="Poisson", f=1.0,
           dirichlet=[("xmin", 0.0), ("xmax", 1.0, "RowColumnElimination")],
           neumann=[("ymax", 0.5)], linear_system={"name": "HypreLinearSystem"})
 codes = []
-for extra in ([], ["--device", "cpu"]):  # without CUDA: exit 1, then the CPU
-    sys.argv = ["arcanefem_tpu_torch", "run", d + "/case.arc", *extra]
+for args in (["run", d + "/case.arc"], ["run", d + "/case.arc", "--device", "cpu"],
+             ["testlab", "--rect", "8"],
+             ["testlab", "--rect", "8", "--device", "cpu", "--cross-validate"]):
+    # without CUDA: exit 1, then the CPU
+    sys.argv = ["arcanefem_tpu_torch", *args]
     try:
         runpy.run_module("arcanefem_tpu_torch", run_name="__main__")
         codes.append(0)
@@ -188,9 +191,10 @@ print(json.dumps({"codes": codes,
 
 def test_cli_runs_without_jax(tmp_path):
     """python -m arcanefem_tpu_torch run on a Poisson case (AMG, penalty and
-    row-column elimination, a Neumann flux) in a process where neither jax,
-    arcanefem_tpu nor the root bench can be imported: exit 1 without
-    --device (no CUDA here), a solve with --device cpu."""
+    row-column elimination, a Neumann flux) and testlab --rect 8 in a
+    process where neither jax, arcanefem_tpu nor the root bench can be
+    imported: each exits 1 without --device (no CUDA here); with --device
+    cpu, a solve and the lab's cross-validation."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _CLI_SCRIPT, str(tmp_path)],
                           cwd=REPO, env=env, capture_output=True, text=True,
@@ -198,8 +202,10 @@ def test_cli_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     out = json.loads(lines[-1])
-    assert out["codes"] == [1, 0] and out["loaded"] == []
+    assert out["codes"] == [1, 0, 1, 0] and out["loaded"] == []
     assert sum(ln.startswith("done: PoissonResult {'iterations': ") for ln in lines) == 1
+    report = json.loads(lines[-2])["cross_validation_max_rel"]
+    assert len(report) == 6 and max(report.values()) < 1e-12
 
 
 _MODELS_SCRIPT = _PRELUDE + """
@@ -381,5 +387,7 @@ def test_scan_covers_the_transient_modules():
     """The source scan above reads the modules of the transient slice."""
     scanned = {os.path.relpath(p, REPO) for p in _port_files()}
     for mod in ("fem/checkpoint.py", "models/heat.py", "models/soildynamics.py",
-                "models/passmo.py", "ops/faces.py", "ops/gauss_state.py"):
+                "models/passmo.py", "ops/faces.py", "ops/gauss_state.py",
+                "testlab.py", "models/testlab_model.py", "sparse/coo.py",
+                "sparse/pallas_assembly.py", "sparse/blocked.py"):
         assert os.path.join("arcanefem_tpu_torch", mod) in scanned, mod

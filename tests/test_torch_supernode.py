@@ -234,16 +234,17 @@ def test_bench_flags_map_to_route_options(monkeypatch):
     monkeypatch.setattr(bu, "bench_unstructured", fake)
     bu.main(["--h", "5", "--refine", "2", "--spmv", "supernode", "--sn-block",
              "--sn-bf16", "--vcycle-bf16", "--asm-coords", "batched",
-             "--asm-compact", "--band-pre", "--order", "rcm",
+             "--asm-compact", "--band-pre", "--asm-reduce", "reorder", "--order", "rcm",
              "--smoother", "jacobi", "--cheb-deg", "2,4", "--cycle", "W"])
     assert seen == dict(h=5.0, refine=2, spmv="supernode", sn_block=True,
                         sn_bf16=True, vcycle_bf16=True, asm_coords="batched",
-                        asm_compact=True, band_pre=True, order="rcm",
+                        asm_compact=True, band_pre=True, asm_reduce="reorder", order="rcm",
                         smoother="jacobi", cheb_deg=(2, 4), cycle="W")
     seen.clear()
     bu.main(["--spmv", "diag"])
     assert seen["spmv"] == "diag" and seen["order"] == "sn"
     assert not seen["band_pre"] and not seen["asm_compact"]
+    assert seen["asm_reduce"] == "window"
     monkeypatch.undo()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
