@@ -434,7 +434,8 @@ def _block_level(cur, bl: int, theta_l: float, Bns):
 
 def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
               cheb_deg: int, dtype=np.float64, block: int = 1,
-              nullspace: np.ndarray | None = None) -> dict:
+              nullspace: np.ndarray | None = None,
+              coarse_size: int = COARSE_SIZE) -> dict:
     """Hierarchy of the BELL operator with (N, W) host ``values`` on
     ``topo`` (a ``sparse.topology.Topology``, or :func:`stored_graph` of a
     SELL layout), Dirichlet rows already penalised: ``build_amg(A,
@@ -442,8 +443,9 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
     with its other defaults.  ``block`` b: the operator is the scalar
     expansion of b×b blocks (dof = node·b + comp); ``nullspace`` (n_dofs,
     m) is used for b > 1 only, as in JAX.  ``dtype`` is the type the device
-    will hold.  Returns the dict that ``amg_from_numpy`` takes, for a
-    V-cycle."""
+    will hold.  ``coarse_size`` is ``build_amg``'s: levels coarsen while
+    they have more than ``coarse_size``·b rows.  Returns the dict that
+    ``amg_from_numpy`` takes, for a V-cycle."""
     dtype = np.dtype(dtype)
     vals = np.asarray(values).reshape(topo.n_nodes, topo.width)
     data = vals.reshape(-1)[topo.csr_to_ell]
@@ -457,7 +459,7 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
            if nullspace is not None and block > 1 else None)
     used_rbm = Bns is not None
     nullspaces = [Bns]
-    while cur.shape[0] > COARSE_SIZE * bl and len(mats) < MAX_LEVELS:
+    while cur.shape[0] > coarse_size * bl and len(mats) < MAX_LEVELS:
         n = cur.shape[0]
         # Vanek's per-level strength decay
         theta_l = theta * (0.5 ** len(mats))
@@ -503,10 +505,10 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
         nullspaces.append(Bns)
         cur = nxt
 
-    if cur.shape[0] > 8 * COARSE_SIZE * bl:
+    if cur.shape[0] > 8 * coarse_size * bl:
         raise RuntimeError(
             f"AMG coarsening stalled at {cur.shape[0]} dofs (target coarse "
-            f"size {COARSE_SIZE * bl}, {len(mats)} levels); loosen theta")
+            f"size {coarse_size * bl}, {len(mats)} levels); loosen theta")
 
     out = {k: [] for k in ("mats", "inv_diags", "pcols", "pvals", "ptcols",
                            "ptvals")}

@@ -237,13 +237,15 @@ def assemble_bell(topo, element_matrices: dict[str, torch.Tensor], *,
     return BellMatrix(acc, layout, diag_slot)
 
 
-def block_layout(topo, b: int, device: torch.device | str
+def block_layout(topo, b: int, device: torch.device | str, n_cols: int | None = None
                  ) -> tuple[SellLayout, torch.Tensor, torch.Tensor]:
     """The SELL layout of the scalar expansion of a mesh's b×b block
     operator, with the SELL slot of each dof's diagonal (n_dofs,) and of
     each diagonal block's entries (N, b, b): row n·b + a, ELL slot w·b + c
     stands for entry (a, c) of node slot (n, w), of column
-    ``ell_cols[n, w]·b + c``; every entry of a real node slot is stored."""
+    ``ell_cols[n, w]·b + c``; every entry of a real node slot is stored.
+    ``n_cols`` (default N·b) widens the column space (a shard's rows over
+    its [owned | halo] columns)."""
     if b < 2:
         raise ValueError(f"block_layout: block size {b}; scalar operators use "
                          "fine_layout")
@@ -253,7 +255,8 @@ def block_layout(topo, b: int, device: torch.device | str
             + comp[None, None, None, :])  # (N, 1, W, b)
     cols = np.broadcast_to(cols, (N, b, W, b)).reshape(N * b, W * b)
     real = np.broadcast_to(topo.ell_valid[:, None, :, None], (N, b, W, b))
-    lay = SellLayout.build(cols, real.reshape(N * b, W * b), device=device)
+    lay = SellLayout.build(cols, real.reshape(N * b, W * b), device=device,
+                           n_cols=n_cols)
     dw = np.asarray(topo.diag_slot, np.int64) - np.arange(N, dtype=np.int64) * W
     node = np.arange(N, dtype=np.int64)[:, None, None]
     a = np.arange(b, dtype=np.int64)[None, :, None]

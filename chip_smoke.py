@@ -83,8 +83,9 @@ g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    in-process on the CPU (float64, its u written as the case's golden
    file), in-process on the card and through ``python -m arcanefem_tpu_torch
    run`` in a subprocess (the card by default, the golden file checked;
-   two cases alone first, the rest four at a time beside the in-process
-   runs): the card's u within 1e-9 of max|u| of the CPU's, within 1e-6 of
+   four at a time beside the in-process runs; the two runs alone that
+   timed the CLI went to make room for ``[parallel]``): the card's u
+   within 1e-9 of max|u| of the CPU's, within 1e-6 of
    x on the Laplace cases, iterations equal ± 1.  F2: ``models/poisson.solve``
    on phase 4's mesh (−Δu = 1, Penalty Cut = 0 and sphere = 1, AMG-PCG to
    1e-8) in float32 (its float64 run and its profiled solve went to make
@@ -186,6 +187,24 @@ g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    their twins (0 ulps, bit-equal reruns) and timed beside one
    ``index_add_`` (``kernels`` records; the b = 2 one with its ``was``
    line);
+``[parallel]`` (run after ``[transient]``, on phase 4's mesh): the sharded
+   solves over torch.distributed (``arcanefem_tpu_torch/parallel/``).  (a)
+   ``python -m arcanefem_tpu_torch.parallel --nproc 1 --device cuda
+   --sphere 5,2 --f64`` (NCCL, one rank; its output in
+   ``build/parallel/cli.txt``): the dryrun's eight paths at their sizes
+   (RCB Jacobi-PCG, x-slab, x-slab MG, AMG-PCG, the window step, one
+   V-cycle, block elasticity, elastodynamics) and phase 4's sphere through
+   ``make_window_amg_step`` in float64 to 1e-8, each held by the rank to
+   its single-process solve (the sphere within 1e-6 of the largest value)
+   and printed with its iterations, true residual, difference, the rank's
+   K1 and ``slot_reduce`` launches, collectives per iteration and ms per
+   iteration; the sphere must launch K1 and ``slot_reduce``.  (b) while
+   (a) runs, ``build_sharded`` of the sphere into 4 parts on the host,
+   and ``[bench]`` (below), then K1 on shard 0's rectangular [owned |
+   halo] SELL layout in float64,
+   its halo filled on the host through the partition's maps, held to its
+   plain twin (1e-12 of Σ|v·x|, padding rows 0) and timed beside CSR
+   ``torch.mv`` (a ``kernels`` record whose launches are (a)'s sphere's);
 j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
    then ``--spmv diag`` (K10) on the same system, ``[diag]`` lines; K10
    held to its twin and timed there and on the 80^3 RCM box, beside K1 and
@@ -215,11 +234,11 @@ j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
    for bit;
 8. the MG path at 64^3 through the kernels, on the plain twins (float32 on
    the CPU) and in float64 on the CPU: iterations and solutions must agree;
-``[bench]``: ``python -m arcanefem_tpu_torch.bench`` twice at check size
-   (sphere h=8 refine=0, box 64^3) in a fresh cache directory: bench.py's
-   keys and metric names, a numeric ``vs_baseline``, the AMG hierarchy
-   built in the first run and loaded in the second without a SELL layout
-   build, the same iterations.
+``[bench]`` (run inside ``[parallel]``, while its CLI runs):
+   ``python -m arcanefem_tpu_torch.bench`` once at check size (sphere h=8
+   refine=0, box 64^3) in a fresh cache directory: bench.py's keys and
+   metric names, a numeric ``vs_baseline``, the AMG hierarchy built (its
+   second, warm run went to make room for ``[parallel]``).
 
 Then one JSON line with the kernels' records and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -509,6 +528,8 @@ def main() -> int:
     _elapsed("[blocks]")
     records += transient_phase(dev, mesh)
     _elapsed("[transient]")
+    records += parallel_phase(dev, mesh, topo)
+    _elapsed("[parallel] and [bench]")
     del mesh, topo
     torch.cuda.empty_cache()
     records += diag_phase(dev, gen)
@@ -551,8 +572,6 @@ def main() -> int:
 
     records += structured_phases(dev, gen)
     _elapsed("5, 9b, 9c, 6-8: h=8 comparisons and the structured path")
-    bench_phase()
-    _elapsed("[bench]")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
@@ -1062,16 +1081,49 @@ COMPACT_CONFIGS = {  # phases g-i: bench_unstructured's flags
 }
 
 
+def _global_names(text: str) -> tuple[str, ...]:
+    """The names of the ``__global__ void`` functions in CUDA source
+    ``text``; a ``__launch_bounds__(...)`` before the name may hold
+    parentheses of its own (they are matched, not cut at the first ``)``)."""
+    names = []
+    for m in re.finditer(r"__global__\s+void\s+", text):
+        i = m.end()
+        if text.startswith("__launch_bounds__", i):
+            i = text.index("(", i)
+            depth = 0
+            for i in range(i, len(text)):
+                depth += {"(": 1, ")": -1}.get(text[i], 0)
+                if depth == 0:
+                    break
+            i += 1
+        name = re.match(r"\s*(\w+)\s*\(", text[i:])
+        _check(name is not None, f"no name after __global__ at offset {m.start()}")
+        names.append(name.group(1))
+    return tuple(names)
+
+
 def _kernel_names(src: str) -> tuple[str, ...]:
     """The ``__global__`` functions of ``arcanefem_tpu_torch/csrc/<src>``."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "arcanefem_tpu_torch", "csrc", src)
     with open(path) as fh:
-        names = tuple(re.findall(
-            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
-            fh.read()))
+        names = _global_names(fh.read())
     _check(bool(names), f"no __global__ function found in {src}")
     return names
+
+
+def _record_kernel(name: str, src: str, kernel: str | None = None) -> str:
+    """The ``__global__`` function a ``[kernel]`` record times: ``kernel``
+    if given, else ``<the record name's first word>_kernel``, else the one
+    kernel of ``src``; the check fails when it is not among the kernels
+    parsed from ``src`` (the record would read no device time)."""
+    names = _kernel_names(src)
+    if kernel is None:
+        guess = re.match(r"\w+", name).group(0) + "_kernel"
+        kernel = guess if guess in names or len(names) != 1 else names[0]
+    _check(kernel in names, f"[kernel] {name}: its kernel {kernel} is not among the "
+                            f"__global__ functions parsed from {src}: {names}")
+    return kernel
 
 
 def _own_events_ms(events, names, calls: int) -> tuple[float | None, list[int]]:
@@ -1084,7 +1136,8 @@ def _own_events_ms(events, names, calls: int) -> tuple[float | None, list[int]]:
     return (mine[len(mine) // 2] / 1e3 if ok else None), [len(mine), calls]
 
 
-def _device_ms(fn, src: str, calls: int = 20) -> tuple[float | None, list[int]]:
+def _device_ms(fn, src: str, calls: int = 20,
+               kernel: str | None = None) -> tuple[float | None, list[int]]:
     """(device ms per call, [events traced, events expected]) of fn, whose
     wrapper launches one kernel of ``src`` per call, from torch.profiler
     over ``calls`` calls: only the events of the kernels defined in
@@ -1095,12 +1148,18 @@ def _device_ms(fn, src: str, calls: int = 20) -> tuple[float | None, list[int]]:
     the time is None.  For kernels longer than the host's ~15 µs per
     launch the CUDA-event time of back-to-back calls is the device time as
     well; for a kernel of a few microseconds the event time measures the
-    host's rate of issuing launches, and this is the number to read."""
+    host's rate of issuing launches, and this is the number to read.
+    ``kernel``: read that kernel's events alone (it must be one of
+    ``src``'s, or the check fails)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = _kernel_names(src)
+    if kernel is not None:
+        _check(kernel in names, f"{kernel} is not among the __global__ functions "
+                                f"parsed from {src}: {names}")
+        names = (kernel,)
     fn()
     torch.cuda.synchronize()
     best: tuple = (None, [0, calls])
@@ -1123,14 +1182,17 @@ def _fmt_ms(ms: float | None) -> str:
 
 
 def _kernel_record(name, src, rep_, fk, fp, lib, nbytes_flops, launches, shape,
-                   check, dtype="float32"):
+                   check, dtype="float32", kernel=None):
     """Hold fk() to fp() with ``check`` (returns the held error, raises on
     failure), then time kernel, twin and library call (CUDA events, best of
-    3×20; the twin 2×3); one ``kernels`` record."""
+    3×20; the twin 2×3); one ``kernels`` record.  Its device time reads the
+    record's own kernel (``_record_kernel``), which must parse from
+    ``src``."""
     import torch
 
     from arcanefem_tpu_torch.utils.timing import time_op
 
+    kernel = _record_kernel(name, src, kernel)
     yk, yp = fk(), fp()
     torch.cuda.synchronize()
     err = float((yk.double() - yp.double()).abs().max())
@@ -1139,7 +1201,7 @@ def _kernel_record(name, src, rep_, fk, fp, lib, nbytes_flops, launches, shape,
     ms = time_op(fk, reps=20, outer=3) * 1e3
     pms = time_op(fp, reps=3, outer=2) * 1e3
     lms = time_op(lib, reps=20, outer=3) * 1e3 if lib else None
-    dms, events = _device_ms(fk, src)
+    dms, events = _device_ms(fk, src, kernel=kernel)
     bms, bby = _bound(*nbytes_flops)
     print(f"[kernel] {name} {shape}: {ms:.4f} ms, device {_fmt_ms(dms)} "
           f"({events[0]} of {events[1]} kernel events traced; bound "
@@ -1254,7 +1316,8 @@ def compact_phase(dev, gen, mesh, topo, res4) -> list[dict]:
             "ell_gather_sum", "ell_gather.cu", "sparse/pallas_spmv.py:444",
             lambda: ell_gather_sum(ucols, x), lambda: ell_gather_sum_plain(ucols, x),
             lambda: x[uidx], (ucols.numel() * 8 + n * 4, 0),
-            counts["g"]["ell_gather_sum"], list(ucols.shape), _equal),
+            counts["g"]["ell_gather_sum"], list(ucols.shape), _equal,
+            kernel="ell_gather_kernel"),
         _kernel_record(
             "band_gather", "band_gather.cu", "sparse/band_gather.py:52",
             lambda: band(x),
@@ -1651,11 +1714,13 @@ def chunk_unfused_phases(s, res) -> None:
 
 
 def bench_phase() -> None:
-    """[bench]: ``python -m arcanefem_tpu_torch.bench`` twice at check size
+    """[bench]: ``python -m arcanefem_tpu_torch.bench`` once at check size
     (sphere h=8 refine=0, box 64^3) in a fresh cache directory: bench.py's
     keys and metric names, a numeric vs_baseline, the AMG hierarchy built
-    in the first run and loaded in the second (no SELL layout build), the
-    same iterations."""
+    (not loaded) and its SELL layouts built.  The second, warm run that
+    loaded the hierarchy from the cache went to make room for
+    ``[parallel]``; ``[cache]`` holds the same npz cache, cold and warm, at
+    1.9M."""
     import subprocess
     import tempfile
 
@@ -1664,42 +1729,38 @@ def bench_phase() -> None:
                if not k.startswith(("BENCH_", "AFEM_"))}
         env.update(AFEM_CACHE_DIR=tmp, BENCH_UNSTR_H="8", BENCH_UNSTR_REFINE="0",
                    BENCH_N=str(CHECK_N))
-        lines = []
-        for run in (1, 2):
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-m", "arcanefem_tpu_torch.bench"],
-                                  env=env, stdout=subprocess.PIPE, text=True, timeout=900)
-            _check(proc.returncode == 0, f"[bench] run {run} exited {proc.returncode}")
-            lines.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-            print(f"[bench] run {run} in {time.perf_counter() - t0:.1f} s: "
-                  f"{json.dumps(lines[-1])}", flush=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "arcanefem_tpu_torch.bench"],
+                              env=env, stdout=subprocess.PIPE, text=True, timeout=900)
+        _check(proc.returncode == 0, f"[bench] exited {proc.returncode}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"[bench] run 1 in {time.perf_counter() - t0:.1f} s: {json.dumps(line)}",
+              flush=True)
     box_n = (CHECK_N + 1) ** 3
-    for line in lines:
-        ex = line["extra"]
-        _check(set(line) == {"metric", "value", "unit", "vs_baseline", "extra"},
-               f"[bench] keys {sorted(line)}")
-        _check({"secondary_metric", "secondary_value", "secondary_assembly_mdofs",
-                "baseline_kind", "baseline_estimate_s", "gpu", "power_limit"} <= set(ex)
-               and "error" not in ex, f"[bench] extra keys {sorted(ex)}")
-        _check(line["metric"] == f"poisson3d_sphere_cut_{ex['n_dofs'] / 1e6:.1f}MDoF_"
-               "assembly+amgpcg_to_1e-08_s"
-               and ex["secondary_metric"] == f"poisson3d_box_{box_n / 1e6:.3g}MDoF_"
-               "assembly+cg_to_1e-08_s", f"[bench] metric names {line['metric']}, "
-               f"{ex['secondary_metric']}")
-        _check(isinstance(line["vs_baseline"], float) and line["vs_baseline"] > 0,
-               f"[bench] vs_baseline {line['vs_baseline']}")
-    (a, b) = (ln["extra"] for ln in lines)
-    _check(a["amg_setup_cached"] is False and b["amg_setup_cached"] is True
-           and b["sell_layout_builds"] == 0 and a["iterations"] == b["iterations"],
-           f"[bench] cold/warm: cached {a['amg_setup_cached']}, {b['amg_setup_cached']}; "
-           f"builds {b['sell_layout_builds']}; iterations {a['iterations']}, "
-           f"{b['iterations']}")
+    ex = line["extra"]
+    _check(set(line) == {"metric", "value", "unit", "vs_baseline", "extra"},
+           f"[bench] keys {sorted(line)}")
+    _check({"secondary_metric", "secondary_value", "secondary_assembly_mdofs",
+            "baseline_kind", "baseline_estimate_s", "gpu", "power_limit"} <= set(ex)
+           and "error" not in ex, f"[bench] extra keys {sorted(ex)}")
+    _check(line["metric"] == f"poisson3d_sphere_cut_{ex['n_dofs'] / 1e6:.1f}MDoF_"
+           "assembly+amgpcg_to_1e-08_s"
+           and ex["secondary_metric"] == f"poisson3d_box_{box_n / 1e6:.3g}MDoF_"
+           "assembly+cg_to_1e-08_s", f"[bench] metric names {line['metric']}, "
+           f"{ex['secondary_metric']}")
+    _check(isinstance(line["vs_baseline"], float) and line["vs_baseline"] > 0,
+           f"[bench] vs_baseline {line['vs_baseline']}")
+    _check(ex["amg_setup_cached"] is False and ex["sell_layout_builds"] > 0,
+           f"[bench] a fresh cache: cached {ex['amg_setup_cached']}, SELL builds "
+           f"{ex['sell_layout_builds']}")
 
 
 FEM_METHODS = ("Penalty", "WeakPenalty", "RowElimination", "RowColumnElimination")
 FEM_2D_N, FEM_3D_N, FEM_DENSE_N = 128, 24, 8  # [fem] F1 mesh sizes
 FEM_CLI_WORKERS = 4  # F1's CLI subprocesses at a time
-FEM_CLI_ALONE = ("rect_Penalty", "box_hypre")  # F1's CLI cases also timed alone
+# F1's CLI cases also timed alone: none, to leave room for [parallel]
+# (a written case took 7.8-9.2 s alone; PERF.md has the runs)
+FEM_CLI_ALONE: tuple = ()
 
 
 def _fem_cases(root: str) -> list[dict]:
@@ -3851,6 +3912,152 @@ def transient_phase(dev, mesh) -> list[dict]:
     print(f"[transient] wall time: T1 {t1 - t0:.1f} s, T2 {time.perf_counter() - t1:.1f} s",
           flush=True)
     return recs
+
+
+PARALLEL_SPHERE = "5,2"  # (a): phase 4's 1.9M sphere, h=5 refine=2
+PARALLEL_SHARDS = 4  # (b): shard 0 of a build_sharded into this many parts
+PARALLEL_TIMEOUT = 600  # (a): seconds before the CLI's ranks are killed
+
+
+def _parallel_cli(log: str):
+    """(a)'s command, started: ``python -m arcanefem_tpu_torch.parallel
+    --nproc 1 --device cuda --sphere 5,2 --f64`` with its output in
+    ``log``."""
+    import subprocess
+
+    os.makedirs(os.path.dirname(log), exist_ok=True)
+    fh = open(log, "w")
+    cmd = [sys.executable, "-m", "arcanefem_tpu_torch.parallel", "--nproc", "1",
+           "--device", "cuda", "--sphere", PARALLEL_SPHERE, "--f64",
+           "--timeout", str(PARALLEL_TIMEOUT)]
+    return subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT, text=True), fh
+
+
+def _shard_halo_nodes(sp, p: int):
+    """The global node of each of shard p's halo columns, read through the
+    partition's own maps (the pool slot ``halo_src`` names: its owner q and
+    the position in q's ``send_idx``)."""
+    import numpy as np
+
+    src = sp.halo_src[p].astype(np.int64)
+    q, pos = src // sp.s_max, src % sp.s_max
+    return sp.owned_global[q, sp.send_idx[q, pos]]
+
+
+def parallel_phase(dev, mesh, topo) -> list[dict]:
+    """[parallel]: (a) the sharded CLI on NCCL with one rank, the dryrun's
+    paths and the 1.9M sphere's AMG-PCG in float64, each path's record
+    printed and checked; (b) meanwhile, on the host, a 4-part
+    ``build_sharded`` of the same sphere (over phase 4's ``topo``), and the
+    ``[bench]`` phase (a subprocess whose checks read no time), then K1 on shard 0's rectangular
+    [owned | halo] SELL layout (float64), its halo filled on the host, held
+    to its plain twin and timed (a ``kernels`` record)."""
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.parallel.dryrun import PATHS
+    from arcanefem_tpu_torch.parallel.partition import build_sharded
+    from arcanefem_tpu_torch.parallel.sharded import Shard
+    from arcanefem_tpu_torch.sparse.sell import sell_spmv, sell_spmv_plain
+
+    t0 = time.perf_counter()
+    log = os.path.join("build", "parallel", "cli.txt")
+    proc, fh = _parallel_cli(log)
+    try:
+        t1 = time.perf_counter()
+        sp = build_sharded(mesh, PARALLEL_SHARDS, topo=topo)
+        build_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        sh = Shard(sp, 0, dev, torch.float64)
+        shard_s = time.perf_counter() - t1
+        bench_phase()  # a subprocess too; its checks read no time
+        rc = proc.wait(timeout=PARALLEL_TIMEOUT + 120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fh.close()
+    with open(log) as f:
+        out = f.read()
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith("parallel(1): ") and " ok — " in ln]
+    for ln in out.splitlines():
+        if ln.startswith("parallel(1)") or "Error" in ln or "Traceback" in ln:
+            print(f"[parallel] {ln}", flush=True)
+    print(f"[parallel] (a) exit {rc} in {time.perf_counter() - t0:.1f} s "
+          f"(its output: {log})", flush=True)
+    _check(rc == 0, f"[parallel] the sharded CLI exited {rc}: {out[-2000:]}")
+    recs = {}
+    for ln in lines:
+        what, rec = ln.split(": ", 1)[1].split(" ok — ", 1)
+        recs[what] = json.loads(rec)
+    _check(len(recs) == len(PATHS) + 1, f"[parallel] {len(recs)} paths reported")
+    sphere = next(r for w, r in recs.items() if w.startswith("sphere_cut"))
+    k1 = sphere["launches"]["sell_spmv"]
+    _check(sphere["max_diff"] <= 1e-6 and sphere["rel"] <= 1e-8
+           and sphere["true_residual"] <= 1e-6 and sphere["iterations"] > 0,
+           f"[parallel] the sphere: {sphere}")
+    _check(k1 > 0 and sphere["launches"]["slot_reduce"] > 0,
+           f"[parallel] the sphere's sharded solve launched no K1 or slot_reduce: "
+           f"{sphere['launches']}")
+    for what, rec in recs.items():
+        print(f"[parallel] {what}: {rec['iterations'] if 'iterations' in rec else '-'} "
+              f"iterations, true residual {rec.get('true_residual', float('nan')):.2e}, "
+              f"{rec['max_diff']:.2e} from the single-process solve, launches "
+              f"{rec['launches']}, collectives per iteration "
+              f"{rec['collectives_per_iter']}, {rec['ms_per_iter']:.4f} ms per "
+              f"iteration", flush=True)
+
+    # (b) K1 on shard 0 of 4: the rectangular shape one rank never builds
+    lay = sh.layout
+    n_own, N = sh.n_own, sh.n_own_max
+    gen = torch.Generator(device=dev).manual_seed(17)
+    vals = torch.rand(lay.n_slots, generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+    vals[~torch.as_tensor(lay.real, device=dev)] = 0
+    xg = np.random.RandomState(17).rand(mesh.n_nodes) * 2 - 1
+    x_loc = np.zeros(N + sp.h_max)
+    x_loc[:n_own] = xg[sp.owned_global[0, :n_own]]
+    halo = _shard_halo_nodes(sp, 0)
+    touched = np.unique(np.concatenate([mesh.cells[k][sp.cell_offsets[k][0][
+        sp.cell_offsets[k][0] >= 0]].ravel() for k in mesh.cells]))
+    n_halo = int((sp.part[touched] != 0).sum())
+    _check(np.array_equal(halo[:n_halo], touched[sp.part[touched] != 0]),
+           "[parallel] (b) shard 0's halo map differs from its cells' nodes")
+    x_loc[N:N + n_halo] = xg[halo[:n_halo]]
+    x = torch.as_tensor(x_loc, device=dev)
+    real = torch.as_tensor(lay.real, device=dev)
+    rows = lay.slot_rows(dev).long()[real]
+    cols = lay.cols.long()[real]
+    order = torch.argsort(rows * lay.n_cols + cols)
+    crow = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=N), 0)
+    csr = torch.sparse_csr_tensor(crow, cols[order], vals[real][order],
+                                  size=(N, lay.n_cols))
+    scale = sell_spmv_plain(vals.abs(), lay, x.abs())
+
+    def check(yk, yp):
+        err = _rel_err(yk, yp, scale)
+        _check(err <= 1e-12 and bool((yk[n_own:] == 0).all()),
+               f"[parallel] (b) K1 on shard 0: {err:.2e} of sum |v x|, padding rows "
+               f"{float(yk[n_own:].abs().max()) if N > n_own else 0.0}")
+        return err
+
+    nnz = lay.nnz
+    rec = _kernel_record(
+        f"sell_spmv (shard 0 of {PARALLEL_SHARDS}, float64)", "sell_spmv.cu",
+        "sparse/pallas_spmv.py:398", lambda: sell_spmv(vals, lay, x),
+        lambda: sell_spmv_plain(vals, lay, x), lambda: torch.mv(csr, x),
+        (nnz * 12 + N * 8 + lay.n_cols * 8, 2 * nnz), k1,
+        [N, lay.width, lay.n_cols], check, dtype="float64", kernel="sell_spmv_kernel")
+    rec.update(n_own=n_own, h_max=sp.h_max, sigma=lay.sigma, slots=lay.n_slots, nnz=nnz,
+               build_sharded_s=build_s, shard_s=shard_s)
+    print(f"[parallel] (b) build_sharded({mesh.n_nodes} nodes, {PARALLEL_SHARDS} parts) {build_s:.1f} s, "
+          f"shard 0's plans {shard_s:.1f} s: {n_own} owned rows of {N}, {n_halo} halo "
+          f"columns (h_max {sp.h_max}), sigma {lay.sigma}, {lay.n_slots} slots for "
+          f"{nnz} nonzeros", flush=True)
+    del sp, sh, vals, x, csr, scale
+    torch.cuda.empty_cache()
+    return [rec]
 
 
 def structured_phases(dev, gen) -> list[dict]:

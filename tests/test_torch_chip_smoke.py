@@ -32,6 +32,54 @@ def test_kernel_names_cover_every_global(src):
         assert re.search(rf"\b{name}\s*\(", text), name
 
 
+def test_global_names_match_nested_parentheses():
+    """A __launch_bounds__ argument with parentheses of its own hides no
+    kernel (a pattern that stops at the first ')' misses both here)."""
+    smoke = _smoke()
+    text = ("__global__ void __launch_bounds__(kThreads * (kRows + 1)) "
+            "block_kernel(const float* x) {}\n"
+            "template <typename V>\n__global__ void __launch_bounds__((kA), (kB))\n"
+            "pair_kernel(V* y) {}\n__global__ void plain_kernel(int n) {}\n")
+    assert smoke._global_names(text) == ("block_kernel", "pair_kernel", "plain_kernel")
+    old = re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", text)
+    assert "block_kernel" not in old and "pair_kernel" not in old
+
+
+def test_record_kernel_fails_when_its_kernel_is_not_parsed():
+    """A [kernel] record reads its own kernel's events; one whose kernel
+    the parse does not find fails its check instead of reading None."""
+    smoke = _smoke()
+    assert smoke._record_kernel("block_slot_reduce (b=3)", "tet_assembly.cu") == \
+        "block_slot_reduce_kernel"
+    assert smoke._record_kernel("bsr8_spmv (a)", "bsr8_spmv.cu") == "bsr_spmv_kernel"
+    assert smoke._record_kernel("ell_gather_sum", "ell_gather.cu",
+                                "ell_gather_kernel") == "ell_gather_kernel"
+    with pytest.raises(RuntimeError, match="not among"):
+        smoke._record_kernel("ell_gather_sum", "ell_gather.cu")
+    with pytest.raises(RuntimeError, match="not among"):
+        smoke._record_kernel("sell_spmv (shard 0)", "sell_spmv.cu", "missing_kernel")
+
+
+def test_shard_halo_nodes_follow_the_partition_maps():
+    """[parallel] (b) fills shard 0's halo on the host through halo_src and
+    the owners' send_idx: the same nodes, in the same order, as the halo
+    build_sharded numbered."""
+    import numpy as np
+
+    from arcanefem_tpu_torch.mesh.generate import box_tetra_mesh
+    from arcanefem_tpu_torch.parallel.partition import build_sharded
+
+    mesh = box_tetra_mesh(6, 5, 4)
+    sp = build_sharded(mesh, 4)
+    for p in range(4):
+        touched = np.unique(np.concatenate([
+            mesh.cells[k][sp.cell_offsets[k][p][sp.cell_offsets[k][p] >= 0]].ravel()
+            for k in mesh.cells]))
+        halo = touched[sp.part[touched] != p]
+        np.testing.assert_array_equal(_smoke()._shard_halo_nodes(sp, p)[:len(halo)], halo)
+
+
 def _events(own_us, stray_us=()):
     """A trace as the profiler names kernels: demangled, with templates."""
     own = [("void (anonymous namespace)::stencil_assembly_kernel<float>(float const*, "

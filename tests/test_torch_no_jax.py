@@ -391,3 +391,58 @@ def test_scan_covers_the_transient_modules():
                 "testlab.py", "models/testlab_model.py", "sparse/coo.py",
                 "sparse/pallas_assembly.py", "sparse/blocked.py"):
         assert os.path.join("arcanefem_tpu_torch", mod) in scanned, mod
+
+
+def test_scan_covers_the_parallel_modules():
+    """The source scan above reads every module of the sharded solves."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("__init__.py", "__main__.py", "partition.py", "comm.py", "sharded.py",
+                "sharded_amg.py", "sharded_window.py", "block_sharded.py",
+                "structured_sharded.py", "structured_mg.py", "dryrun.py"):
+        assert os.path.join("arcanefem_tpu_torch", "parallel", mod) in scanned, mod
+
+
+def _blocking_path(root) -> str:
+    """A directory of stand-ins for jax, arcanefem_tpu and the root bench:
+    importing one records its name in ``<root>/imported`` and raises.
+    First on PYTHONPATH, it reaches the ranks a command spawns too."""
+    block = os.path.join(root, "block")
+    os.makedirs(os.path.join(block, "jax"))
+    os.makedirs(os.path.join(block, "arcanefem_tpu"))
+    stub = ("import os\n"
+            f"open(os.path.join({str(root)!r}, 'imported'), 'a').write(__name__ + '\\n')\n"
+            "raise ImportError(__name__ + ' is not importable here')\n")
+    for path in (("jax", "__init__.py"), ("arcanefem_tpu", "__init__.py"), ("bench.py",)):
+        with open(os.path.join(block, *path), "w") as fh:
+            fh.write(stub)
+    return block
+
+
+def test_parallel_cli_runs_without_jax(tmp_path):
+    """python -m arcanefem_tpu_torch.parallel --nproc 2 --device cpu: two
+    gloo ranks run every path of the dryrun (float32), in processes where
+    neither jax, arcanefem_tpu nor the root bench can be imported."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([_blocking_path(tmp_path), REPO]))
+    proc = subprocess.run([sys.executable, "-m", "arcanefem_tpu_torch.parallel",
+                           "--nproc", "2", "--device", "cpu"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert not os.path.exists(tmp_path / "imported"), (tmp_path / "imported").read_text()
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("parallel(2): ")]
+    assert len(lines) == 8 and all(" ok — {" in ln for ln in lines), proc.stdout
+    for ln in lines:
+        rec = json.loads(ln.split(" ok — ", 1)[1])
+        assert rec["max_diff"] <= 2e-3
+
+
+def test_parallel_cli_without_cuda_exits_1(tmp_path):
+    """--device cuda (the default) on a machine without CUDA exits 1 before
+    any rank starts, with no line of results; so do more ranks than cards."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([_blocking_path(tmp_path), REPO]))
+    for args in (["--nproc", "1", "--device", "cuda"], ["--nproc", "2"]):
+        proc = subprocess.run([sys.executable, "-m", "arcanefem_tpu_torch.parallel", *args],
+                              cwd=tmp_path, env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode == 1, (args, proc.stderr[-2000:])
+        assert "parallel(" not in proc.stdout, proc.stdout
+        assert "CUDA" in proc.stderr
