@@ -1,4 +1,4 @@
-// BSR SpMV over b x b blocks (b = 8: the supernode SpMV; b = 2, 4: the
+// BSR SpMV over b x b blocks (b = 8: the supernode SpMV; b = 4: the
 // blocked scalar operator) for Hopper (sm_90a), bound through a plain C
 // interface and loaded with ctypes (arcanefem_tpu_torch/utils/kernels.py).
 //
@@ -11,18 +11,20 @@
 // for 8 n_sup >= n > 8 (n_sup - 1); columns at or past n read 0, rows at or
 // past n are not written.
 //
-//   afem_bsr_spmv_b{2,4}_{f32,f64,bf16_f32}: the same product over b x b
+//   afem_bsr_spmv_b4_{f32,f64,bf16_f32}: the same product over 4x4
 //   blocks, y of n_rows and x of n_cols (a rectangular operator), for
-//   b n_brows >= n_rows > b (n_brows - 1); columns at or past n_cols read 0.
-//   They replace K3a's blocked role: arcanefem_tpu/sparse/blocked.py::
-//   BlockedGather.__call__ (the pre-gather, the _products_b_unit sweep,
-//   pallas_call at arcanefem_tpu/sparse/pallas_spmv.py:488, its channel
-//   contraction and the stage-3 subrow sums), which on this card is one
-//   BSR-b SpMV.  Bound: bytes, each block's b^2 values and its 4-byte
-//   column once, bptr, x and y.  The b = 8 instances are the supernode
-//   kernel as it was: the template below gives them the same loads, the
-//   same fma order and the same shuffles, so their results are unchanged
-//   bit for bit.
+//   4 n_brows >= n_rows > 4 (n_brows - 1); columns at or past n_cols read 0.
+//
+// The b = 4 kernel (and at b = 2 csrc/bsr2_slice_spmv.cu) replaces K3a's
+// blocked role:
+// arcanefem_tpu/sparse/blocked.py::BlockedGather.__call__ (the pre-gather,
+// the _products_b_unit sweep, pallas_call at
+// arcanefem_tpu/sparse/pallas_spmv.py:488, its channel contraction and the
+// stage-3 subrow sums), which on this card is one BSR-b SpMV.  Bound:
+// bytes, each block's b^2 values and its 4-byte column once, bptr, x and y.
+// The b = 8 instances are the supernode kernel as it was: the template
+// below gives them the same loads, the same fma order and the same
+// shuffles, so their results are unchanged bit for bit.
 //
 // What it replaces.  The three steps of arcanefem_tpu/sparse/supernode.py
 // SupernodeSpmv.__call__: the K3a column gather pg_cols.call_batched
@@ -42,16 +44,15 @@
 // f64 conversions (16 per lane and block) about 0.16 ms of its conversion
 // rate, both under the byte bound.
 //
-// Design: one warp per block row, 8 warps per 256-thread block.  Lane 8q + r
-// takes row r of block bptr[i] + 4s + q at step s, so a warp's block loads at
-// one step are 4 whole consecutive blocks, 1 KB contiguous, as 16-byte
-// vector loads (two float4 per lane in f32, one uint4 in bf16, four double2
-// in f64) that stream past L1 (__ldcs: every block is read once).  At
-// b = 4 and 2 the same holds with 32/b groups of b lanes: each step reads
-// 32/b whole consecutive blocks (512 B at b = 4 and 256 B at b = 2 in f32),
-// each lane one row of b values (one float4, float2, uint2 or 32-bit word;
-// double2 pairs in f64), and the groups meet through __shfl_xor at offsets
-// b, 2b, .., 16.  The 8
+// Design of the b = 8 and b = 4 kernel: one warp per block row, 8 warps per
+// 256-thread block.  Lane 8q + r takes row r of block bptr[i] + 4s + q at
+// step s, so a warp's block loads at one step are 4 whole consecutive
+// blocks, 1 KB contiguous, as 16-byte vector loads (two float4 per lane in
+// f32, one uint4 in bf16, four double2 in f64) that stream past L1 (__ldcs:
+// every block is read once).  At b = 4 the same holds with 8 groups of 4
+// lanes: each step reads 8 whole consecutive blocks (512 B in f32), each
+// lane one row of 4 values (one float4 or uint2; double2 pairs in f64), and
+// the groups meet through __shfl_xor at offsets 4, 8 and 16.  The 8
 // values of x that a block multiplies are one 32-byte segment, the same for
 // the 8 lanes of a group, so the group's loads are one broadcast served
 // from L1/L2 (x is 7.6 MB at 1.9M).  Two steps are issued per loop trip to
@@ -67,6 +68,18 @@
 // call against 0.415 ms, bf16 0.267-0.283 against 0.213, on an H100 80GB
 // HBM3 at 700 W; the f32 figure dips below the bound where the tail of
 // the previous call's blocks is still in L2).
+//
+// Why b = 2 is not instanced here.  This template at b = 2 (16 groups of 2
+// lanes) reached 0.40 of its byte bound on the 1.9M sphere's operator
+// (946,345 block rows, 17.51M blocks, 18.5 per block row): 0.2723-0.2733
+// ms against 0.1102 ms on an H100 80GB HBM3 at 700 W.  A warp took one
+// block row, so it made one full step of 16 blocks and then a tail in
+// which 2-3 of its 16 lane pairs worked; each lane loaded 8 bytes, both
+// lanes of a pair the same column and the same 8 bytes of x; the x load
+// waited on the column load; and four rounds of f64 shuffles summed ~37
+// values before 2 of 32 lanes wrote: about 370 B in flight per warp for
+// that chain.  The b = 2 kernel is csrc/bsr2_slice_spmv.cu: the blocks in
+// K1's slices, one thread per block row, no shuffles.
 //
 // The kernel allocates nothing, launches on the caller's stream and never
 // synchronises; each C entry point returns cudaGetLastError().
@@ -87,15 +100,10 @@ struct Row;
 template <int BS>
 struct Row<float, BS> {
   static __device__ __forceinline__ void load(const float* p, double (&a)[BS]) {
-    if constexpr (BS == 2) {
-      const float2 u = __ldcs(reinterpret_cast<const float2*>(p));
-      a[0] = u.x; a[1] = u.y;
-    } else {
 #pragma unroll
-      for (int k = 0; k < BS / 4; ++k) {
-        const float4 u = __ldcs(reinterpret_cast<const float4*>(p) + k);
-        a[4 * k] = u.x; a[4 * k + 1] = u.y; a[4 * k + 2] = u.z; a[4 * k + 3] = u.w;
-      }
+    for (int k = 0; k < BS / 4; ++k) {
+      const float4 u = __ldcs(reinterpret_cast<const float4*>(p) + k);
+      a[4 * k] = u.x; a[4 * k + 1] = u.y; a[4 * k + 2] = u.z; a[4 * k + 3] = u.w;
     }
   }
 };
@@ -118,9 +126,7 @@ struct Row<__nv_bfloat16, BS> {
   static __device__ __forceinline__ void load(const __nv_bfloat16* p,
                                               double (&a)[BS]) {
     uint32_t w[BS / 2];
-    if constexpr (BS == 2) {
-      w[0] = __ldcs(reinterpret_cast<const unsigned int*>(p));
-    } else if constexpr (BS == 4) {
+    if constexpr (BS == 4) {
       const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
       w[0] = u.x; w[1] = u.y;
     } else {
@@ -153,10 +159,7 @@ __device__ __forceinline__ void load_x(const V* __restrict__ x, int64_t c,
                                        int64_t n_cols, bool vec, double (&xv)[BS]) {
   const int64_t cb = c * BS;
   if (vec && cb + BS <= n_cols) {
-    if constexpr (sizeof(V) == 4 && BS == 2) {
-      const float2 u = __ldg(reinterpret_cast<const float2*>(x + cb));
-      xv[0] = xval<A>(u.x); xv[1] = xval<A>(u.y);
-    } else if constexpr (sizeof(V) == 4) {
+    if constexpr (sizeof(V) == 4) {
 #pragma unroll
       for (int k = 0; k < BS / 4; ++k) {
         const float4 u = __ldg(reinterpret_cast<const float4*>(x + cb) + k);
@@ -271,9 +274,6 @@ int afem_bsr8_spmv_bf16_f32(const __nv_bfloat16* blocks, const int32_t* bcol,
                            n_brows, stream);                                 \
   }
 
-AFEM_BSR_ENTRY(2, f32, float, float)
-AFEM_BSR_ENTRY(2, f64, double, double)
-AFEM_BSR_ENTRY(2, bf16_f32, __nv_bfloat16, float)
 AFEM_BSR_ENTRY(4, f32, float, float)
 AFEM_BSR_ENTRY(4, f64, double, double)
 AFEM_BSR_ENTRY(4, bf16_f32, __nv_bfloat16, float)

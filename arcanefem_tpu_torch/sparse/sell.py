@@ -79,9 +79,10 @@ def launch_counts() -> dict[str, int]:
     return dict(_LAUNCHES)
 
 
-def _slices(lens: np.ndarray, sigma: int):
+def slice_rows(lens: np.ndarray, sigma: int):
     """(perm or None, per-position lengths padded to whole slices, slice
-    widths, slice_ptr) of rows with ``lens`` real slots."""
+    widths, slice_ptr) of rows with ``lens`` real slots; also the layout
+    of ``sparse/blocked.py``'s 2×2-block slices."""
     n = lens.shape[0]
     perm = None
     if sigma > 1:
@@ -97,14 +98,14 @@ def _slices(lens: np.ndarray, sigma: int):
 
 def stored_slots(lens: np.ndarray, sigma: int) -> int:
     """SELL-32-σ slots of rows with ``lens`` real slots."""
-    return int(_slices(np.asarray(lens, np.int64), sigma)[3][-1])
+    return int(slice_rows(np.asarray(lens, np.int64), sigma)[3][-1])
 
 
-def choose_sigma(lens: np.ndarray) -> int:
-    """1, or SIGMA where sorting saves more slot bytes than the
-    permutation costs."""
+def choose_sigma(lens: np.ndarray, slot_bytes: int = _SLOT_BYTES) -> int:
+    """1, or SIGMA where sorting saves more slot bytes (``slot_bytes``
+    each) than the permutation costs."""
     saved = stored_slots(lens, 1) - stored_slots(lens, SIGMA)
-    return SIGMA if saved * _SLOT_BYTES > _PERM_BYTES * len(lens) else 1
+    return SIGMA if saved * slot_bytes > _PERM_BYTES * len(lens) else 1
 
 
 class SellLayout:
@@ -173,7 +174,7 @@ class SellLayout:
         sigma = choose_sigma(lens) if sigma is None else int(sigma)
         if sigma < 1:
             raise ValueError(f"SellLayout: sigma must be >= 1, got {sigma}")
-        perm, plens, width, ptr = _slices(lens, sigma)
+        perm, plens, width, ptr = slice_rows(lens, sigma)
         n_slots = int(ptr[-1])
         # every SELL slot q: its slice, lane, slot k, row position, row
         q = np.arange(n_slots, dtype=np.int64)

@@ -3,6 +3,7 @@
     python arcanefem_tpu_torch/tools/launch_cost.py [--tree DIR] [--calls N]
     python arcanefem_tpu_torch/tools/launch_cost.py [--tree DIR] --k4-box N
     python arcanefem_tpu_torch/tools/launch_cost.py [--tree DIR] --bsr8-digest N
+    python arcanefem_tpu_torch/tools/launch_cost.py [--tree DIR] --bsr-sphere H,R
 
 Each wrapper (K1-K10, P1, the assembly's two kernels and the BSR-8
 supernode SpMV) is called N times back to back (default 2000, after a
@@ -45,6 +46,14 @@ random blocks (the 1.9M sphere's degrees, within 64 block columns of the
 diagonal) with float32, float64 and
 bfloat16 blocks, and prints the SHA-256 of each y: two trees whose
 digests agree compute the same bits.
+
+``--bsr-sphere H,R`` times the blocked scalar SpMV (``BlockedGather``, b
+= 2 and b = 4, float32) on the CSR of the sphere_cut(H, R) operator with
+seeded values, each the best of 5 blocks of 20 back-to-back calls on CUDA
+events (the kernel's device time at this size).  One JSON line; with
+``--tree`` run once per tree in one call (parent, this tree, this tree,
+parent), with one ``AFEM_CACHE_DIR`` so the mesh is built once, it is the
+A/B of two trees' blocked kernels on one card.
 """
 
 from __future__ import annotations
@@ -161,6 +170,25 @@ def _cases(dev):
     ]
 
 
+def best_ms(fn, reps: int = 20, blocks: int = 5) -> float:
+    """CUDA-event ms per call of fn: the best of ``blocks`` blocks of
+    ``reps`` back-to-back calls, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(blocks):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        best = min(best, a.elapsed_time(b) / reps)
+    return best
+
+
 def k4_ms(n: int) -> dict:
     """CUDA-event ms per call of the fused and the stiffness-only K4 at
     the bench's n^3-hex box: the best of 5 blocks of 20 calls."""
@@ -173,26 +201,46 @@ def k4_ms(n: int) -> dict:
     )
 
     s = box_system(n, torch.device("cuda", torch.cuda.current_device()))
-
-    def best_ms(fn, reps: int = 20, blocks: int = 5) -> float:
-        fn()
-        torch.cuda.synchronize()
-        best = float("inf")
-        for _ in range(blocks):
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            for _ in range(reps):
-                fn()
-            b.record()
-            torch.cuda.synchronize()
-            best = min(best, a.elapsed_time(b) / reps)
-        return best
-
     return {"launch": "K4 stencil_assembly", "box": list(s.box.shape),
             "fused_ms": best_ms(lambda: assemble_system(
                 s.box, s.coords3d, s.mask_p, s.pg_p, PENALTY, f=1.0)),
             "stiffness_ms": best_ms(lambda: assemble_stiffness_kernel(s.box, s.coords3d)),
             "gpu": torch.cuda.get_device_name(0)}
+
+
+def bsr_sphere_ms(h: float, refine: int) -> dict:
+    """CUDA-event ms per call of the tree's ``BlockedGather`` at b = 2 and
+    b = 4, float32, on the CSR of the sphere_cut(h, refine) operator
+    (bench_unstructured.sphere_cut_system, its npz caches) with seeded
+    values, x seeded: the best of 5 blocks of 20 calls; with the build
+    seconds of each operator and y's sum of |y| (equal up to rounding
+    between two trees)."""
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.bench_unstructured import sphere_cut_system
+    from arcanefem_tpu_torch.sparse.blocked import BlockedGather
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _, topo = sphere_cut_system(h, refine)
+    n = topo.n_nodes
+    rng = np.random.RandomState(11)
+    data = (rng.rand(len(topo.csr_cols)) * 2 - 1).astype(np.float32)
+    x = torch.as_tensor(rng.rand(n) * 2 - 1, device=dev).float()
+    out = {"launch": "bsr_spmv sphere", "h": h, "refine": refine, "n": n}
+    for b in (2, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = BlockedGather.build_csr(topo.csr_cols, topo.row_ptr, data, n, b=b, device=dev)
+        torch.cuda.synchronize()
+        out[f"b{b}_build_s"] = time.perf_counter() - t0
+        out[f"b{b}_blocks"] = round(g.fill * g.nnz / (b * b))  # a name every tree has
+        out[f"b{b}_ms"] = best_ms(lambda g=g: g(x))
+        out[f"b{b}_abs_sum"] = float(g(x).double().abs().sum())
+        del g
+        torch.cuda.empty_cache()
+    out["gpu"] = torch.cuda.get_device_name(0)
+    return out
 
 
 def bsr8_digest(n_sup: int) -> dict:
@@ -253,6 +301,8 @@ def main(argv=None) -> None:
                     help="time K4 at the bench's N^3-hex box instead")
     ap.add_argument("--bsr8-digest", type=int, default=None, metavar="N",
                     help="digest the BSR-8 SpMV's y on N seeded block rows instead")
+    ap.add_argument("--bsr-sphere", default=None, metavar="H,R",
+                    help="time BlockedGather b = 2 and 4 on the sphere_cut(H, R) CSR instead")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     tree = os.path.abspath(args.tree or here)
@@ -268,6 +318,9 @@ def main(argv=None) -> None:
         raise RuntimeError(f"imported {pkg}, not the tree {tree}")
     if args.bsr8_digest:
         recs = [bsr8_digest(args.bsr8_digest)]
+    elif args.bsr_sphere:
+        h, r = args.bsr_sphere.split(",")
+        recs = [bsr_sphere_ms(float(h), int(r))]
     elif args.k4_box:
         recs = [k4_ms(args.k4_box)]
     else:

@@ -65,6 +65,8 @@ _BLOCK_SLOT_REDUCE = [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P]
 _BSR8_SPMV = [_P, _P, _P, _P, _P, _I64, _I64, _P]  # blocks, bcol, bptr, x, y, n, n_sup, stream
 # blocks, bcol, bptr, x, y, n_rows, n_cols, n_brows, stream
 _BSR_SPMV = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P]
+# blocks, cols, slice_ptr, perm, x, y, n_rows, n_cols, n_slices, stream
+_BSR2_SLICE_SPMV = [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]
 # (name, argtypes) of every C entry point in csrc/; all return an int
 # cudaError_t from cudaGetLastError() after the launch
 _SIGNATURES = {
@@ -99,8 +101,8 @@ _SIGNATURES = {
     "afem_bsr8_spmv_f32": _BSR8_SPMV,
     "afem_bsr8_spmv_f64": _BSR8_SPMV,
     "afem_bsr8_spmv_bf16_f32": _BSR8_SPMV,
-    **{f"afem_bsr_spmv_b{b}_{t}": _BSR_SPMV for b in (2, 4)
-       for t in ("f32", "f64", "bf16_f32")},
+    **{f"afem_bsr_spmv_b4_{t}": _BSR_SPMV for t in ("f32", "f64", "bf16_f32")},
+    **{f"afem_bsr2_slice_spmv_{t}": _BSR2_SLICE_SPMV for t in ("f32", "f64", "bf16_f32")},
 }
 
 

@@ -260,3 +260,53 @@ def test_transient_cases_cover_every_codename_method_and_route(tmp_path, monkeyp
             assert set(res.problem.mesh.cells) == {"hexa8", "pyramid5", "penta6", "tetra4"}
     assert sorted(p.name for p in (tmp_path / "out").iterdir()) == [
         "heat_convection_output.hdf", "passmo_mixed_output.hdf"]
+
+
+def test_cli_cases_cover_every_codename_and_route(tmp_path, monkeypatch):
+    """The written cases that also run through the CLI (F1, M1, B1, T1;
+    the others run on the CPU and the card only), as ``_cli_cases`` picks
+    them: written .arc cases that cover every codename, every solver route
+    of their phase, and the output cases; every other case chosen brings a
+    codename or a route that no earlier case brought."""
+    from arcanefem_tpu_torch.fem.arc import load_case
+
+    smoke = _smoke()
+    for name, size in (("FEM_2D_N", 6), ("FEM_3D_N", 3), ("MODEL_2D_N", 6),
+                       ("MODEL_3D_N", 3), ("MODEL_P2_2D_N", 3), ("MODEL_P2_3D_N", 2),
+                       ("BLOCK_RECT", (8, 4)), ("BLOCK_BOX", (4, 2, 2)),
+                       ("TRANS_RECT", (8, 4)), ("TRANS_BOX", (3, 2, 2))):
+        monkeypatch.setattr(smoke, name, size)
+    phases = ((smoke._fem_cases, (), "fem"),
+              (smoke._model_cases, (smoke.MODEL_OUTPUT_CASE,), "models"),
+              (smoke._block_cases, (), "blocks"), (smoke._transient_cases, (), "transient"))
+    for write, also, root in phases:
+        cases = write(str(tmp_path / root))
+        names = smoke._cli_cases(cases, also)
+        arcs = {c["name"]: load_case(c["path"]) for c in cases if c.get("path")}
+        outputs = {c["name"] for c in cases if c.get("output")} | set(also)
+        assert outputs <= names <= set(arcs), root
+        assert {arcs[n].codename for n in names} == {a.codename for a in arcs.values()}, root
+        route = {n: (a.solver.method, a.solver.preconditioner) for n, a in arcs.items()}
+        assert {route[n] for n in names} == set(route.values()), root
+        seen = set()
+        for n in arcs:
+            keys = {arcs[n].codename, route[n]}
+            assert (n in names) == (n in outputs or not keys <= seen), (root, n)
+            seen |= keys
+        assert len(names) < len(arcs), root
+
+
+def test_lab_cli_cases_take_one_flag_per_format(tmp_path, monkeypatch):
+    """L3's CLI runs: one flag of each format, the rect and the box in
+    turn, among the written cases."""
+    from arcanefem_tpu_torch.models.testlab_model import _FLAG_TO_FORMAT
+
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "LAB_2D_N", 4)
+    monkeypatch.setattr(smoke, "LAB_3D_N", 3)
+    cases = smoke._lab_cases(str(tmp_path))
+    cli = smoke._lab_cli_cases(cases)
+    formats = [_FLAG_TO_FORMAT[c["flag"]] for c in cli]
+    assert sorted(formats) == sorted(set(_FLAG_TO_FORMAT.values()))
+    assert {c["name"].split("_")[0] for c in cli} == {"rect", "box"}
+    assert all(c in cases for c in cli)

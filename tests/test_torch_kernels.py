@@ -329,18 +329,20 @@ def test_bsr_spmv_matches_plain_on_cuda(cuda, b, dtype, rtol):
     """The BSR-b kernel (b = 2, 4; BlockedGather) == its plain twin on the
     card, to rtol of each row's sum |a·x|, on a random rectangular CSR
     (n_rows and n_cols not multiples of b, an empty row band), x 16-byte
-    aligned and not; one launch per call."""
+    aligned and not; one launch per call.  At b = 2 (the sliced kernel)
+    also == the twin on its slices."""
     import scipy.sparse as sp
 
     rng = np.random.RandomState(12)
     A = sp.random(4099, 3001, density=0.004, random_state=rng, format="csr")
     A[8:16] = 0
     A.eliminate_zeros()
-    g = blk.BlockedGather.build_csr(A.indices, A.indptr, A.data, A.shape[1], b=b,
-                                    device=cuda, dtype=torch.float32
-                                    if dtype == torch.bfloat16 else dtype)
+    blocks, bcol, bptr, _ = blk.csr_to_bsr(A.indices, A.indptr, A.data, A.shape[1], b=b,
+                                           device=cuda, dtype=torch.float32
+                                           if dtype == torch.bfloat16 else dtype)
+    g = blk.BlockedGather(blocks, bcol, bptr, A.shape[0], A.shape[1], A.nnz)
     if dtype == torch.bfloat16:
-        g = g.with_weights_dtype(torch.bfloat16)
+        g, blocks = g.with_weights_dtype(torch.bfloat16), blocks.to(torch.bfloat16)
     xd = torch.float32 if dtype == torch.bfloat16 else dtype
     base = torch.as_tensor(rng.rand(A.shape[1] + 1) * 2 - 1, dtype=xd, device=cuda)
     blk.reset_launch_counts()
@@ -348,9 +350,12 @@ def test_bsr_spmv_matches_plain_on_cuda(cuda, b, dtype, rtol):
         y = g(x)
         torch.cuda.synchronize()
         assert y.dtype == xd and y.shape == (A.shape[0],)
-        want = blk.bsr_spmv_plain(g.blocks, g.bcol, g.bptr, x, g.n_rows)
-        scale = blk.bsr_spmv_plain(g.blocks.abs(), g.bcol, g.bptr, x.abs(), g.n_rows)
+        want = blk.bsr_spmv_plain(blocks, bcol, bptr, x, g.n_rows)
+        scale = blk.bsr_spmv_plain(blocks.abs(), bcol, bptr, x.abs(), g.n_rows)
         assert bool(((y.double() - want.double()).abs() <= rtol * scale.double()).all())
+        if b == 2:
+            ys = blk.bsr2_slices_plain(g.slices, x, g.n_rows)
+            assert bool(((y.double() - ys.double()).abs() <= rtol * scale.double()).all())
         assert not bool(y[8:16].any())
     bf16 = dtype == torch.bfloat16
     assert blk.launch_counts() == {"bsr_spmv": 0 if bf16 else 2,
