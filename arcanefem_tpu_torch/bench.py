@@ -242,25 +242,10 @@ def _run_child(role: str, timeout: float | None) -> tuple[dict | None, str | Non
     return res, None
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--child", choices=("primary", "secondary"),
-                    help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
-    import torch
-
-    if not torch.cuda.is_available():
-        print("bench: no CUDA device is available; the bench measures an "
-              "NVIDIA card", file=sys.stderr)
-        return 1
-    env = os.environ
-    check_knobs(env)
-    primary_args(env)  # raise on a bad value before anything runs
-    secondary_args(env)
-    if args.child:
-        print(json.dumps(_child(args.child)), flush=True)
-        return 0
-
+def run_metrics(env) -> tuple[dict, list[str]]:
+    """The PRIMARY and the SECONDARY, each in its child, as ``env``'s
+    ``BENCH_UNSTR``, ``BENCH_BOX``, ``BENCH_BUDGET_S`` and
+    ``BENCH_SECONDARY_S`` ask: ({role: result or None}, the failures)."""
     t0 = time.time()
     budget = float(env.get("BENCH_BUDGET_S", "1500"))
 
@@ -270,8 +255,7 @@ def main(argv=None) -> int:
     run_p = env.get("BENCH_UNSTR", "1") in ("1", "force")
     run_s = env.get("BENCH_BOX", "1") == "1"
     if not (run_p or run_s):
-        log("[bench] BENCH_UNSTR and BENCH_BOX skip both metrics")
-        return 1
+        return {}, ["BENCH_UNSTR and BENCH_BOX skip both metrics"]
     results, errors = {}, []
     if run_p:
         results["primary"], err = _run_child(
@@ -287,6 +271,42 @@ def main(argv=None) -> int:
         else:
             errors.append(f"secondary: skipped, {left():.0f} s of "
                           f"BENCH_BUDGET_S left < BENCH_SECONDARY_S {reserve:g}")
+    return results, errors
+
+
+def check_env(env) -> None:
+    """Raise on a knob the port does not run, before anything runs."""
+    check_knobs(env)
+    primary_args(env)
+    secondary_args(env)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--sweep"]:
+        from .bench_sweep import main as sweep_main
+
+        return sweep_main(argv[1:])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--child", choices=("primary", "secondary"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench: no CUDA device is available; the bench measures an "
+              "NVIDIA card", file=sys.stderr)
+        return 1
+    env = os.environ
+    check_env(env)
+    if args.child:
+        print(json.dumps(_child(args.child)), flush=True)
+        return 0
+
+    results, errors = run_metrics(env)
+    if not results:
+        log(f"[bench] {errors[0]}")
+        return 1
     out = final_json(results.get("primary"), results.get("secondary"))
     if errors:
         out["extra"]["error"] = "; ".join(errors)

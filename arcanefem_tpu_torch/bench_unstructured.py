@@ -279,7 +279,8 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
                      system: dict | None = None) -> dict:
     """Assemble, set up AMG and solve on ``device``.
 
-    Returns the operator ``A`` (the BellMatrix), the solution ``x`` (device
+    Returns the operator ``A`` (the BellMatrix), the CG operator ``op``
+    of the route and the preconditioner ``M`` it ran, the solution ``x`` (device
     tensor), ``iterations``, the monitored ``rel`` residual, the float64
     ``true_residual``, the AMG ``levels``, ``spmv_path``, ``sell`` (the
     SELL layout of each operator K1 runs on, ``SellLayout.describe``),
@@ -476,7 +477,7 @@ def solve_sphere_cut(mesh: Mesh, topo: Topology, *, device, dtype,
     if timed:
         out["solve_s"] = time_op(
             pcg, Aop, b, M, x0, rtol, 0.0, 1000, True, reps=1, outer=2)
-    out.update(A=A, x=x, iterations=iters, rel=rel,
+    out.update(A=A, op=Aop, M=M, x=x, iterations=iters, rel=rel,
                true_residual=true_residual(A, b, x, interior),
                spmv_path=type(Aop).__name__, system=system,
                sell=sell_layouts(Aop, M))

@@ -550,8 +550,8 @@ def _collective_share(prof, solve_s: float) -> dict:
 # --- the ranks ---------------------------------------------------------------
 
 
-def _rank_main(rank: int, world: int, device: str, run_dir: str, f64: bool,
-               sphere, inputs_path, out_path, profile: bool) -> None:
+def _rank_main(rank: int, world: int, device: str, run_dir: str, body, kwargs: dict,
+               inputs_path, out_path) -> None:
     from . import comm as comm_mod
 
     if device == "cpu":
@@ -564,8 +564,7 @@ def _rank_main(rank: int, world: int, device: str, run_dir: str, f64: bool,
         if inputs_path:
             with open(inputs_path, "rb") as fh:
                 inputs = pickle.load(fh)
-        out = run_rank(comm, f64=f64, sphere=sphere, inputs=inputs,
-                       profile=profile, run_dir=run_dir)
+        out = body(comm, inputs=inputs, run_dir=run_dir, **kwargs)
         if rank == 0 and out_path:
             arrays = out.pop("_arrays", {})
             np.savez(out_path, records=json.dumps(out), **arrays)
@@ -577,16 +576,23 @@ def _rank_main(rank: int, world: int, device: str, run_dir: str, f64: bool,
         comm_mod.shutdown()
 
 
-def spawn(nproc: int, *, device: str = "cuda", f64: bool = False,
-          sphere: tuple | None = None, inputs: dict | None = None,
-          out: str | None = None, profile: bool = False, timeout_s: float = 3000.0,
-          run_dir: str | None = None) -> int:
+def spawn(nproc: int, *, device: str = "cuda", body=None, inputs: dict | None = None,
+          out: str | None = None, timeout_s: float = 3000.0,
+          run_dir: str | None = None, **kwargs) -> int:
     """Run ``nproc`` ranks to their end, or kill them all after
-    ``timeout_s``; 0 if every rank finished, 1 otherwise.  The ranks meet
-    through a ``FileStore`` in ``run_dir`` (a new temporary directory,
-    removed at the end, when None)."""
+    ``timeout_s``; 0 if every rank finished, 1 otherwise.  Each rank runs
+    ``body(comm, inputs=..., run_dir=..., **kwargs)`` (a module-level
+    function; :func:`run_rank`, every dryrun path, when None, whose
+    ``f64``, ``sphere`` and ``profile`` come in ``kwargs``); rank 0 writes
+    the dict it returns to the npz ``out``, its ``_arrays`` as arrays and
+    the rest as ``records``.  The ranks meet through a ``FileStore`` in
+    ``run_dir`` (a new temporary directory, removed at the end, when
+    None)."""
     import torch.multiprocessing as mp
 
+    if body is None:
+        body = run_rank
+        kwargs.setdefault("f64", False)
     own_dir = run_dir is None
     if own_dir:
         run_dir = tempfile.mkdtemp(prefix="afem_parallel_")
@@ -598,8 +604,7 @@ def spawn(nproc: int, *, device: str = "cuda", f64: bool = False,
                 pickle.dump(inputs, fh, protocol=pickle.HIGHEST_PROTOCOL)
         ctx = mp.start_processes(
             _rank_main, nprocs=nproc, join=False, start_method="spawn",
-            args=(nproc, device, run_dir, f64,
-                  sphere, inputs_path, out, profile))
+            args=(nproc, device, run_dir, body, kwargs, inputs_path, out))
         deadline = time.monotonic() + timeout_s
         try:
             while not ctx.join(timeout=1.0):

@@ -38,6 +38,7 @@ from ..sparse.compact import CompactMatrix
 from ..sparse.sell import SellLayout
 from ..sparse.supernode import block_products
 from ..utils.cache import load_npz, save_npz
+from .amg_setup import phase_marker
 
 # levels and transfers the bf16 V-cycle casts: those with at least this
 # many (fine) rows, the ones the JAX package gives a Pallas plan
@@ -200,7 +201,13 @@ def amg_from_numpy(d: dict, device: torch.device | str,
     layouts of ``d["layouts"]`` when the dict carries them (``{"mats",
     "P", "Pt"}``: lists of ``SellLayout.to_arrays``, as
     :func:`hierarchy_from_arrays` gives them), which are moved, not built.
-    ``plain=True`` builds the kernel-free twin."""
+    ``plain=True`` builds the kernel-free twin.  With ``AFEM_AMG_VERBOSE=1``
+    it prints an ``[amg]`` line (``solver/amg_setup.py::phase_marker``)
+    after each level's operator, ``to_bell[l] (n=N)``, and after each
+    level's P and P^T, ``transfers[l]``: the JAX ``build_amg``'s labels of
+    the device half of those steps."""
+    mark = phase_marker()
+
     def t(a):
         return torch.tensor(np.asarray(a), device=device, dtype=dtype)
 
@@ -219,12 +226,15 @@ def amg_from_numpy(d: dict, device: torch.device | str,
 
     sizes = [np.shape(v)[0] for v, _ in d["mats"]] + [
         np.asarray(d["coarse_inv"]).shape[0]]
-    mats = [bell(v, cl, n, "mats", l)
-            for l, ((v, cl), n) in enumerate(zip(d["mats"], sizes))]
-    P = [bell(v, cl, sizes[l + 1], "P", l)
-         for l, (v, cl) in enumerate(zip(d["pvals"], d["pcols"]))]
-    Pt = [bell(v, cl, sizes[l], "Pt", l)
-          for l, (v, cl) in enumerate(zip(d["ptvals"], d["ptcols"]))]
+    mats, P, Pt = [], [], []
+    for l, ((v, cl), n) in enumerate(zip(d["mats"], sizes)):
+        mats.append(bell(v, cl, n, "mats", l))
+        mark(f"to_bell[{l}] (n={n})")
+    for l, (pv, pc, tv, tc) in enumerate(zip(d["pvals"], d["pcols"], d["ptvals"],
+                                             d["ptcols"], strict=True)):
+        P.append(bell(pv, pc, sizes[l + 1], "P", l))
+        Pt.append(bell(tv, tc, sizes[l], "Pt", l))
+        mark(f"transfers[{l}]")
     binv = d.get("l0_binv")
     if binv is not None and (np.ndim(binv) != 3 or mats and
                              np.shape(binv)[0] * np.shape(binv)[1] < sizes[0]):

@@ -28,6 +28,8 @@ sawtooth variant of ``build_amg`` is not ported.
 
 from __future__ import annotations
 
+import os
+import time
 import warnings
 from types import SimpleNamespace
 
@@ -49,6 +51,24 @@ OMEGA = 4.0 / 3.0  # Jacobi damping numerator: omega_l = OMEGA / rho_l
 NU = 1  # Jacobi sweeps before and after the coarse correction
 TRUNC_KMAX = 8  # prolongator entries kept per row
 TRUNC_REL = 0.05  # and only those >= TRUNC_REL * the row's largest
+
+
+def phase_marker():
+    """``mark(label)``: with ``AFEM_AMG_VERBOSE=1``, print ``[amg] <label>:
+    <s>s``, the seconds since the marker was made or last marked, as the
+    JAX ``build_amg``'s ``_mark`` prints them (to the millisecond, where
+    JAX prints tenths); else nothing."""
+    verbose = os.environ.get("AFEM_AMG_VERBOSE") == "1"
+    last = time.time()
+
+    def mark(label: str) -> None:
+        nonlocal last
+        if verbose:
+            t = time.time()
+            print(f"[amg] {label}: {t - last:.3f}s", flush=True)
+            last = t
+
+    return mark
 
 
 def _ell_from_csr(indptr: np.ndarray, cols: np.ndarray):
@@ -370,10 +390,11 @@ def stored_graph(layout) -> SimpleNamespace:
         csr_cols=layout.ell_cols.reshape(-1)[csr_to_ell])
 
 
-def _block_level(cur, bl: int, theta_l: float, Bns):
-    """One level of ``build_amg``'s scipy branch for a block operator
-    ``cur`` (bl dofs per node): (P, next bl, next nullspace, rho of cur),
-    or None where aggregation makes no progress."""
+def _block_level(cur, bl: int, theta_l: float, Bns, mark, lvl: int):
+    """One level (number ``lvl``) of ``build_amg``'s scipy branch for a
+    block operator ``cur`` (bl dofs per node): (P, next bl, next
+    nullspace, rho of cur), or None where aggregation makes no progress;
+    ``mark`` (:func:`phase_marker`) after each of JAX's phases."""
     n = cur.shape[0]
     nn = n // bl
     # node-level strength on block Frobenius norms: E^T |A|^2 E with
@@ -389,7 +410,9 @@ def _block_level(cur, bl: int, theta_l: float, Bns):
     scale = np.sqrt(np.abs(d[co.row] * d[co.col])) + 1e-300
     keep = (np.abs(co.data) >= theta_l * scale) & (co.row != co.col)
     S = sp.csr_matrix((co.data[keep], (co.row[keep], co.col[keep])), shape=nodeA.shape)
+    mark(f"  strength[{lvl}]")
     agg, na = _aggregate(S, nn)
+    mark(f"  aggregate[{lvl}]")
     if na == 0 or na >= nn:  # no coarsening progress
         return None
     sel = agg >= 0
@@ -423,9 +446,12 @@ def _block_level(cur, bl: int, theta_l: float, Bns):
     ddf = np.asarray(Af.diagonal())
     Dinvf = sp.diags(1.0 / np.where(ddf == 0, 1.0, ddf))
     DAf = (Dinvf @ Af).tocsr()
+    mark(f"  filter[{lvl}]")
     rho_f = rho_est(Af.tocsr(), ddf)
+    mark(f"  rho_f[{lvl}]")
     # the smoother's damping uses the true operator's spectral radius
     rho = rho_est(cur.tocsr(), np.asarray(cur.diagonal()))
+    mark(f"  rho_A[{lvl}]")
     P = (sp.identity(n, format="csr") - (4.0 / 3.0 / rho_f) * DAf) @ T
     P = truncate_rows(P.tocsr(), kmax=TRUNC_KMAX, rel=TRUNC_REL,
                       rescale=Bns is None)
@@ -445,7 +471,16 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
     m) is used for b > 1 only, as in JAX.  ``dtype`` is the type the device
     will hold.  ``coarse_size`` is ``build_amg``'s: levels coarsen while
     they have more than ``coarse_size``·b rows.  Returns the dict that
-    ``amg_from_numpy`` takes, for a V-cycle."""
+    ``amg_from_numpy`` takes, for a V-cycle.
+
+    With ``AFEM_AMG_VERBOSE=1`` it prints one ``[amg] <label>: <s>s`` line
+    per phase (:func:`phase_marker`), with the JAX ``build_amg``'s labels
+    in its order (per level ``strength[l]``, ``aggregate[l]``,
+    ``filter[l]``, ``rho_f[l]``, ``rho_A[l]``, ``smoothP[l]``,
+    ``galerkin[l]``, ``level l (n->m dofs)``), then two of its own:
+    ``ell layouts`` (the ELL arrays of every level and transfer, the host
+    half of JAX's ``to_bell`` and ``transfers``) and ``coarse_inv``."""
+    mark = phase_marker()
     dtype = np.dtype(dtype)
     vals = np.asarray(values).reshape(topo.n_nodes, topo.width)
     data = vals.reshape(-1)[topo.csr_to_ell]
@@ -464,7 +499,7 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
         # Vanek's per-level strength decay
         theta_l = theta * (0.5 ** len(mats))
         if bl > 1:
-            level = _block_level(cur, bl, theta_l, Bns)
+            level = _block_level(cur, bl, theta_l, Bns, mark, len(mats))
             if level is None:
                 break
             P, bl, Bns, rho = level
@@ -480,7 +515,9 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
             s_indptr, s_cols, af_data, ddf = nat_sf
             S = sp.csr_matrix((np.ones(len(s_cols)), s_cols, s_indptr),
                               shape=cur.shape)
+            mark(f"  strength[{len(mats)}]")
             agg, na = _aggregate(S, n)
+            mark(f"  aggregate[{len(mats)}]")
             if na == 0 or na >= n:  # no coarsening progress
                 break
             # smoothing on the filtered operator Af (A's pattern, weak
@@ -488,14 +525,19 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
             # damping uses the true operator's spectral radius
             Af = sp.csr_matrix((af_data, cur_csr.indices, cur_csr.indptr),
                                shape=cur.shape)
+            mark(f"  filter[{len(mats)}]")
             rho_f = rho_est(Af, ddf)
+            mark(f"  rho_f[{len(mats)}]")
             rhos.append(rho_est(cur_csr, np.asarray(cur.diagonal())))
+            mark(f"  rho_A[{len(mats)}]")
             p_indptr, p_cols, p_data = amg_smooth_p_native(
                 cur_csr.indptr, cur_csr.indices, af_data, ddf,
                 4.0 / 3.0 / rho_f, agg, na, TRUNC_KMAX, TRUNC_REL, rescale=True)
             P = sp.csr_matrix((p_data, p_cols, p_indptr), shape=(n, na))
+        mark(f"  smoothP[{len(mats)}]")
         nxt = (P.T @ cur @ P).tocsr()
         nxt.sum_duplicates()
+        mark(f"  galerkin[{len(mats)}]")
         if not np.isfinite(nxt.data).all():
             raise FloatingPointError(
                 f"non-finite Galerkin operator at level {len(mats) + 1} "
@@ -504,6 +546,7 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
         Ps.append(P)
         nullspaces.append(Bns)
         cur = nxt
+        mark(f"level {len(mats) - 1} ({n}->{cur.shape[0]} dofs)")
 
     if cur.shape[0] > 8 * coarse_size * bl:
         raise RuntimeError(
@@ -531,6 +574,7 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
         out["pvals"].append(pv)
         out["ptcols"].append(tc)
         out["ptvals"].append(tv)
+    mark("ell layouts")
     coarse_dense = cur.toarray()
     if used_rbm:
         # aggregates that cannot carry every mode leave zero rows and
@@ -542,6 +586,7 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
             idx = np.flatnonzero(zero_rows)
             coarse_dense[idx, idx] = 1.0
     out["coarse_inv"] = _coarse_inverse(coarse_dense).astype(dtype)
+    mark("coarse_inv")
     out.update(
         omegas=tuple(OMEGA / r for r in rhos),
         rhos=tuple(float(r) for r in rhos),

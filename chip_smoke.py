@@ -249,7 +249,23 @@ j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
    ``python -m arcanefem_tpu_torch.bench`` once at check size (sphere h=8
    refine=0, box 64^3) in a fresh cache directory: bench.py's keys and
    metric names, a numeric ``vs_baseline``, the AMG hierarchy built (its
-   second, warm run went to make room for ``[parallel]``).
+   second, warm run went to make room for ``[parallel]``);
+``[sweep]`` (run inside ``[parallel]`` too, a subprocess started with its
+   CLI): ``python -m arcanefem_tpu_torch.bench --sweep --sizes 32,64,96
+   --devices 1`` with the headline at ``[bench]``'s check size in a fresh
+   cache directory (its output in ``build/sweep/``): the six format rows
+   of every size with finite times, ``slot_reduce`` launched by the
+   assembly axis, the P = 1 devices row (NCCL, one rank) invariant with
+   its iterations, both headline rows with a ``value``, and one TSV line
+   per row;
+``[profile]`` (after ``[cache]`` on phase 4's operator and hierarchy, and
+   in phase 7 on its box): ``tools/profile_unstr.components`` on the 1.9M
+   sphere (each component the slope of CUDA events over k runs) beside the
+   model and the measured ms per iteration of one ``pcg_chunked`` solve,
+   with K1's launches; ``tools/profile_iter.run``'s plain list (the flat
+   band-major operator and V-cycle: K8a, K8b) and padded list (the bench's
+   system: K5-K7) at 224^3, each beside its measured ms per iteration,
+   with the stencil kernels' launches.
 
 Then one JSON line with the kernels' records and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -561,7 +577,8 @@ def _main(dev, prime) -> int:
              time.perf_counter() - t0, groups=SPHERE_GROUPS)
     torch.cuda.empty_cache()
     cache_phase(dev, mesh, topo, res, cache_dir, cold_builds)
-    _elapsed("4: main path, records, profile, [cache]")
+    profile_unstr_phase(dev, res)
+    _elapsed("4: main path, records, profile, [cache], [profile]")
     records += testlab_phase(dev, mesh, topo, res, counts)
     _elapsed("[testlab]")
 
@@ -580,7 +597,7 @@ def _main(dev, prime) -> int:
     records += transient_phase(dev, mesh)
     _elapsed("[transient]")
     records += parallel_phase(dev)
-    _elapsed("[parallel] and [bench]")
+    _elapsed("[parallel], [bench] and [sweep]")
     del mesh, topo
     torch.cuda.empty_cache()
     records += diag_phase(dev, gen)
@@ -1802,6 +1819,183 @@ def bench_phase() -> None:
     _check(ex["amg_setup_cached"] is False and ex["sell_layout_builds"] > 0,
            f"[bench] a fresh cache: cached {ex['amg_setup_cached']}, SELL builds "
            f"{ex['sell_layout_builds']}")
+
+
+SWEEP_SIZES = (32, 64, 96)  # [sweep]: the JAX sweep's sizes on an accelerator
+SWEEP_TIMEOUT = 900
+
+
+def _sweep_start(log_dir: str):
+    """[sweep]'s command, started in a fresh cache directory with the
+    headline at [bench]'s check size: (process, its cache directory, the
+    TSV path, stdout and stderr files)."""
+    import subprocess
+
+    os.makedirs(log_dir, exist_ok=True)
+    cache = tempfile.mkdtemp(dir="build")
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("BENCH_", "AFEM_"))}
+    env.update(AFEM_CACHE_DIR=cache, BENCH_UNSTR_H="8", BENCH_UNSTR_REFINE="0",
+               BENCH_N=str(CHECK_N))
+    tsv = os.path.join(log_dir, "bench_sweep.tsv")
+    out = open(os.path.join(log_dir, "stdout.txt"), "w")
+    err = open(os.path.join(log_dir, "stderr.txt"), "w")
+    cmd = [sys.executable, "-m", "arcanefem_tpu_torch.bench", "--sweep", "--sizes",
+           ",".join(map(str, SWEEP_SIZES)), "--devices", "1", "--tsv", tsv]
+    return subprocess.Popen(cmd, env=env, stdout=out, stderr=err, text=True), cache, tsv, out, err
+
+
+def _check_sweep(rows: list[dict], tsv: str, launches: dict,
+                 sizes=SWEEP_SIZES, formats=None) -> None:
+    """[sweep]'s checks: each format's row at each size with finite,
+    positive times; slot_reduce launched by the assembly axis; one P = 1
+    devices row, invariant, with its iterations; a headline row with a
+    numeric value for each of the PRIMARY and the SECONDARY; one TSV line
+    per row under the header."""
+    import math
+
+    if formats is None:
+        from arcanefem_tpu_torch.testlab import FORMATS as formats
+    for n in sizes:
+        for f in formats:
+            got = [r for r in rows if r.get("axis") == "assembly"
+                   and r.get("size") == f"box{n}" and r.get("format") == f]
+            _check(len(got) == 1, f"[sweep] {len(got)} rows of {f} at box{n}")
+            t, rate = got[0].get("lhs_matrix_assembly_s"), got[0].get("mdof_per_s")
+            _check(isinstance(t, float) and math.isfinite(t) and t > 0
+                   and isinstance(rate, float) and math.isfinite(rate) and rate > 0,
+                   f"[sweep] {f} at box{n}: {t} s, {rate} MDoF/s")
+    _check(launches.get("slot_reduce", 0) > 0,
+           f"[sweep] the assembly axis launched no slot_reduce: {launches}")
+    dev = [r for r in rows if r.get("axis") == "devices"]
+    _check(len(dev) == 1 and dev[0].get("devices") == 1 and not dev[0].get("error")
+           and dev[0].get("invariant") is True
+           and isinstance(dev[0].get("iterations"), int) and dev[0]["iterations"] > 0,
+           f"[sweep] devices rows {dev}")
+    head = [r for r in rows if r.get("axis") == "headline"]
+    for what in ("poisson3d_sphere_cut_", "poisson3d_box_"):
+        got = [r for r in head if str(r.get("metric", "")).startswith(what)]
+        _check(len(got) == 1 and isinstance(got[0].get("value"), float)
+               and math.isfinite(got[0]["value"]) and got[0]["value"] > 0,
+               f"[sweep] headline {what}*: {got}")
+    lines = tsv.splitlines()
+    _check(len(lines) == len(rows) + 1 and lines[0].split("\t")[:2] == ["axis", "size"],
+           f"[sweep] {len(lines)} TSV lines for {len(rows)} rows")
+
+
+def _sweep_finish(started, t0: float) -> None:
+    """Wait for [sweep]'s command, print its rows and check them."""
+    proc, cache, tsv, out, err = started
+    try:
+        rc = proc.wait(timeout=SWEEP_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
+        shutil.rmtree(cache, ignore_errors=True)
+    with open(out.name) as f:
+        rows = [json.loads(ln) for ln in f.read().splitlines() if ln.startswith("{")]
+    with open(err.name) as f:
+        log = f.read()
+    for r in rows:
+        print(f"[sweep] {json.dumps(r)}", flush=True)
+    marks = [ln for ln in log.splitlines() if ln.startswith("[sweep] assembly launches ")]
+    launches = json.loads(marks[-1].split("launches ", 1)[1]) if marks else {}
+    print(f"[sweep] exit {rc}, done by {time.perf_counter() - t0:.1f} s of [parallel]; "
+          "assembly-axis "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})} (its output: "
+          f"{os.path.dirname(out.name)})", flush=True)
+    _check(rc == 0, f"[sweep] exited {rc}: {log[-2000:]}")
+    with open(tsv) as f:
+        _check_sweep(rows, f.read(), launches)
+
+
+def _check_profile_unstr(ms: dict, model: float, measured: float, n_levels: int) -> None:
+    """[profile]'s checks of ``profile_unstr.components``: JAX's keys for
+    ``n_levels`` operator levels, finite and non-negative, the fine SpMV
+    and the V-cycle above zero; a finite model and a measured time."""
+    import math
+
+    keys = (["fine_spmv"] + [f"spmv_l{l}" for l in range(1, n_levels)]
+            + ["transfer_pair_l0", "cheb_smooth_l0", "vcycle", "precise_dot"])
+    _check(list(ms) == keys, f"[profile] unstructured keys {list(ms)}, want {keys}")
+    _check(all(isinstance(v, float) and math.isfinite(v) and v >= 0 for v in ms.values())
+           and ms["fine_spmv"] > 0 and ms["vcycle"] > 0,
+           f"[profile] unstructured times {ms}")
+    _check(math.isfinite(model) and model > 0 and math.isfinite(measured) and measured > 0,
+           f"[profile] unstructured model {model}, measured {measured}")
+
+
+def _check_profile_iter(out: dict) -> None:
+    """[profile]'s checks of ``profile_iter.run``: both lists, every op
+    with a finite, non-negative time, the SpMVs and V-cycles above zero,
+    and each list's measured ms per iteration."""
+    import math
+
+    from arcanefem_tpu_torch.tools.profile_iter import padded_ops, plain_ops
+
+    for which, ops, positive in (("plain", plain_ops(), ("spmv A@x", "V-cycle apply")),
+                                 ("padded", padded_ops(), ("spmv_p", "vcycle apply"))):
+        _check(which in out, f"[profile] no {which} list")
+        got = out[which]
+        ms = got.get("ms", {})
+        _check(list(ms) == [name for name, _ in ops], f"[profile] {which} ops {list(ms)}")
+        _check(all(isinstance(v, float) and math.isfinite(v) and v >= 0
+                   for v in ms.values()) and all(ms[k] > 0 for k in positive),
+               f"[profile] {which} times {ms}")
+        meas = got.get("measured_ms_per_iter")
+        _check(isinstance(meas, float) and math.isfinite(meas) and meas > 0
+               and got.get("iterations", 0) > 0,
+               f"[profile] {which} measured {meas} ms/iter, {got.get('iterations')} iterations")
+
+
+def profile_unstr_phase(dev, res) -> None:
+    """[profile] on phase 4's operator and hierarchy."""
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.tools import profile_unstr
+
+    A, M = res["op"], res["M"]
+    x0 = torch.as_tensor(np.random.RandomState(0).rand(A.n_nodes), device=dev).float()
+    _reset_all()
+    ms, model = profile_unstr.components(A, M, x0)
+    torch.cuda.synchronize()
+    counts = _counts_all()
+    system = res["system"]
+    meas, iters = profile_unstr.measured_ms_per_iter(A, system["b"], M, system["x0"], 1e-8)
+    print(f"[profile] unstructured {A.n_nodes} DoF, levels {res['levels']}: "
+          f"{json.dumps(ms)}; model {model:.4f} ms/iter (deg {M._deg(0)}, no dots "
+          f"or axpys), measured {meas:.4f} ms/iter over {iters} iterations; the "
+          f"probes' launches {json.dumps({k: v for k, v in counts.items() if v})}",
+          flush=True)
+    _check_profile_unstr(ms, model, meas, len(M.mats))
+    _check(counts.get("sell_spmv", 0) > 0, f"[profile] the probes launched no K1: {counts}")
+
+
+def profile_iter_phase(s) -> None:
+    """[profile] on phase 7's box: both of profile_iter's lists."""
+    import torch
+
+    from arcanefem_tpu_torch.bench_structured import DEFAULT
+    from arcanefem_tpu_torch.mesh import stencil_assembly as sa
+    from arcanefem_tpu_torch.sparse import dia_stencil as ds
+    from arcanefem_tpu_torch.tools import profile_iter
+
+    ds.reset_launch_counts()
+    sa.reset_launch_counts()
+    out = profile_iter.run(s, DEFAULT)
+    torch.cuda.synchronize()
+    counts = {**sa.launch_counts(), **ds.launch_counts()}
+    for which, got in out.items():
+        print(f"[profile] box {s.box.shape} {which}: {json.dumps(got['ms'])}; measured "
+              f"{got['measured_ms_per_iter']:.4f} ms/iter over {got['iterations']} "
+              "iterations", flush=True)
+    print(f"[profile] box launches {json.dumps(counts)}", flush=True)
+    _check_profile_iter(out)
+    for k in ("dia_spmv", "dia_sweep", "dia_spmv_p", "dia_jacobi_p", "dia_residual_p"):
+        _check(counts.get(k, 0) > 0, f"[profile] {k} never ran in profile_iter: {counts}")
 
 
 FEM_METHODS = ("Penalty", "WeakPenalty", "RowElimination", "RowColumnElimination")
@@ -4097,6 +4291,7 @@ def parallel_phase(dev) -> list[dict]:
     t0 = time.perf_counter()
     log = os.path.join("build", "parallel", "cli.txt")
     proc, fh = _parallel_cli(log)
+    sweep = _sweep_start(os.path.join("build", "sweep"))
     try:
         mesh, topo = sphere_cut_system(*PARALLEL_SPHERE)
         t1 = time.perf_counter()
@@ -4107,10 +4302,12 @@ def parallel_phase(dev) -> list[dict]:
         shard_s = time.perf_counter() - t1
         bench_phase()  # a subprocess too; its checks read no time
         rc = proc.wait(timeout=PARALLEL_TIMEOUT + 120)
+        _sweep_finish(sweep, t0)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for p in (proc, sweep[0]):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         fh.close()
     with open(log) as f:
         out = f.read()
@@ -4258,6 +4455,7 @@ def structured_phases(dev, gen) -> list[dict]:
     _check(fcounts["dia_spmv"] > 0 and fcounts["dia_sweep"] > 0,
            "K8a or K8b never ran on the flat MG path")
     chunk_unfused_phases(s, res)
+    profile_iter_phase(s)
 
     # each kernel at the path's shapes
     box, N = s.box, s.box.n_nodes

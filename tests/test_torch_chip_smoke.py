@@ -310,3 +310,114 @@ def test_lab_cli_cases_take_one_flag_per_format(tmp_path, monkeypatch):
     assert sorted(formats) == sorted(set(_FLAG_TO_FORMAT.values()))
     assert {c["name"].split("_")[0] for c in cli} == {"rect", "box"}
     assert all(c in cases for c in cli)
+
+
+def _sweep_rows():
+    """A sweep's rows as [sweep] expects them: six formats at two sizes,
+    the P = 1 devices row and both headline rows."""
+    from arcanefem_tpu_torch.testlab import FORMATS
+
+    rows = [{"axis": "assembly", "size": f"box{n}", "nodes": (n + 1) ** 3,
+             "elements": 6 * n ** 3, "format": f, "devices": 1,
+             "lhs_matrix_assembly_s": 0.00125, "mdof_per_s": 28.7}
+            for n in (4, 6) for f in FORMATS]
+    rows.append({"axis": "devices", "size": "box10", "nodes": 1331,
+                 "format": "sharded-rcb-pcg", "devices": 1, "solve_s": 0.02,
+                 "iterations": 54, "invariant": True})
+    rows.append({"axis": "headline", "metric": "poisson3d_sphere_cut_0.0MDoF_"
+                 "assembly+amgpcg_to_1e-08_s", "value": 0.0581})
+    rows.append({"axis": "headline", "metric": "poisson3d_box_0.275MDoF_"
+                 "assembly+cg_to_1e-08_s", "value": 0.0712})
+    return rows
+
+
+def _sweep_check(smoke, rows, launches=None, tsv=None):
+    from arcanefem_tpu_torch.bench_sweep import tsv_text
+
+    smoke._check_sweep(rows, tsv_text(rows) if tsv is None else tsv,
+                       {"slot_reduce": 36} if launches is None else launches,
+                       sizes=(4, 6))
+
+
+@pytest.mark.parametrize("fault", [
+    "none", "missing format row", "non-finite time", "non-invariant devices row",
+    "devices error row", "missing headline value", "missing headline row",
+    "no slot_reduce", "short tsv"])
+def test_sweep_check(fault):
+    """[sweep]'s checks pass on a whole sweep and fail on each fault."""
+    smoke = _smoke()
+    rows = _sweep_rows()
+    launches, tsv = None, None
+    if fault == "missing format row":
+        rows = [r for r in rows if not (r.get("size") == "box6" and r.get("format") == "coo")]
+    elif fault == "non-finite time":
+        rows[3]["lhs_matrix_assembly_s"] = float("nan")
+    elif fault == "non-invariant devices row":
+        rows[-3]["invariant"] = False
+    elif fault == "devices error row":
+        rows[-3] = {"axis": "devices", "devices": 1, "error": True}
+    elif fault == "missing headline value":
+        del rows[-1]["value"]
+    elif fault == "missing headline row":
+        rows = rows[:-2] + rows[-1:]
+    elif fault == "no slot_reduce":
+        launches = {"slot_reduce": 0, "sell_spmv": 4}
+    elif fault == "short tsv":
+        from arcanefem_tpu_torch.bench_sweep import tsv_text
+
+        tsv = tsv_text(rows[:-1])
+    if fault == "none":
+        _sweep_check(smoke, rows, launches, tsv)
+    else:
+        with pytest.raises(RuntimeError, match=r"\[sweep\]"):
+            _sweep_check(smoke, rows, launches, tsv)
+
+
+def _profile_unstr_ms():
+    return {"fine_spmv": 0.31, "spmv_l1": 0.05, "spmv_l2": 0.01, "transfer_pair_l0": 0.12,
+            "cheb_smooth_l0": 0.35, "vcycle": 1.6, "precise_dot": 0.02}
+
+
+@pytest.mark.parametrize("fault", ["none", "missing level", "negative", "zero vcycle",
+                                   "no measured time"])
+def test_profile_unstr_check(fault):
+    smoke = _smoke()
+    ms, measured = _profile_unstr_ms(), 1.9
+    if fault == "missing level":
+        del ms["spmv_l2"]
+    elif fault == "negative":
+        ms["precise_dot"] = -0.01
+    elif fault == "zero vcycle":
+        ms["vcycle"] = 0.0
+    elif fault == "no measured time":
+        measured = float("nan")
+    model = 5 * ms["fine_spmv"] + ms["transfer_pair_l0"] + 0.06
+    if fault == "none":
+        smoke._check_profile_unstr(ms, model, measured, 3)
+    else:
+        with pytest.raises(RuntimeError, match=r"\[profile\]"):
+            smoke._check_profile_unstr(ms, model, measured, 3)
+
+
+@pytest.mark.parametrize("fault", ["none", "missing list", "missing op", "nan op",
+                                   "no measured time"])
+def test_profile_iter_check(fault):
+    from arcanefem_tpu_torch.tools.profile_iter import padded_ops, plain_ops
+
+    smoke = _smoke()
+    out = {which: {"ms": {name: 0.5 for name, _ in ops}, "measured_ms_per_iter": 3.2,
+                   "iterations": 13}
+           for which, ops in (("plain", plain_ops()), ("padded", padded_ops()))}
+    if fault == "missing list":
+        del out["padded"]
+    elif fault == "missing op":
+        del out["plain"]["ms"]["jacobi sweep"]
+    elif fault == "nan op":
+        out["padded"]["ms"]["coarse chain (l>=1)"] = float("nan")
+    elif fault == "no measured time":
+        del out["padded"]["measured_ms_per_iter"]
+    if fault == "none":
+        smoke._check_profile_iter(out)
+    else:
+        with pytest.raises(RuntimeError, match=r"\[profile\]"):
+            smoke._check_profile_iter(out)

@@ -446,3 +446,32 @@ def test_parallel_cli_without_cuda_exits_1(tmp_path):
         assert proc.returncode == 1, (args, proc.stderr[-2000:])
         assert "parallel(" not in proc.stdout, proc.stdout
         assert "CUDA" in proc.stderr
+
+
+def test_scan_covers_the_harness_modules():
+    """The source scan above reads the sweep and the profilers."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("bench_sweep.py", "tools/profile_unstr.py", "tools/profile_iter.py",
+                "tools/profile_amg_setup.py"):
+        assert os.path.join("arcanefem_tpu_torch", mod) in scanned, mod
+
+
+def test_sweep_runs_without_jax(tmp_path):
+    """python -m arcanefem_tpu_torch.bench --sweep --device cpu (box 4, P = 1
+    and 2 on gloo, no headline) in processes, ranks included, where
+    neither jax, arcanefem_tpu nor the root bench can be imported: six
+    assembly rows, two invariant devices rows, bench.py's TSV header."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([_blocking_path(tmp_path), REPO]))
+    proc = subprocess.run([sys.executable, "-m", "arcanefem_tpu_torch.bench", "--sweep",
+                           "--device", "cpu", "--sizes", "4", "--devices", "1,2",
+                           "--no-headline", "--cache-warming", "1"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert not os.path.exists(tmp_path / "imported"), (tmp_path / "imported").read_text()
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert [r["axis"] for r in rows] == ["assembly"] * 6 + ["devices"] * 2
+    assert [r["devices"] for r in rows[6:]] == [1, 2] and all(r["invariant"] for r in rows[6:])
+    with open(tmp_path / "bench_sweep.tsv") as f:
+        assert f.readline().rstrip("\n").split("\t") == [
+            "axis", "size", "nodes", "elements", "format", "devices",
+            "lhs_matrix_assembly_s", "mdof_per_s", "solve_s", "iterations", "invariant"]
