@@ -187,6 +187,40 @@ def primary_args(env) -> tuple[float, int, float, dict]:
             float(env.get("BENCH_RTOL", "1e-8")), opts)
 
 
+def default_cache_paths(env, device="cuda") -> dict[str, tuple[str, dict | None]]:
+    """{role: (path, the key fields its meta record must hold, or None for a
+    file without one)} of every cache file the PRIMARY reads under the
+    knobs of ``env`` on ``device``: the mesh and topology npz of the node
+    order it runs in and, unless ``BENCH_NO_CACHE=1``, the fine SELL layout
+    and the AMG hierarchy; nothing with ``BENCH_UNSTR=0``.  Each name comes
+    from the function that writes the file (``tools/verify_caches.py``
+    checks them)."""
+    from .bench_unstructured import (
+        DTYPE,
+        PENALTY,
+        amg_cache_key,
+        mesh_files,
+        mesh_key,
+        sell_cache_key,
+    )
+    from .utils.cache import cache_dir, cache_enabled
+
+    h, refine, _, opts = primary_args(env)
+    if env.get("BENCH_UNSTR", "1") not in ("1", "force"):
+        return {}
+    d = cache_dir(env)
+    out = {role: (path, None) for role, path in
+           mesh_files(mesh_key(h, refine, "rcm"), opts["order"], d).items()}
+    if cache_enabled(env):
+        prefix = os.path.join(d, mesh_key(h, refine, opts["order"]))
+        out["sell"] = sell_cache_key(prefix)
+        out["amg"] = amg_cache_key(prefix, smoother=opts["smoother"],
+                                   cheb_deg=opts["cheb_deg"], penalty=PENALTY,
+                                   device=device, dtype=DTYPE, theta=opts["theta"],
+                                   env=env)
+    return out
+
+
 def secondary_args(env):
     """(n, precond, ``bench_structured.Options``) from ``env``."""
     from .bench_structured import SOLVERS, Options

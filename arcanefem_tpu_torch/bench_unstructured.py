@@ -45,7 +45,7 @@ from .solver.amg import (
     with_compact_vcycle,
     with_supernode_smoother,
 )
-from .solver.amg_setup import amg_setup
+from .solver.amg_setup import amg_setup, native_amg
 from .solver.iterative import pcg
 from .sparse.bell import BellMatrix, fine_layout
 from .sparse.compact import CompactMatrix
@@ -61,6 +61,8 @@ from .utils.timing import time_op
 RTOL = 1e-8
 THETA = 0.03
 CHEB_DEG = 2
+PENALTY = 1e12  # the bench's Dirichlet penalty and dtype, as JAX's accelerator run
+DTYPE = torch.float32
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -108,6 +110,16 @@ def mesh_key(h: float, refine: int, order: str = "sn") -> str:
     return f"sphere_cut_v3_h{h:g}_r{refine}" + ("_sn" if order == "sn" else "")
 
 
+def mesh_files(key: str, order: str, cache_dir: str) -> dict[str, str]:
+    """The npz files under ``cache_dir`` that :func:`sphere_cut_system` reads
+    for the sphere of RCM key ``key`` (``mesh_key(h, refine, "rcm")``) in
+    ``order`` once they exist: {"mesh": ..., "topology": ...}, in
+    ``bench.py``'s file names."""
+    sn = order == "sn"
+    return {"mesh": os.path.join(cache_dir, f"{key}_snmesh.npz" if sn else f"{key}.npz"),
+            "topology": os.path.join(cache_dir, f"topo_{key}{'_sn' if sn else ''}.npz")}
+
+
 def sphere_cut_system(h: float, refine: int, cache: bool = True,
                       order: str = "sn") -> tuple[Mesh, Topology]:
     """The sphere_cut mesh in supernode order, and its topology.
@@ -118,17 +130,15 @@ def sphere_cut_system(h: float, refine: int, cache: bool = True,
     npz under CACHE_DIR, in ``bench.py``'s file names."""
     if order not in ORDERS:
         raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
-    key = mesh_key(h, refine, "rcm")
     if cache:
         os.makedirs(CACHE_DIR, exist_ok=True)
-
-    def cached(name: str) -> str | None:
-        return os.path.join(CACHE_DIR, name) if cache else None
-
-    sn_path, rcm_path = cached(f"{key}_snmesh.npz"), cached(f"{key}.npz")
+    key = mesh_key(h, refine, "rcm")
+    files = {o: mesh_files(key, o, CACHE_DIR) if cache
+             else {"mesh": None, "topology": None} for o in ORDERS}
+    sn_path, rcm_path = files["sn"]["mesh"], files["rcm"]["mesh"]
     if order == "sn" and sn_path and os.path.exists(sn_path):
         mesh = _load_mesh(sn_path)
-        return mesh, _topology(mesh, cached(f"topo_{key}_sn.npz"))
+        return mesh, _topology(mesh, files["sn"]["topology"])
     if rcm_path and os.path.exists(rcm_path):
         mesh = _load_mesh(rcm_path)
     else:
@@ -140,13 +150,13 @@ def sphere_cut_system(h: float, refine: int, cache: bool = True,
             mesh, rcm_order(mesh.n_nodes, topo.row_ptr, topo.csr_cols))
         if rcm_path:
             _save_mesh(rcm_path, mesh)
-    topo = _topology(mesh, cached(f"topo_{key}.npz"))
+    topo = _topology(mesh, files["rcm"]["topology"])
     if order == "rcm":
         return mesh, topo
     mesh = renumber_mesh(mesh, supernode_order(topo, mesh.coords))
     if sn_path:
         _save_mesh(sn_path, mesh)
-    return mesh, _topology(mesh, cached(f"topo_{key}_sn.npz"))
+    return mesh, _topology(mesh, files["sn"]["topology"])
 
 
 def dirichlet_data(mesh: Mesh, penalty: float):
@@ -179,15 +189,20 @@ def true_residual(A: BellMatrix, b: torch.Tensor, x: torch.Tensor,
                  / torch.linalg.vector_norm(b.double()[interior]))
 
 
+def sell_cache_key(cache: str) -> tuple[str, dict]:
+    """(path, key fields of the meta record) of the fine SELL layout's
+    cache file under the prefix ``cache``."""
+    d, key = os.path.split(cache)
+    return os.path.join(d, f"sell_{key}_v1.npz"), {"what": "fine SELL layout"}
+
+
 def cached_fine_layout(topo: Topology, device, cache: str | None) -> SellLayout:
     """:func:`fine_layout`, kept under the cache prefix ``cache`` (see
     :func:`solve_sphere_cut`) when it is not None."""
     if not cache:
         return fine_layout(topo, device)
-    d, key = os.path.split(cache)
-    path = os.path.join(d, f"sell_{key}_v1.npz")
-    meta = {"what": "fine SELL layout", "cols": digest(topo.ell_cols),
-            "valid": digest(topo.ell_valid)}
+    path, meta = sell_cache_key(cache)
+    meta.update(cols=digest(topo.ell_cols), valid=digest(topo.ell_valid))
     arrays = load_npz(path, meta, "fine SELL layout")
     if arrays is not None:
         return SellLayout.from_arrays(arrays, device=device)
@@ -196,14 +211,16 @@ def cached_fine_layout(topo: Topology, device, cache: str | None) -> SellLayout:
     return layout
 
 
-def amg_cache_entry(cache: str, topo: Topology, flat: np.ndarray, *,
-                    smoother: str, cheb_deg, penalty: float, device,
-                    dtype: torch.dtype, theta: float = THETA) -> tuple[str, dict]:
-    """(path, meta) of the AMG hierarchy's cache file under the prefix
-    ``cache``: keyed as ``bench.py`` keys its pickle (mesh, smoother,
-    Chebyshev degree, build theta, platform, penalty) plus the dtype, and checked
-    against the digests of the column structure and of the penalised
-    values ``flat`` that ``amg_setup`` reads."""
+def amg_cache_key(cache: str, *, smoother: str, cheb_deg, penalty: float, device,
+                  dtype: torch.dtype, theta: float = THETA,
+                  env=os.environ) -> tuple[str, dict]:
+    """(path, key fields of the meta record) of the AMG hierarchy's cache
+    file under the prefix ``cache``: named as ``bench.py`` names its pickle
+    (mesh, smoother, Chebyshev degree, build theta, platform, penalty) plus
+    the dtype.  The name ignores ``AFEM_NATIVE_AMG`` as JAX's does; with
+    ``AFEM_NATIVE_AMG=0`` in ``env`` the record holds ``"amg_setup":
+    "scipy"``, so a hierarchy of one set-up branch is never loaded for the
+    other."""
     d, key = os.path.split(cache)
     platform = torch.device(device).type
     dt = str(dtype).removeprefix("torch.")
@@ -211,9 +228,19 @@ def amg_cache_entry(cache: str, topo: Topology, flat: np.ndarray, *,
             f"_t{theta:g}_{platform}_p{penalty:g}_{dt}_v1.npz")
     meta = {"what": "AMG hierarchy", "mesh": key, "smoother": smoother,
             "cheb_deg": cheb_deg, "theta": theta, "platform": platform,
-            "penalty": penalty, "dtype": dt, "cols": digest(topo.ell_cols),
-            "values": digest(flat)}
+            "penalty": penalty, "dtype": dt}
+    if not native_amg(env):
+        meta["amg_setup"] = "scipy"
     return os.path.join(d, name), meta
+
+
+def amg_cache_entry(cache: str, topo: Topology, flat: np.ndarray, **key) -> tuple[str, dict]:
+    """(path, meta) of the AMG hierarchy's cache file: :func:`amg_cache_key`
+    of ``key``, checked against the digests of the column structure and of
+    the penalised values ``flat`` that ``amg_setup`` reads."""
+    path, meta = amg_cache_key(cache, **key)
+    meta.update(cols=digest(topo.ell_cols), values=digest(flat))
+    return path, meta
 
 
 SPMV_PATHS = ("ell", "supernode", "compact", "diag")
@@ -577,8 +604,8 @@ def bench_unstructured(h: float = 6, refine: int = 3, rtol: float = RTOL,
     builds = SellLayout.builds
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    res = solve_sphere_cut(mesh, topo, device="cuda", dtype=torch.float32,
-                           penalty=1e12, timed=True, rtol=rtol, cache=prefix,
+    res = solve_sphere_cut(mesh, topo, device="cuda", dtype=DTYPE,
+                           penalty=PENALTY, timed=True, rtol=rtol, cache=prefix,
                            **options)
     torch.cuda.synchronize()
     counts = launch_counts()

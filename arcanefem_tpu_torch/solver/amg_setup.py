@@ -9,7 +9,9 @@ the ELL layouts of every level operator and transfer and the dense inverse
 of the coarsest operator.  It calls the port's copies of the same native
 functions as the JAX setup (``utils/native.py``), so ties break the same
 way, and the CPU tests hold the result to ``build_amg``'s with exact
-equality.
+equality.  ``AFEM_NATIVE_AMG=0`` sends the scalar levels through
+``build_amg``'s scipy branch instead (:func:`native_amg`), as it does in
+JAX; its truncation breaks ties otherwise than the native pass.
 
 Block systems (b dofs per node, the scalar expansion dof = node·b + comp)
 take ``build_amg``'s scipy branch at every level, as JAX does: node-level
@@ -69,6 +71,18 @@ def phase_marker():
             last = t
 
     return mark
+
+
+def native_amg(env=os.environ) -> bool:
+    """``AFEM_NATIVE_AMG``: "1" (the default) sets up scalar levels with the
+    native fused strength, filter and smoothing pass; "0" with ``build_amg``'s
+    scipy branch (strength test, filter, smoothing and ``truncate_rows``).
+    Any other value raises.  Unlike JAX, "1" does not fall back to scipy
+    where the native library is missing: :func:`amg_setup` raises."""
+    v = env.get("AFEM_NATIVE_AMG", "1")
+    if v not in ("0", "1"):
+        raise ValueError(f"AFEM_NATIVE_AMG must be 0 or 1, got {v!r}")
+    return v == "1"
 
 
 def _ell_from_csr(indptr: np.ndarray, cols: np.ndarray):
@@ -390,20 +404,24 @@ def stored_graph(layout) -> SimpleNamespace:
         csr_cols=layout.ell_cols.reshape(-1)[csr_to_ell])
 
 
-def _block_level(cur, bl: int, theta_l: float, Bns, mark, lvl: int):
-    """One level (number ``lvl``) of ``build_amg``'s scipy branch for a
-    block operator ``cur`` (bl dofs per node): (P, next bl, next
-    nullspace, rho of cur), or None where aggregation makes no progress;
-    ``mark`` (:func:`phase_marker`) after each of JAX's phases."""
+def _scipy_level(cur, bl: int, theta_l: float, Bns, mark, lvl: int):
+    """One level (number ``lvl``) of ``build_amg``'s scipy branch for an
+    operator ``cur`` of bl dofs per node (a scalar level at bl = 1): (P,
+    next bl, next nullspace, rho of cur), or None where aggregation makes
+    no progress; ``mark`` (:func:`phase_marker`) after each of JAX's
+    phases."""
     n = cur.shape[0]
     nn = n // bl
-    # node-level strength on block Frobenius norms: E^T |A|^2 E with
-    # E = I_nn (x) 1_bl collapses each bl x bl block to a scalar
-    E = sp.kron(sp.identity(nn, format="csr"), np.ones((bl, 1)), format="csr")
-    A2 = cur.copy()
-    A2.data = A2.data**2
-    nodeA = (E.T @ A2 @ E).tocsr()
-    nodeA.data = np.sqrt(nodeA.data)
+    if bl > 1:
+        # node-level strength on block Frobenius norms: E^T |A|^2 E with
+        # E = I_nn (x) 1_bl collapses each bl x bl block to a scalar
+        E = sp.kron(sp.identity(nn, format="csr"), np.ones((bl, 1)), format="csr")
+        A2 = cur.copy()
+        A2.data = A2.data**2
+        nodeA = (E.T @ A2 @ E).tocsr()
+        nodeA.data = np.sqrt(nodeA.data)
+    else:
+        nodeA = cur
     d = np.asarray(nodeA.diagonal())
     # strength: |a_ij| >= θ_l·sqrt(a_ii·a_jj), diagonal excluded
     co = nodeA.tocoo()
@@ -421,7 +439,8 @@ def _block_level(cur, bl: int, theta_l: float, Bns, mark, lvl: int):
         T, Bc = _rbm_tentative(agg, na, Bns, bl)
         bl_next = Bns.shape[1]
     else:
-        # component-preserving tentative: dof (i, a) -> (agg[i], a)
+        # component-preserving tentative: dof (i, a) -> (agg[i], a); at bl = 1
+        # JAX's scalar tentative, row i -> agg[i]
         dsel = np.repeat(sel, bl)
         drow = np.arange(n)[dsel]
         dcol = np.repeat(agg[sel], bl) * bl + np.tile(np.arange(bl), int(sel.sum()))
@@ -471,7 +490,9 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
     m) is used for b > 1 only, as in JAX.  ``dtype`` is the type the device
     will hold.  ``coarse_size`` is ``build_amg``'s: levels coarsen while
     they have more than ``coarse_size``·b rows.  Returns the dict that
-    ``amg_from_numpy`` takes, for a V-cycle.
+    ``amg_from_numpy`` takes, for a V-cycle.  Scalar levels take the native
+    pass, or with ``AFEM_NATIVE_AMG=0`` (:func:`native_amg`) the scipy
+    branch of the block levels at b = 1.
 
     With ``AFEM_AMG_VERBOSE=1`` it prints one ``[amg] <label>: <s>s`` line
     per phase (:func:`phase_marker`), with the JAX ``build_amg``'s labels
@@ -494,12 +515,13 @@ def amg_setup(values: np.ndarray, topo, *, theta: float, smoother: str,
            if nullspace is not None and block > 1 else None)
     used_rbm = Bns is not None
     nullspaces = [Bns]
+    native = native_amg()
     while cur.shape[0] > coarse_size * bl and len(mats) < MAX_LEVELS:
         n = cur.shape[0]
         # Vanek's per-level strength decay
         theta_l = theta * (0.5 ** len(mats))
-        if bl > 1:
-            level = _block_level(cur, bl, theta_l, Bns, mark, len(mats))
+        if bl > 1 or not native:
+            level = _scipy_level(cur, bl, theta_l, Bns, mark, len(mats))
             if level is None:
                 break
             P, bl, Bns, rho = level

@@ -75,12 +75,12 @@ def format_table(rows: list[dict], other: dict) -> str:
 def fine_operator(key: str, device) -> tuple[np.ndarray, object]:
     """(the penalised (N, W) float32 ELL values the set-up reads, the
     topology) of the cached sphere ``key``, assembled on ``device``."""
-    from ..bench_unstructured import _load_mesh, _topology, dirichlet_data
+    from ..bench_unstructured import _load_mesh, _topology, dirichlet_data, mesh_files
     from ..ops.lane_assembly import TetraAssembler
     from ..sparse.bell import BellMatrix, fine_layout
     from ..utils.cache import CACHE_DIR
 
-    paths = [os.path.join(CACHE_DIR, f) for f in (f"{key}_snmesh.npz", f"topo_{key}_sn.npz")]
+    paths = list(mesh_files(key, "sn", CACHE_DIR).values())
     for p in paths:
         if not os.path.exists(p):
             raise FileNotFoundError(f"{p}: prime the sphere first (python -m "

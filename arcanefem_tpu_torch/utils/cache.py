@@ -39,12 +39,17 @@ def _default_cache_dir() -> str:
     return os.path.join(os.path.expanduser("~"), ".cache", "afem")
 
 
-CACHE_DIR = os.environ.get("AFEM_CACHE_DIR", _default_cache_dir())
+def cache_dir(env=os.environ) -> str:
+    """The cache directory under the environment ``env``."""
+    return env.get("AFEM_CACHE_DIR", _default_cache_dir())
 
 
-def cache_enabled() -> bool:
-    """False when ``BENCH_NO_CACHE=1``."""
-    return os.environ.get("BENCH_NO_CACHE") != "1"
+CACHE_DIR = cache_dir()
+
+
+def cache_enabled(env=os.environ) -> bool:
+    """False when ``BENCH_NO_CACHE=1`` in ``env``."""
+    return env.get("BENCH_NO_CACHE") != "1"
 
 
 def log(msg: str) -> None:
@@ -77,6 +82,14 @@ def save_npz(path: str, arrays: dict[str, np.ndarray], meta: dict) -> None:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+def read_meta(path: str) -> dict:
+    """The meta record of a :func:`save_npz` file, read without its arrays;
+    raises ``OSError``, ``ValueError``, ``KeyError`` or
+    ``zipfile.BadZipFile`` where there is none to read."""
+    with np.load(path, allow_pickle=False) as z:
+        return json.loads(str(z[_META]))
 
 
 def load_npz(path: str, meta: dict, what: str) -> dict[str, np.ndarray] | None:

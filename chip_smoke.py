@@ -31,7 +31,10 @@ script then exits non-zero without the final line:
    ``[cache]``: the same system through the AMG hierarchy's npz cache in
    a fresh directory, cold (phase 4's solve: set-up, saved) and warm
    (loaded, no SELL layout build): every array equal bit for bit, the same
-   iterations and x, bit for bit, with both ``amg_setup_s``;
+   iterations and x, bit for bit, with both ``amg_setup_s``; then
+   ``[caches]``: the cache gate (``tools/verify_caches.py``) with phase 4's
+   knobs on that directory (the mesh and topology files linked in) exits
+   0, and on an empty one exits 1 with all four files MISSING;
 ``[testlab]`` (run right after 4, on its mesh, topology and operator): the
    assembly-format laboratory.  L1: ``testlab.run_lab`` on the 1.9M sphere
    in float32, each of the six formats in its own call (cache_warming 5):
@@ -216,6 +219,22 @@ g-i. (run after 9, on the same state) the compact route: (g) ``--spmv
    its halo filled on the host through the partition's maps, held to its
    plain twin (1e-12 of Σ|v·x|, padding rows 0) and timed beside CSR
    ``torch.mv`` (a ``kernels`` record whose launches are (a)'s sphere's);
+``[ilu]`` (run after ``[parallel]``): ``tools/ilu_decision.py``'s three
+   float64 systems (a 90x90 Poisson rect, a 22^3 Poisson box, a 50x50
+   elasticity rect) assembled on the card (``slot_reduce`` twice,
+   ``block_slot_reduce`` once at b = 2: their ``ilu_launches`` in the
+   ``kernels`` records) and on the CPU, the card's CSR within 1e-12 of the
+   CPU's largest value; the experiment's rows of both (PCG iterations with
+   Jacobi, Chebyshev(3), IC(0) and ILUT, the factors' level depths) in
+   spawned processes: n, nnz and depths equal, Jacobi/Chebyshev/IC(0)
+   within 1, ILUT within 10% or both at the cap; then the card's
+   reckoning of each system: a chain of ``depth`` dependent single-block K1
+   launches for each factor against three K1 on its SELL layout (CUDA
+   events), per PCG iteration and to convergence;
+``[amg]`` (after ``[ilu]``): the h=5 refine=1 sphere (244,183 DoF) in
+   float32 with the native AMG set-up and with ``AFEM_NATIVE_AMG=0`` (the
+   scipy branch): each branch's set-up seconds, levels, iterations and
+   residuals; both converge, true residual <= 1e-4, iterations within 1;
 j. the RCM-ordered sphere at h=5, refine=1 (244,183 DoF): the ELL route,
    then ``--spmv diag`` (K10) on the same system, ``[diag]`` lines; K10
    held to its twin and timed there and on the 80^3 RCM box, beside K1 and
@@ -598,6 +617,9 @@ def _main(dev, prime) -> int:
     _elapsed("[transient]")
     records += parallel_phase(dev)
     _elapsed("[parallel], [bench] and [sweep]")
+    ilu_launches = ilu_phase(dev)
+    amg_phase(dev)
+    _elapsed("[ilu], [amg]")
     del mesh, topo
     torch.cuda.empty_cache()
     records += diag_phase(dev, gen)
@@ -641,6 +663,7 @@ def _main(dev, prime) -> int:
     records += structured_phases(dev, gen)
     _elapsed("5, 9b, 9c, 6-8: h=8 comparisons and the structured path")
 
+    _add_ilu_launches(records, ilu_launches)
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1694,8 +1717,9 @@ def cache_phase(dev, mesh, topo, res4, cache_dir: str, cold_builds: int) -> None
     the fresh directory ``cache_dir``, cold (phase 4's own solve: set-up,
     then saved, ``cold_builds`` SELL layouts built) and warm (loaded here):
     every array of the two hierarchies equal bit for bit, the warm run
-    without a SELL layout build, its solve equal to phase 4's, bit for bit.
-    Removes ``cache_dir``."""
+    without a SELL layout build, its solve equal to phase 4's, bit for bit;
+    then ``[caches]`` (:func:`caches_gate`) on ``cache_dir``.  Removes
+    ``cache_dir``."""
     import numpy as np
     import torch
 
@@ -1709,6 +1733,7 @@ def cache_phase(dev, mesh, topo, res4, cache_dir: str, cold_builds: int) -> None
         warm_builds = SellLayout.builds - builds
         files = {f: os.path.getsize(os.path.join(cache_dir, f))
                  for f in sorted(os.listdir(cache_dir))}
+        caches_gate(cache_dir, 5.0, 2)
     finally:
         shutil.rmtree(cache_dir)
     cold = res4
@@ -4390,6 +4415,256 @@ def parallel_phase(dev) -> list[dict]:
     del mesh, topo, sp, sh, vals, x, csr, scale
     torch.cuda.empty_cache()
     return [rec]
+
+
+ILU_CSR_TOL = 1e-12  # [ilu]: the card's CSR from the CPU's, of the CPU's largest
+ILU_WORKERS = 6  # [ilu]: processes computing the experiment's rows
+ILU_CHAIN_ROWS = 32  # [ilu]: one K1 slice, so one single-block launch per step
+ILU_RECORDS = {"slot_reduce": "slot_reduce",  # the records given [ilu]'s launches
+               "block_slot_reduce": "block_slot_reduce (soildynamics b=2)"}
+
+
+def _csr_diff(A, B) -> float:
+    """max |A - B| / max |B| of two scipy CSR matrices of one pattern;
+    inf where the patterns differ."""
+    import numpy as np
+
+    if (A.shape != B.shape or not np.array_equal(A.indptr, B.indptr)
+            or not np.array_equal(A.indices, B.indices)):
+        return float("inf")
+    return float(np.abs(A.data - B.data).max() / np.abs(B.data).max())
+
+
+def _check_ilu(card: list[dict], cpu: list[dict], diffs: list[float],
+               launches: dict) -> None:
+    """[ilu]'s checks: three rows from the card's systems beside the CPU's,
+    the card's CSR within ILU_CSR_TOL of the CPU's, n, nnz and the depths
+    equal, Jacobi, Chebyshev(3) and IC(0) within 1 iteration, ILUT within
+    10% or both at the cap; the card's assembly launched slot_reduce twice
+    and block_slot_reduce once."""
+    from arcanefem_tpu_torch.tools.ilu_decision import MAXITER, SIZES
+
+    _check([r["system"] for r in card] == list(SIZES) == [r["system"] for r in cpu],
+           f"[ilu] systems {[r['system'] for r in card]}")
+    _check(len(diffs) == 3 and all(d <= ILU_CSR_TOL for d in diffs),
+           f"[ilu] the card's CSR differs from the CPU's: {diffs}")
+    for a, b in zip(card, cpu):
+        for k in ("n", "nnz", "ic0_depth", "ilut_depth"):
+            _check(a.get(k) == b.get(k) is not None, f"[ilu] {a['system']} {k}: "
+                   f"{a.get(k)} on the card's system, {b.get(k)} on the CPU's")
+        for k in ("jacobi", "cheb3", "ic0_iters"):
+            _check(a.get(k) is not None and b.get(k) is not None
+                   and abs(a[k] - b[k]) <= 1,
+                   f"[ilu] {a['system']} {k}: {a.get(k)} and {b.get(k)}")
+        x, y = a.get("ilut_iters"), b.get("ilut_iters")
+        _check(x is not None and y is not None
+               and (x == y == MAXITER or abs(x - y) <= 0.1 * y),
+               f"[ilu] {a['system']} ilut_iters: {x} and {y}")
+    _check(launches.get("slot_reduce") == 2 and launches.get("block_slot_reduce") == 1,
+           f"[ilu] the card's assembly launches {launches}")
+
+
+def ilu_experiment(dev):
+    """[ilu]'s experiment: ``tools/ilu_decision.py``'s three systems
+    assembled in float64 on ``dev`` (the card: ``slot_reduce`` for the
+    Poisson operators, ``block_slot_reduce`` at b = 2 for elasticity, their
+    launches counted) and on the CPU, and the rows of both, computed in
+    ILU_WORKERS spawned processes.  Returns (``dev``'s systems, their rows,
+    the CPU systems' rows, the CSR differences, the launches)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from arcanefem_tpu_torch.tools import ilu_decision as ilu
+
+    with ProcessPoolExecutor(ILU_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        _reset_all()
+        card = ilu.systems(dev)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        counts = _counts_all()
+        launches = {k: counts[k] for k in ILU_RECORDS}
+        rows = [pool.submit(ilu.decision_row, s.name, s.A, s.rhs) for s in card]
+        cpu = ilu.systems("cpu")
+        diffs = [_csr_diff(a.A, b.A) for a, b in zip(card, cpu)]
+        rows += [pool.submit(ilu.decision_row, s.name, s.A, s.rhs) for s in cpu]
+        rows = [f.result() for f in rows]
+    return card, rows[:3], rows[3:], diffs, launches
+
+
+def ilu_phase(dev) -> dict:
+    """[ilu]: :func:`ilu_experiment` on the card, held by ``_check_ilu``.
+    Then the card's reckoning, with the host idle: per system, a chain of
+    ``depth`` dependent single-block K1 launches (a 32-row slice, each
+    launch's input the last one's output) for the IC(0) and ILUT factors,
+    and three K1 SpMVs on the system's own SELL layout, each timed with
+    CUDA events (best of 5).  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from arcanefem_tpu_torch.sparse.sell import SellLayout, sell_spmv
+    from arcanefem_tpu_torch.utils.timing import elapsed_s, time_op
+
+    t0 = time.perf_counter()
+    card, card_rows, cpu_rows, diffs, launches = ilu_experiment(dev)
+    for r, d in zip(card_rows, diffs):
+        print(f"[ilu] {json.dumps({**r, 'csr_diff_from_cpu': d})}", flush=True)
+    print(f"[ilu] the CPU-built systems' rows: {json.dumps(cpu_rows)}; the card's "
+          f"assembly launches {launches}; {time.perf_counter() - t0:.1f} s", flush=True)
+    _check_ilu(card_rows, cpu_rows, diffs, launches)
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for s, r in zip(card, card_rows):
+        A = s.bell
+        W = A.layout.width
+        cols = (np.arange(ILU_CHAIN_ROWS)[:, None] + np.arange(W)[None, :]) % ILU_CHAIN_ROWS
+        lay = SellLayout.build(cols, np.ones(cols.shape, bool), device=dev)
+        v = lay.from_ell(torch.rand(cols.shape, generator=gen, device=dev,
+                                    dtype=torch.float64) / W)
+        x0 = torch.rand(ILU_CHAIN_ROWS, generator=gen, device=dev, dtype=torch.float64)
+
+        def chain(depth):
+            def run():
+                y = x0
+                for _ in range(depth):
+                    y = sell_spmv(v, lay, y)
+                return y
+            run()
+            return min(elapsed_s(run, dev)[0] for _ in range(5)) * 1e3
+
+        x = torch.rand(A.layout.n_cols, generator=gen, device=dev, dtype=torch.float64)
+        k1x3 = time_op(lambda: A.spmv(A.spmv(A.spmv(x))), reps=50, outer=5) * 1e3
+        ic0 = chain(r["ic0_depth"])
+        ilut = chain(r["ilut_depth"])
+        line = {"system": r["system"], "n": r["n"], "ic0_depth": r["ic0_depth"],
+                "ic0_chain_ms": ic0, "ilut_depth": r["ilut_depth"], "ilut_chain_ms": ilut,
+                "step_us": ic0 / r["ic0_depth"] * 1e3, "k1x3_ms": k1x3,
+                # per PCG iteration: IC(0) = one K1 (A·p) and L, Lᵀ solves;
+                # Chebyshev(3) = three K1
+                "ic0_iter_ms": k1x3 / 3 + 2 * ic0, "cheb3_iter_ms": k1x3,
+                "ic0_solve_ms": r["ic0_iters"] * (k1x3 / 3 + 2 * ic0),
+                "cheb3_solve_ms": r["cheb3"] * k1x3}
+        print(f"[ilu] reckoning {json.dumps(line)}", flush=True)
+        _check(all(np.isfinite(line[k]) and line[k] > 0 for k in line
+                   if k.endswith("_ms")), f"[ilu] reckoning {line}")
+    del card
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _add_ilu_launches(records: list[dict], launches: dict) -> None:
+    """Give the ``kernels`` records of ILU_RECORDS the launches of
+    [ilu]'s assembly as ``ilu_launches``."""
+    by_name = {r["name"]: r for r in records}
+    for kernel, name in ILU_RECORDS.items():
+        _check(name in by_name, f"[ilu] no kernels record {name!r}")
+        by_name[name]["ilu_launches"] = launches[kernel]
+
+
+def _check_amg(runs: dict) -> None:
+    """[amg]'s checks: both set-up branches solved (rel <= 1e-8, true
+    residual <= 1e-4, K1 launched), within 1 iteration of each other."""
+    _check(set(runs) == {"native", "scipy"}, f"[amg] branches {sorted(runs)}")
+    for b, r in runs.items():
+        _check(r["rel"] <= 1e-8 and r["true_residual"] <= 1e-4
+               and r["launches"].get("sell_spmv", 0) > 0, f"[amg] {b}: {r}")
+    _check(abs(runs["native"]["iterations"] - runs["scipy"]["iterations"]) <= 1,
+           f"[amg] iterations native {runs['native']['iterations']}, scipy "
+           f"{runs['scipy']['iterations']}")
+
+
+def amg_phase(dev) -> None:
+    """[amg]: the PARALLEL_SPHERE sphere (244,183 DoF) solved as the bench
+    solves it (float32, AMG-PCG to 1e-8) with each AMG set-up branch:
+    ``AFEM_NATIVE_AMG=1`` (the native pass) and ``0`` (the scipy branch);
+    each with its set-up seconds (host clock, with the hierarchy's move to
+    the card), levels, iterations, residuals and launches
+    (``_check_amg``)."""
+    import torch
+
+    from arcanefem_tpu_torch.bench_unstructured import solve_sphere_cut, sphere_cut_system
+
+    mesh, topo = sphere_cut_system(*PARALLEL_SPHERE)
+    runs = {}
+    old = os.environ.get("AFEM_NATIVE_AMG")
+    try:
+        for branch, knob in (("native", "1"), ("scipy", "0")):
+            os.environ["AFEM_NATIVE_AMG"] = knob
+            _reset_all()
+            r = solve_sphere_cut(mesh, topo, device=dev, dtype=torch.float32, penalty=1e12)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in _counts_all().items() if v}
+            runs[branch] = {"amg_setup_s": r["amg_setup_s"], "levels": r["levels"],
+                            "iterations": r["iterations"], "rel": r["rel"],
+                            "true_residual": r["true_residual"], "launches": counts}
+            print(f"[amg] {branch} ({mesh.n_nodes} DoF): {json.dumps(runs[branch])}",
+                  flush=True)
+            del r
+    finally:
+        if old is None:
+            os.environ.pop("AFEM_NATIVE_AMG", None)
+        else:
+            os.environ["AFEM_NATIVE_AMG"] = old
+    _check_amg(runs)
+    torch.cuda.empty_cache()
+
+
+def _check_caches(full: tuple[int, str], empty: tuple[int, str]) -> None:
+    """[caches]' checks: the gate (exit code, output) on the cold-built
+    directory exits 0 with four ok lines, and on an empty directory exits 1
+    with every file MISSING."""
+    for (rc, out), want, status in ((full, 0, "ok"), (empty, 1, "MISSING")):
+        n = sum(ln.startswith(f"  {status} ") for ln in out.splitlines())
+        _check(rc == want and n == 4,
+               f"[caches] exit {rc} (want {want}) with {n} {status} lines of 4:\n{out}")
+
+
+def caches_gate(cache_dir: str, h: float, refine: int) -> None:
+    """[caches]: ``python -m arcanefem_tpu_torch.tools.verify_caches`` with
+    the knobs of the sphere (h, refine) on ``cache_dir``, which holds the
+    SELL and AMG files of its cold solve on the card (the mesh and
+    topology files linked in from CACHE_DIR, where its set-up wrote them),
+    and on an empty directory, side by side (``_check_caches``)."""
+    import subprocess
+
+    from arcanefem_tpu_torch.bench_unstructured import mesh_files, mesh_key
+    from arcanefem_tpu_torch.utils.cache import CACHE_DIR
+
+    key = mesh_key(h, refine, "rcm")
+    for src, dst in zip(mesh_files(key, "sn", CACHE_DIR).values(),
+                        mesh_files(key, "sn", cache_dir).values()):
+        try:
+            os.link(src, dst)
+        except OSError:  # another file system
+            shutil.copyfile(src, dst)
+    empty = tempfile.mkdtemp(dir="build")
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("BENCH_", "AFEM_"))}
+    env.update(BENCH_UNSTR_H=f"{h:g}", BENCH_UNSTR_REFINE=str(refine))
+    procs = []
+    try:
+        for d in (cache_dir, empty):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "arcanefem_tpu_torch.tools.verify_caches"],
+                env={**env, "AFEM_CACHE_DIR": d}, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outs = []
+        for p in procs:
+            out = p.communicate(timeout=300)[0]
+            outs.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(empty)
+    for tag, (rc, out) in zip(("cold-built", "empty"), outs):
+        print(f"[caches] {tag} directory: exit {rc}", flush=True)
+        for ln in out.splitlines():
+            if ln.strip():
+                print(f"[caches]   {ln.strip()}", flush=True)
+    _check_caches(*outs)
 
 
 def structured_phases(dev, gen) -> list[dict]:

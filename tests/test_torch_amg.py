@@ -119,6 +119,60 @@ def test_amg_setup_matches_build_amg_theta_008(system, smoother):
     assert (d["smoother"], d["cheb_deg"]) == (smoother, 2)
 
 
+@pytest.mark.parametrize("knob", ["0", "1"])
+def test_native_amg_knob_matches_build_amg(system, monkeypatch, knob):
+    """``AFEM_NATIVE_AMG`` set alike on both sides: "0" (the scipy strength
+    test, filter, smoothing and ``truncate_rows`` on every scalar level) and
+    "1" (the native pass) each give ``build_amg``'s hierarchy array for
+    array, bit for bit; the two branches differ (their truncation breaks
+    ties otherwise)."""
+    A, flat, topo = system
+    monkeypatch.setenv("AFEM_NATIVE_AMG", knob)
+    M = build_amg(A, smoother="chebyshev", cheb_deg=2, theta=0.03, values_np=flat)
+    d = amg_setup(flat, topo, theta=0.03, smoother="chebyshev", cheb_deg=2)
+    ref = _as_numpy(M)
+    assert len(d["mats"]) == len(ref["mats"]) == 2
+    for (v, c), (rv, rc) in zip(d["mats"], ref["mats"], strict=True):
+        np.testing.assert_array_equal(c, rc)
+        np.testing.assert_array_equal(v, rv)
+    for k in ("pcols", "pvals", "ptcols", "ptvals", "inv_diags"):
+        for a, b in zip(d[k], ref[k], strict=True):
+            np.testing.assert_array_equal(a, b)
+    assert d["rhos"] == ref["rhos"] and d["omegas"] == ref["omegas"]
+    np.testing.assert_array_equal(d["coarse_inv"], ref["coarse_inv"])
+    monkeypatch.setenv("AFEM_NATIVE_AMG", "1" if knob == "0" else "0")
+    other = amg_setup(flat, topo, theta=0.03, smoother="chebyshev", cheb_deg=2)
+    assert any(a.shape != b.shape or not np.array_equal(a, b)
+               for a, b in zip(other["pvals"], d["pvals"], strict=True))
+
+
+def test_scipy_branch_galerkin_nan_fails_loudly(system, monkeypatch):
+    """The counterpart of test_amg.py's test_galerkin_nan_fails_loudly: a
+    NaN injected through ``truncate_rows`` on the scipy branch
+    (``AFEM_NATIVE_AMG=0``) raises FloatingPointError."""
+    from arcanefem_tpu_torch.solver import amg_setup as mod
+
+    _, flat, topo = system
+
+    def bad_truncate(P, **kw):
+        Q = P.tocsr().copy()
+        Q.data[0] = np.nan
+        return Q
+
+    monkeypatch.setattr(mod, "truncate_rows", bad_truncate)
+    monkeypatch.setenv("AFEM_NATIVE_AMG", "0")
+    with pytest.raises(FloatingPointError, match="non-finite Galerkin"):
+        amg_setup(flat, topo, theta=0.03, smoother="chebyshev", cheb_deg=2)
+
+
+@pytest.mark.parametrize("value", ["2", "", "yes"])
+def test_native_amg_knob_rejects_other_values(system, monkeypatch, value):
+    _, flat, topo = system
+    monkeypatch.setenv("AFEM_NATIVE_AMG", value)
+    with pytest.raises(ValueError, match="AFEM_NATIVE_AMG"):
+        amg_setup(flat, topo, theta=0.03, smoother="chebyshev", cheb_deg=2)
+
+
 @pytest.mark.parametrize("smoother,cycle", [("chebyshev", "V"),
                                             ("chebyshev", "W"),
                                             ("jacobi", "V")])

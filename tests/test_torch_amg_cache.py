@@ -246,3 +246,18 @@ def test_amg_from_numpy_rejects_a_layout_that_does_not_fit(system):
     d2["layouts"]["P"] = d2["layouts"]["Pt"]
     with pytest.raises(ValueError, match="does not fit"):
         amg_from_numpy(d2, "cpu", torch.float64)
+
+
+def test_cached_hierarchy_keeps_its_setup_branch(tmp_path, monkeypatch):
+    """A hierarchy cached by the scipy branch (``AFEM_NATIVE_AMG=0``, in
+    its meta record) is not loaded for the native one, nor the reverse: each
+    switch rebuilds, and the same branch twice loads."""
+    mesh, topo = sphere_cut_system(14.0, 0, cache=False)
+    prefix = str(tmp_path / mesh_key(14.0, 0))
+    cached = []
+    for knob in ("0", "1", "1", "0", "0"):
+        monkeypatch.setenv("AFEM_NATIVE_AMG", knob)
+        res = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64,
+                               penalty=PENALTY, cache=prefix)
+        cached.append(res["amg_setup_cached"])
+    assert cached == [False, False, True, False, True]

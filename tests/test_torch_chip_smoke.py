@@ -421,3 +421,181 @@ def test_profile_iter_check(fault):
     else:
         with pytest.raises(RuntimeError, match=r"\[profile\]"):
             smoke._check_profile_iter(out)
+
+
+def _ilu_rows():
+    """[ilu]'s rows as the JAX tool prints them at its sizes."""
+    return [
+        {"system": "poisson2d_8k", "n": 8281, "nnz": 57241, "jacobi": 171, "cheb3": 58,
+         "ic0_iters": 71, "ic0_depth": 181, "ilut_iters": 2000, "ilut_depth": 836},
+        {"system": "poisson3d_11k", "n": 12167, "nnz": 170083, "jacobi": 56, "cheb3": 19,
+         "ic0_iters": 25, "ic0_depth": 67, "ilut_iters": 2000, "ilut_depth": 1377},
+        {"system": "elasticity2d_5k", "n": 5202, "nnz": 71204, "jacobi": 592, "cheb3": 210,
+         "ic0_iters": 138, "ic0_depth": 202, "ilut_iters": 10, "ilut_depth": 1306}]
+
+
+@pytest.mark.parametrize("fault", [
+    "none", "one iteration off", "two iterations off", "depth off", "nnz off",
+    "ilut 15% off", "ilut off the cap", "ic0 breakdown", "csr differs",
+    "csr pattern differs", "missing system", "no block_slot_reduce"])
+def test_ilu_check(fault):
+    """[ilu]'s checks pass on equal rows (and counts within 1) and fail on
+    each fault."""
+    import math
+
+    smoke = _smoke()
+    card, cpu = _ilu_rows(), _ilu_rows()
+    diffs, launches = [0.0, 3e-16, 1e-13], {"slot_reduce": 2, "block_slot_reduce": 1}
+    if fault == "one iteration off":
+        card[0]["cheb3"] += 1
+        card[2]["ic0_iters"] -= 1
+    elif fault == "two iterations off":
+        card[1]["jacobi"] += 2
+    elif fault == "depth off":
+        card[2]["ilut_depth"] += 1
+    elif fault == "nnz off":
+        cpu[0]["nnz"] -= 1
+    elif fault == "ilut 15% off":
+        card[2]["ilut_iters"] = 12
+    elif fault == "ilut off the cap":
+        card[0]["ilut_iters"] = 1500
+    elif fault == "ic0 breakdown":
+        card[1].update(ic0_iters=None, ic0_error="breakdown (non-positive pivot)")
+        del card[1]["ic0_depth"]
+    elif fault == "csr differs":
+        diffs[1] = 2e-12
+    elif fault == "csr pattern differs":
+        diffs[2] = math.inf
+    elif fault == "missing system":
+        card, cpu = card[:2], cpu[:2]
+    elif fault == "no block_slot_reduce":
+        launches["block_slot_reduce"] = 0
+    if fault in ("none", "one iteration off"):
+        smoke._check_ilu(card, cpu, diffs, launches)
+    else:
+        with pytest.raises(RuntimeError, match=r"\[ilu\]"):
+            smoke._check_ilu(card, cpu, diffs, launches)
+
+
+def test_csr_diff():
+    import numpy as np
+    import scipy.sparse as sp
+
+    smoke = _smoke()
+    A = sp.random(30, 30, density=0.2, format="csr", random_state=0) + sp.identity(30)
+    B = A.copy()
+    B.data[3] *= 1 + 1e-13
+    assert smoke._csr_diff(A, A) == 0.0
+    assert 0 < smoke._csr_diff(B, A) <= 1e-13
+    C = A.tolil()
+    C[0, 29] = 1.0
+    assert smoke._csr_diff(C.tocsr(), A) == np.inf
+
+
+def test_ilu_experiment_on_the_cpu(monkeypatch):
+    """ilu_experiment's control flow at a small size, both builds on the CPU
+    and the rows in spawned processes: the rows of the two builds are equal
+    and pass [ilu]'s row checks; no kernel launched on the CPU."""
+    from arcanefem_tpu_torch.tools import ilu_decision
+
+    smoke = _smoke()
+    monkeypatch.setattr(ilu_decision, "SIZES", {
+        "poisson2d_8k": (12, 12), "poisson3d_11k": (4, 4, 4), "elasticity2d_5k": (8, 8)})
+    card, card_rows, cpu_rows, diffs, launches = smoke.ilu_experiment("cpu")
+    assert [s.name for s in card] == list(ilu_decision.SIZES)
+    assert card_rows == cpu_rows and diffs == [0.0, 0.0, 0.0]
+    assert launches == {"slot_reduce": 0, "block_slot_reduce": 0}
+    smoke._check_ilu(card_rows, cpu_rows, diffs, {"slot_reduce": 2, "block_slot_reduce": 1})
+
+
+def test_add_ilu_launches():
+    smoke = _smoke()
+    records = [{"name": "sell_spmv"}, {"name": "slot_reduce"},
+               {"name": "block_slot_reduce (soildynamics b=2)"}]
+    smoke._add_ilu_launches(records, {"slot_reduce": 2, "block_slot_reduce": 1})
+    assert [r.get("ilu_launches") for r in records] == [None, 2, 1]
+    with pytest.raises(RuntimeError, match=r"\[ilu\]"):
+        smoke._add_ilu_launches(records[:2], {"slot_reduce": 2, "block_slot_reduce": 1})
+
+
+def _amg_runs():
+    run = {"amg_setup_s": 3.1, "levels": [244183, 23056, 1361, 59], "iterations": 15,
+           "rel": 3.3e-9, "true_residual": 1.9e-7, "launches": {"sell_spmv": 300}}
+    return {"native": dict(run), "scipy": dict(run, iterations=16)}
+
+
+@pytest.mark.parametrize("fault", ["none", "two iterations apart", "not converged",
+                                   "true residual", "no K1", "missing branch"])
+def test_amg_check(fault):
+    smoke = _smoke()
+    runs = _amg_runs()
+    if fault == "two iterations apart":
+        runs["scipy"]["iterations"] = 17
+    elif fault == "not converged":
+        runs["native"]["rel"] = 2e-8
+    elif fault == "true residual":
+        runs["scipy"]["true_residual"] = 2e-4
+    elif fault == "no K1":
+        runs["scipy"]["launches"] = {}
+    elif fault == "missing branch":
+        del runs["scipy"]
+    if fault == "none":
+        smoke._check_amg(runs)
+    else:
+        with pytest.raises(RuntimeError, match=r"\[amg\]"):
+            smoke._check_amg(runs)
+
+
+@pytest.fixture(scope="module")
+def gate_dir(tmp_path_factory):
+    """The four files a CPU run of the h=14 bench system (RCM order) writes,
+    and the gate's environment for them."""
+    import torch
+
+    from arcanefem_tpu_torch import bench_unstructured as bu
+
+    d = tmp_path_factory.mktemp("gate")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bu, "CACHE_DIR", str(d))
+        mesh, topo = bu.sphere_cut_system(14.0, 0, order="rcm")
+        bu.solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float32, penalty=1e12,
+                            order="rcm", cache=str(d / bu.mesh_key(14.0, 0, "rcm")))
+    return d, {"AFEM_CACHE_DIR": str(d), "BENCH_UNSTR_H": "14", "BENCH_UNSTR_REFINE": "0",
+               "BENCH_UNSTR_ORDER": "rcm"}
+
+
+@pytest.mark.parametrize("fault", ["none", "full exits 1", "a missing file", "empty exits 0",
+                                   "empty lists three"])
+def test_caches_check(gate_dir, tmp_path, capsys, fault):
+    """[caches]' checks on the gate's own output: a directory of the four
+    files a CPU run of the h=14 bench system writes (exit 0) and an empty
+    one (exit 1); each fault fails."""
+    import shutil
+
+    from arcanefem_tpu_torch.tools import verify_caches
+
+    smoke = _smoke()
+    src, env = gate_dir
+
+    def gate(e):
+        code = verify_caches.main(e, "cpu")
+        return code, capsys.readouterr().out
+
+    full = gate(env)
+    empty = gate({**env, "AFEM_CACHE_DIR": str(tmp_path / "empty")})
+    if fault == "full exits 1":
+        full = (1, full[1])
+    elif fault == "a missing file":
+        d = tmp_path / "c"
+        shutil.copytree(src, d)
+        os.remove(d / "sell_sphere_cut_v3_h14_r0_v1.npz")
+        full = gate({**env, "AFEM_CACHE_DIR": str(d)})
+    elif fault == "empty exits 0":
+        empty = (0, empty[1])
+    elif fault == "empty lists three":
+        empty = (1, "\n".join(empty[1].splitlines()[1:]))
+    if fault == "none":
+        smoke._check_caches(full, empty)
+    else:
+        with pytest.raises(RuntimeError, match=r"\[caches\]"):
+            smoke._check_caches(full, empty)

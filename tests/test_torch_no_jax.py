@@ -475,3 +475,52 @@ def test_sweep_runs_without_jax(tmp_path):
         assert f.readline().rstrip("\n").split("\t") == [
             "axis", "size", "nodes", "elements", "format", "devices",
             "lhs_matrix_assembly_s", "mdof_per_s", "solve_s", "iterations", "invariant"]
+
+
+def test_scan_covers_the_last_tools():
+    """The source scan above reads the ILU decision tool and the cache gate."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("tools/ilu_decision.py", "tools/verify_caches.py"):
+        assert os.path.join("arcanefem_tpu_torch", mod) in scanned, mod
+
+
+_TOOLS_SCRIPT = _PRELUDE + """
+import runpy
+sys.modules["tools"] = None  # nor the root tools/
+from arcanefem_tpu_torch.tools import ilu_decision
+small = {"poisson2d_8k": (8, 8), "poisson3d_11k": (4, 4, 4), "elasticity2d_5k": (6, 6)}
+rows = [ilu_decision.decision_row(s.name, s.A, s.rhs) for s in ilu_decision.systems("cpu", small)]
+codes = []
+for mod in ("ilu_decision", "verify_caches"):
+    sys.argv = [mod]
+    try:  # without CUDA the first exits 1; on an empty cache the gate exits 1
+        runpy.run_module("arcanefem_tpu_torch.tools." + mod, run_name="__main__")
+        codes.append(0)
+    except SystemExit as e:
+        codes.append(e.code)
+print(json.dumps({"rows": rows, "codes": codes,
+                  "loaded": [m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "arcanefem_tpu", "bench", "tools")
+                             and sys.modules[m] is not None]}))
+"""
+
+
+def test_last_tools_run_without_jax(tmp_path):
+    """tools/ilu_decision.py (its systems and rows at a small size on the
+    CPU; its entry point, which exits 1 without CUDA) and
+    tools/verify_caches.py (exit 1 on an empty cache directory, every file
+    MISSING) in a process where neither jax, arcanefem_tpu, the root bench
+    nor the root tools can be imported."""
+    env = dict(os.environ, PYTHONPATH=REPO, AFEM_CACHE_DIR=str(tmp_path / "empty"))
+    for k in [k for k in env if k.startswith("BENCH_")]:
+        del env[k]
+    proc = subprocess.run([sys.executable, "-c", _TOOLS_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    out = json.loads(lines[-1])
+    assert out["codes"] == [1, 1] and out["loaded"] == []
+    assert [r["system"] for r in out["rows"]] == ["poisson2d_8k", "poisson3d_11k",
+                                                  "elasticity2d_5k"]
+    assert all(0 < r["ic0_iters"] < 2000 for r in out["rows"])
+    assert sum(ln.startswith("  MISSING ") for ln in lines) == 4
