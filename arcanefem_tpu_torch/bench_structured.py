@@ -51,6 +51,7 @@ from .sparse.dia_stencil import (
     to_plane_matrix,
     to_stencil_matrix,
 )
+from .utils import tracing
 from .utils.timing import time_op
 
 RTOL = 1e-8
@@ -157,17 +158,21 @@ def solve_mg(s: BoxSystem, replace_every: int = REPLACE_EVERY, events=None,
     """One full pass of the MG path: assembly with RHS and BC (fused, or
     with ``opts.fused`` False the stiffness penalised and moved to the
     plane layout), hierarchy, MG-PCG, unpad."""
-    if opts.fused:
-        Ap, rhs_p = assemble_system(s.box, s.coords3d, s.mask_p, s.pg_p, PENALTY, f=1.0)
-    else:
-        A, rhs, _ = _penalised_system(s)
-        Ap = to_plane_matrix(A, s.box)
-        rhs_p = Ap.pad_vec(rhs)
-    M = build_mg_padded(s.box, s.coords3d, s.mask, PENALTY, fine=Ap,
-                        masks_p=s.masks_p, min_size=MIN_SIZE, nu=opts.nu,
-                        omega=OMEGA, coarse_iters=COARSE_ITERS, fused=opts.fused,
-                        cheb=opts.smoother == "cheb",
-                        band_dtype=torch.bfloat16 if opts.mg_bf16 else None)
+    on = tracing.active()
+    with tracing.span(tracing.MG_ASSEMBLE, on):
+        if opts.fused:
+            Ap, rhs_p = assemble_system(s.box, s.coords3d, s.mask_p, s.pg_p, PENALTY,
+                                        f=1.0)
+        else:
+            A, rhs, _ = _penalised_system(s)
+            Ap = to_plane_matrix(A, s.box)
+            rhs_p = Ap.pad_vec(rhs)
+    with tracing.span(tracing.MG_BUILD, on):
+        M = build_mg_padded(s.box, s.coords3d, s.mask, PENALTY, fine=Ap,
+                            masks_p=s.masks_p, min_size=MIN_SIZE, nu=opts.nu,
+                            omega=OMEGA, coarse_iters=COARSE_ITERS, fused=opts.fused,
+                            cheb=opts.smoother == "cheb",
+                            band_dtype=torch.bfloat16 if opts.mg_bf16 else None)
     xp, k, rel = _pcg(Ap, rhs_p, M, s.x0_p, events, replace_every, opts)
     return {"x": Ap.unpad_vec(xp), "iterations": k, "rel": rel, "A": Ap,
             "b": rhs_p, "x0": s.x0_p, "M": M}

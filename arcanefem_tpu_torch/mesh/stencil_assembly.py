@@ -44,7 +44,7 @@ from ..sparse.dia_stencil import (
     to_plane_matrix,
     unpad_vec,
 )
-from ..utils import kernels
+from ..utils import kernels, tracing
 from .structured import _HEX_CORNERS, _TETS, StructuredBox
 
 # -- the hex table: where each value of a hex's 6 tets goes ------------------
@@ -105,17 +105,17 @@ def kernel_tables() -> str:
     return "\n".join(out) + "\n"
 
 
-_LAUNCHES = {"stencil_assembly": 0}
+_LAUNCHES = tracing.counters("stencil_assembly")
 _ENTRY = {torch.float32: "afem_stencil_assembly_f32",
           torch.float64: "afem_stencil_assembly_f64"}
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES["stencil_assembly"] = 0
+    tracing.reset_counts(_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return tracing.counts(_LAUNCHES)
 
 
 def _check(box: StructuredBox, coords3d: torch.Tensor, planes=()) -> bool:
@@ -153,7 +153,7 @@ def _launch(box, coords3d, bands, rhs, mask_p, pg_p, nyo, nzo, off,
         None if pg_p is None else pg_p.data_ptr(), bands.data_ptr(),
         None if rhs is None else rhs.data_ptr(), box.nx, box.ny, box.nz,
         nyo, nzo, off, s_plane, s_band, float(penalty), float(f))
-    _LAUNCHES["stencil_assembly"] += 1
+    tracing.count("stencil_assembly")
 
 
 def assemble_stiffness_plain(box: StructuredBox, coords3d: torch.Tensor) -> DiaMatrix:

@@ -52,19 +52,19 @@ from ..sparse.ell_gather import ell_gather_sum_batched, ell_gather_sum_batched_p
 # Q2P16 (ordered pair q = i*4 + j -> its column)
 from ..sparse.pallas_assembly import Q2P16, TRI10, reordered_lists  # noqa: F401
 from ..sparse.slot_reduce import group_by_slot, slot_reduce, slot_reduce_plain
-from ..utils import kernels
+from ..utils import kernels, tracing
 
 REDUCES = ("window", "segsum", "reorder")  # the orders of the contributor lists
 
-_LAUNCHES = {"tet_element": 0}
+_LAUNCHES = tracing.counters("tet_element")
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES["tet_element"] = 0
+    tracing.reset_counts(_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return tracing.counts(_LAUNCHES)
 
 
 def tet_corners_plain(coords: torch.Tensor, corner_cols: torch.Tensor) -> torch.Tensor:
@@ -118,7 +118,7 @@ def _launch(device: torch.device, cols_ptr, rows, stride: int, nc: int) -> torch
     if nc:
         kernels.launch("afem_tet_element_f32", device, cols_ptr, *rows, stride,
                        ke.data_ptr(), nc)
-        _LAUNCHES["tet_element"] += 1
+        tracing.count("tet_element")
     return ke
 
 
@@ -259,4 +259,5 @@ class TetraAssembler:
 
     def __call__(self, coords: torch.Tensor) -> torch.Tensor:
         reduce = slot_reduce_plain if self.plain else slot_reduce
-        return reduce(self.ptr, self.ids, self.element_table(coords).view(-1))
+        with tracing.span(tracing.ASM):
+            return reduce(self.ptr, self.ids, self.element_table(coords).view(-1))

@@ -35,17 +35,18 @@ import warnings
 import torch
 import torch.distributed as dist
 
+from ..utils import tracing
+
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
-_COUNTS = {"all_gather": 0, "all_reduce": 0, "p2p": 0}
+_COUNTS = tracing.counters("all_gather", "all_reduce", "p2p")
 
 
 def reset_counts() -> None:
-    for k in _COUNTS:
-        _COUNTS[k] = 0
+    tracing.reset_counts(_COUNTS)
 
 
 def counts() -> dict[str, int]:
-    return dict(_COUNTS)
+    return tracing.counts(_COUNTS)
 
 
 class Comm:
@@ -63,7 +64,7 @@ class Comm:
         if self.world == 1:
             return out.copy_(send)
         dist.all_gather_into_tensor(out, send)
-        _COUNTS["all_gather"] += 1
+        tracing.count("all_gather")
         return out
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
@@ -71,7 +72,7 @@ class Comm:
         t = t.clone()
         if self.world > 1:
             dist.all_reduce(t)
-            _COUNTS["all_reduce"] += 1
+            tracing.count("all_reduce")
         return t
 
     def pdot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -95,7 +96,7 @@ class Comm:
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-            _COUNTS["p2p"] += 1
+            tracing.count("p2p")
         return recv
 
     def warm_up(self) -> None:
@@ -112,7 +113,7 @@ class Comm:
         n = self.world
         self.ppermute(t, [(i, (i + 1) % n) for i in range(n)])
         self.ppermute(t, [(i, (i - 1) % n) for i in range(n)])
-        _COUNTS.update(saved)
+        tracing.restore_counts(saved)
 
     def barrier(self) -> None:
         if self.world > 1:

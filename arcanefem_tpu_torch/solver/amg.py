@@ -37,6 +37,7 @@ from ..sparse.bell import BellMatrix
 from ..sparse.compact import CompactMatrix
 from ..sparse.sell import SellLayout
 from ..sparse.supernode import block_products
+from ..utils import tracing
 from ..utils.cache import load_npz, save_npz
 from .amg_setup import phase_marker
 
@@ -159,33 +160,46 @@ class AMGPrecond:
             return self.p_apply[l].spmv(xc)
         return self.P[l].spmv(xc)
 
-    def _cycle(self, l: int, b: torch.Tensor) -> torch.Tensor:
+    def _cycle(self, l: int, b: torch.Tensor, on: bool = False) -> torch.Tensor:
+        """One cycle from level ``l`` down; ``on``: record its spans."""
+        span = tracing.span
         if l == len(self.mats):
-            return self.coarse_inv @ b
+            with span(tracing.VCYCLE_COARSE, on):
+                return self.coarse_inv @ b
         A = self._mat(l)
+        names = tracing.level(l)
         if l == 0 and self.sawtooth:
             # no fine pre-smooth: x = 0, so the residual is b
-            x = self._prolong(l, self._cycle(l + 1, self._restrict(l, b)))
+            with span(names.restrict, on):
+                rc = self._restrict(l, b)
+            xc = self._cycle(l + 1, rc, on)
+            with span(names.prolong, on):
+                x = self._prolong(l, xc)
         else:
+            with span(names.smooth, on):
+                if self.smoother == "chebyshev":
+                    x = self._smooth_cheb(l, b)
+                else:
+                    x = self._smooth_jacobi(l, b)
+            visits = 2 if self.cycle == "W" and l + 1 < len(self.mats) else 1
+            for _ in range(visits):  # a W-cycle's second visit takes the new residual
+                with span(names.residual, on):
+                    r = b - A.spmv(x)
+                with span(names.restrict, on):
+                    rc = self._restrict(l, r)
+                xc = self._cycle(l + 1, rc, on)
+                with span(names.prolong, on):
+                    x = x + self._prolong(l, xc)
+        with span(names.smooth, on):
             if self.smoother == "chebyshev":
-                x = self._smooth_cheb(l, b)
-            else:
-                x = self._smooth_jacobi(l, b)
-            r = b - A.spmv(x)
-            x = x + self._prolong(l, self._cycle(l + 1, self._restrict(l, r)))
-            if self.cycle == "W" and l + 1 < len(self.mats):
-                # second coarse visit with the updated residual
-                r = b - A.spmv(x)
-                x = x + self._prolong(l, self._cycle(l + 1, self._restrict(l, r)))
-        if self.smoother == "chebyshev":
-            return self._smooth_cheb(l, b, x)
-        om = self.omegas[l]
-        for _ in range(self.nu):
-            x = x + om * self._minv(l, b - A.spmv(x))
-        return x
+                return self._smooth_cheb(l, b, x)
+            om = self.omegas[l]
+            for _ in range(self.nu):
+                x = x + om * self._minv(l, b - A.spmv(x))
+            return x
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
-        return self._cycle(0, r)
+        return self._cycle(0, r, tracing.active())
 
 
 def amg_from_numpy(d: dict, device: torch.device | str,

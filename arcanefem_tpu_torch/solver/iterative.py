@@ -27,6 +27,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 
 class Precond:
     """Pointwise or block preconditioner: kind "none", "jacobi" (data: the
@@ -177,32 +179,48 @@ def pcg_chunked(A, b: torch.Tensor, M, x0: torch.Tensor, rtol: float,
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     dot = precise_dot if use_precise_dot else default_dot
-    x = x0.to(torch.float64)
-    r = b - A.spmv(x0)
-    z = M.apply(r)
-    p = z
-    rz = dot(r, z)
-    rz0 = rz
-    tol2 = torch.clamp(rtol * rtol * rz0.abs(), min=atol * atol)
-    k = 0
-    # One host read of the stopping test per chunk: a device sync each
-    # time, which is what a CUDA graph of one chunk would leave.
-    while k < max_iter and bool(rz.abs() > tol2):
-        for _ in range(chunk):
-            Ap = A.spmv(p)
-            alpha = rz / dot(p, Ap)
-            x = x + alpha.to(torch.float64) * p.to(torch.float64)
-            r = r - alpha * Ap
-            k += 1
-            if replace_every and k % replace_every == 0:
-                r = A.residual(b.double(), x).to(b.dtype)
+    on, span = tracing.active(), tracing.span
+    with span(tracing.CG, on):
+        x = x0.to(torch.float64)
+        with span(tracing.CG_SPMV, on):
+            r = b - A.spmv(x0)
+        with span(tracing.VCYCLE, on):
             z = M.apply(r)
-            rz_new = dot(r, z)
-            beta = rz_new / rz
-            p = z + beta * p
-            rz = rz_new
-    tiny = torch.finfo(b.dtype).tiny
-    rel = float(torch.sqrt(rz.abs() / torch.clamp(rz0.abs(), min=tiny)))
+        p = z
+        with span(tracing.CG_DOT, on):
+            rz = dot(r, z)
+        rz0 = rz
+        tol2 = torch.clamp(rtol * rtol * rz0.abs(), min=atol * atol)
+        tiny = torch.finfo(b.dtype).tiny
+        k = 0
+        while True:
+            # One host read of the stopping test per chunk: a device sync
+            # each time, which is what a CUDA graph of one chunk would leave.
+            with span(tracing.CG_TEST, on):
+                if k >= max_iter or not bool(rz.abs() > tol2):
+                    rel = float(torch.sqrt(rz.abs() / torch.clamp(rz0.abs(), min=tiny)))
+                    break
+            for _ in range(chunk):
+                with span(tracing.CG_SPMV, on):
+                    Ap = A.spmv(p)
+                with span(tracing.CG_DOT, on):
+                    pAp = dot(p, Ap)
+                with span(tracing.CG_UPDATE, on):
+                    alpha = rz / pAp
+                    x = x + alpha.to(torch.float64) * p.to(torch.float64)
+                    r = r - alpha * Ap
+                k += 1
+                if replace_every and k % replace_every == 0:
+                    with span(tracing.CG_REPLACE, on):
+                        r = A.residual(b.double(), x).to(b.dtype)
+                with span(tracing.VCYCLE, on):
+                    z = M.apply(r)
+                with span(tracing.CG_DOT, on):
+                    rz_new = dot(r, z)
+                with span(tracing.CG_UPDATE, on):
+                    beta = rz_new / rz
+                    p = z + beta * p
+                rz = rz_new
     return x, k, rel
 
 

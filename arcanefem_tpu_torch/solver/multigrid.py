@@ -39,6 +39,7 @@ from ..sparse.dia_stencil import (
     to_stencil_matrix,
 )
 from ..sparse.dia import DiaMatrix
+from ..utils import tracing
 
 # --- per-axis transfers -----------------------------------------------------
 
@@ -69,17 +70,21 @@ def _restrict_axis(f: torch.Tensor, axis: int) -> torch.Tensor:
                          + torch.cat([odd, zeros], dim=axis))
 
 
-def prolong3(xc: torch.Tensor, cshape, fshape) -> torch.Tensor:
+def prolong3(xc: torch.Tensor, cshape, fshape, on: bool = False) -> torch.Tensor:
+    """Trilinear interpolation; ``on``: a span per axis."""
     x = xc.reshape(cshape)
     for ax in range(3):
-        x = _prolong_axis(x, ax)
+        with tracing.span(tracing.PROLONG_AXIS, on):
+            x = _prolong_axis(x, ax)
     return x.reshape(-1)
 
 
-def restrict3(xf: torch.Tensor, fshape, cshape) -> torch.Tensor:
+def restrict3(xf: torch.Tensor, fshape, cshape, on: bool = False) -> torch.Tensor:
+    """The adjoint of :func:`prolong3`; ``on``: a span per axis."""
     x = xf.reshape(fshape)
     for ax in range(3):
-        x = _restrict_axis(x, ax)
+        with tracing.span(tracing.RESTRICT_AXIS, on):
+            x = _restrict_axis(x, ax)
     return x.reshape(-1)
 
 
@@ -198,40 +203,52 @@ class MGPrecondP:
             return self.omega
         return self.omegas[::-1][k] if reverse else self.omegas[k]
 
-    def _smooth0(self, l: int, bp, sweeps: int):
-        """``sweeps`` damped-Jacobi (or Chebyshev) sweeps from x = 0."""
+    def _smooth0(self, l: int, bp, sweeps: int, on: bool = False):
+        """``sweeps`` damped-Jacobi (or Chebyshev) sweeps from x = 0;
+        ``on``: a span per sweep after the first."""
         seq = self.omegas if (self.omegas and sweeps == self.nu) else None
         x = (seq[0] if seq else self.omega) * self.inv_diags_p[l] * bp
         for k in range(1, sweeps):
             om = seq[k] if seq else self.omega
-            x = self.mats[l].jacobi_sweep(x, bp, self.inv_diags_p[l], om)
+            with tracing.span(tracing.VCYCLE_SWEEP, on):
+                x = self.mats[l].jacobi_sweep(x, bp, self.inv_diags_p[l], om)
         return x
 
-    def _restrict(self, l: int, rp):
+    def _restrict(self, l: int, rp, on: bool = False):
         r = self.mats[l].unpad_vec(rp)
-        return self.mats[l + 1].pad_vec(restrict3(r, self.shapes[l], self.shapes[l + 1]))
+        return self.mats[l + 1].pad_vec(
+            restrict3(r, self.shapes[l], self.shapes[l + 1], on))
 
-    def _prolong(self, l: int, xcp):
+    def _prolong(self, l: int, xcp, on: bool = False):
         xc = self.mats[l + 1].unpad_vec(xcp)
-        return self.mats[l].pad_vec(prolong3(xc, self.shapes[l + 1], self.shapes[l]))
+        return self.mats[l].pad_vec(prolong3(xc, self.shapes[l + 1], self.shapes[l], on))
 
-    def _vcycle(self, l: int, bp):
+    def _vcycle(self, l: int, bp, on: bool = False):
+        """The V-cycle from level ``l`` down; ``on``: record its spans."""
+        span = tracing.span
         if l == len(self.mats) - 1:
-            return self._smooth0(l, bp, self.coarse_iters)
+            with span(tracing.VCYCLE_COARSE, on):
+                return self._smooth0(l, bp, self.coarse_iters, on)
         A, invd = self.mats[l], self.inv_diags_p[l]
-        x = self._smooth0(l, bp, self.nu)
-        r = A.residual(bp, x, self.maskmul_p[l])
-        rc = self._restrict(l, r) * self.maskmul_p[l + 1]
-        xc = self._vcycle(l + 1, rc) * self.maskmul_p[l + 1]
-        x = x + self._prolong(l, xc)
-        for k in range(self.nu):
-            x = A.jacobi_sweep(x, bp, invd, self._sweep_omega(k, reverse=True))
+        names = tracing.level(l)
+        with span(names.smooth, on):
+            x = self._smooth0(l, bp, self.nu, on)
+        with span(names.residual, on):
+            r = A.residual(bp, x, self.maskmul_p[l])
+        with span(names.restrict, on):
+            rc = self._restrict(l, r, on) * self.maskmul_p[l + 1]
+        xc = self._vcycle(l + 1, rc, on)
+        with span(names.prolong, on):
+            x = x + self._prolong(l, xc * self.maskmul_p[l + 1], on)
+        with span(names.smooth, on):
+            for k in range(self.nu):
+                x = A.jacobi_sweep(x, bp, invd, self._sweep_omega(k, reverse=True))
         return x
 
     def apply(self, rp: torch.Tensor) -> torch.Tensor:
         """M⁻¹ r on padded vectors: V-cycle on free rows + exact Jacobi on
         penalty rows."""
-        z = self._vcycle(0, rp * self.maskmul_p[0])
+        z = self._vcycle(0, rp * self.maskmul_p[0], tracing.active())
         return torch.where(self.masks_p[0], rp * self.inv_diags_p[0], z)
 
 

@@ -40,7 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils import kernels
+from ..utils import kernels, tracing
 from .ell_gather import MAX_TABLES
 
 LANE = 128
@@ -48,16 +48,15 @@ UNIT_PAD = 1 << 28  # pallas_spmv.py::_UNIT_PAD
 DEF_K = 16
 
 _ENTRY = {torch.float32: "afem_band_gather_f32", torch.float64: "afem_band_gather_f64"}
-_LAUNCHES = {"band_gather": 0, "band_gather_batched": 0}
+_LAUNCHES = tracing.counters("band_gather", "band_gather_batched")
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    tracing.reset_counts(_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return tracing.counts(_LAUNCHES)
 
 
 def band_gather_batched_plain(bases: torch.Tensor, lcols: torch.Tensor,
@@ -142,7 +141,7 @@ def _launch(name: str, ptrs: tuple[int, int, int], t, out, n_tiles: int,
     (0 when every tile is narrow)."""
     kernels.launch(_ENTRY[t.dtype], t.device, *ptrs, t.data_ptr(), out.data_ptr(),
                    n_tiles, n_narrow, K, B, n_t, ts_r, ts_b, os_r, os_b)
-    _LAUNCHES[name] += 1
+    tracing.count(name)
 
 
 def band_gather(bases: torch.Tensor, lcols: torch.Tensor, x: torch.Tensor,

@@ -49,23 +49,22 @@ import copy
 import numpy as np
 import torch
 
-from ..utils import kernels
+from ..utils import kernels, tracing
 from .sell import C, choose_sigma, slice_rows
 
 BLOCKS = (2, 4)
 _NAMES = ((torch.float32, "f32"), (torch.float64, "f64"), (torch.bfloat16, "bf16_f32"))
 _ENTRY = {t: f"afem_bsr_spmv_b4_{n}" for t, n in _NAMES}
 _SLICE_ENTRY = {t: f"afem_bsr2_slice_spmv_{n}" for t, n in _NAMES}
-_LAUNCHES = {"bsr_spmv": 0, "bsr_spmv_bf16": 0}
+_LAUNCHES = tracing.counters("bsr_spmv", "bsr_spmv_bf16")
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    tracing.reset_counts(_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return tracing.counts(_LAUNCHES)
 
 
 def _block_products_plain(blocks, cols, rows, n_brows, x, n_rows) -> torch.Tensor:
@@ -312,7 +311,7 @@ class BlockedGather:
             kernels.launch(_ENTRY[self.blocks.dtype], xin.device, self.blocks.data_ptr(),
                            self.bcol.data_ptr(), self.bptr.data_ptr(), xin.data_ptr(),
                            y.data_ptr(), self.n_rows, self.n_cols, self.bptr.numel() - 1)
-        _LAUNCHES["bsr_spmv_bf16" if self.dtype == torch.bfloat16 else "bsr_spmv"] += 1
+        tracing.count("bsr_spmv_bf16" if self.dtype == torch.bfloat16 else "bsr_spmv")
         return y.to(x.dtype)
 
     def with_weights_dtype(self, dtype) -> "BlockedGather":

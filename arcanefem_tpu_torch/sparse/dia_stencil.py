@@ -35,7 +35,7 @@ import functools
 import numpy as np
 import torch
 
-from ..utils import kernels
+from ..utils import kernels, tracing
 from .dia import DiaMatrix
 
 SUBLANE, LANE = 8, 128  # the plane rounding (TPU tiles, CUDA blocks)
@@ -50,8 +50,8 @@ MODES = {"spmv": 0, "jacobi": 1, "residual": 2}
 
 # kernel launches by the name of the Pallas function each one replaces;
 # the solver's float64 residual replacement has a count of its own
-_LAUNCHES = {"dia_spmv_p": 0, "dia_jacobi_p": 0, "dia_residual_p": 0,
-             "dia_spmv": 0, "dia_sweep": 0, "residual_replace_f64": 0}
+_LAUNCHES = tracing.counters("dia_spmv_p", "dia_jacobi_p", "dia_residual_p",
+                             "dia_spmv", "dia_sweep", "residual_replace_f64")
 _PLANE_COUNT = {m: f"dia_{m}_p" for m in ("spmv", "jacobi", "residual")}
 _ENTRY = {  # (bands, vectors) -> C entry point
     (torch.float32, torch.float32): "afem_dia_stencil_f32_f32",
@@ -62,12 +62,11 @@ _ENTRY = {  # (bands, vectors) -> C entry point
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    tracing.reset_counts(_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return tracing.counts(_LAUNCHES)
 
 
 def offsets3d(box) -> tuple:
@@ -204,11 +203,11 @@ def dia_stencil(mode: str, bands: torch.Tensor, x: torch.Tensor, *,
                    None if aux is None else aux.data_ptr(), y.data_ptr(),
                    nx1, nyp, nzp, ny + 1, nz + 1, float(omega))
     if mode == "residual" and x.dtype == torch.float64:
-        _LAUNCHES["residual_replace_f64"] += 1
+        tracing.count("residual_replace_f64")
     elif band_major:
-        _LAUNCHES["dia_spmv" if mode == "spmv" else "dia_sweep"] += 1
+        tracing.count("dia_spmv" if mode == "spmv" else "dia_sweep")
     else:
-        _LAUNCHES[_PLANE_COUNT[mode]] += 1
+        tracing.count(_PLANE_COUNT[mode])
     return y
 
 

@@ -34,22 +34,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..utils import kernels
+from ..utils import kernels, tracing
 
 LANE = 128
 SUB = 8
 TILE_ROWS = SUB * LANE  # 1024 rows per (8, 128) tile
 
 _ENTRY = {torch.float32: "afem_diag_spmv_f32", torch.float64: "afem_diag_spmv_f64"}
-_LAUNCHES = {"diag_spmv": 0}
+_LAUNCHES = tracing.counters("diag_spmv")
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES["diag_spmv"] = 0
+    tracing.reset_counts(_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return tracing.counts(_LAUNCHES)
 
 
 @dataclass
@@ -203,7 +203,7 @@ def diag_spmv(lo: torch.Tensor, c0: torch.Tensor, scnt: torch.Tensor,
     kernels.launch(_ENTRY[x.dtype], x.device, lo.data_ptr(), c0.data_ptr(),
                    scnt.data_ptr(), lcols.data_ptr(), vals_tiled.data_ptr(),
                    x.data_ptr(), y.data_ptr(), x.size(0), W, c0.size(1) // W)
-    _LAUNCHES["diag_spmv"] += 1
+    tracing.count("diag_spmv")
     return y
 
 
@@ -259,7 +259,7 @@ class DiagEllMatrix:
         y = x.new_empty(x.size(0))
         kernels.launch(self._entry, x.device, *self._ptrs, x.data_ptr(),
                        y.data_ptr(), x.size(0), W, self._qn)
-        _LAUNCHES["diag_spmv"] += 1
+        tracing.count("diag_spmv")
         return y
 
     def diagonal(self) -> torch.Tensor:

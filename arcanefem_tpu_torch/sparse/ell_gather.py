@@ -41,23 +41,22 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import kernels
+from ..utils import kernels, tracing
 
 _FLOATS = (torch.float32, torch.float64)
 MAX_TABLES = 8
 _ENTRY = {(name, dt): f"afem_{name}_{'f32' if dt == torch.float32 else 'f64'}"
           for name in ("ell_gather_sum", "ell_gather_sum_batched") for dt in _FLOATS}
 
-_LAUNCHES = {"ell_gather_sum": 0, "ell_gather_sum_batched": 0}
+_LAUNCHES = tracing.counters("ell_gather_sum", "ell_gather_sum_batched")
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    tracing.reset_counts(_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return tracing.counts(_LAUNCHES)
 
 
 def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor,
@@ -131,7 +130,7 @@ def ell_gather_sum(cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return y
     kernels.launch(_ENTRY["ell_gather_sum", x.dtype], x.device,
                    cols.data_ptr(), x.data_ptr(), y.data_ptr(), n, W)
-    _LAUNCHES["ell_gather_sum"] += 1
+    tracing.count("ell_gather_sum")
     return y
 
 
@@ -159,6 +158,6 @@ def ell_gather_sum_batched(cols: torch.Tensor, tables: torch.Tensor,
         kernels.launch(_ENTRY["ell_gather_sum_batched", tables.dtype], tables.device,
                        cols.data_ptr(), tables.data_ptr(), y.data_ptr(), n, W,
                        tables.size(0), tables.size(1), ts_r, ts_b, ys_r, ys_b)
-        _LAUNCHES["ell_gather_sum_batched"] += 1
+        tracing.count("ell_gather_sum_batched")
     return y
 

@@ -55,7 +55,7 @@ import functools
 import numpy as np
 import torch
 
-from ..utils import kernels
+from ..utils import kernels, tracing
 
 C = 32  # rows per slice: one warp
 SIGMA = 1024  # the sorting window, where sorting pays
@@ -67,16 +67,15 @@ _ENTRY = {(torch.float32, torch.float32): "afem_sell_spmv_f32",
           (torch.bfloat16, torch.float32): "afem_sell_spmv_bf16_f32"}
 _BATCHED_ENTRY = {k: v.replace("sell_spmv", "sell_spmv_batched") for k, v in _ENTRY.items()}
 MAX_TABLES = 8
-_LAUNCHES = {"sell_spmv": 0, "sell_spmv_bf16": 0, "sell_spmv_batched": 0}
+_LAUNCHES = tracing.counters("sell_spmv", "sell_spmv_bf16", "sell_spmv_batched")
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    tracing.reset_counts(_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return tracing.counts(_LAUNCHES)
 
 
 def slice_rows(lens: np.ndarray, sigma: int):
@@ -342,8 +341,8 @@ def sell_spmv(values: torch.Tensor, layout: SellLayout,
         kernels.launch(entry, layout.device, values.data_ptr(), layout.cols_ptr,
                        layout.slice_ptr_ptr, layout.perm_ptr, x.data_ptr(),
                        y.data_ptr(), layout.n_rows, layout.n_slices)
-        _LAUNCHES["sell_spmv_bf16" if values.dtype == torch.bfloat16
-                  else "sell_spmv"] += 1
+        tracing.count("sell_spmv_bf16" if values.dtype == torch.bfloat16
+                      else "sell_spmv")
     return y
 
 
@@ -398,5 +397,5 @@ def sell_spmv_batched(values: torch.Tensor, layout: SellLayout,
                        layout.slice_ptr_ptr, layout.perm_ptr, tables.data_ptr(),
                        out.data_ptr(), layout.n_rows, layout.n_slices, B,
                        ts_r, ts_b, ys_r, ys_b)
-        _LAUNCHES["sell_spmv_batched"] += 1
+        tracing.count("sell_spmv_batched")
     return out

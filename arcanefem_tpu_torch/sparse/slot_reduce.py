@@ -46,34 +46,33 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils import kernels
+from ..utils import kernels, tracing
 from .sell import C, SellLayout
 
 _ENTRY = {torch.float32: "afem_slot_reduce_f32", torch.float64: "afem_slot_reduce_f64"}
 _BLOCK_ENTRY = {torch.float32: "afem_block_slot_reduce_f32",
                 torch.float64: "afem_block_slot_reduce_f64"}
 BLOCKS = (2, 3)  # the block sizes the block kernel is built for
-_LAUNCHES = {"slot_reduce": 0, "block_slot_reduce": 0}
+_LAUNCHES = tracing.counters("slot_reduce", "block_slot_reduce")
 # the launches of slot_reduce made by SlotSum (the fixed-order RHS and
 # face-matrix sums), a part of the "slot_reduce" count
-_SUM_LAUNCHES = {"slot_sum": 0}
+_SUM_LAUNCHES = tracing.counters("slot_sum")
 _PLACE_CHUNK = 1 << 24  # SELL slots per step of the plain twin's placement
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
-    _SUM_LAUNCHES["slot_sum"] = 0
+    tracing.reset_counts(_LAUNCHES)
+    tracing.reset_counts(_SUM_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return tracing.counts(_LAUNCHES)
 
 
 def sum_launch_counts() -> dict[str, int]:
     """{"slot_sum": the slot_reduce launches that SlotSum made}, zeroed by
     :func:`reset_launch_counts`."""
-    return dict(_SUM_LAUNCHES)
+    return tracing.counts(_SUM_LAUNCHES)
 
 
 def group_by_slot(slots: torch.Tensor, n_slots: int,
@@ -148,9 +147,9 @@ def slot_reduce(ptr: torch.Tensor, ids: torch.Tensor,
     if n:
         kernels.launch(entry, table.device, ptr.data_ptr(), ids.data_ptr(),
                        table.data_ptr(), out.data_ptr(), n)
-        _LAUNCHES["slot_reduce"] += 1
+        tracing.count("slot_reduce")
         if role == "sum":
-            _SUM_LAUNCHES["slot_sum"] += 1
+            tracing.count("slot_sum")
     return out
 
 
@@ -251,7 +250,7 @@ def block_slot_reduce(ptr: torch.Tensor, ids: torch.Tensor, table: torch.Tensor,
                        table.data_ptr(), row_ptr.data_ptr(), layout.slice_ptr_ptr,
                        layout.perm_ptr, out.data_ptr(), layout.n_rows, layout.n_slices,
                        int(layout.slice_width.max()) // b, b)
-        _LAUNCHES["block_slot_reduce"] += 1
+        tracing.count("block_slot_reduce")
     return out
 
 

@@ -37,22 +37,21 @@ import copy
 import numpy as np
 import torch
 
-from ..utils import kernels
+from ..utils import kernels, tracing
 
 BS = 8  # supernode size
 _ENTRY = {torch.float32: "afem_bsr8_spmv_f32", torch.float64: "afem_bsr8_spmv_f64",
           torch.bfloat16: "afem_bsr8_spmv_bf16_f32"}
 # launches by block type: float32/float64 blocks, bfloat16 blocks
-_LAUNCHES = {"bsr8_spmv": 0, "bsr8_spmv_bf16": 0}
+_LAUNCHES = tracing.counters("bsr8_spmv", "bsr8_spmv_bf16")
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    tracing.reset_counts(_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return tracing.counts(_LAUNCHES)
 
 
 def block_products(blocks: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -149,7 +148,7 @@ def bsr8_spmv(blocks: torch.Tensor, bcol: torch.Tensor, bptr: torch.Tensor,
     kernels.launch(_ENTRY[blocks.dtype], x.device, blocks.data_ptr(),
                    bcol.data_ptr(), bptr.data_ptr(), x.data_ptr(), y.data_ptr(),
                    x.shape[0], bptr.shape[0] - 1)
-    _LAUNCHES["bsr8_spmv_bf16" if blocks.dtype == torch.bfloat16 else "bsr8_spmv"] += 1
+    tracing.count("bsr8_spmv_bf16" if blocks.dtype == torch.bfloat16 else "bsr8_spmv")
     return y
 
 
@@ -279,7 +278,7 @@ class SupernodeSpmv:
         y = x.new_empty(self.n)
         kernels.launch(self._entry, x.device, *self._args, x.data_ptr(),
                        y.data_ptr(), self.n, self.n_sup)
-        _LAUNCHES[self._count] += 1
+        tracing.count(self._count)
         return y
 
     spmv = __call__

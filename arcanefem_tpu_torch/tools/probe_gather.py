@@ -32,22 +32,22 @@ import sys
 import numpy as np
 import torch
 
-from ..utils import kernels
+from ..utils import kernels, tracing
 
 LANE = 128
 MODES = {"column": 0, "flat": 1}
 # the largest K whose (K, 128) float32 window the kernel stages in a block's
 # shared memory (csrc/window_gather.cu); larger windows are read through L1/L2
 SMEM_MAX_K = 448
-_LAUNCHES = {"window_take": 0}
+_LAUNCHES = tracing.counters("window_take")
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES["window_take"] = 0
+    tracing.reset_counts(_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return tracing.counts(_LAUNCHES)
 
 
 def window_take_plain(win: torch.Tensor, idx: torch.Tensor,
@@ -92,7 +92,7 @@ def window_take(win: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor
     if ws[0] and xs[1]:
         kernels.launch("afem_window_take_f32", win.device, win.data_ptr(),
                        idx.data_ptr(), out.data_ptr(), ws[0], ws[1], xs[1], m)
-        _LAUNCHES["window_take"] += 1
+        tracing.count("window_take")
     return out
 
 
