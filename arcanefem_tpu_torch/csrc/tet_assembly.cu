@@ -4,6 +4,9 @@
 //   afem_tet_element_f32:   ke[c, k] = the k-th upper-triangle entry (TRI10
 //                           order: (0,0),(0,1),...,(3,3)) of cell c's
 //                           stiffness matrix, from its four corners
+//   afem_tet_assemble_f32:  the same sums over the patches' tables of
+//                           element entries, computed in shared memory
+//                           (one launch, no table in HBM)
 //   afem_slot_reduce_{f32,f64}:
 //                           out[s] = sum over k in [ptr[s], ptr[s+1]) of
 //                                    table[ids[k]], in stored order
@@ -53,6 +56,34 @@
 // connectivity, gathered corners, both outputs) carry streaming cache
 // hints, so the L2 keeps the coordinates and table rows that are gathered
 // again.
+//
+// tet_assemble fuses the two on the default route.  Two kernels move
+// about 2 GB per assembly of the 1.9M-node sphere against 0.31 GB of
+// least bytes: tet_element writes the 439 MB table, and slot_reduce reads
+// it back by a gather of one value per contributor (175.7M of them, a
+// 32-byte sector each, from a table 9x the L2) beside 703 MB of int32
+// contributor ids.  The fused kernel keeps the table in shared memory.
+// The SELL slices are cut into patches, runs of whole slices whose cells
+// (those with a corner on one of the patch's rows) fit a block's table;
+// cells on the rows of two patches are computed twice or more (the halo
+// factor, about 2.3 at the sphere).  Persistent blocks, one per SM, take
+// the patches in turn.  A patch's lists are 16-bit: its cells' corners as
+// positions among its nodes (8 bytes a cell), its nodes' global ids, and
+// per slot a pointer, a slot and its contributors' local ids (local cell
+// * 10 + TRI10 column, 2 bytes each).  cp.async copies them into one of
+// two buffers while the block works on the patch before, and gathers the
+// patch's node coordinates, which the L2 holds, once per node.  Phase 1
+// computes each cell's ten entries with tet_element's arithmetic
+// (tet_entries) into the table; phase 2 runs one thread per slot, longest
+// list first so that a warp's lists are alike in length, and sums the
+// slot's contributors from the table in f64 in the window lists' order,
+// rounding once.  So the values equal slot_reduce over tet_element on
+// those lists bit for bit, with no atomics, and padding slots get 0.
+// What bounds it: the copies, not the arithmetic.  At the sphere it moves
+// about 0.83 GB (0.25 ms at the HBM peak) in 0.57 ms; its copies alone,
+// with both phases left out, take 0.36 ms, and each phase adds about 0.1
+// (PERF.md section 6).  More blocks per SM, with smaller patches, did not
+// shorten it.
 //
 // block_slot_reduce assembles the b x b node blocks of the vector
 // systems (elasticity, elastodynamics, soildynamics, passmo, the mixed
@@ -131,6 +162,35 @@ __device__ __forceinline__ void cofactors(const float* u, const float* w, float*
              mul(u[2], sub(w[0], w[1])));
 }
 
+// the ten upper-triangle entries (TRI10 order) of the element matrix of
+// the cell with corners (x[i], y[i], z[i]), into out[0..9]; the one copy of
+// the arithmetic, so that tet_element and tet_assemble give the same bits
+__device__ __forceinline__ void tet_entries(const float* x, const float* y, const float* z,
+                                            float* out) {
+  // 6V = (p1-p0) . (p2-p0) x (p3-p0)
+  const float ax = sub(x[1], x[0]), ay = sub(y[1], y[0]), az = sub(z[1], z[0]);
+  const float bx = sub(x[2], x[0]), by = sub(y[2], y[0]), bz = sub(z[2], z[0]);
+  const float qx = sub(x[3], x[0]), qy = sub(y[3], y[0]), qz = sub(z[3], z[0]);
+  const float v6 = add(add(mul(ax, sub(mul(by, qz), mul(bz, qy))),
+                           mul(ay, sub(mul(bz, qx), mul(bx, qz)))),
+                       mul(az, sub(mul(bx, qy), mul(by, qx))));
+  const float inv = __fdiv_rn(1.0f, fabsf(v6));
+  float dx[4], dy[4], dz[4];
+  cofactors(y, z, dx);
+  cofactors(z, x, dy);
+  cofactors(x, y, dz);
+  // ke_ij = V (dx_i dx_j + dy_i dy_j + dz_i dz_j) / (6V)^2, V = |6V|/6
+  const float scale = __fdiv_rn(inv, 6.0f);
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = i; j < 4; ++j) {
+      out[k++] = mul(add(add(mul(dx[i], dx[j]), mul(dy[i], dy[j])), mul(dz[i], dz[j])), scale);
+    }
+  }
+}
+
 // kGather: corner i of cell c is node cols[i*nc + c], its coordinates
 // cx/cy/cz[node * stride]; else they are cx/cy/cz[i*nc + c].
 template <bool kGather>
@@ -151,35 +211,191 @@ tet_element_kernel(const int32_t* __restrict__ cols, const float* __restrict__ c
       y[i] = kGather ? __ldg(cy + p) : __ldcs(cy + p);
       z[i] = kGather ? __ldg(cz + p) : __ldcs(cz + p);
     }
-    // 6V = (p1-p0) . (p2-p0) x (p3-p0)
-    const float ax = sub(x[1], x[0]), ay = sub(y[1], y[0]), az = sub(z[1], z[0]);
-    const float bx = sub(x[2], x[0]), by = sub(y[2], y[0]), bz = sub(z[2], z[0]);
-    const float qx = sub(x[3], x[0]), qy = sub(y[3], y[0]), qz = sub(z[3], z[0]);
-    const float v6 = add(add(mul(ax, sub(mul(by, qz), mul(bz, qy))),
-                             mul(ay, sub(mul(bz, qx), mul(bx, qz)))),
-                         mul(az, sub(mul(bx, qy), mul(by, qx))));
-    const float inv = __fdiv_rn(1.0f, fabsf(v6));
-    float dx[4], dy[4], dz[4];
-    cofactors(y, z, dx);
-    cofactors(z, x, dy);
-    cofactors(x, y, dz);
-    // ke_ij = V (dx_i dx_j + dy_i dy_j + dz_i dz_j) / (6V)^2, V = |6V|/6
-    const float scale = __fdiv_rn(inv, 6.0f);
-    float* out = stage + threadIdx.x * kEntries;
-    int k = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = i; j < 4; ++j) {
-        out[k++] = mul(add(add(mul(dx[i], dx[j]), mul(dy[i], dy[j])),
-                           mul(dz[i], dz[j])), scale);
-      }
-    }
+    tet_entries(x, y, z, stage + threadIdx.x * kEntries);
   }
   __syncthreads();
   const int64_t rows = nc - c0 < kThreads ? nc - c0 : kThreads;
   float* dst = ke + c0 * kEntries;
   for (int t = threadIdx.x; t < rows * kEntries; t += kThreads) __stcs(dst + t, stage[t]);
+}
+
+// asynchronous copies from global to shared memory (cp.async), in commit
+// groups that a thread waits for
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// tet_assemble's patch p, from meta: four (n_patches + 1,) int64 rows, each
+// patch's first cell (of lconn), SELL slot, blob entry and node
+struct Patch {
+  int64_t c0, s0, b0, v0;
+  int cells, slots, chunks, nodes;
+};
+__device__ __forceinline__ Patch patch_at(const int64_t* __restrict__ meta, int64_t m,
+                                          int64_t p) {
+  Patch q;
+  q.c0 = __ldg(meta + p);
+  q.cells = static_cast<int>(__ldg(meta + p + 1) - q.c0);
+  q.s0 = __ldg(meta + m + p);
+  q.slots = static_cast<int>(__ldg(meta + m + p + 1) - q.s0);
+  q.b0 = __ldg(meta + 2 * m + p);
+  q.chunks = static_cast<int>(__ldg(meta + 2 * m + p + 1) - q.b0) / 8;
+  q.v0 = __ldg(meta + 3 * m + p);
+  q.nodes = static_cast<int>(__ldg(meta + 3 * m + p + 1) - q.v0);
+  return q;
+}
+
+// a patch's buffer in shared memory: its cells' local corners (8 bytes a
+// cell, to 16), its nodes' global ids (4 bytes a node, nodes a multiple of
+// 4), their (x, y, z, unused) (16 bytes a node), then its part of the blob
+struct Stage {
+  ushort4* lconn;
+  int32_t* ids;
+  float4* xyz;
+  uint16_t* lists;
+};
+__device__ __forceinline__ Stage stage_at(unsigned char* b, const Patch& q) {
+  Stage r;
+  r.lconn = reinterpret_cast<ushort4*>(b);
+  unsigned char* v = b + (8 * q.cells + 15) / 16 * 16;
+  r.ids = reinterpret_cast<int32_t*>(v);
+  r.xyz = reinterpret_cast<float4*>(v + 4 * q.nodes);
+  r.lists = reinterpret_cast<uint16_t*>(v + 20 * q.nodes);
+  return r;
+}
+
+// the copies of a patch: its local corners and node ids (N), then its
+// nodes' coordinates from the (N, 3) table, which the L2 holds (C, after N
+// has landed), and its blob part (B)
+template <int kBlock>
+__device__ __forceinline__ void fetch_nodes(const ushort4* __restrict__ lconn,
+                                            const int32_t* __restrict__ nodes, const Patch& q,
+                                            const Stage& r) {
+  for (int t = threadIdx.x; t < q.cells; t += kBlock) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(r.lconn + t));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(lconn + q.c0 + t)
+                 : "memory");
+  }
+  for (int t = threadIdx.x; t < q.nodes / 4; t += kBlock) {
+    copy16(r.ids + 4 * t, nodes + q.v0 + 4 * t);
+  }
+}
+template <int kBlock>
+__device__ __forceinline__ void fetch_coords(const float* __restrict__ coords, const Patch& q,
+                                             const Stage& r) {
+  for (int t = threadIdx.x; t < q.nodes; t += kBlock) {
+    const float* c = coords + static_cast<int64_t>(r.ids[t]) * 3;
+    copy4(&r.xyz[t].x, c);
+    copy4(&r.xyz[t].y, c + 1);
+    copy4(&r.xyz[t].z, c + 2);
+  }
+}
+template <int kBlock>
+__device__ __forceinline__ void fetch_lists(const uint16_t* __restrict__ blob, const Patch& q,
+                                            const Stage& r) {
+  for (int t = threadIdx.x; t < q.chunks; t += kBlock) {
+    copy16(r.lists + 8 * t, blob + q.b0 + 8 * t);
+  }
+}
+
+// tet_assemble: persistent blocks, one on each SM, block b taking patches
+// b, b + gridDim.x, ...; a patch is a run of whole SELL slices.  Phase 1
+// computes the patch's cells' entries into the table (ten floats a cell,
+// tet_entries); phase 2 takes position i of its S slots: it sums the local
+// ids lists[ptr[i] .. ptr[i + 1]) (local cell * 10 + TRI10 column) from
+// the table in float64 in list order, rounds once and stores slot
+// s0 + slot[i].  The blob part of a patch holds ptr (S + 1), slot (S), then
+// the lists.  Two buffers: while the block works on one patch, the next
+// one's copies land in the other: N during phase 1, C during phase 2, B
+// during phase 2 and the next phase 1.  Shared memory: the table (40 max_cells
+// bytes, to 16), then two buffers of buf_bytes.
+template <int kBlock>
+__global__ void __launch_bounds__(kBlock)
+tet_assemble_kernel(const ushort4* __restrict__ lconn, const int32_t* __restrict__ nodes,
+                    const float* __restrict__ coords, const int64_t* __restrict__ meta,
+                    const uint16_t* __restrict__ blob, float* __restrict__ out,
+                    int64_t n_patches, int max_cells, int buf_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* table = reinterpret_cast<float*>(smem);
+  unsigned char* bufs = smem + (40 * max_cells + 15) / 16 * 16;
+  const int64_t m = n_patches + 1;
+  int64_t p = blockIdx.x;
+  if (p >= n_patches) return;
+  Patch cur = patch_at(meta, m, p);
+  Stage cb = stage_at(bufs, cur);
+  fetch_nodes<kBlock>(lconn, nodes, cur, cb);
+  copy_commit();
+  copy_wait<0>();
+  __syncthreads();
+  fetch_coords<kBlock>(coords, cur, cb);
+  copy_commit();
+  fetch_lists<kBlock>(blob, cur, cb);
+  copy_commit();
+  for (int it = 0;; ++it) {
+    const int64_t pn = p + gridDim.x;
+    const bool more = pn < n_patches;
+    Patch nxt = cur;
+    Stage nb = cb;
+    if (more) {
+      nxt = patch_at(meta, m, pn);
+      nb = stage_at(bufs + ((it + 1) & 1) * buf_bytes, nxt);
+      fetch_nodes<kBlock>(lconn, nodes, nxt, nb);
+    }
+    copy_commit();
+    // pending, oldest first: C and B of this patch, N of the next; C done
+    copy_wait<2>();
+    __syncthreads();
+    for (int t = threadIdx.x; t < cur.cells; t += kBlock) {
+      const ushort4 q = cb.lconn[t];
+      const float4 a = cb.xyz[q.x], b = cb.xyz[q.y], c = cb.xyz[q.z], d = cb.xyz[q.w];
+      const float x[4] = {a.x, b.x, c.x, d.x};
+      const float y[4] = {a.y, b.y, c.y, d.y};
+      const float z[4] = {a.z, b.z, c.z, d.z};
+      tet_entries(x, y, z, table + t * kEntries);
+    }
+    // this patch's B and the next one's N have landed
+    copy_wait<0>();
+    __syncthreads();
+    if (more) fetch_coords<kBlock>(coords, nxt, nb);
+    copy_commit();
+    if (more) fetch_lists<kBlock>(blob, nxt, nb);
+    copy_commit();
+    const uint16_t* ptr = cb.lists;
+    const uint16_t* slot = ptr + cur.slots + 1;
+    const uint16_t* ids = slot + cur.slots;
+    for (int t = threadIdx.x; t < cur.slots; t += kBlock) {
+      int k = ptr[t];
+      const int end = ptr[t + 1];
+      double acc = 0.0;
+      // four contributors' table values in flight at once, added in list order
+      for (; k + 4 <= end; k += 4) {
+        const float v0 = table[ids[k]], v1 = table[ids[k + 1]];
+        const float v2 = table[ids[k + 2]], v3 = table[ids[k + 3]];
+        acc += static_cast<double>(v0);
+        acc += static_cast<double>(v1);
+        acc += static_cast<double>(v2);
+        acc += static_cast<double>(v3);
+      }
+      for (; k < end; ++k) acc += static_cast<double>(table[ids[k]]);
+      __stcs(out + cur.s0 + slot[t], static_cast<float>(acc));
+    }
+    if (!more) break;
+    // the table and this buffer are free again only when every thread is done
+    __syncthreads();
+    p = pn;
+    cur = nxt;
+    cb = nb;
+  }
 }
 
 template <typename V>
@@ -408,6 +624,43 @@ int launch_block_reduce(const int32_t* ptr, const int32_t* ids, const V* table,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the table's bytes that a launch may ask for on the current device (the
+// opt-in maximum of dynamic shared memory per block), or -1
+int smem_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return bytes;
+}
+
+constexpr int kAssembleThreads = 512;
+
+int launch_assemble(const uint16_t* lconn, const int32_t* nodes, const float* coords,
+                    const int64_t* meta, const uint16_t* blob, float* out, int64_t n_patches,
+                    int max_cells, int buf_bytes, int smem_bytes, int blocks, cudaStream_t s) {
+  // raise the kernel's dynamic shared memory limit once per device, to
+  // the most asked for so far
+  static int granted[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  if (smem_bytes > granted[dev]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(tet_assemble_kernel<kAssembleThreads>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    granted[dev] = smem_bytes;
+  }
+  tet_assemble_kernel<kAssembleThreads><<<blocks, kAssembleThreads, smem_bytes, s>>>(
+      reinterpret_cast<const ushort4*>(lconn), nodes, coords, meta, blob, out, n_patches,
+      max_cells, buf_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -425,6 +678,32 @@ int afem_tet_element_f32(const int32_t* cols, const float* cx, const float* cy,
     tet_element_kernel<false><<<grid, kThreads, 0, s>>>(cols, cx, cy, cz, stride, ke, nc);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// *bytes = the most dynamic shared memory afem_tet_assemble_f32 may be
+// given on the current device
+int afem_tet_assemble_smem(int* bytes, void* stream) {
+  (void)stream;
+  *bytes = smem_optin();
+  return *bytes < 0 ? static_cast<int>(cudaErrorInvalidDevice) : 0;
+}
+
+// lconn: (cells, 4) uint16, 8-byte aligned; nodes (int32) and blob
+// (uint16), each 16-byte aligned; meta: (4, n_patches + 1) int64;
+// max_cells: the most cells of a patch; buf_bytes: the largest patch
+// buffer, a multiple of 16; blocks: the persistent blocks (one per SM)
+int afem_tet_assemble_f32(const uint16_t* lconn, const int32_t* nodes, const float* coords,
+                          const int64_t* meta, const uint16_t* blob, float* out,
+                          int64_t n_patches, int max_cells, int buf_bytes, int blocks,
+                          void* stream) {
+  const int64_t smem = (40LL * max_cells + 15) / 16 * 16 + 2LL * buf_bytes;
+  if (n_patches <= 0 || max_cells < 0 || buf_bytes < 0 || buf_bytes % 16 || blocks <= 0 ||
+      smem > smem_optin() || reinterpret_cast<uintptr_t>(lconn) % 8 ||
+      reinterpret_cast<uintptr_t>(nodes) % 16 || reinterpret_cast<uintptr_t>(blob) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_assemble(lconn, nodes, coords, meta, blob, out, n_patches, max_cells, buf_bytes,
+                         static_cast<int>(smem), blocks, static_cast<cudaStream_t>(stream));
 }
 
 int afem_slot_reduce_f32(const int32_t* ptr, const int32_t* ids, const float* table,

@@ -94,6 +94,10 @@ _SIGNATURES = {
     "afem_window_take_f32": [_P, _P, _P, _I64, _I, _I, _I, _P],
     # cols, cx, cy, cz, stride, ke, nc, stream
     "afem_tet_element_f32": [_P, _P, _P, _P, _I64, _P, _I64, _P],
+    # lconn, nodes, coords, meta, blob, out, n_patches, max_cells, buf_bytes,
+    # blocks, stream
+    "afem_tet_assemble_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    "afem_tet_assemble_smem": [_P, _P],  # int* bytes, stream
     "afem_slot_reduce_f32": _SLOT_REDUCE,
     "afem_slot_reduce_f64": _SLOT_REDUCE,
     "afem_block_slot_reduce_f32": _BLOCK_SLOT_REDUCE,

@@ -21,12 +21,14 @@ script then exits non-zero without the final line:
    one launch of every wrapper beside a PyTorch op of the same size
    (``[launch]`` lines, tools/launch_cost.py);
 4. main path at 1.9M DoF (sphere_cut h=5, refine=2): assembly (the
-   element kernel tet_element and the slot-sorted reduction slot_reduce;
-   K2 must not run), AMG set-up and AMG-PCG to rtol 1e-8 through the
+   fused kernel tet_assemble; K2, tet_element and slot_reduce must not
+   run), AMG set-up and AMG-PCG to rtol 1e-8 through the
    kernels, with the launch counts of that run and the SELL layout of
    every operator K1 ran on (``[sell]`` lines); then each kernel timed
    against its plain twin at the shapes of the path (tet_element in both
-   input modes, slot_reduce beside one index_add_ of all its entries), K1
+   input modes, slot_reduce beside one index_add_ of all its entries, both
+   on the window lists of the batched route, and tet_assemble held to them
+   exactly, with its halo factor), K1
    at both σ, and a torch.profiler breakdown of one solve; then
    ``[cache]``: the same system through the AMG hierarchy's npz cache in
    a fresh directory, cold (phase 4's solve: set-up, saved) and warm
@@ -506,9 +508,9 @@ def _main(dev, prime) -> int:
            f"true interior residual {res['true_residual']:.3e} > 1e-4")
     _check(bool(torch.isfinite(res["x"]).all()), "non-finite solution")
     _check(res["x"].shape == (n,), "solution shape")
-    _check(counts["sell_spmv"] > 0 and counts["tet_element"] > 0
-           and counts["slot_reduce"] > 0,
-           f"K1 or an assembly kernel never ran: {counts}")
+    _check(counts["sell_spmv"] > 0 and counts["tet_assemble"] > 0
+           and counts["tet_element"] == counts["slot_reduce"] == 0,
+           f"K1 or the fused assembly never ran, or the two-kernel one did: {counts}")
     _check(counts["ell_gather_sum"] == 0,
            f"the default assembly route launched K2: {counts}")
 
@@ -529,7 +531,10 @@ def _main(dev, prime) -> int:
     alt_vals = alt.from_ell(ell_vals)
     e_alt = _rel_err(sell_spmv(alt_vals, alt, xr), yp, scale)
     _check(e_alt <= 1e-5, f"fine-level sell_spmv at sigma {alt.sigma}: {e_alt:.2e}")
-    asm = TetraAssembler(topo, mesh.cells["tetra4"], device=dev, layout=lay)
+    # the window lists of the two-kernel route, and the default route's patches
+    asm = TetraAssembler(topo, mesh.cells["tetra4"], device=dev, layout=lay,
+                         coords_batched=True)
+    fused = TetraAssembler(topo, mesh.cells["tetra4"], device=dev, layout=lay)
     crow = torch.as_tensor(topo.row_ptr, device=dev, dtype=torch.int64)
     csr = torch.sparse_csr_tensor(
         crow, torch.as_tensor(topo.csr_cols, device=dev, dtype=torch.int64),
@@ -570,7 +575,8 @@ def _main(dev, prime) -> int:
     print(f"[kernel] sell_spmv {k1['shape']}: {k1['ms']:.4f} ms, plain "
           f"{k1['plain_ms']:.4f} ms, library {k1['library_ms']:.4f} ms, bound "
           f"{k1['bound_ms']:.4f} ms, max_abs_err {k1['max_abs_err']:.3e}", flush=True)
-    records = [k1, *_assembly_records(asm, mesh, counts)]
+    records = [k1, *_assembly_records(asm, fused.patches, mesh, counts)]
+    del fused
     print(f"[kernel] sell_spmv sigma {k1['sigma']}: {k1['slots']} slots "
           f"({k1['slots'] / k1['nnz']:.4f} per nonzero), {k1['ms']:.4f} ms, device "
           f"{_fmt_ms(k1['device_ms'])}, slot bound {k1['slot_bound_ms']:.4f} ms; sigma "
@@ -716,15 +722,19 @@ ASM_ROUTES = {  # the assembly's corner fetch (--asm-coords, --asm-compact, --ba
                                    band_pre=True)}
 
 
-def _assembly_records(asm, mesh, counts) -> list[dict]:
+def _assembly_records(asm, patches, mesh, counts) -> list[dict]:
     """Phase 4: tet_element (both input modes, which must agree exactly)
     and slot_reduce at the main path's shapes, held to their twins (the
     element table to 4 ulps of each cell's max |ke|, the reduction exactly)
     and timed; slot_reduce beside one index_add_ of all 16·nc entries, the
-    reduction it replaces."""
+    reduction it replaces; tet_assemble on ``patches`` held to slot_reduce
+    over tet_element on ``asm``'s window lists exactly, with its halo
+    factor (cells computed over cells)."""
     import torch
 
     from arcanefem_tpu_torch.ops.lane_assembly import (
+        tet_assemble,
+        tet_assemble_plain,
         tet_corners_plain,
         tet_element,
         tet_element_gathered,
@@ -744,8 +754,15 @@ def _assembly_records(asm, mesh, counts) -> list[dict]:
         _check(e <= 4, f"tet_element: {e:.2f} ulps of a cell's max|ke| from its twin")
         return e
 
+    def near(yk, yp):
+        # the plain twin's element arithmetic on the card is tet_element's
+        # within 4 ulps, not bit for bit
+        e = float((yk - yp).abs().max() / yp.abs().max())
+        _check(e <= 1e-5, f"tet_assemble: {e:.2e} of max|y| from its twin")
+        return e
+
     def equal(yk, yp):
-        _check(torch.equal(yk, yp), "slot_reduce differs from its twin")
+        _check(torch.equal(yk, yp), "a reduction differs from its twin")
         return 0.0
 
     corners = tet_corners_plain(coords, cols)
@@ -771,6 +788,21 @@ def _assembly_records(asm, mesh, counts) -> list[dict]:
             lambda: torch.zeros(n_slots, device=dev).index_add_(0, slot_of, entries),
             (8 * n_slots + 4 + 4 * E + 40 * nc, E), counts["slot_reduce"],
             [n_slots, E], equal)]
+    two = slot_reduce(ptr, ids, table)
+    fused = tet_assemble(patches, coords)
+    torch.cuda.synchronize()
+    _check(torch.equal(fused, two), "tet_assemble differs from tet_element + slot_reduce")
+    del two, fused
+    computed = patches.n_computed
+    recs.append(_kernel_record(
+        "tet_assemble", "tet_assembly.cu", "sparse/pallas_spmv.py:444",
+        lambda: tet_assemble(patches, coords), lambda: tet_assemble_plain(patches, coords),
+        None, (8 * computed + 4 * patches.nodes.numel() + 2 * patches.blob.numel()
+               + 4 * n_slots + 32 * (patches.n_patches + 1) + 12 * coords.shape[0],
+               182 * computed + E),
+        counts["tet_assemble"], [n_slots, E, computed], near))
+    recs[2].update(halo=computed / nc, patches=patches.n_patches,
+                   smem_bytes=patches.smem_bytes, max_cells=patches.max_cells)
     recs[0]["gathered_ms"] = time_op(tet_element_gathered, corners, reps=20, outer=3) * 1e3
     recs[0]["gathered_device_ms"], recs[0]["gathered_device_events"] = _device_ms(
         lambda: tet_element_gathered(corners), "tet_assembly.cu")
@@ -1666,6 +1698,7 @@ SPHERE_GROUPS = {
     "K1 sell_spmv, bf16 weights": "sell_spmv_kernel<__nv_bfloat16",
     "K2 ell_gather_sum": "ell_gather_kernel", "K9a band_gather": "band_gather_kernel",
     "tet_element": "tet_element_kernel", "block_slot_reduce": "block_slot_reduce_kernel",
+    "tet_assemble": "tet_assemble_kernel",
     "slot_reduce": "slot_reduce_kernel",
     "K10 diag_spmv": "diag_spmv_kernel", "cat/stack copies": "CatArrayBatchedCopy",
     "bsr8_spmv": "bsr8_spmv_kernel", "reductions": "reduce_kernel"}
@@ -2562,8 +2595,9 @@ def _lab_written(dev) -> None:
 
 def _lab_reduces(dev, mesh, topo, res4) -> None:
     """[testlab] L4: TetraAssembler with reduce window, segsum and reorder
-    on phase 4's sphere and layout: each one slot_reduce over its own list
-    order, within 1 float32 ulp per slot of the window route, the
+    on phase 4's sphere and layout: window one fused tet_assemble, the
+    others one tet_element and one slot_reduce over their own list order,
+    within 1 float32 ulp per slot of the window route, the
     differing slots counted; each list build and assembly timed."""
     import torch
 
@@ -2593,7 +2627,10 @@ def _lab_reduces(dev, mesh, topo, res4) -> None:
                 "differing_slots": int((v != ref).sum()), "slots": ref.numel(),
                 "max_ulps": worst, "launches": {k: c for k, c in counts.items() if c}}
         print(f"[testlab] L4 {json.dumps(line)}", flush=True)
-        _check(counts["tet_element"] == 1 and counts["slot_reduce"] == 1,
+        # the window order runs the fused kernel, the others the two
+        fused = int(reduce == "window")
+        _check(counts["tet_assemble"] == fused
+               and counts["tet_element"] == counts["slot_reduce"] == 1 - fused,
                f"[testlab] L4 {reduce}: launches {counts}")
         _check(worst <= 1, f"[testlab] L4 {reduce}: {worst} ulps from the window route")
         del asm, v

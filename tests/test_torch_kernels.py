@@ -414,7 +414,7 @@ def test_slice_on_cuda_matches_plain_and_cpu(cuda):
                          penalty=1e12)
     counts = {**_counts(), **la.launch_counts(), **sr.launch_counts()}
     assert counts["sell_spmv"] > 0 and counts["ell_gather_sum"] == 0
-    assert counts["tet_element"] == counts["slot_reduce"] == 1
+    assert counts["tet_assemble"] == 1 and counts["tet_element"] == counts["slot_reduce"] == 0
     p = solve_sphere_cut(mesh, topo, device=cuda, dtype=torch.float32,
                          penalty=1e12, plain=True)
     c = solve_sphere_cut(mesh, topo, device="cpu", dtype=torch.float64,
@@ -443,7 +443,7 @@ def test_tet_element_matches_plain_on_cuda(cuda):
     got = [la.tet_element(coords, asm.corner_cols), la.tet_element_gathered(corners),
            la.tet_element_gathered(list(corners))]
     torch.cuda.synchronize()
-    assert la.launch_counts() == {"tet_element": 3}
+    assert la.launch_counts() == {"tet_element": 3, "tet_assemble": 0}
     with pytest.raises(ValueError, match="no corner gather"):
         asm.gather_corners(coords)
     want = la.tet_element_plain(corners)
@@ -458,8 +458,9 @@ def test_tet_element_matches_plain_on_cuda(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_slot_reduce_matches_plain_on_cuda(cuda, dtype):
     """slot_reduce == its plain twin bit for bit on the same table, on the
-    card and on the CPU; padding slots exactly 0."""
-    _, _, asm, _ = _sphere_assembler(cuda)
+    card and on the CPU; padding slots exactly 0 (the window lists of the
+    batched route: the default route keeps patch lists instead)."""
+    _, _, asm, _ = _sphere_assembler(cuda, coords_batched=True)
     gen = torch.Generator().manual_seed(9)
     table = torch.rand(10 * asm.n_cells, generator=gen, dtype=torch.float64).to(dtype) - 0.5
     sr.reset_launch_counts()
@@ -570,26 +571,69 @@ def test_block_slot_reduce_wide_slice_and_offset_table_on_cuda(cuda, dtype):
                                                          asm.layout, 3))
 
 
-def test_tet_assembly_deterministic_on_cuda(cuda):
+@pytest.mark.parametrize("h,refine", [(14.0, 0), (14.0, 1)])
+def test_tet_assembly_deterministic_on_cuda(cuda, h, refine):
     """Two assemblies on each route are bit-equal, and equal across the
-    four routes; the default route launches the two assembly kernels and
-    no K2, and its contributor lists equal the CPU build's."""
-    mesh, topo, asm, coords = _sphere_assembler(cuda)
-    cpu = TetraAssembler(topo, mesh.cells["tetra4"], device="cpu")
-    assert torch.equal(asm.ptr.cpu(), cpu.ptr) and torch.equal(asm.ids.cpu(), cpu.ids)
+    four routes: the default route's one fused launch (tet_assemble) is so
+    held to tet_element + slot_reduce on the window lists of the others.
+    Its patch lists equal the CPU build's, a patch holds more cells than a
+    block has threads, and only the default route counts tet_assemble."""
+    mesh, topo = sphere_cut_system(h, refine, cache=False)
+    asm = TetraAssembler(topo, mesh.cells["tetra4"], device=cuda)
+    coords = torch.as_tensor(mesh.coords, device=cuda).float()
+    cpu = la.TetPatches.build(topo, mesh.cells["tetra4"], asm.layout, "cpu",
+                              max_bytes=min(la.PATCH_BYTES, la._smem_limit(coords.device)))
+    for name in ("lconn", "nodes", "meta", "blob"):
+        assert torch.equal(getattr(asm.patches, name).cpu(), getattr(cpu, name)), name
+    assert asm.patches.smem_bytes == cpu.smem_bytes
+    cell0 = cpu.meta[0]
+    assert int((cell0[1:] - cell0[:-1]).max()) > la._ASSEMBLE_THREADS
+    assert not hasattr(asm, "ptr") and not hasattr(asm, "ids")
     _reset()
     la.reset_launch_counts()
     sr.reset_launch_counts()
     ref = asm(coords)
     torch.cuda.synchronize()
     assert _counts() == {**NO_LAUNCHES, **NO_SELL}
-    assert la.launch_counts() == {"tet_element": 1}
-    assert sr.launch_counts() == {"slot_reduce": 1, "block_slot_reduce": 0}
+    assert la.launch_counts() == {"tet_element": 0, "tet_assemble": 1}
+    assert sr.launch_counts() == {"slot_reduce": 0, "block_slot_reduce": 0}
+    assert not ref[torch.as_tensor(~asm.layout.real, device=cuda)].any()
     for kw in ({}, dict(coords_batched=True), dict(coords_compact=True),
                dict(coords_compact=True, coords_batched=True, band_pre=True)):
         other = TetraAssembler(topo, mesh.cells["tetra4"], device=cuda,
                                layout=asm.layout, **kw)
+        la.reset_launch_counts()
         assert torch.equal(other(coords), ref) and torch.equal(other(coords), ref), kw
+        assert la.launch_counts()["tet_assemble"] == (0 if kw else 2), kw
+
+
+@pytest.mark.parametrize("max_bytes", [20_000, 50_000])
+def test_tet_assemble_small_patches_on_cuda(cuda, max_bytes):
+    """Smaller patches (a slice alone where one passes the cap; patches
+    that cut through σ windows) give the values of the window route's two
+    kernels bit for bit."""
+    mesh, topo = sphere_cut_system(14.0, 1, cache=False)
+    ref_asm = TetraAssembler(topo, mesh.cells["tetra4"], device=cuda, coords_batched=True)
+    coords = torch.as_tensor(mesh.coords, device=cuda).float()
+    P = la.TetPatches.build(topo, mesh.cells["tetra4"], ref_asm.layout, cuda,
+                            max_bytes=max_bytes)
+    assert P.n_patches > ref_asm.layout.n_slices // 8
+    assert torch.equal(la.tet_assemble(P, coords), ref_asm(coords))
+
+
+def test_tet_assemble_refuses_a_table_past_shared_memory(cuda):
+    """Patches that pass the shared memory a block may have are refused
+    by the wrapper before any launch."""
+    mesh, topo = sphere_cut_system(14.0, 1, cache=False)
+    lay = TetraAssembler(topo, mesh.cells["tetra4"], device=cuda,
+                         coords_batched=True).layout
+    P = la.TetPatches.build(topo, mesh.cells["tetra4"], lay, cuda, max_bytes=300_000)
+    coords = torch.as_tensor(mesh.coords, device=cuda).float()
+    assert P.smem_bytes > la._smem_limit(coords.device)
+    la.reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        la.tet_assemble(P, coords)
+    assert la.launch_counts()["tet_assemble"] == 0
 
 
 def _padded(box, gen, dtype, nan_pads=False):

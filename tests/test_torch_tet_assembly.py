@@ -27,7 +27,11 @@ from arcanefem_tpu_torch.ops.lane_assembly import (
     tet_element_plain,
 )
 from arcanefem_tpu_torch.sparse import slot_reduce as sr
-from arcanefem_tpu_torch.sparse.slot_reduce import group_by_slot, slot_reduce
+from arcanefem_tpu_torch.sparse.slot_reduce import (
+    group_by_slot,
+    slot_reduce,
+    slot_reduce_plain,
+)
 
 ROUTES = {
     "split": {},
@@ -154,8 +158,147 @@ def test_routes_bit_equal(sphere):
                                layout=asm.layout, **kw)
         assert torch.equal(other(coords), ref), name
         assert torch.equal(other(coords.double()), ref), name
-    assert la.launch_counts() == {"tet_element": 0}
+    assert la.launch_counts() == {"tet_element": 0, "tet_assemble": 0}
     assert sr.launch_counts() == {"slot_reduce": 0, "block_slot_reduce": 0}
+
+
+MESHES = [(14.0, 0), (8.0, 0), (14.0, 1)]
+CAPS = [la.PATCH_BYTES, 20_000]  # shared memory per patch: the default, and small
+
+
+@pytest.fixture(scope="module", params=MESHES, ids=lambda m: f"h{m[0]:g}r{m[1]}")
+def patched(request):
+    """A sphere_cut mesh, its CPU assembler (window lists), float32
+    coordinates and its patch lists at each of CAPS."""
+    mesh, topo = sphere_cut_system(*request.param, cache=False)
+    asm = TetraAssembler(topo, mesh.cells["tetra4"], device="cpu")
+    patches = {cap: la.TetPatches.build(topo, mesh.cells["tetra4"], asm.layout, "cpu",
+                                        max_bytes=cap) for cap in CAPS}
+    return mesh, topo, asm, torch.as_tensor(mesh.coords.astype(np.float32)), patches
+
+
+@pytest.mark.parametrize("cap", CAPS)
+def test_patch_lists_match_numpy(patched, cap):
+    """Each patch (a run of whole slices) holds the cells with a corner on
+    one of its rows, ascending and complete, as positions among its nodes,
+    the distinct corners of those cells ascending (padded to 4 with node
+    0); it grows while its cells and buffer (its nodes counted at the
+    build's share) stay within the caps and its local indices within 16
+    bits, and its real buffer stays within the cap; its part of the blob
+    takes its slots longest list first, ties by slot, with their list
+    pointers, and each slot lists the window lists' (cell, TRI10 column)
+    pairs in their order, as local ids: a brute-force numpy build."""
+    mesh, topo, asm, _, patches = patched
+    P, lay, conn = patches[cap], asm.layout, mesh.cells["tetra4"]
+    slice_ptr = lay.slice_ptr.numpy()
+    cell0, slot0, blob0, node0 = P.meta.numpy()
+    bounds = np.searchsorted(slice_ptr, slot0)
+    assert (slice_ptr[bounds] == slot0).all() and bounds[0] == 0
+    assert bounds[-1] == lay.n_slices and (np.diff(bounds) > 0).all()
+    pos = np.empty(lay.n_rows, np.int64)
+    pos[np.arange(lay.n_rows) if lay.perm is None else lay.perm.numpy()] = np.arange(lay.n_rows)
+    node_slice = pos // 32
+    _, ptr, ids = _numpy_lists(topo, lay)
+    assert P.lconn.dtype == P.blob.dtype == torch.int16 and P.nodes.dtype == torch.int32
+    lconn = P.lconn.numpy().astype(np.int64) & 0xFFFF
+    nodes = P.nodes.numpy()
+    assert (np.diff(blob0) % 8 == 0).all() and (np.diff(node0) % 4 == 0).all()
+    blob = P.blob.numpy().astype(np.int64) & 0xFFFF
+    np.testing.assert_array_equal(P.corners().numpy(),
+                                  nodes[np.repeat(node0[:-1], np.diff(cell0))[:, None] + lconn])
+
+    def size(b0, b1):  # (cells, nodes, slots, contributors) of the slices [b0, b1)
+        touch = conn[((node_slice[conn] >= b0) & (node_slice[conn] < b1)).any(1)]
+        return (len(touch), len(np.unique(touch)), slice_ptr[b1] - slice_ptr[b0],
+                ptr[slice_ptr[b1]] - ptr[slice_ptr[b0]])
+
+    cap_cells, cap_buf = la._caps(cap)
+
+    def grows(z):  # within the caps as the growth counts
+        c, _, s, k = z
+        return (c <= cap_cells and la._fits_u16(c, s, k)
+                and la._buffer_bytes(c, int(np.ceil(P.share * c)), s, k) <= cap_buf)
+
+    most = [0, 0]
+    for p in range(P.n_patches):
+        b0, b1 = bounds[p], bounds[p + 1]
+        want = np.flatnonzero(((node_slice[conn] >= b0) & (node_slice[conn] < b1)).any(1))
+        vs = np.unique(conn[want])
+        pad = -len(vs) % 4
+        np.testing.assert_array_equal(nodes[node0[p]:node0[p + 1]],
+                                      np.concatenate([vs, np.zeros(pad, np.int32)]))
+        np.testing.assert_array_equal(vs[lconn[cell0[p]:cell0[p + 1]]], conn[want])
+        z = size(b0, b1)
+        assert la._fits_u16(z[0], *z[2:])
+        assert b1 - b0 == 1 or (grows(z) and la._buffer_bytes(*z) <= cap_buf)
+        most = [max(most[0], z[0]), max(most[1], la._buffer_bytes(*z))]
+        if p + 1 < P.n_patches:  # the next slice would have broken a limit
+            assert not grows(size(b0, b1 + 1))
+        count = np.diff(ptr[slot0[p]:slot0[p + 1] + 1])
+        S, L = len(count), count.sum()
+        taken = np.argsort(-count, kind="stable")
+        n = count[taken]
+        seg = blob[blob0[p]:blob0[p + 1]]
+        assert len(seg) == (2 * S + 1 + L + 7) // 8 * 8 and not seg[2 * S + 1 + L:].any()
+        np.testing.assert_array_equal(seg[:S + 1], np.concatenate([[0], np.cumsum(n)]))
+        np.testing.assert_array_equal(seg[S + 1:2 * S + 1], taken)
+        k = np.repeat(ptr[slot0[p] + taken] - np.concatenate([[0], np.cumsum(n)[:-1]]), n) \
+            + np.arange(L)
+        local = np.searchsorted(want, ids[k] // 10)
+        assert (want[local] == ids[k] // 10).all()
+        np.testing.assert_array_equal(seg[2 * S + 1:2 * S + 1 + L], local * 10 + ids[k] % 10)
+    assert [P.max_cells, P.buf_bytes] == most
+    assert P.n_computed == cell0[-1] == len(lconn)
+    assert P.smem_bytes == la._align(40 * most[0]) + 2 * most[1]
+    if cap == la.PATCH_BYTES:
+        assert P.smem_bytes <= cap
+
+
+@pytest.mark.parametrize("cap", CAPS)
+def test_patch_sums_equal_the_window_route(patched, cap):
+    """Each slot's local contributors summed in list order over the
+    patches' tables (tet_assemble's plain twin, the CPU wrapper) equal
+    slot_reduce_plain over tet_element_plain on the window lists, bit for
+    bit, on float32 and float64 coordinates; the CPU launches nothing."""
+    _, _, asm, coords, patches = patched
+    want = slot_reduce_plain(asm.ptr, asm.ids, tet_element_plain(
+        tet_corners_plain(coords, asm.corner_cols)).view(-1))
+    la.reset_launch_counts()
+    for c in (coords, coords.double()):
+        got = la.tet_assemble(patches[cap], c)
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(la.tet_assemble_plain(patches[cap], coords), want)
+    assert la.launch_counts() == {"tet_element": 0, "tet_assemble": 0}
+
+
+def test_patch_build_grows_again_past_the_node_share(patched, monkeypatch):
+    """Counted at too small a share of nodes per cell, the patches pass
+    the buffer's cap: the build grows them again at the share it saw, so
+    each patch of more than one slice fits, and the sums stay the window
+    route's."""
+    mesh, topo, asm, coords, _ = patched
+    monkeypatch.setattr(la, "_NODE_SHARE", 0.05)
+    P = la.TetPatches.build(topo, mesh.cells["tetra4"], asm.layout, "cpu")
+    cell0, slot0, _, node0 = P.meta
+    cap_buf = la._caps(la.PATCH_BYTES)[1]
+    assert P.share > 0.25 and P.smem_bytes <= la.PATCH_BYTES
+    slices = torch.searchsorted(asm.layout.slice_ptr, slot0).diff()
+    lists = asm.ptr.long()[slot0].diff()
+    buffers = la._buffer_bytes(cell0.diff(), node0.diff(), slot0.diff(), lists)
+    assert bool(((buffers <= cap_buf) | (slices == 1)).all())
+    want = slot_reduce_plain(asm.ptr, asm.ids, tet_element_plain(
+        tet_corners_plain(coords, asm.corner_cols)).view(-1))
+    assert torch.equal(la.tet_assemble(P, coords), want)
+
+
+def test_patch_build_checks(sphere):
+    """The wrapper refuses coordinates of another shape; a CPU assembler
+    keeps the window lists and no patches."""
+    mesh, topo, asm, coords = sphere
+    P = la.TetPatches.build(topo, mesh.cells["tetra4"], asm.layout, "cpu")
+    with pytest.raises(ValueError, match="coords"):
+        la.tet_assemble(P, coords[:-1])
+    assert asm.patches is None and asm.ptr.numel() == asm.layout.n_slots + 1
 
 
 @pytest.mark.parametrize("per_cell", [None, [2, 0, 1]])

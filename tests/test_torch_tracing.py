@@ -37,7 +37,7 @@ LAUNCH_KEYS = {
     dia_stencil: ("dia_spmv_p", "dia_jacobi_p", "dia_residual_p", "dia_spmv",
                   "dia_sweep", "residual_replace_f64"),
     stencil_assembly: ("stencil_assembly",),
-    lane_assembly: ("tet_element",),
+    lane_assembly: ("tet_element", "tet_assemble"),
     probe_gather: ("window_take",),
 }
 PROBE = tracing.counters("test_torch_tracing.spmv")
